@@ -1,0 +1,41 @@
+"""K2: R = alpha * I + beta * X^T X as a hand-written CUDA kernel.
+
+Counterpart of ``repro/kernels/gram.py``: the residual I - X^T X of every
+grid-tier Newton-Schulz iteration.  The product is symmetric, so the
+kernel (``csrc/gram_upper.cu``) computes only the nb(nb+1)/2 upper output
+tiles and each off-diagonal tile also writes its transpose: the result is
+the full symmetric matrix, with no separate mirror pass.  alpha * I is
+added in fp32 on diagonal tiles before the one rounding.  ``plain`` is the
+plain PyTorch version of the same function.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+plain = ref.gram
+
+_SYMBOL = "prism_gram_upper"
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + \
+    [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def gram_upper(X: torch.Tensor, *, alpha: float = 1.0,
+               beta: float = -1.0) -> torch.Tensor:
+    """Launch K2 on a contiguous CUDA tensor X [Bt, m, n] (fp32 or bf16);
+    returns the full symmetric R [Bt, n, n] in X's dtype."""
+    _build.check_cuda_operands("gram_upper", (X,))
+    nb, m, n = X.shape
+    R = torch.empty((nb, n, n), dtype=X.dtype, device=X.device)
+    if R.numel() == 0:
+        return R
+    lib = _build.library("gram_upper", _SYMBOL, _ARGTYPES)
+    with torch.cuda.device(X.device):
+        _build.launch("gram_upper", lib, _SYMBOL, X.data_ptr(),
+                      R.data_ptr(), nb, m, n, float(alpha), float(beta),
+                      int(X.dtype == torch.bfloat16),
+                      _build.stream_handle(X))
+    return R
