@@ -11,20 +11,32 @@ Phases (any failure exits non-zero and prints no result):
   2. build every kernel from src/repro_torch/kernels/csrc (one nvcc per
      source, all at once) and print the compiler's register/spill report;
   3. each kernel against its plain PyTorch version on the card, in fp32 and
-     bf16, at the shapes the main path gives it and at ragged ones, with the
+     bf16, at the shapes the main paths give it and at ragged ones, with the
      reference's tolerances on results of unit scale (see ``check``); at
      every main-path shape, in fp32, the kernel, the plain version and one
-     PyTorch library call are timed with CUDA events (median of 20
-     launches);
-  4. the main path: the gpt2-paper Muon/PRISM-5 training step at full width
-     (seq 512, batch 4, random weights from seed 0), STEPS steps through
-     ``repro_torch.launch.train_lm.build``; the launch counts are zeroed just
-     before and read just after, and must be 19 a step (matmul_add 12,
-     gram_upper 6, warm_tail 1); the losses must be finite and start near
-     ln(50257); one Muon update through the kernels must agree with the same
-     update through the plain versions (``use_kernels=False``); the Muon
-     step and the forward+backward pass are timed on their own;
-  5. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+     PyTorch library call (where one computes the same function) are timed
+     with CUDA events (median of 20 launches);
+  4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
+     width (seq 512, batch 4, random weights from seed 0), STEPS steps
+     through ``repro_torch.launch.train_lm.build``; the launch counts are
+     zeroed just before and read just after, and must be 19 a step
+     (matmul_add 12, gram_upper 6, warm_tail 1); the losses must be finite
+     and start near ln(50257); one Muon update through the kernels must
+     agree with the same update through the plain versions
+     (``use_kernels=False``); the Muon step and the forward+backward pass
+     are timed on their own;
+  5. the PRISM-3 path: the same step with PRISM-3 (degree 1, 3 warm then 2
+     fitted iterations), which runs the fitted-iteration kernels: 29
+     launches a step (matmul_add 10, gram_upper 10, warm_tail 1,
+     sketch_chain 4, residual_chain 2, apply_g 2), the same loss and update
+     gates; the fallback path: one PRISM-3 Muon step with the shared-memory
+     budget forced below sketch_chain's footprint, so that the chain runs
+     as sketch_step launches (24), within the same bound of the step
+     through sketch_chain; the synchronizing calls of one Muon step of each
+     configuration (the fit must add none); a profiler trace of one PRISM-3
+     Muon step; an adaptive run (``tol``) on a grid-tier and a fused-tier
+     bucket whose launches must match the iterations it ran;
+  6. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -44,6 +56,18 @@ STEPS = 4                 # full-width training steps; the first warms up
 TIMED_REPS = 20           # launches per CUDA-event median
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 WARM_TOL = {"float32": 2e-4, "bfloat16": 5e-2}     # tests/test_fused_iter.py
+# K4/K5 traces (tests/test_kernels.py) and K6/K7 (tests/test_fused_iter.py)
+FIT_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+DTYPES = ("float32", "bfloat16")  # dtypes of the phase 3 checks
+KERNEL_NAMES = ("matmul_add", "gram_upper", "warm_tail", "sketch_step",
+                "sketch_chain", "residual_chain", "apply_g")
+# launches a training step, per PRISM configuration
+PER_STEP = {
+    "prism5": dict(matmul_add=12, gram_upper=6, warm_tail=1),
+    "prism3": dict(matmul_add=10, gram_upper=10, warm_tail=1,
+                   sketch_chain=4, residual_chain=2, apply_g=2),
+}
+
 # Muon update through the kernels vs through torch.matmul (fp32 matfn): the
 # two differ only in fp32 summation order, which three quintic iterations
 # amplify by at most ~30x; 1e-3 of the largest update entry is far above
@@ -166,7 +190,7 @@ def kernel_checks(torch):
         b32 = randn(torch, (B, n, n), gen, n ** -0.25)
         c32 = randn(torch, shape, gen)
         x32 = randn(torch, shape, gen, m ** -0.25)
-        for dtype in ("float32", "bfloat16"):
+        for dtype in DTYPES:
             dt = getattr(torch, dtype)
             a, b, c, x = (t.to(dt) for t in (a32, b32, c32, x32))
             want = matmul_add.plain(a, b, c, alpha=1.0, beta=0.5)
@@ -191,14 +215,15 @@ def kernel_checks(torch):
                 if beta == -1.0:
                     err_g = err
             if shape == (20, 4096, 1024) and dtype == "float32":
-                rows["matmul_add"] = dict(shape=[shape, [B, n, n]],
+                rows["matmul_add"] = dict(shape=[list(shape), [B, n, n]],
                                           max_abs_err=err_mm)
-                rows["gram_upper"] = dict(shape=[shape], max_abs_err=err_g)
+                rows["gram_upper"] = dict(shape=[list(shape)],
+                                          max_abs_err=err_g)
 
     # K3 on the bias bucket (3 warm iterations of alpha = u = 1.45)
     for shape in [(30, 64, 16), (5, 55, 23)]:
         x32 = normalized(torch, shape, gen)
-        for dtype in ("float32", "bfloat16"):
+        for dtype in DTYPES:
             x = x32.to(getattr(torch, dtype))
             alphas = (1.45, 1.45, 1.45)
             want = fused_iter.plain(x, alphas, coeffs=coeffs)
@@ -212,9 +237,178 @@ def kernel_checks(torch):
             check(torch, "warm_tail", shape, dtype, got, want,
                   WARM_TOL[dtype])
             if shape == (30, 64, 16) and dtype == "float32":
-                rows["warm_tail"] = dict(shape=[shape], operands=(x,),
-                                         max_abs_err=err)
+                rows["warm_tail"] = dict(shape=[list(shape)],
+                                         operands=(x,), max_abs_err=err)
     return rows
+
+
+def spectrum_r(torch, B, n, gen, radius=0.95):
+    """Symmetric [B, n, n] with eigenvalues +-radius in random directions
+    (Q diag(+-radius) Q^T): every power keeps unit size, and consecutive
+    powers differ (odd ones change sign), so the traces of a chain that
+    mixes up its powers or buffers come out wrong by O(1)."""
+    q, _ = torch.linalg.qr(randn(torch, (B, n, n), gen))
+    d = radius * torch.sign(randn(torch, (B, 1, n), gen))
+    return (q * d) @ q.transpose(-1, -2)
+
+
+def fit_kernel_checks(torch, rows):
+    """K4-K7 against their plain versions, fp32 and bf16, at the PRISM-3
+    main-path shapes and at ragged ones.  Traces are checked per slice as
+    [B, 1, powers] so that ``check`` scales per slice."""
+    from repro_torch.kernels import fused_iter, ops, sketch_traces
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    # K5 / K4 on the grid-tier residual bucket: R with eigenvalues +-0.95,
+    # St ~ N(0, 1/p): traces of unit size (|t_i| up to ~p)
+    for shape, p in [((40, 1024, 1024), 8), ((3, 300, 300), 5),
+                     ((2, 37, 37), 12)]:
+        B, n, _ = shape
+        r32 = spectrum_r(torch, B, n, gen)
+        s32 = randn(torch, (p, n), gen, p ** -0.5)
+        for dtype in DTYPES:
+            dt = getattr(torch, dtype)
+            r, st = r32.to(dt), s32.t().contiguous().to(dt)
+            for maxp in (6, 10):
+                want = sketch_traces.plain_chain(r, st, maxp)
+                poison(torch, (B, maxp), torch.float32)
+                got = sketch_traces.sketch_chain(r, st, maxp)
+                err = check(torch, "sketch_chain", (B, n, p, maxp), dtype,
+                            got.reshape(B, 1, maxp),
+                            want.reshape(B, 1, maxp), FIT_TOL[dtype])
+                if shape[0] == 40 and dtype == "float32" and maxp == 6:
+                    rows["sketch_chain"] = dict(
+                        shape=[list(shape), [n, p], maxp], max_abs_err=err,
+                        operands=(r, st))
+            # K4: two powers, the second from the first's V'
+            v = st.expand(B, n, p).contiguous()
+            for pw in range(2):
+                want_v, want_t = sketch_traces.plain_step(r, v, st)
+                poison(torch, (B, n, p), dt)
+                got_v, got_t = sketch_traces.sketch_step(r, v, st)
+                err_v = check(torch, "sketch_step", (B, n, p), dtype, got_v,
+                              want_v, FIT_TOL[dtype])
+                err_t = check(torch, "sketch_step", (B, n, p), dtype,
+                              got_t.reshape(B, 1, 1),
+                              want_t.reshape(B, 1, 1), FIT_TOL[dtype])
+                v = want_v
+            if shape[0] == 40 and dtype == "float32":
+                rows["sketch_step"] = dict(
+                    shape=[list(shape), [B, n, p]],
+                    max_abs_err=max(err_v, err_t), operands=(r, st))
+            # ops.sketch_traces with the budget forced down runs K4's loop
+            t_k5 = ops.sketch_traces(r, s32.to(dt), 6)
+            t_k4 = ops.sketch_traces(r, s32.to(dt), 6, budget=1024)
+            check(torch, "sketch_step", (B, n, p, "chain"), dtype,
+                  t_k4.reshape(B, 1, 7), t_k5.reshape(B, 1, 7),
+                  FIT_TOL[dtype])
+
+    # K6 / K7 on the fused-tier bias bucket.  K6: X ~ N(0, 0.9/m), so that
+    # X^T X spreads over ~[0.2, 2] and R = I - X^T X over ~[-1, 0.8]
+    # (unit-size powers).  K7: X ~ N(0, 1) and R with eigenvalues +-0.95,
+    # so that X g(R) is of unit size, and a different alpha in every slice.
+    for shape, p in [((30, 64, 16), 8), ((5, 55, 23), 5)]:
+        B, m, n = shape
+        x_rc = randn(torch, shape, gen, (0.9 / m) ** 0.5)
+        s32 = randn(torch, (p, n), gen, p ** -0.5)
+        x_ag = randn(torch, shape, gen)
+        r_ag = spectrum_r(torch, B, n, gen)
+        for dtype in DTYPES:
+            dt = getattr(torch, dtype)
+            x, S = x_rc.to(dt), s32.to(dt)
+            st = S.t().contiguous()
+            for maxp in (6, 10):
+                want_r, want_t = fused_iter.plain_residual_chain(x, S, maxp)
+                poison(torch, (B, n, n), dt)
+                got_r, got_t = fused_iter.residual_chain(x, st, maxp)
+                err_r = check(torch, "residual_chain", shape, dtype, got_r,
+                              want_r, FIT_TOL[dtype])
+                err_t = check(torch, "residual_chain", (B, m, n, maxp),
+                              dtype, got_t.reshape(B, 1, maxp),
+                              want_t.reshape(B, 1, maxp), FIT_TOL[dtype])
+                if shape == (30, 64, 16) and dtype == "float32" and \
+                        maxp == 6:
+                    rows["residual_chain"] = dict(
+                        shape=[list(shape), [n, p], maxp],
+                        max_abs_err=max(err_r, err_t), operands=(x, st))
+            xa, ra = x_ag.to(dt), r_ag.to(dt)
+            for degree in (1, 2):
+                coeffs = ops._gd_coeffs(degree)
+                lo, hi = {1: (0.5, 1.0), 2: (0.375, 1.45)}[degree]
+                alpha = torch.linspace(lo, hi, B, device="cuda")
+                want = fused_iter.plain_apply_g(xa, ra, alpha, coeffs=coeffs)
+                poison(torch, shape, dt)
+                got = fused_iter.apply_g(xa, ra, alpha, coeffs=coeffs)
+                err = check(torch, "apply_g", (B, m, n, f"d{degree}"),
+                            dtype, got, want, FIT_TOL[dtype])
+                if shape == (30, 64, 16) and dtype == "float32" and \
+                        degree == 1:
+                    rows["apply_g"] = dict(shape=[list(shape), [B, n, n]],
+                                           max_abs_err=err,
+                                           operands=(xa, ra, alpha))
+    return rows
+
+
+def fit_kernel_timings(torch, rows):
+    """ms / plain_ms / bound_ms of one launch of K4-K7 at their main-path
+    shapes, fp32.  No single PyTorch call computes any of them (a chain of
+    products with a trace epilogue; a residual with its chain; a Horner
+    chain with a per-slice alpha), so ``library_ms`` is null."""
+    from repro_torch.kernels import fused_iter, ops, sketch_traces
+
+    item = 4
+    out = {}
+    r, st = rows["sketch_chain"]["operands"]
+    B, n, _ = r.shape
+    p = st.shape[1]
+    maxp = 6
+    out["sketch_chain"] = dict(
+        ms=time_ms(torch, lambda: sketch_traces.sketch_chain(r, st, maxp)),
+        plain_ms=time_ms(torch, lambda: sketch_traces.plain_chain(
+            r, st, maxp)),
+        library_ms=None,
+        # 2 n^2 p flops a power; R read once, St read, traces written
+        bound=bound_ms(2.0 * B * maxp * n * n * p,
+                       item * (B * n * n + n * p + B * maxp), "float32"))
+    v = st.expand(B, n, p).contiguous()
+    out["sketch_step"] = dict(
+        ms=time_ms(torch, lambda: sketch_traces.sketch_step(r, v, st)),
+        plain_ms=time_ms(torch, lambda: sketch_traces.plain_step(r, v, st)),
+        library_ms=None,
+        bound=bound_ms(2.0 * B * n * n * p,
+                       item * (B * n * n + 2 * B * n * p + n * p + B),
+                       "float32"))
+    x, st6 = rows["residual_chain"]["operands"]
+    S6 = st6.t().contiguous()
+    B, m, n = x.shape
+    p = st6.shape[1]
+    out["residual_chain"] = dict(
+        ms=time_ms(torch, lambda: fused_iter.residual_chain(x, st6, maxp)),
+        plain_ms=time_ms(torch, lambda: fused_iter.plain_residual_chain(
+            x, S6, maxp)),
+        library_ms=None,
+        # the Gram (full, 2 m n^2) and the chain; X and St read, R and t
+        # written
+        bound=bound_ms(B * (2.0 * m * n * n + 2.0 * maxp * n * n * p),
+                       item * (B * m * n + n * p + B * n * n + B * maxp),
+                       "float32"))
+    xa, ra, alpha = rows["apply_g"]["operands"]
+    coeffs = ops._gd_coeffs(1)
+    out["apply_g"] = dict(
+        ms=time_ms(torch, lambda: fused_iter.apply_g(xa, ra, alpha,
+                                                     coeffs=coeffs)),
+        plain_ms=time_ms(torch, lambda: fused_iter.plain_apply_g(
+            xa, ra, alpha, coeffs=coeffs)),
+        library_ms=None,
+        bound=bound_ms(B * (2.0 * m * n * n + 3.0 * m * n),
+                       item * (2 * B * m * n + B * n * n + B), "float32"))
+    for name in ("sketch_chain", "sketch_step", "residual_chain", "apply_g"):
+        t = out[name]
+        log(f"  {name:14s} {str(rows[name]['shape']):30s} float32 kernel "
+            f"{t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  library none"
+            f"  bound {t['bound'][0]:.5f} ms ({t['bound'][1]})")
+    return out
 
 
 def kernel_timings(torch, rows):
@@ -285,7 +479,7 @@ def kernel_timings(torch, rows):
     return out
 
 
-# --------------------------------------------------------------- phase 4
+# --------------------------------------------------------------- phases 4-5
 
 def _clone_state(opt):
     return ({p: {k: v.clone() for k, v in st.items()}
@@ -303,18 +497,89 @@ def _muon_from(torch, model, cfg, state):
     return opt
 
 
-def main_path(torch):
+def _with_prism(cfg, **kw):
     import dataclasses
 
+    return dataclasses.replace(cfg, prism=dataclasses.replace(cfg.prism,
+                                                              **kw))
+
+
+def _expect_launches(counts, want, what):
+    full = dict.fromkeys(KERNEL_NAMES, 0)
+    full.update(want)
+    if counts != full:
+        fail(f"{what}: launches {counts}, want {full}")
+
+
+def _restore(torch, model, run):
+    """Parameters and gradients as the last training step left them."""
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(run["before"][k])
+            p.grad = run["grads"][k].clone()
+
+
+def _muon_step(torch, model, cfg, run, key):
+    """One Muon update from the saved state, parameters and gradients;
+    returns (milliseconds, parameter deltas)."""
+    o = _muon_from(torch, model, cfg, run["state"])
+    _restore(torch, model, run)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o.step(key=key)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, {k: (p.detach() - run["before"][k])
+                for k, p in model.named_parameters()}
+
+
+def _worst_gap(torch, got, want, what):
+    worst = 0.0
+    for k, dk in got.items():
+        dp = want[k]
+        scale = float(dp.abs().max())
+        rel = float((dk - dp).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if not rel <= UPDATE_REL_TOL:
+            fail(f"{what}: Muon update of {k} differs by {rel:.3e} of the "
+                 f"largest update entry (bound {UPDATE_REL_TOL})")
+    return worst
+
+
+def count_syncs(torch, fn):
+    """The synchronizing CUDA calls ``fn()`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def train_path(torch, prism):
+    """The gpt2-paper Muon step at full width with PRISM configuration
+    ``prism``: STEPS steps through the launcher's ``build``, the launch,
+    loss and update gates, and the timings."""
+    from repro_torch.core.rng import Key
     from repro_torch.kernels import ops
     from repro_torch.launch import train_lm
 
     model, opt, step, batch_fn, (seq, batch) = train_lm.build(
-        "full", "prism", "float32", device="cuda", seed=0)
+        "full", "prism", "float32", device="cuda", seed=0, prism=prism)
+    pc = opt.cfg.prism
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  model {model.cfg.name}: {n_params} params, seq {seq}, batch "
-        f"{batch}, Muon PRISM-5 (degree 2, 3 warm iterations), "
-        f"use_kernels=True, matfn_dtype float32")
+        f"{batch}, Muon {prism} (degree {pc.degree}, "
+        f"{pc.warm_alpha_iters} warm of {pc.iterations} iterations, sketch "
+        f"{pc.sketch_dim}), use_kernels=True, matfn_dtype float32")
     batches = [batch_fn(s) for s in range(STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -338,10 +603,10 @@ def main_path(torch):
         f"{seq * batch / (step_ms / 1e3):.0f} tokens/s, "
         f"max_memory_allocated {peak_mem / 2**30:.2f} GiB")
     log(f"  launches over {STEPS} steps: {counts}")
-    want = {"matmul_add": 12 * STEPS, "gram_upper": 6 * STEPS,
-            "warm_tail": 1 * STEPS}
-    if counts != want:
-        fail(f"launches {counts}, want {want} (19 a step: 12/6/1)")
+    per_step = PER_STEP[prism]
+    _expect_launches(counts, {k: v * STEPS for k, v in per_step.items()},
+                     f"{prism} ({sum(per_step.values())} a step: "
+                     f"{per_step})")
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite loss: {losses}")
     ln_v = math.log(model.cfg.vocab_size)
@@ -350,33 +615,23 @@ def main_path(torch):
              f"{ln_v:.4f}")
 
     # one Muon update through the kernels vs through the plain versions,
-    # on the clipped gradients the last step left in .grad
-    before = {k: p.detach().clone() for k, p in model.named_parameters()}
-    state = _clone_state(opt)
+    # on the clipped gradients the last step left in .grad, with the key
+    # the next step would use
+    run = dict(model=model, opt=opt, key=Key(0).fold_in(STEPS),
+               before={k: p.detach().clone()
+                       for k, p in model.named_parameters()},
+               grads={k: p.grad.clone()
+                      for k, p in model.named_parameters()},
+               state=_clone_state(opt), counts=counts, step_ms=step_ms)
     deltas, muon_ms = {}, {"kernels": [], "plain": []}
     for tag in ("kernels", "plain", "plain", "kernels"):
-        cfg = dataclasses.replace(opt.cfg, prism=dataclasses.replace(
-            opt.cfg.prism, use_kernels=tag == "kernels"))
-        o = _muon_from(torch, model, cfg, state)
-        with torch.no_grad():
-            for k, p in model.named_parameters():
-                p.copy_(before[k])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        o.step()
-        torch.cuda.synchronize()
-        muon_ms[tag].append((time.perf_counter() - t0) * 1e3)
-        deltas.setdefault(tag, {k: (p.detach() - before[k])
-                                for k, p in model.named_parameters()})
-    worst = 0.0
-    for k, dk in deltas["kernels"].items():
-        dp = deltas["plain"][k]
-        scale = float(dp.abs().max())
-        rel = float((dk - dp).abs().max()) / max(scale, 1e-30)
-        worst = max(worst, rel)
-        if not rel <= UPDATE_REL_TOL:
-            fail(f"Muon update of {k}: kernels vs plain differ by {rel:.3e}"
-                 f" of the largest update entry (bound {UPDATE_REL_TOL})")
+        cfg = _with_prism(opt.cfg, use_kernels=tag == "kernels")
+        ms, d = _muon_step(torch, model, cfg, run, run["key"])
+        muon_ms[tag].append(ms)
+        deltas.setdefault(tag, d)
+    worst = _worst_gap(torch, deltas["kernels"], deltas["plain"],
+                       f"{prism} kernels vs plain")
+    run.update(deltas=deltas, muon_ms=muon_ms)
     # forward + backward alone (the rest of a step is clipping and Muon)
     fb = []
     for b in batches[1:]:
@@ -395,7 +650,175 @@ def main_path(torch):
         + ", ".join(f"{t:.1f}" for t in muon_ms["kernels"])
         + " ms; through torch.matmul (use_kernels=False) "
         + ", ".join(f"{t:.1f}" for t in muon_ms["plain"]) + " ms")
+    # the synchronizing calls of one Muon step through the kernels
+    o = _muon_from(torch, model, opt.cfg, run["state"])
+    _restore(torch, model, run)
+    run["syncs"] = count_syncs(torch, lambda: o.step(key=run["key"]))
+    log(f"  synchronizing calls in one Muon step: {len(run['syncs'])} "
+        f"{sorted(set(run['syncs']))}")
+    return run
+
+
+def fallback_path(torch, run):
+    """One PRISM-3 Muon step with the shared-memory budget forced just
+    below sketch_chain's footprint on the grid buckets' Gram side (96 KiB
+    at d_model = 1024, fp32, p = 8; the fused tier's bias view needs 13 KB
+    and keeps its tier): the chains run as sketch_step launches (2 buckets
+    x 2 fits x 6 powers), and the update stays within UPDATE_REL_TOL of
+    the update through sketch_chain."""
+    from repro_torch.kernels import ops, sketch_traces
+
+    pc = run["opt"].cfg.prism
+    budget = sketch_traces.chain_smem_bytes(
+        run["model"].cfg.d_model, pc.sketch_dim, 4) - 16
+    cfg = _with_prism(run["opt"].cfg, vmem_budget=budget)
+    ops.reset_launches()
+    ms, d = _muon_step(torch, run["model"], cfg, run, run["key"])
+    counts = ops.launch_counts()
+    log(f"  Muon step with vmem_budget={budget}: {ms:.1f} ms, launches "
+        f"{counts}")
+    _expect_launches(counts, dict(matmul_add=10, gram_upper=10, warm_tail=1,
+                                  sketch_step=24, residual_chain=2,
+                                  apply_g=2), "fallback (sketch_step) path")
+    worst = _worst_gap(torch, d, run["deltas"]["kernels"],
+                       "sketch_step vs sketch_chain")
+    log(f"  update through sketch_step vs through sketch_chain: worst "
+        f"relative gap {worst:.3e} (bound {UPDATE_REL_TOL})")
     return counts
+
+
+def profile_muon(torch, run):
+    """A torch.profiler trace of one PRISM-3 Muon step through the kernels:
+    the device time of the port's kernels and of all other device work
+    (memory copies and PyTorch's own kernels), against the step's wall
+    time; and the alpha fit (the sketch draws and the closed-form fits,
+    marked with record_function here): its host time (a clock around each
+    call) and the device time of the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core import newton_schulz, prism, sketch
+
+    fit_host = [0.0]
+
+    def marked(fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            with record_function("alpha_fit"):
+                out = fn(*a, **k)
+            fit_host[0] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    saved = (prism.fit_alpha_from_traces, sketch.gaussian_sketch)
+    prism.fit_alpha_from_traces = marked(saved[0])
+    sketch.gaussian_sketch = newton_schulz.sk.gaussian_sketch = \
+        marked(saved[1])
+    try:
+        o = _muon_from(torch, run["model"], run["opt"].cfg, run["state"])
+        _restore(torch, run["model"], run)
+        o.step(key=run["key"])  # warm
+        o = _muon_from(torch, run["model"], run["opt"].cfg, run["state"])
+        _restore(torch, run["model"], run)
+        torch.cuda.synchronize()
+        fit_host[0] = 0.0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            o.step(key=run["key"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        prism.fit_alpha_from_traces = saved[0]
+        sketch.gaussian_sketch = newton_schulz.sk.gaussian_sketch = saved[1]
+
+    ours = tuple(f"{n}_kernel" for n in KERNEL_NAMES)
+    kernel_us, other_us, fit_dev_us, fit_calls = 0.0, 0.0, 0.0, 0
+    for e in prof.key_averages():
+        if e.key == "alpha_fit":
+            fit_dev_us = max(fit_dev_us, e.device_time_total)
+            fit_calls = max(fit_calls, e.count)
+        # device activity only; the GPU-side spans of record_function
+        # ranges (Muon.step, alpha_fit) would count their kernels twice
+        elif e.device_type == DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Optimizer.")):
+            if any(n in e.key for n in ours):
+                kernel_us += e.self_device_time_total
+            else:
+                other_us += e.self_device_time_total
+    busy_ms = (kernel_us + other_us) / 1e3
+    fit_ms = fit_host[0] * 1e3
+    log(f"  profiled Muon step: wall {wall_ms:.1f} ms; device busy "
+        f"{busy_ms:.2f} ms (port kernels {kernel_us / 1e3:.2f} ms, other "
+        f"device work {other_us / 1e3:.2f} ms); idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+    log(f"  alpha fit ({fit_calls} marked calls): host {fit_ms:.2f} ms "
+        f"({fit_ms / wall_ms:.3f} of the step's wall time), device "
+        f"{fit_dev_us / 1e3:.3f} ms")
+    # the fit alone, unprofiled: one closed-form fit from fp32 traces of
+    # each PRISM-3 bucket (two fitted iterations each per step)
+    from repro_torch.core import polynomials as poly
+
+    pc = run["opt"].cfg.prism
+    apoly = poly.newton_schulz_residual(pc.degree)
+    lo, hi = pc.bounds
+    per_fit = []
+    for B in (40, 20, 30):
+        t = torch.rand((B, poly.max_trace_power(apoly) + 1), device="cuda")
+        per_fit.append(time_ms(torch, lambda: prism.fit_alpha_from_traces(
+            t, apoly, lo, hi)))
+    log(f"  one closed-form fit alone (B = 40, 20, 30): "
+        + ", ".join(f"{v:.3f}" for v in per_fit) + f" ms; two a bucket: "
+        f"{2 * sum(per_fit):.2f} ms a step")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms)
+
+
+def adaptive_runs(torch):
+    """matfn.polar with a tol and a budget of 5 fitted iterations on a
+    grid-tier bucket and a fused-tier one, inputs of condition 1 to 1e3:
+    prints each slice's iterations and status, and holds the launches to
+    the iterations that ran (2+d per fitted iteration on the grid tier, 2
+    on the fused tier, one warm tail)."""
+    from repro_torch.config import PrismConfig
+    from repro_torch.core import matfn, prism
+    from repro_torch.core.rng import Key
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    d, warm, budget = 2, 1, 5
+    for shape, tier in (((40, 1024, 1024), "grid"), ((30, 64, 16),
+                                                      "fused")):
+        B, m, n = shape
+        q, _ = torch.linalg.qr(randn(torch, (B, m, n), gen))
+        cond = torch.linspace(0.0, 3.0, B, device="cuda")[:, None, None]
+        a = q * 10.0 ** (-cond * torch.linspace(0.0, 1.0, n,
+                                                device="cuda"))
+        tol = 0.05 * n ** 0.5
+        cfg = PrismConfig(degree=d, iterations=warm + budget,
+                          warm_alpha_iters=warm, sketch_dim=8, tol=tol,
+                          use_kernels=True)
+        ops.reset_launches()
+        x, used, status = matfn.polar(a, cfg=cfg, key=Key(5),
+                                      return_iters=True, return_status=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if not bool(torch.isfinite(x).all()):
+            fail(f"adaptive {tier}: non-finite result")
+        used_l, status_l = used.tolist(), status.tolist()
+        fitted = budget
+        if prism.STATUS_MAXITER not in status_l:
+            fitted = min(budget, max(used_l) - warm + 1)
+        if tier == "grid":
+            want = dict(gram_upper=warm + fitted, sketch_chain=fitted,
+                        matmul_add=d * (warm + fitted))
+        else:
+            want = dict(warm_tail=1, residual_chain=fitted, apply_g=fitted)
+        log(f"  adaptive {tier} {shape} tol {tol:.3g}: iters_used "
+            f"{used_l}; status {status_l}; {fitted} fitted iterations ran; "
+            f"launches {counts}")
+        _expect_launches(counts, want, f"adaptive {tier}")
 
 
 # --------------------------------------------------------------- main
@@ -435,28 +858,51 @@ def main() -> None:
 
     log("phase 3: kernels against their plain versions")
     rows = kernel_checks(torch)
+    rows = fit_kernel_checks(torch, rows)
     timings = kernel_timings(torch, rows)
+    timings.update(fit_kernel_timings(torch, rows))
 
-    log("phase 4: main path, gpt2-paper training step at full width")
-    counts = main_path(torch)
+    log("phase 4: PRISM-5 path, gpt2-paper training step at full width")
+    run5 = train_path(torch, "prism5")
+    for k in ("model", "opt", "state", "before", "grads", "deltas"):
+        del run5[k]
+    torch.cuda.empty_cache()
+
+    log("phase 5: PRISM-3 path (fitted iterations) at full width")
+    run3 = train_path(torch, "prism3")
+    fallback = fallback_path(torch, run3)
+    if len(run3["syncs"]) > len(run5["syncs"]):
+        fail(f"the fitted iterations add synchronizing calls: PRISM-3 "
+             f"{run3['syncs']} vs PRISM-5 {run5['syncs']}")
+    log(f"  synchronizing calls a Muon step: PRISM-5 {len(run5['syncs'])}, "
+        f"PRISM-3 {len(run3['syncs'])} (the fit adds none)")
+    profile_muon(torch, run3)
+    log("  adaptive runs (tol, budget 5)")
+    adaptive_runs(torch)
 
     replaces = {"matmul_add": "src/repro/kernels/matmul_add.py:55",
                 "gram_upper": "src/repro/kernels/gram.py:81",
-                "warm_tail": "src/repro/kernels/fused_iter.py:301"}
-    sources = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
-               for name in replaces}
+                "warm_tail": "src/repro/kernels/fused_iter.py:301",
+                "sketch_step": "src/repro/kernels/sketch_traces.py:64",
+                "sketch_chain": "src/repro/kernels/sketch_traces.py:163",
+                "residual_chain": "src/repro/kernels/fused_iter.py:138",
+                "apply_g": "src/repro/kernels/fused_iter.py:209"}
+    by_path = {"prism5": run5["counts"], "prism3": run3["counts"],
+               "fallback": fallback}
     kernels = []
-    for name in ("matmul_add", "gram_upper", "warm_tail"):
+    for name in KERNEL_NAMES:
         t = timings[name]
+        path = "fallback" if name == "sketch_step" else "prism3"
         kernels.append({
             "name": name, "status": "ported", "route": "cuda",
-            "source": sources[name],
-            "replaces": replaces[name], "launches": counts[name],
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces[name], "path": path,
+            "launches": by_path[path][name],
+            "launches_by_path": {k: v[name] for k, v in by_path.items()},
             "max_abs_err": rows[name]["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            "shape": [list(s) for s in rows[name]["shape"]],
-            "dtype": "float32"})
+            "shape": rows[name]["shape"], "dtype": "float32"})
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

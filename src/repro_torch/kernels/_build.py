@@ -30,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("matmul_add", "gram_upper", "warm_tail")
+KERNELS = ("matmul_add", "gram_upper", "warm_tail", "sketch_step",
+           "sketch_chain", "residual_chain", "apply_g")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -55,7 +56,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -143,3 +144,14 @@ def check_cuda_operands(name: str, tensors: Sequence[torch.Tensor]) -> None:
                              f"shape {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def check_companion(name: str, like: torch.Tensor, t: torch.Tensor) -> None:
+    """Raise unless ``t`` (an operand of any rank, e.g. the sketch) is a
+    contiguous CUDA tensor on ``like``'s device with ``like``'s dtype."""
+    if not t.is_cuda or t.device != like.device or t.dtype != like.dtype:
+        raise ValueError(f"{name}: operands must be CUDA tensors on one "
+                         f"device with one dtype, got {t.device}/{t.dtype} "
+                         f"and {like.device}/{like.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: operands must be contiguous")

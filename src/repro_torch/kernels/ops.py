@@ -18,16 +18,24 @@ once; ``ref.py`` keeps the same order, so the device never changes the
 contract.  fp32 operands never use TF32.
 
 Fused-iteration tier (DESIGN.md §10): ``warm_tail`` runs a whole
-constant-alpha run as one launch.  On the TPU the tier was chosen by a
-model of VMEM (~16 MiB a core, double-buffered grid blocks padded to
-128 lanes).  On Hopper the K3 design keeps one slice's X, R, rounded
-Horner operand and fp32 accumulator in the shared memory of ONE block, so
-the model is that block's footprint (``fused_smem_bytes``, the same
-formula the kernel lays its buffers out with) against the per-block
-maximum of 232,448 bytes.  It depends on the matrix shape and dtype only,
-never on the batch size (the batch is the grid).  The config field
+constant-alpha run as one launch, and ``residual_chain`` + ``apply_g`` a
+fitted iteration as two.  On the TPU the tier was chosen by a model of
+VMEM (~16 MiB a core, double-buffered grid blocks padded to 128 lanes).
+On Hopper each of the three kernels keeps one slice's working set in the
+shared memory of ONE block, so the model is the largest of the three
+blocks' footprints (``fused_smem_bytes``, computed by the functions the
+kernels lay their buffers out with) against the per-block maximum of
+232,448 bytes.  It depends on the matrix shape, dtype and sketch dim
+only, never on the batch size (the batch is the grid).  The config field
 ``vmem_budget`` keeps its name and now overrides that per-block budget in
 bytes; there is no environment variable.
+
+Sketched traces (``sketch_traces``): K5 runs the whole chain of a bucket
+in one launch when St and its two V buffers fit one block
+(``sketch_traces.chain_smem_bytes`` against the same budget), else a
+loop of K4 launches, one per power, never an over-budget launch.  The
+reference padded the sketch dim p to 128 TPU lanes; the CUDA kernels take
+any p up to 16 as it is, so nothing is padded.
 
 Launch counting: each kernel wrapper adds one to ``_build.LAUNCHES`` per
 launch.  PyTorch runs eagerly, so the counts are real launches, read with
@@ -45,6 +53,7 @@ from repro_torch.kernels import fused_iter as _fused
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import matmul_add as _mma
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import sketch_traces as _sk
 
 DEFAULT_SMEM_BUDGET = _fused.MAX_SMEM_BYTES
 
@@ -55,17 +64,34 @@ def smem_budget(override: int = 0) -> int:
     return int(override) if override else DEFAULT_SMEM_BUDGET
 
 
-def fused_smem_bytes(mshape, dtype) -> int:
-    """Shared memory one K3 block needs for one [m, n] slice."""
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=torch_dtype(dtype)).element_size()
+
+
+def fused_smem_bytes(mshape, dtype, *, sketch_dim: int = 8) -> int:
+    """Shared memory the fused tier needs for one [m, n] slice: the
+    largest block of the kernels a fused bucket runs (K3, K6 with a
+    ``sketch_dim``-row sketch, K7)."""
     m, n = int(mshape[-2]), int(mshape[-1])
-    item = torch.empty((), dtype=torch_dtype(dtype)).element_size()
-    return _fused.smem_bytes(m, n, item)
+    item = _itemsize(dtype)
+    return max(_fused.smem_bytes(m, n, item),
+               _fused.residual_chain_smem_bytes(m, n, max(sketch_dim, 1),
+                                                item),
+               _fused.apply_g_smem_bytes(m, n, item))
 
 
-def fused_fits(mshape, dtype, *, budget: int = 0) -> bool:
+def fused_fits(mshape, dtype, *, budget: int = 0,
+               sketch_dim: int = 8) -> bool:
     """Fused-tier choice for a bucket of [m, n] matrices."""
-    return fused_smem_bytes(mshape, dtype) <= min(smem_budget(budget),
-                                                   _fused.MAX_SMEM_BYTES)
+    return fused_smem_bytes(mshape, dtype, sketch_dim=sketch_dim) <= \
+        min(smem_budget(budget), _fused.MAX_SMEM_BYTES)
+
+
+def chain_fits(n: int, p: int, dtype, *, budget: int = 0) -> bool:
+    """Whether K5 may run the whole chain of an [n, n] residual with a
+    p-row sketch in one block (else ``sketch_traces`` loops K4)."""
+    return _sk.chain_smem_bytes(n, p, _itemsize(dtype)) <= \
+        min(smem_budget(budget), _sk.MAX_SMEM_BYTES)
 
 
 def _gd_coeffs(degree: int):
@@ -124,15 +150,19 @@ def gram(X, *, alpha: float = 1.0, beta: float = -1.0):
     return R.reshape(lead + tuple(R.shape[-2:]))
 
 
+def _polar_only(family: str, Y) -> None:
+    if family != "polar" or Y is not None:
+        raise NotImplementedError(
+            f"the fused kernels for the {family!r} family are ported with "
+            "the sign/sqrt families and Shampoo (ROADMAP.md Queue 1 item 6)")
+
+
 def warm_tail(X, alphas: Sequence[float], *, degree: int,
               family: str = "polar", Y=None):
     """An entire run of constant-alpha iterations in ONE launch: device
     memory sees one read and one write of X for the whole run
     (DESIGN.md §10).  ``alphas``: static per-iteration floats."""
-    if family != "polar" or Y is not None:
-        raise NotImplementedError(
-            f"warm_tail for the {family!r} family is ported with the "
-            "sign/sqrt families and Shampoo (ROADMAP.md Queue 1 item 6)")
+    _polar_only(family, Y)
     alphas = tuple(float(a) for a in alphas)
     coeffs = _gd_coeffs(degree)
     if not _on_cuda(X):
@@ -140,6 +170,78 @@ def warm_tail(X, alphas: Sequence[float], *, degree: int,
     lead = tuple(X.shape[:-2])
     (Xb,) = _collapse(lead, X)
     out = _fused.warm_tail(Xb, alphas, coeffs=coeffs)
+    return out.reshape(lead + tuple(out.shape[1:]))
+
+
+def sketch_traces(R, S, max_power: int, *, budget: int = 0):
+    """t_i = tr(S R^i S^T), i = 0..max_power, fp32 [..., max_power + 1]:
+    one K5 launch for the whole bucket when the chain fits one block
+    (``chain_fits``), else ``max_power`` K4 launches.  t_0 is sketch-only
+    and computed here."""
+    if not _on_cuda(R, S):
+        return _ref.sketch_traces(R, S, max_power)
+    St = S.transpose(-1, -2).to(R.dtype).contiguous()
+    St32 = St.float()
+    t0 = torch.sum(St32 * St32)
+    lead = tuple(R.shape[:-2])
+    (Rb,) = _collapse(lead, R)
+    n, p = St.shape
+    if chain_fits(n, p, R.dtype, budget=budget):
+        ts = _sk.sketch_chain(Rb, St, max_power)
+    else:
+        V = St.expand((Rb.shape[0],) + tuple(St.shape)).contiguous()
+        steps = []
+        for _ in range(max_power):
+            V, t_i = _sk.sketch_step(Rb, V, St)
+            steps.append(t_i)
+        ts = torch.stack(steps, dim=-1)
+    t = torch.cat([t0.expand(ts.shape[:-1] + (1,)), ts], dim=-1)
+    return t.reshape(lead + (max_power + 1,))
+
+
+def residual_chain(X, S, max_power: int, *, family: str = "polar", Y=None):
+    """(R, t): the polar residual AND the whole sketched power-trace chain
+    in ONE launch (K6) — R reaches device memory once, as the output the
+    Horner launch reads.  X: [..., m, n]; S: [p, n].  Returns R [..., n, n]
+    in X's dtype and fp32 traces t [..., max_power + 1] for powers
+    0..max_power (t_0 is sketch-only, computed here)."""
+    _polar_only(family, Y)
+    S32 = S.float()
+    t0 = torch.sum(S32 * S32)
+    lead = tuple(X.shape[:-2])
+    if not _on_cuda(X, S):
+        R, ts = _ref.residual_chain(X, S, max_power)
+    else:
+        (Xb,) = _collapse(lead, X)
+        St = S.transpose(-1, -2).to(X.dtype).contiguous()
+        Rb, ts = _fused.residual_chain(Xb, St, max_power)
+        n = Rb.shape[-1]
+        R = Rb.reshape(lead + (n, n))
+        ts = ts.reshape(lead + (max_power,))
+    t = torch.cat([t0.expand(ts.shape[:-1] + (1,)), ts], dim=-1)
+    return R, t
+
+
+def apply_g(X, R, alpha, *, degree: int, Y=None):
+    """X g_d(R; alpha): the d Horner GEMMs in ONE launch (K7), the fp32
+    alpha applied on the fp32 accumulator and never rounded first
+    (DESIGN.md §9/§10).  alpha: a float or an fp32 tensor over X's
+    leading dims, on X's device; it is read per slice by the kernel and
+    never copied to or from the host."""
+    if Y is not None:
+        _polar_only("sqrt", Y)
+    coeffs = _gd_coeffs(degree)
+    if not _on_cuda(X, R):
+        return _ref.apply_g(X, R, alpha, coeffs=coeffs)
+    lead = tuple(X.shape[:-2])
+    Xb, Rb = _collapse(lead, X, R)
+    nb = Xb.shape[0]
+    if torch.is_tensor(alpha):
+        a = alpha.to(torch.float32).expand(lead).reshape(nb).contiguous()
+    else:
+        a = torch.full((nb,), float(alpha), dtype=torch.float32,
+                       device=X.device)
+    out = _fused.apply_g(Xb, Rb, a, coeffs=coeffs)
     return out.reshape(lead + tuple(out.shape[1:]))
 
 

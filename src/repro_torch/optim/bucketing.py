@@ -14,12 +14,14 @@ that dispatch:
      constant number of kernel launches per iteration, independent of B;
   4. ``scatter_bucket`` splits, un-pads and reshapes the results back.
 
-Zero-padding is exact for the warm Newton-Schulz iterations (pad rows and
-columns of X stay zero).  The plan is pure Python over static shapes.
+Zero-padding is exact for the Newton-Schulz polar iterations (pad rows
+and columns of X stay zero), and the sketched alpha fit is made exactly
+pad-blind by the ``n_real`` trace correction (``prism.fit_alpha``).  Each
+bucket draws its sketches from the step's key folded with the bucket's
+index, as in the reference.  The plan is pure Python over static shapes.
 
-Not ported yet: the n_real pad correction of the fitted alpha (slice 2),
-mesh sharding over the batch dim (``shard_over_batch``), the lowrank tier
-and iteration telemetry (ROADMAP.md Queue 1 items 3, 7, 11).
+Not ported yet: mesh sharding over the batch dim (``shard_over_batch``)
+and the lowrank tier (ROADMAP.md Queue 1 items 7, 11).
 """
 from __future__ import annotations
 
@@ -52,6 +54,10 @@ class Bucket(NamedTuple):
     shape: Tuple[int, int]      # bucket (possibly padded-to) matrix shape
     entries: Tuple[Entry, ...]
     size: int                   # total stacked batch B
+
+    @property
+    def padded(self) -> bool:
+        return any(e.mshape != self.shape for e in self.entries)
 
 
 def plan_buckets(shapes: Sequence[Tuple[int, ...]], *, pad: bool = False,
@@ -122,6 +128,30 @@ def scatter_bucket(bucket: Bucket, batch: torch.Tensor,
         outs[e.index] = sl.reshape(e.lead + e.mshape)
 
 
+def scatter_bucket_aux(bucket: Bucket, aux: torch.Tensor,
+                       outs: List[Optional[torch.Tensor]]) -> None:
+    """Split a per-slice companion [B, ...] (e.g. the §11 ``iters_used``
+    telemetry) back into per-view tensors of the views' lead shapes."""
+    for e in bucket.entries:
+        sl = aux[e.offset:e.offset + e.count]
+        outs[e.index] = sl.reshape(e.lead + tuple(sl.shape[1:]))
+
+
+def _gram_real_dims(bucket: Bucket, device) -> torch.Tensor:
+    """Per-slice real extent of the polar Gram dimension, int32 [B].
+
+    ``newton_schulz.polar`` transposes when M < N, so the Gram residual
+    lives on the min side of the BUCKET shape; each slice's real extent on
+    that side feeds the n_real trace correction.  Built on ``device`` with
+    fills, so no host-to-device copy is needed.
+    """
+    M, N = bucket.shape
+    side = 1 if M >= N else 0
+    return torch.cat([torch.full((e.count,), e.mshape[side],
+                                 dtype=torch.int32, device=device)
+                      for e in bucket.entries])
+
+
 def resolve_fused_tier(pcfg: PrismConfig, bucket: Bucket) -> PrismConfig:
     """Pin the fused-iteration tier (DESIGN.md §10) for one bucket from its
     static matrix shape against the shared-memory model; batch-size
@@ -133,7 +163,8 @@ def resolve_fused_tier(pcfg: PrismConfig, bucket: Bucket) -> PrismConfig:
 
     m, n = bucket.shape
     mshape = (max(m, n), min(m, n))  # polar transposes to m >= n
-    fits = kops.fused_fits(mshape, pcfg.dtype, budget=pcfg.vmem_budget)
+    fits = kops.fused_fits(mshape, pcfg.dtype, budget=pcfg.vmem_budget,
+                           sketch_dim=pcfg.sketch_dim)
     return dataclasses.replace(pcfg, fuse="on" if fits else "off")
 
 
@@ -150,10 +181,16 @@ def resolve_tier(cfg: OptimizerConfig, mshape: Tuple[int, int]) -> str:
     return "fused" if pcfg.use_kernels and pcfg.fuse == "on" else "grid"
 
 
-def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig
-                   ) -> List[torch.Tensor]:
+def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
+                   key=None, with_iters: bool = False):
     """Polar factor of every matrix view via one batched call per bucket,
-    gathered directly in the engine's compute dtype (``matfn_dtype``)."""
+    gathered directly in the engine's compute dtype (``matfn_dtype``).
+
+    ``key`` is the step's sketch key; bucket ``bi`` draws from
+    ``key.fold_in(bi)``.  ``with_iters`` also returns per-view
+    ``iters_used`` and guardian ``status`` (DESIGN.md §11/§15), scattered
+    back to each view's lead shape: (outs, iters, statuses).
+    """
     method = cfg.matfn_method
     if cfg.lowrank_rank:
         raise NotImplementedError(
@@ -165,9 +202,24 @@ def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig
                            pad=cfg.bucket_pad,
                            pad_slack=cfg.bucket_pad_slack)
     outs: List[Optional[torch.Tensor]] = [None] * len(views)
-    for b in buckets:
+    iters: List[Optional[torch.Tensor]] = [None] * len(views)
+    statuses: List[Optional[torch.Tensor]] = [None] * len(views)
+    for bi, b in enumerate(buckets):
         stacked = gather_bucket(b, views, dtype=compute)
+        kw = {}
+        if b.padded and method == "prism":
+            kw["n_real"] = _gram_real_dims(b, stacked.device)
+        if with_iters:
+            kw.update(return_iters=True, return_status=True)
         O = matfn.polar(stacked, method=method,
-                        cfg=resolve_fused_tier(pcfg, b))
+                        cfg=resolve_fused_tier(pcfg, b),
+                        key=key.fold_in(bi) if key is not None else None,
+                        **kw)
+        if with_iters:
+            O, it, st = O
+            scatter_bucket_aux(b, it, iters)
+            scatter_bucket_aux(b, st, statuses)
         scatter_bucket(b, O, outs)
+    if with_iters:
+        return outs, iters, statuses
     return outs  # type: ignore[return-value]

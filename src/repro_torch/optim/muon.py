@@ -7,11 +7,13 @@ LM head, norms) takes AdamW with a scaled lr, as in standard Muon
 practice.  Orthogonalization is shape-bucketed (``bucketing``): same-shape
 momentum matrices stack into one [B, m, n] polar call per bucket.
 
-``step()`` does what the reference's ``make_muon(cfg, axes).update`` does
-for ``precond_every=1`` without telemetry; momentum and the applied update
-stay fp32 whatever ``matfn_dtype`` is.  The staleness cache, the async
-refresh plane, adaptive ``matfn_tol`` telemetry and the lowrank tier are
-ported with later slices and raise here.
+``step(key=...)`` does what the reference's ``make_muon(cfg, axes).update``
+does for ``precond_every=1`` without telemetry; the step's sketch key
+(``core.rng.Key``) seeds the fitted PRISM iterations, bucket ``bi``
+drawing from ``key.fold_in(bi)``.  Momentum and the applied update stay
+fp32 whatever ``matfn_dtype`` is.  The staleness cache, the async refresh
+plane, adaptive ``matfn_tol`` telemetry and the lowrank tier are ported
+with later slices and raise here.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ def _check_supported(cfg: OptimizerConfig) -> None:
             cfg.precond_every > 1,
         "precond_async (refresh plane, ROADMAP.md Queue 1 item 8)":
             cfg.precond_async,
-        "matfn_tol (adaptive stopping, ROADMAP.md Queue 1 item 3)":
+        "matfn_tol (Muon's adaptive-stopping telemetry state, "
+        "ROADMAP.md Queue 1 item 3)":
             cfg.matfn_tol is not None,
         "lowrank_rank (lowrank tier, ROADMAP.md Queue 1 item 7)":
             cfg.lowrank_rank > 0,
@@ -65,15 +68,20 @@ class Muon(torch.optim.Optimizer):
     def _matrix(self, a: tuple, p: torch.Tensor) -> bool:
         return base.is_matrix_param(a, tuple(p.shape))
 
-    def _orthogonalize(self, views):
+    def _orthogonalize(self, views, idx, key):
         cfg = self.cfg
         if cfg.bucketed:
-            return bucketing.polar_bucketed(views, cfg)
+            return bucketing.polar_bucketed(views, cfg, key)
         return [matfn.polar(M, method=cfg.matfn_method,
-                            cfg=cfg.resolved_prism) for M in views]
+                            cfg=cfg.resolved_prism,
+                            key=key.fold_in(i) if key is not None else None)
+                for M, i in zip(views, idx)]
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, key=None):
+        """One Muon update from the parameters' ``.grad``.  ``key`` is the
+        step's sketch key; None fits alpha from exact traces (only the
+        fitted PRISM iterations read it)."""
         if closure is not None:
             raise ValueError("Muon.step takes no closure")
         cfg = self.cfg
@@ -114,7 +122,8 @@ class Muon(torch.optim.Optimizer):
                 p.copy_(p32.to(p.dtype))
         # pass 2: orthogonalize (one batched call per shape bucket),
         # aspect-scale, un-view, apply
-        for O, meta, i in zip(self._orthogonalize(views), metas, idx):
+        for O, meta, i in zip(self._orthogonalize(views, idx, key), metas,
+                              idx):
             p = params[i]
             scale = math.sqrt(max(1.0, O.shape[-2] / O.shape[-1]))
             upd = base.from_matrix_view(O * scale, meta)

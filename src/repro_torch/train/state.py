@@ -5,8 +5,9 @@ Master parameters live in fp32 (the model's own parameters); the forward
 and backward run in each parameter's compute dtype (bf16 matrices, fp32
 norms) through ``Model.cast_params``, so the gradients that reach the
 masters are fp32.  They are clipped by global norm, then the optimizer
-steps.  The reference derives a PRISM sketch key from the step; the
-warm-only chains ported so far draw no sketch, so no key is made.
+steps.  As in the reference, the PRISM sketch key of step s is the root
+key folded with s (``key.fold_in(s)``); the fitted PRISM iterations draw
+their sketches from it.
 """
 from __future__ import annotations
 
@@ -15,21 +16,27 @@ from typing import Callable
 import torch
 
 from repro_torch.config import OptimizerConfig
+from repro_torch.core.rng import Key
 from repro_torch.models.transformer import Model
 from repro_torch.optim import base
 
 
 def make_train_step(model: Model, opt: torch.optim.Optimizer,
-                    ocfg: OptimizerConfig) -> Callable:
+                    ocfg: OptimizerConfig, key=None) -> Callable:
     """Build train_step(batch) -> metrics dict (loss, grad_norm, ce, ...).
 
-    Updates the model's parameters and the optimizer state in place.
+    Updates the model's parameters and the optimizer state in place.  The
+    step counter starts at 0 and advances once per call; ``key`` is the
+    root sketch key (default ``Key(0)``, the reference's
+    ``PRNGKey(0)``).
     """
     if ocfg.grads_dtype != "float32" or ocfg.gradient_compression != "none":
         raise NotImplementedError(
             "bf16 gradients and gradient compression are ported with the "
             "sharded training slice (ROADMAP.md Queue 1 item 11)")
     params = list(model.parameters())
+    root = Key(0) if key is None else key
+    counter = {"step": 0}
 
     def train_step(batch):
         for p in params:
@@ -41,7 +48,8 @@ def make_train_step(model: Model, opt: torch.optim.Optimizer,
         clipped, gnorm = base.clip_by_global_norm(grads, ocfg.grad_clip_norm)
         for p, g in zip(params, clipped):
             p.grad = g
-        opt.step()
+        opt.step(key=root.fold_in(counter["step"]))
+        counter["step"] += 1
         return dict(metrics, loss=loss.detach(), grad_norm=gnorm)
 
     return train_step

@@ -7,7 +7,9 @@ each against its plain version there); on the CPU every ``ops`` wrapper
 takes the plain version, which is what these tests hold against JAX.
 Tolerances are the reference tests' for the same comparison:
 matmul_add / gram 2e-5 (fp32) and 2e-2 (bf16), tests/test_kernels.py;
-warm_tail 2e-4 and 5e-2, tests/test_fused_iter.py.
+warm_tail, residual_chain and apply_g 2e-4 and 5e-2,
+tests/test_fused_iter.py; the sketched traces 2e-4 and 5e-2,
+tests/test_kernels.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,9 +17,11 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels import sketch_traces as jsk
 from repro_torch.config import PrismConfig
 from repro_torch.core import newton_schulz as tns
-from repro_torch.kernels import _build, fused_iter, gram, matmul_add, ops
+from repro_torch.kernels import (_build, fused_iter, gram, matmul_add, ops,
+                                 ref, sketch_traces)
 
 DTYPES = ["float32", "bfloat16"]
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -100,22 +104,37 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     rng = np.random.default_rng(3)
     x = torch.tensor(rng.standard_normal((2, 64, 16)), dtype=torch.float32)
     r = torch.eye(16).expand(2, 16, 16)
+    s = torch.tensor(rng.standard_normal((8, 16)), dtype=torch.float32)
 
     def run():
         ops.matmul_add(x, r, x, alpha=1.5, beta=0.5)
         ops.gram(x)
         ops.warm_tail(x, (1.45,) * 3, degree=2)
+        ops.sketch_traces(r, s, 6)
+        ops.sketch_traces(r, s, 6, budget=1)
+        ops.residual_chain(x, s, 6)
+        ops.apply_g(x, r, torch.ones(2), degree=1)
 
     ops.reset_launches()
-    assert ops.count_launches(run) == {"matmul_add": 0, "gram_upper": 0,
-                                       "warm_tail": 0}
+    assert ops.count_launches(run) == dict.fromkeys(_build.KERNELS, 0)
+    assert set(_build.KERNELS) == {"matmul_add", "gram_upper", "warm_tail",
+                                   "sketch_step", "sketch_chain",
+                                   "residual_chain", "apply_g"}
     assert ops.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+
+
+def _st(x):
+    return x[0, :, :8].contiguous()
 
 
 @pytest.mark.parametrize("launch", [
     lambda x: matmul_add.matmul_add(x, x.transpose(1, 2).contiguous()),
     lambda x: gram.gram_upper(x),
     lambda x: fused_iter.warm_tail(x, (1.45,), coeffs=COEFFS),
+    lambda x: sketch_traces.sketch_chain(x, _st(x), 6),
+    lambda x: sketch_traces.sketch_step(x, x[:, :, :8].contiguous(), _st(x)),
+    lambda x: fused_iter.residual_chain(x, _st(x), 6),
+    lambda x: fused_iter.apply_g(x, x, torch.ones(1), coeffs=COEFFS),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(launch):
     """A kernel wrapper launches or raises; it never computes the plain
@@ -173,3 +192,139 @@ def test_fuse_on_over_budget_raises(mshape):
                         use_kernels=True, fuse="on", vmem_budget=1024)
     with pytest.raises(ValueError, match="fuse='on'"):
         tns.polar(torch.ones((2, 64, 16)), cfg=small)
+
+
+# ------------------------------------------------ the fitted iterations' K4-K7
+
+FIT_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
+
+
+def _sym(rng, lead, n, scale):
+    a = rng.standard_normal(lead + (n, n)) / scale
+    return (0.5 * (a + np.swapaxes(a, -1, -2))).astype(np.float32)
+
+
+@pytest.mark.parametrize("lead,n,p,maxp", [((), 48, 8, 4), ((3,), 64, 8, 10),
+                                           ((2,), 37, 5, 6),
+                                           ((2, 2), 16, 16, 7)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sketch_traces_plain_matches_reference(lead, n, p, maxp, dtype):
+    """ops.sketch_traces (CPU: the plain chain, whichever of K4/K5 the
+    budget picks on the card) against the reference oracle."""
+    rng = np.random.default_rng(4)
+    r = _sym(rng, lead, n, 2 * np.sqrt(n))
+    s = (rng.standard_normal((p, n)) / np.sqrt(p)).astype(np.float32)
+    (jr, tr), (js, ts) = _pair(r, dtype), _pair(s, dtype)
+    want = jref.sketch_traces(jr, js, maxp)
+    for budget in (0, 1):
+        got = ops.sketch_traces(tr, ts, maxp, budget=budget)
+        assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+        _close(got, want, FIT_TOL[dtype])
+
+
+@pytest.mark.parametrize("n,p", [(64, 8), (40, 3)])
+def test_sketch_step_plain_matches_reference_kernel(n, p):
+    """A chain of plain ``sketch_step`` powers against the reference's
+    Pallas ``sketch_step`` run in interpret mode (tests/test_kernels.py
+    holds it the same way)."""
+    rng = np.random.default_rng(5)
+    r = _sym(rng, (), n, 2 * np.sqrt(n))
+    s = (rng.standard_normal((p, n)) / np.sqrt(p)).astype(np.float32)
+    jst = jnp.pad(jnp.asarray(s).T, ((0, 0), (0, (-p) % 128)))
+    jv = jst
+    st = torch.tensor(s).t().contiguous()
+    v = st
+    for _ in range(5):
+        jv, jt = jsk.sketch_step(jnp.asarray(r), jv, jst, bm=32, bk=32,
+                                 interpret=True)
+        v, t = sketch_traces.plain_step(torch.tensor(r), v, st)
+        _close(t, jt, FIT_TOL["float32"])
+        _close(v, jv[:, :p], FIT_TOL["float32"])
+
+
+@pytest.mark.parametrize("lead,m,n,p,maxp", [((3,), 64, 16, 8, 6),
+                                             ((2,), 55, 23, 5, 10),
+                                             ((2, 2), 16, 16, 8, 6)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_residual_chain_plain_matches_reference(lead, m, n, p, maxp, dtype):
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal(lead + (m, n))
+    x = (x / np.linalg.norm(x, axis=(-2, -1), keepdims=True)).astype(
+        np.float32)
+    s = (rng.standard_normal((p, n)) / np.sqrt(p)).astype(np.float32)
+    (jx, tx), (js, ts) = _pair(x, dtype), _pair(s, dtype)
+    jR, jt = jref.residual_chain(jx, js, maxp)
+    R, t = ops.residual_chain(tx, ts, maxp)
+    assert R.dtype == tx.dtype and tuple(R.shape) == jR.shape
+    _close(R, jR, FIT_TOL[dtype])
+    assert tuple(t.shape) == lead + (maxp + 1,)
+    _close(t[..., 1:], jt, FIT_TOL[dtype])
+    want_t0 = np.sum(np.square(np.asarray(js, np.float32)))
+    np.testing.assert_allclose(t[..., 0].numpy(), want_t0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("lead,m,n", [((3,), 64, 16), ((2,), 55, 23),
+                                      ((2, 2), 16, 16)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("degree", [1, 2])
+def test_apply_g_plain_matches_reference(lead, m, n, dtype, degree):
+    """A different fitted alpha in every slice, read per slice."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal(lead + (m, n))
+    x = (x / np.linalg.norm(x, axis=(-2, -1), keepdims=True)).astype(
+        np.float32)
+    r = _sym(rng, lead, n, 2 * np.sqrt(n))
+    a = rng.uniform(0.5, 1.45, lead).astype(np.float32)
+    (jx, tx), (jr, tr) = _pair(x, dtype), _pair(r, dtype)
+    coeffs = ops._gd_coeffs(degree)
+    want = jref.apply_g(jx, jr, jnp.asarray(a), coeffs=coeffs)
+    got = ops.apply_g(tx, tr, torch.tensor(a), degree=degree)
+    assert got.dtype == tx.dtype and tuple(got.shape) == want.shape
+    _close(got, want, FIT_TOL[dtype])
+    # a float alpha broadcasts over the slices
+    got = ops.apply_g(tx, tr, 0.75, degree=degree)
+    _close(got, jref.apply_g(jx, jr, 0.75, coeffs=coeffs), FIT_TOL[dtype])
+
+
+@pytest.mark.parametrize("n,dtype,fits", [(1024, "float32", True),
+                                          (1024, "bfloat16", True),
+                                          (4096, "float32", False),
+                                          (4096, "bfloat16", True)])
+def test_chain_model_picks_the_whole_chain_kernel_when_it_fits(n, dtype,
+                                                               fits):
+    """K5 keeps St and two V buffers ([8, n] each) in one block; at
+    n = 4096 in fp32 they exceed 232,448 bytes and the chain loops K4."""
+    item = 4 if dtype == "float32" else 2
+    need = sketch_traces.chain_smem_bytes(n, 8, item)
+    assert need == 3 * 8 * n * item + 4 * sketch_traces.CHAIN_WARPS
+    assert ops.chain_fits(n, 8, dtype) is fits
+    assert ops.chain_fits(n, 8, dtype, budget=need) is fits
+    assert not ops.chain_fits(n, 8, dtype, budget=need - 1)
+
+
+def test_fused_model_is_the_largest_fused_kernel():
+    """fused_smem_bytes is the largest of K3, K6 and K7's footprints: at a
+    square [16, 16] slice with a 16-row sketch, K6's chain buffers
+    dominate."""
+    k3 = fused_iter.smem_bytes(16, 16, 4)
+    k6 = fused_iter.residual_chain_smem_bytes(16, 16, 16, 4)
+    assert k6 > k3 == fused_iter.apply_g_smem_bytes(16, 16, 4)
+    assert ops.fused_smem_bytes((16, 16), "float32", sketch_dim=16) == k6
+    assert ops.fused_smem_bytes((64, 16), "float32", sketch_dim=8) == \
+        fused_iter.smem_bytes(64, 16, 4)
+    assert ops.fused_fits((16, 16), "float32", budget=k6, sketch_dim=16)
+    assert not ops.fused_fits((16, 16), "float32", budget=k6 - 1,
+                              sketch_dim=16)
+
+
+def test_plain_chain_reads_the_accumulator_before_rounding():
+    """The §9 order: in bf16 the trace of a power reduces the fp32
+    product, so it differs from the trace of the rounded V'."""
+    rng = np.random.default_rng(8)
+    r = torch.tensor(_sym(rng, (), 32, 8.0)).to(torch.bfloat16)
+    st = torch.tensor(rng.standard_normal((32, 8)) / np.sqrt(8),
+                      dtype=torch.float32).to(torch.bfloat16)
+    v, t = ref.sketch_step(r, st, st)
+    acc = torch.matmul(r.float(), st.float())
+    assert float(t) == float(torch.sum(st.float() * acc))
+    assert float(t) != float(torch.sum(st.float() * v.float()))

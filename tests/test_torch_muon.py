@@ -1,6 +1,8 @@
 """The port's Muon against the reference on the CPU: the bucket plan of
 gpt2-paper (shape logic only), one or two Muon updates on the SMOKE model
-in fp32 with the same params and grads, and global-norm clipping."""
+with the same params and grads (PRISM-5, and PRISM-3 with the same
+sketches through ``JaxKey``), the padded-bucket ``n_real`` path and its
+telemetry, and global-norm clipping."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,16 +19,20 @@ from repro.optim import make_optimizer as jmake_optimizer
 from repro_torch import convert
 from repro_torch.config import OptimizerConfig, PrismConfig
 from repro_torch.configs import gpt2_paper
+from repro_torch.core.rng import Key
 from repro_torch.models.transformer import param_specs
 from repro_torch.optim import base, bucketing, make_optimizer
+from test_torch_prism import JaxKey
 
 PRISM5 = dict(degree=2, iterations=3, warm_alpha_iters=3, sketch_dim=8,
               use_kernels=True)
+PRISM3 = dict(degree=1, iterations=5, warm_alpha_iters=3, sketch_dim=8,
+              use_kernels=True)
 
 
-def _ocfgs(**kw):
-    return (JOpt(name="muon", prism=JPrism(**PRISM5), **kw),
-            OptimizerConfig(name="muon", prism=PrismConfig(**PRISM5), **kw))
+def _ocfgs(prism=PRISM5, **kw):
+    return (JOpt(name="muon", prism=JPrism(**prism), **kw),
+            OptimizerConfig(name="muon", prism=PrismConfig(**prism), **kw))
 
 
 def _jax_views(cfg):
@@ -77,16 +83,16 @@ def _smoke_params():
     return cfg, model, params
 
 
-@pytest.mark.parametrize("steps", [1, 2])
-@pytest.mark.parametrize("matfn_dtype", ["float32", "bfloat16"])
-def test_muon_update_matches_reference(steps, matfn_dtype):
+def _muon_both(steps, matfn_dtype, prism, keyed):
+    """``steps`` Muon updates of the SMOKE params through both packages
+    with the same grads; step s draws from PRNGKey(s) when ``keyed``."""
     cfg, jmodel, params = _smoke_params()
     tparams = convert.params_from_jax(params, gpt2_paper.SMOKE)
     rng = np.random.default_rng(0)
     grads = [{k: rng.standard_normal(v.shape).astype(np.float32) * 0.1
               for k, v in convert._flatten(params).items()}
              for _ in range(steps)]
-    jcfg, tcfg = _ocfgs(matfn_dtype=matfn_dtype)
+    jcfg, tcfg = _ocfgs(prism, matfn_dtype=matfn_dtype)
 
     jopt = jmake_optimizer(jcfg, jmodel.logical_axes())
     jp = jax.tree.map(jnp.asarray, params)
@@ -99,10 +105,18 @@ def test_muon_update_matches_reference(steps, matfn_dtype):
     named = [(k, torch.nn.Parameter(v)) for k, v in tparams.items()]
     axes = {k: a for k, (_, a, _) in param_specs(gpt2_paper.SMOKE).items()}
     topt = make_optimizer(tcfg, named, axes)
-    for g in grads:
+    for s, g in enumerate(grads):
         for k, p in named:
             p.grad = torch.from_numpy(g[k])
-        topt.step()
+        topt.step(key=JaxKey(jax.random.PRNGKey(s)) if keyed else None)
+    return tcfg, jp, js, named, topt
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+@pytest.mark.parametrize("matfn_dtype", ["float32", "bfloat16"])
+def test_muon_update_matches_reference(steps, matfn_dtype):
+    tcfg, jp, js, named, topt = _muon_both(steps, matfn_dtype, PRISM5,
+                                           keyed=False)
 
     # fp32: the 1e-5 bound.  bf16 orthogonalization: the update O * scale
     # (|O| <= 1, scale <= 2) is bf16, and so is lr * update; fp32 sums in
@@ -120,6 +134,76 @@ def test_muon_update_matches_reference(steps, matfn_dtype):
             np.testing.assert_allclose(v.numpy(), jstate[f"{k}.{name}"],
                                        rtol=1e-5, atol=1e-5, err_msg=k)
     assert topt.count == int(js["count"]) == steps
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+@pytest.mark.parametrize("matfn_dtype", ["float32", "bfloat16"])
+def test_prism3_muon_update_matches_reference(steps, matfn_dtype):
+    """PRISM-3 (two fitted iterations) with the same per-step sketch keys:
+    the fitted alphas, hence the updates, agree.  Bounds as for PRISM-5
+    (the fit's alphas agree to ~1e-6 in fp32)."""
+    tcfg, jp, js, named, topt = _muon_both(steps, matfn_dtype, PRISM3,
+                                           keyed=True)
+    lr = tcfg.learning_rate
+    tol = 1e-5 if matfn_dtype == "float32" else lr * 2 * 2.0 ** -7
+    jflat = convert._flatten(jax.tree.map(np.asarray, jp))
+    for k, p in named:
+        np.testing.assert_allclose(p.detach().numpy(), jflat[k], rtol=tol,
+                                   atol=tol, err_msg=k)
+    assert topt.count == int(js["count"]) == steps
+
+
+def test_prism3_update_reads_the_key():
+    """The fitted iterations draw from the step's key: the same key gives
+    the same update bit for bit, another key a nearby one."""
+    _, _, params = _smoke_params()
+    tparams = convert.params_from_jax(params, gpt2_paper.SMOKE)
+    axes = {k: ax for k, (_, ax, _) in param_specs(gpt2_paper.SMOKE).items()}
+    outs = []
+    for seed in (1, 1, 2):
+        named = [(k, torch.nn.Parameter(v.clone()))
+                 for k, v in tparams.items()]
+        opt = make_optimizer(_ocfgs(PRISM3)[1], named, axes)
+        for _, p in named:
+            p.grad = 0.01 + 0.1 * p.detach()
+        opt.step(key=Key(seed))
+        outs.append({k: p.detach().clone() for k, p in named})
+    for k in outs[0]:
+        torch.testing.assert_close(outs[0][k], outs[1][k], rtol=0, atol=0)
+    diff = max(float((outs[0][k] - outs[2][k]).abs().max()) for k in outs[0])
+    assert 0 < diff < 1e-2
+
+
+@pytest.mark.parametrize("with_iters", [False, True])
+def test_padded_bucket_n_real_matches_reference(with_iters):
+    """bucket_pad merges (64, 24) into the (64, 30) bucket; the fitted
+    chain gets each slice's real Gram extent (n_real) and matches the
+    reference's polar_bucketed, telemetry included."""
+    rng = np.random.default_rng(2)
+    shapes = [(2, 64, 30), (64, 24), (3, 40, 40)]
+    views = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    kw = dict(bucket_pad=True, bucket_pad_slack=0.3)
+    jcfg, tcfg = _ocfgs(PRISM3, **kw)
+    plan = bucketing.plan_buckets(shapes, pad=True, pad_slack=0.3)
+    assert [(b.shape, b.padded) for b in plan] == [((40, 40), False),
+                                                  ((64, 30), True)]
+    assert bucketing._gram_real_dims(plan[1], "cpu").tolist() == [30, 30, 24]
+    key = jax.random.PRNGKey(9)
+    want = jbucketing.polar_bucketed([jnp.asarray(v) for v in views], jcfg,
+                                     key, with_iters=with_iters)
+    got = bucketing.polar_bucketed([torch.from_numpy(v) for v in views],
+                                   tcfg, JaxKey(key), with_iters=with_iters)
+    if with_iters:
+        (want, jits, jsts), (got, its, sts) = want, got
+        for a, b in zip(its, jits):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        for a, b in zip(sts, jsts):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert [tuple(a.shape) for a in its] == [(2,), (), (3,)]
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-3,
+                                   atol=5e-3)
 
 
 @pytest.mark.parametrize("case", ["under", "over", "nonfinite", "zero"])

@@ -1,5 +1,6 @@
-"""Three training steps of the port against the reference on the CPU,
-and the device rule of the entry points."""
+"""Three training steps of the port against the reference on the CPU
+(PRISM-5, and PRISM-3 with the reference's per-step sketch keys through
+``JaxKey``), and the device rule of the entry points."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,13 +22,27 @@ from repro_torch.launch import train_lm
 from repro_torch.models import Model
 from repro_torch.optim import make_optimizer
 from repro_torch.train import make_train_step
+from test_torch_prism import JaxKey
 
 PRISM5 = dict(degree=2, iterations=3, warm_alpha_iters=3, sketch_dim=8,
+              use_kernels=True)
+PRISM3 = dict(degree=1, iterations=5, warm_alpha_iters=3, sketch_dim=8,
               use_kernels=True)
 CFG32 = dict(dtype="float32", emb_dtype="float32")
 
 
+def test_three_prism3_steps_match_reference():
+    """The train step folds the root key with the step counter, as the
+    reference's does (PRNGKey(0) folded with s): the same sketches, the
+    same fitted alphas, the same losses and parameters."""
+    _three_steps(PRISM3, key=JaxKey(jax.random.PRNGKey(0)))
+
+
 def test_three_steps_match_reference():
+    _three_steps(PRISM5)
+
+
+def _three_steps(prism_kw, key=None):
     jcfg = jgpt2.SMOKE.replace(**CFG32)
     tcfg = gpt2_paper.SMOKE.replace(**CFG32)
     rng = np.random.default_rng(0)
@@ -35,7 +50,7 @@ def test_three_steps_match_reference():
                for _ in range(3)]
 
     jmodel = build(jcfg)
-    jocfg = JOpt(name="muon", prism=JPrism(**PRISM5))
+    jocfg = JOpt(name="muon", prism=JPrism(**prism_kw))
     jopt = jmake_optimizer(jocfg, jmodel.logical_axes())
     init = jmodel.init(jax.random.PRNGKey(0))
     jp = master_params(init)
@@ -49,10 +64,10 @@ def test_three_steps_match_reference():
     model = Model(tcfg, device="cpu")
     model.load_params(convert.params_from_jax(
         jax.tree.map(np.asarray, init), tcfg))
-    ocfg = OptimizerConfig(name="muon", prism=PrismConfig(**PRISM5))
+    ocfg = OptimizerConfig(name="muon", prism=PrismConfig(**prism_kw))
     opt = make_optimizer(ocfg, model.named_parameters(),
                          model.logical_axes())
-    step = make_train_step(model, opt, ocfg)
+    step = make_train_step(model, opt, ocfg, key=key)
     losses = [float(step({"tokens": torch.from_numpy(b)})["loss"])
               for b in batches]
 
@@ -86,8 +101,16 @@ def test_synthetic_stream_is_deterministic_and_learnable():
 
 
 def test_launcher_runs_on_the_cpu(capsys):
+    _launch_one_step(capsys, "prism5")
+
+
+def test_launcher_runs_prism3_on_the_cpu(capsys):
+    _launch_one_step(capsys, "prism3")
+
+
+def _launch_one_step(capsys, prism):
     losses = train_lm.main(["--preset", "cpu-small", "--steps", "1",
-                            "--device", "cpu"])
+                            "--device", "cpu", "--prism", prism])
     assert len(losses) == 1 and np.isfinite(losses[0])
     # ln(4096) = 8.3; a random init starts near it
     assert abs(losses[0] - np.log(4096)) < 1.5
