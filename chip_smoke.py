@@ -12,10 +12,14 @@ Phases (any failure exits non-zero and prints no result):
      source, all at once) and print the compiler's register/spill report;
   3. each kernel against its plain PyTorch version on the card, in fp32 and
      bf16, at the shapes the main paths give it and at ragged ones, with the
-     reference's tolerances on results of unit scale (see ``check``); at
-     every main-path shape, in fp32, the kernel, the plain version and one
-     PyTorch library call (where one computes the same function) are timed
-     with CUDA events (median of 20 launches);
+     reference's tolerances on results of unit scale (see ``check``); the
+     sign and coupled sqrt families of K3, K6 and K7 also on non-symmetric,
+     independent X and Y, at the Shampoo bias shapes and at the largest
+     coupled slice the fused tier admits in each dtype (one just above it
+     must take the grid tier); at every main-path shape, in fp32, the
+     kernel, the plain version and one PyTorch library call (where one
+     computes the same function) are timed with CUDA events (median of 20
+     launches);
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
      width (seq 512, batch 4, random weights from seed 0), STEPS steps
      through ``repro_torch.launch.train_lm.build``; the launch counts are
@@ -36,7 +40,24 @@ Phases (any failure exits non-zero and prints no result):
      configuration (the fit must add none); a profiler trace of one PRISM-3
      Muon step; an adaptive run (``tol``) on a grid-tier and a fused-tier
      bucket whose launches must match the iterations it ran;
-  6. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+  6. the Shampoo PRISM-5 path: the gpt2-paper step with Shampoo and its
+     default PRISM (degree 2, 3 warm iterations), ``precondition_every=1``
+     so that every step computes the inverse roots: 17 launches a step
+     (matmul_add 15 on the [100, 1024, 1024] factor bucket, warm_tail 2 on
+     the bias buckets [30, 16, 16] and [30, 64, 64], sqrt family), the
+     same loss and update gates, a profiler trace of one Shampoo step;
+  7. the Shampoo fitted path (benchmarks/fig5_shampoo.py's PrismConfig:
+     degree 2, 5 fitted iterations, sketch 8; lr 3e-3): 50 launches a step
+     (matmul_add 25, sketch_chain 5, residual_chain 10, apply_g 10), the
+     same loss gates, the update gate with the kernel run's fitted alphas
+     (``PINNED_ALPHA``); with ``precondition_every=2`` the second step
+     launches nothing; the synchronizing calls of one Muon and one
+     Shampoo step (no more than the one K3's alpha copy made before it
+     became a kernel argument; the fit adds none); a profiler trace of
+     one step; adaptive ``matfn.sqrtm`` runs whose launches must match
+     their iterations; the Shampoo step with ``matfn_method="eigh"``
+     timed beside it;
+  8. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -61,12 +82,31 @@ FIT_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 DTYPES = ("float32", "bfloat16")  # dtypes of the phase 3 checks
 KERNEL_NAMES = ("matmul_add", "gram_upper", "warm_tail", "sketch_step",
                 "sketch_chain", "residual_chain", "apply_g")
-# launches a training step, per PRISM configuration
+# launches a training step, per path (optimizer and PRISM configuration)
 PER_STEP = {
     "prism5": dict(matmul_add=12, gram_upper=6, warm_tail=1),
     "prism3": dict(matmul_add=10, gram_upper=10, warm_tail=1,
                    sketch_chain=4, residual_chain=2, apply_g=2),
+    "shampoo_prism5": dict(matmul_add=15, warm_tail=2),
+    "shampoo_fig5": dict(matmul_add=25, sketch_chain=5, residual_chain=10,
+                         apply_g=10),
 }
+# Paths whose update gate replays the kernel run's fitted alphas into the
+# run through torch.matmul.  Shampoo's factors are rank-deficient (a bias
+# gradient [16, 64] gives R = G^T G of rank 16 a step) and their fitted
+# alpha, the argmin of a nearly flat sketched objective, moves with the
+# last bits of the traces, so the kernels' summation order alone moves
+# the fitted Shampoo update by about 1e-3 of its largest entry.  The gate
+# holds the update with the kernel run's alphas; the unpinned gap and the
+# alpha gap are printed beside it (PERF.md).
+PINNED_ALPHA = {"shampoo_fig5"}
+# (optimizer, PRISM configuration of launch/train_lm.py) of each path
+PATHS = {"prism5": ("muon", "prism5"), "prism3": ("muon", "prism3"),
+         "shampoo_prism5": ("shampoo", "prism5"),
+         "shampoo_fig5": ("shampoo", "fig5")}
+# synchronizing calls of one Muon step while K3 copied its alpha vector
+# from the host (PERF.md); no optimizer step may make more
+SYNCS_BOUND = 1
 
 # Muon update through the kernels vs through torch.matmul (fp32 matfn): the
 # two differ only in fp32 summation order, which three quintic iterations
@@ -182,7 +222,8 @@ def kernel_checks(torch):
     # beta = 1/2, where alpha I is as large as the diagonal it lands on and
     # the sign of beta shows.  B is not symmetric, so a transposed operand
     # shows.
-    gemm_shapes = [(40, 1024, 1024), (20, 4096, 1024),      # main path
+    gemm_shapes = [(40, 1024, 1024), (20, 4096, 1024),      # main paths
+                   (100, 1024, 1024),
                    (1, 55, 55), (2, 96, 64), (1, 1000, 300)]
     for shape in gemm_shapes:
         B, m, n = shape
@@ -214,11 +255,11 @@ def kernel_checks(torch):
                          f"symmetric")
                 if beta == -1.0:
                     err_g = err
-            if shape == (20, 4096, 1024) and dtype == "float32":
-                rows["matmul_add"] = dict(shape=[list(shape), [B, n, n]],
-                                          max_abs_err=err_mm)
-                rows["gram_upper"] = dict(shape=[list(shape)],
-                                          max_abs_err=err_g)
+            if B in (20, 40, 100) and dtype == "float32":
+                rows[("matmul_add", shape)] = dict(
+                    shape=[list(shape), [B, n, n]], max_abs_err=err_mm)
+                rows[("gram_upper", shape)] = dict(shape=[list(shape)],
+                                                   max_abs_err=err_g)
 
     # K3 on the bias bucket (3 warm iterations of alpha = u = 1.45)
     for shape in [(30, 64, 16), (5, 55, 23)]:
@@ -239,6 +280,7 @@ def kernel_checks(torch):
             if shape == (30, 64, 16) and dtype == "float32":
                 rows["warm_tail"] = dict(shape=[list(shape)],
                                          operands=(x,), max_abs_err=err)
+                rows[("warm_tail", shape)] = rows["warm_tail"]
     return rows
 
 
@@ -262,8 +304,8 @@ def fit_kernel_checks(torch, rows):
     gen.manual_seed(2)
     # K5 / K4 on the grid-tier residual bucket: R with eigenvalues +-0.95,
     # St ~ N(0, 1/p): traces of unit size (|t_i| up to ~p)
-    for shape, p in [((40, 1024, 1024), 8), ((3, 300, 300), 5),
-                     ((2, 37, 37), 12)]:
+    for shape, p in [((40, 1024, 1024), 8), ((100, 1024, 1024), 8),
+                     ((3, 300, 300), 5), ((2, 37, 37), 12)]:
         B, n, _ = shape
         r32 = spectrum_r(torch, B, n, gen)
         s32 = randn(torch, (p, n), gen, p ** -0.5)
@@ -281,6 +323,9 @@ def fit_kernel_checks(torch, rows):
                     rows["sketch_chain"] = dict(
                         shape=[list(shape), [n, p], maxp], max_abs_err=err,
                         operands=(r, st))
+                if shape[0] in (40, 100) and dtype == "float32":
+                    rows[("sketch_chain", shape + (maxp,))] = dict(
+                        shape=[list(shape), [n, p], maxp], max_abs_err=err)
             # K4: two powers, the second from the first's V'
             v = st.expand(B, n, p).contiguous()
             for pw in range(2):
@@ -297,6 +342,7 @@ def fit_kernel_checks(torch, rows):
                 rows["sketch_step"] = dict(
                     shape=[list(shape), [B, n, p]],
                     max_abs_err=max(err_v, err_t), operands=(r, st))
+                rows[("sketch_step", shape)] = rows["sketch_step"]
             # ops.sketch_traces with the budget forced down runs K4's loop
             t_k5 = ops.sketch_traces(r, s32.to(dt), 6)
             t_k4 = ops.sketch_traces(r, s32.to(dt), 6, budget=1024)
@@ -332,6 +378,8 @@ def fit_kernel_checks(torch, rows):
                     rows["residual_chain"] = dict(
                         shape=[list(shape), [n, p], maxp],
                         max_abs_err=max(err_r, err_t), operands=(x, st))
+                    rows[("residual_chain", shape + (maxp,))] = \
+                        rows["residual_chain"]
             xa, ra = x_ag.to(dt), r_ag.to(dt)
             for degree in (1, 2):
                 coeffs = ops._gd_coeffs(degree)
@@ -347,14 +395,177 @@ def fit_kernel_checks(torch, rows):
                     rows["apply_g"] = dict(shape=[list(shape), [B, n, n]],
                                            max_abs_err=err,
                                            operands=(xa, ra, alpha))
+                    rows[("apply_g", shape)] = rows["apply_g"]
     return rows
 
 
+def coupled_limit(dtype: str) -> int:
+    """The largest n whose coupled [n, n] slice the fused tier admits."""
+    from repro_torch.kernels import ops
+
+    n = 8
+    while ops.fused_fits((n + 1, n + 1), dtype, coupled=True):
+        n += 1
+    return n
+
+
+def nonsym(torch, shape, gen):
+    """Non-symmetric [B, n, n] with entries N(0, 0.5 / sqrt(n)): spectral
+    radius ~0.5, so I - X X, sym(I - Y X) and their powers stay of unit
+    size, while X X differs from X^T X and Y X from X Y by O(1)."""
+    return randn(torch, shape, gen, 0.5 * shape[-1] ** -0.5)
+
+
+def spd(torch, B, n, gen, lo=0.05):
+    """Symmetric positive definite [B, n, n], ||.||_F = 1, eigenvalues
+    spread over [lo, 1] before the scaling: what Shampoo's sqrtm feeds the
+    chain (X = A, Y = I)."""
+    q, _ = torch.linalg.qr(randn(torch, (B, n, n), gen))
+    lam = lo + (1 - lo) * torch.rand((B, 1, n), generator=gen, device="cuda")
+    a = (q * lam) @ q.transpose(-1, -2)
+    return a / torch.linalg.matrix_norm(a, keepdim=True)
+
+
+def family_checks(torch, rows):
+    """The sign and coupled sqrt families of K3, K6 and K7 against their
+    plain versions, fp32 and bf16, at the Shampoo bias shapes [30, 16, 16]
+    and [30, 64, 64] and at the largest coupled slice the fused tier admits
+    in each dtype.  Each kernel runs on non-symmetric, independent X and Y
+    (for which X^T X != X X and Y X != X Y: symmetric or commuting inputs
+    would pass a kernel with those mixed up); K3 runs one iteration there,
+    where the function stays of unit size, and three on Shampoo's own
+    inputs (X = A symmetric positive definite, Y = I; sign on a symmetric
+    X).  K7 runs with a non-symmetric R (0.95 times an orthogonal matrix)
+    and a different alpha in every slice.  A coupled slice one larger than
+    the limit must take the grid tier."""
+    from repro_torch.config import PrismConfig
+    from repro_torch.core import newton_schulz
+    from repro_torch.core.rng import Key
+    from repro_torch.kernels import fused_iter, ops
+    from repro_torch.core import matfn
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    coeffs = ops._gd_coeffs(2)
+    warm = (1.45, 1.45, 1.45)
+    for dtype in DTYPES:
+        dt = getattr(torch, dtype)
+        big = coupled_limit(dtype)
+        for shape in [(30, 16, 16), (30, 64, 64), (4, big, big)]:
+            B, n, _ = shape
+            main = B == 30 and dtype == "float32"
+            x, y = (nonsym(torch, shape, gen).to(dt) for _ in range(2))
+            a_spd = spd(torch, B, n, gen).to(dt)
+            eye = torch.eye(n, device="cuda", dtype=dt).expand(shape)
+            x_sym = (normalized(torch, shape, gen) +
+                     normalized(torch, shape, gen).transpose(-1, -2)) / 2
+            x_sym = x_sym.to(dt)
+            # K3: one iteration on independent inputs, three on Shampoo's
+            for what, fam, xx, yy, al in (
+                    ("nonsym", "sign", x, None, warm[:1]),
+                    ("nonsym", "sqrt", x, y, warm[:1]),
+                    ("sym", "sign", x_sym, None, warm),
+                    ("spd,I", "sqrt", a_spd, eye.contiguous(), warm)):
+                want = fused_iter.plain(xx, al, coeffs=coeffs, family=fam,
+                                        Y=yy)
+                poison(torch, shape, dt)
+                got = fused_iter.warm_tail(xx, al, coeffs=coeffs,
+                                           family=fam, Y=yy)
+                if fam == "sqrt":
+                    err = max(check(torch, f"warm_tail/{fam}",
+                                    (B, n, n, what, len(al)), dtype, g, w,
+                                    WARM_TOL[dtype])
+                              for g, w in zip(got, want))
+                else:
+                    err = check(torch, f"warm_tail/{fam}",
+                                (B, n, n, what, len(al)), dtype, got, want,
+                                WARM_TOL[dtype])
+                if main and what in ("sym", "spd,I"):
+                    rows[(f"warm_tail/{fam}", shape)] = dict(
+                        shape=[list(shape), len(al)], max_abs_err=err)
+            # K6 on the independent inputs, 6 and 10 powers
+            S = randn(torch, (8, n), gen, 8 ** -0.5).to(dt)
+            st = S.t().contiguous()
+            for fam, yy in (("sign", None), ("sqrt", y)):
+                for maxp in (6, 10):
+                    want_r, want_t = fused_iter.plain_residual_chain(
+                        x, S, maxp, family=fam, Y=yy)
+                    poison(torch, (B, n, n), dt)
+                    got_r, got_t = fused_iter.residual_chain(
+                        x, st, maxp, family=fam, Y=yy)
+                    name = f"residual_chain/{fam}"
+                    err_r = check(torch, name, shape, dtype, got_r, want_r,
+                                  FIT_TOL[dtype])
+                    err_t = check(torch, name, (B, n, n, maxp), dtype,
+                                  got_t.reshape(B, 1, maxp),
+                                  want_t.reshape(B, 1, maxp), FIT_TOL[dtype])
+                    if fam == "sqrt" and not torch.equal(
+                            got_r, got_r.transpose(-1, -2)):
+                        fail(f"{name} {shape} {dtype}: R not symmetric")
+                    if main and maxp == 10:
+                        rows[(name, shape)] = dict(
+                            shape=[list(shape), [n, 8], maxp],
+                            max_abs_err=max(err_r, err_t))
+            # K7 coupled: X, Y ~ N(0, 1), R = 0.95 Q (not symmetric)
+            q, _ = torch.linalg.qr(randn(torch, shape, gen))
+            r = (0.95 * q).to(dt).contiguous()
+            xa, ya = randn(torch, shape, gen).to(dt), \
+                randn(torch, shape, gen).to(dt)
+            for degree in (1, 2):
+                cf = ops._gd_coeffs(degree)
+                lo, hi = {1: (0.5, 1.0), 2: (0.375, 1.45)}[degree]
+                alpha = torch.linspace(lo, hi, B, device="cuda")
+                want = fused_iter.plain_apply_g(xa, r, alpha, coeffs=cf,
+                                                Y=ya)
+                poison(torch, shape, dt)
+                got = fused_iter.apply_g(xa, r, alpha, coeffs=cf, Y=ya)
+                err = max(check(torch, "apply_g/coupled",
+                                (B, n, n, f"d{degree}", side), dtype, g, w,
+                                FIT_TOL[dtype])
+                          for g, w, side in zip(got, want, ("X'", "Y'")))
+                if main and degree == 2:
+                    rows[("apply_g/coupled", shape)] = dict(
+                        shape=[list(shape), [B, n, n]], max_abs_err=err)
+        # one past the limit: the grid tier, never a fused launch
+        over = big + 1
+        cfg = PrismConfig(degree=2, iterations=2, warm_alpha_iters=1,
+                          sketch_dim=8, dtype=dtype, use_kernels=True)
+        if newton_schulz._fused_tier(cfg, (over, over), coupled=True) or \
+                not newton_schulz._fused_tier(cfg, (big, big), coupled=True):
+            fail(f"coupled fused-tier limit in {dtype} is not {big}")
+        try:
+            fused_iter.warm_tail(eye_like(torch, over, dt), (1.0,),
+                                 coeffs=coeffs, family="sqrt",
+                                 Y=eye_like(torch, over, dt))
+        except ValueError:
+            pass
+        else:
+            fail(f"warm_tail took a coupled [{over}, {over}] {dtype} slice")
+        ops.reset_launches()
+        matfn.sqrtm(spd(torch, 2, over, gen).to(dt), cfg=cfg, key=Key(1))
+        counts = ops.launch_counts()
+        if counts["warm_tail"] or counts["residual_chain"] or \
+                counts["apply_g"] or not counts["matmul_add"]:
+            fail(f"sqrtm on [2, {over}, {over}] {dtype}: launches {counts}")
+        log(f"  coupled fused-tier limit {dtype}: [{big}, {big}] "
+            f"({ops.fused_smem_bytes((big, big), dtype, coupled=True)} "
+            f"bytes); [{over}, {over}] needs "
+            f"{ops.fused_smem_bytes((over, over), dtype, coupled=True)} and "
+            f"took the grid tier: {counts}")
+    return rows
+
+
+def eye_like(torch, n, dt):
+    return torch.eye(n, device="cuda", dtype=dt).expand(1, n, n).contiguous()
+
+
 def fit_kernel_timings(torch, rows):
-    """ms / plain_ms / bound_ms of one launch of K4-K7 at their main-path
-    shapes, fp32.  No single PyTorch call computes any of them (a chain of
-    products with a trace epilogue; a residual with its chain; a Horner
-    chain with a per-slice alpha), so ``library_ms`` is null."""
+    """ms / plain_ms / bound_ms of one launch of K4-K7 (polar) at their
+    main-path shapes, fp32, and of K5 at the Shampoo factor bucket
+    [100, 1024, 1024] with 10 powers; keyed by (name, shape).  No single
+    PyTorch call computes any of them (a chain of products with a trace
+    epilogue; a residual with its chain; a Horner chain with a per-slice
+    alpha), so ``library_ms`` is null."""
     from repro_torch.kernels import fused_iter, ops, sketch_traces
 
     item = 4
@@ -363,7 +574,18 @@ def fit_kernel_timings(torch, rows):
     B, n, _ = r.shape
     p = st.shape[1]
     maxp = 6
-    out["sketch_chain"] = dict(
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    r100 = spectrum_r(torch, 100, n, gen)
+    out[("sketch_chain", (100, n, n, 10))] = dict(
+        ms=time_ms(torch, lambda: sketch_traces.sketch_chain(r100, st, 10)),
+        plain_ms=time_ms(torch, lambda: sketch_traces.plain_chain(
+            r100, st, 10)),
+        library_ms=None,
+        bound=bound_ms(2.0 * 100 * 10 * n * n * p,
+                       item * (100 * n * n + n * p + 100 * 10), "float32"))
+    del r100
+    out[("sketch_chain", (B, n, n, maxp))] = dict(
         ms=time_ms(torch, lambda: sketch_traces.sketch_chain(r, st, maxp)),
         plain_ms=time_ms(torch, lambda: sketch_traces.plain_chain(
             r, st, maxp)),
@@ -372,7 +594,7 @@ def fit_kernel_timings(torch, rows):
         bound=bound_ms(2.0 * B * maxp * n * n * p,
                        item * (B * n * n + n * p + B * maxp), "float32"))
     v = st.expand(B, n, p).contiguous()
-    out["sketch_step"] = dict(
+    out[("sketch_step", (B, n, n))] = dict(
         ms=time_ms(torch, lambda: sketch_traces.sketch_step(r, v, st)),
         plain_ms=time_ms(torch, lambda: sketch_traces.plain_step(r, v, st)),
         library_ms=None,
@@ -383,7 +605,7 @@ def fit_kernel_timings(torch, rows):
     S6 = st6.t().contiguous()
     B, m, n = x.shape
     p = st6.shape[1]
-    out["residual_chain"] = dict(
+    out[("residual_chain", (B, m, n, maxp))] = dict(
         ms=time_ms(torch, lambda: fused_iter.residual_chain(x, st6, maxp)),
         plain_ms=time_ms(torch, lambda: fused_iter.plain_residual_chain(
             x, S6, maxp)),
@@ -395,7 +617,7 @@ def fit_kernel_timings(torch, rows):
                        "float32"))
     xa, ra, alpha = rows["apply_g"]["operands"]
     coeffs = ops._gd_coeffs(1)
-    out["apply_g"] = dict(
+    out[("apply_g", (B, m, n))] = dict(
         ms=time_ms(torch, lambda: fused_iter.apply_g(xa, ra, alpha,
                                                      coeffs=coeffs)),
         plain_ms=time_ms(torch, lambda: fused_iter.plain_apply_g(
@@ -403,18 +625,93 @@ def fit_kernel_timings(torch, rows):
         library_ms=None,
         bound=bound_ms(B * (2.0 * m * n * n + 3.0 * m * n),
                        item * (2 * B * m * n + B * n * n + B), "float32"))
-    for name in ("sketch_chain", "sketch_step", "residual_chain", "apply_g"):
-        t = out[name]
-        log(f"  {name:14s} {str(rows[name]['shape']):30s} float32 kernel "
+    for (name, shape), t in out.items():
+        log(f"  {name:14s} {str(shape):22s} float32 kernel "
             f"{t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  library none"
             f"  bound {t['bound'][0]:.5f} ms ({t['bound'][1]})")
     return out
 
 
+def family_timings(torch):
+    """ms / plain_ms / bound_ms of one launch of the sign and coupled sqrt
+    families of K3, K6 and K7 at the Shampoo bias shapes, fp32, on the
+    inputs the main path gives them (X = A symmetric positive definite,
+    Y = I; 3 warm iterations of degree 2; 10 powers with p = 8).  No
+    single PyTorch call computes any of them: ``library_ms`` is null.
+    Keys: (name, shape)."""
+    from repro_torch.kernels import fused_iter, ops
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    item, d, maxp, p = 4, 2, 10, 8
+    coeffs = ops._gd_coeffs(d)
+    warm = (1.45,) * 3
+    out = {}
+    for shape in [(30, 16, 16), (30, 64, 64)]:
+        B, n, _ = shape
+        a = spd(torch, B, n, gen)
+        eye = torch.eye(n, device="cuda").expand(shape).contiguous()
+        S = randn(torch, (p, n), gen, p ** -0.5)
+        st = S.t().contiguous()
+        alpha = torch.full((B,), 1.2, device="cuda")
+        r = ops.residual_chain(a, S, maxp, family="sqrt", Y=eye)[0]
+        mat = B * n * n
+        horner = d * 2.0 * n ** 3 + (3 * d + 1) * n * n   # one side
+        cases = {
+            # residual 2 n^3 (+ sym), then one Horner a side, per iteration
+            "warm_tail/sqrt": (
+                lambda: fused_iter.warm_tail(a, warm, coeffs=coeffs,
+                                             family="sqrt", Y=eye),
+                lambda: fused_iter.plain(a, warm, coeffs=coeffs,
+                                         family="sqrt", Y=eye),
+                len(warm) * B * (2.0 * n ** 3 + 3 * n * n + 2 * horner),
+                item * 4 * mat),
+            "warm_tail/sign": (
+                lambda: fused_iter.warm_tail(a, warm, coeffs=coeffs,
+                                             family="sign"),
+                lambda: fused_iter.plain(a, warm, coeffs=coeffs,
+                                         family="sign"),
+                len(warm) * B * (2.0 * n ** 3 + n * n + horner),
+                item * 2 * mat),
+            # residual, then the chain's 2 n^2 p a power; X (Y), St read,
+            # R and the traces written
+            "residual_chain/sqrt": (
+                lambda: fused_iter.residual_chain(a, st, maxp, family="sqrt",
+                                                  Y=eye),
+                lambda: fused_iter.plain_residual_chain(
+                    a, S, maxp, family="sqrt", Y=eye),
+                B * (2.0 * n ** 3 + 3 * n * n + 2.0 * maxp * n * n * p),
+                item * (3 * mat + n * p + B * maxp)),
+            "residual_chain/sign": (
+                lambda: fused_iter.residual_chain(a, st, maxp,
+                                                  family="sign"),
+                lambda: fused_iter.plain_residual_chain(a, S, maxp,
+                                                        family="sign"),
+                B * (2.0 * n ** 3 + n * n + 2.0 * maxp * n * n * p),
+                item * (2 * mat + n * p + B * maxp)),
+            # one Horner a side; X, Y, R read, X', Y' written, alpha read
+            "apply_g/coupled": (
+                lambda: fused_iter.apply_g(a, r, alpha, coeffs=coeffs,
+                                           Y=eye),
+                lambda: fused_iter.plain_apply_g(a, r, alpha, coeffs=coeffs,
+                                                 Y=eye),
+                B * 2 * horner, item * (5 * mat + B)),
+        }
+        for name, (kern, plain, flops, nbytes) in cases.items():
+            t = dict(ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+                     library_ms=None,
+                     bound=bound_ms(flops, nbytes, "float32"))
+            out[(name, shape)] = t
+            log(f"  {name:20s} {str(shape):14s} float32 kernel "
+                f"{t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  library "
+                f"none  bound {t['bound'][0]:.6f} ms ({t['bound'][1]})")
+    return out
+
+
 def kernel_timings(torch, rows):
     """ms / plain_ms / library_ms / bound_ms of one launch of each kernel at
-    each main-path shape, fp32 (the main path's matfn dtype).  The JSON row
-    of a kernel carries its largest main-path shape."""
+    each main-path shape, fp32 (the main paths' matfn dtype), keyed by
+    (name, shape)."""
     from repro_torch.kernels import fused_iter, gram, matmul_add, ops
 
     coeffs = ops._gd_coeffs(2)
@@ -423,6 +720,7 @@ def kernel_timings(torch, rows):
     item = 4
     main_shapes = [("matmul_add", (40, 1024, 1024)),
                    ("matmul_add", (20, 4096, 1024)),
+                   ("matmul_add", (100, 1024, 1024)),
                    ("gram_upper", (40, 1024, 1024)),
                    ("gram_upper", (20, 4096, 1024)),
                    ("warm_tail", (30, 64, 16))]
@@ -474,8 +772,7 @@ def kernel_timings(torch, rows):
         log(f"  {name:10s} {str(shape):18s} float32 kernel {t['ms']:.4f} ms"
             f"  plain {t['plain_ms']:.4f} ms  library {lib} ms  bound "
             f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
-        if shape == tuple(rows[name]["shape"][0]):
-            out[name] = t
+        out[(name, shape)] = t
     return out
 
 
@@ -486,10 +783,11 @@ def _clone_state(opt):
              for p, st in opt.state.items()}, opt.count)
 
 
-def _muon_from(torch, model, cfg, state):
-    from repro_torch.optim import Muon
+def _opt_from(torch, model, cfg, state):
+    """The optimizer ``cfg.name`` names, with a copy of ``state``."""
+    from repro_torch.optim import make_optimizer
 
-    opt = Muon(model.named_parameters(), cfg, model.logical_axes())
+    opt = make_optimizer(cfg, model.named_parameters(), model.logical_axes())
     per_param, count = state
     for p, st in per_param.items():
         opt.state[p] = {k: v.clone() for k, v in st.items()}
@@ -519,10 +817,10 @@ def _restore(torch, model, run):
             p.grad = run["grads"][k].clone()
 
 
-def _muon_step(torch, model, cfg, run, key):
-    """One Muon update from the saved state, parameters and gradients;
+def _opt_step(torch, model, cfg, run, key):
+    """One optimizer update from the saved state, parameters and gradients;
     returns (milliseconds, parameter deltas)."""
-    o = _muon_from(torch, model, cfg, run["state"])
+    o = _opt_from(torch, model, cfg, run["state"])
     _restore(torch, model, run)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -533,17 +831,50 @@ def _muon_step(torch, model, cfg, run, key):
                 for k, p in model.named_parameters()}
 
 
-def _worst_gap(torch, got, want, what):
+def _worst_gap(torch, got, want, what, gate=True):
     worst = 0.0
     for k, dk in got.items():
         dp = want[k]
         scale = float(dp.abs().max())
         rel = float((dk - dp).abs().max()) / max(scale, 1e-30)
         worst = max(worst, rel)
-        if not rel <= UPDATE_REL_TOL:
-            fail(f"{what}: Muon update of {k} differs by {rel:.3e} of the "
+        if gate and not rel <= UPDATE_REL_TOL:
+            fail(f"{what}: the update of {k} differs by {rel:.3e} of the "
                  f"largest update entry (bound {UPDATE_REL_TOL})")
     return worst
+
+
+class AlphaTape:
+    """Records the fitted alphas of a run in call order (``replay=None``),
+    or hands a recorded run's alphas back in the same order: every fit
+    goes through ``prism.fit_alpha_from_traces`` (the fused tier's K6
+    traces and the grid tier's sketched chain alike), which is patched
+    for the duration of a ``with`` block."""
+
+    def __init__(self, replay=None):
+        self.alphas = []
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.core import prism
+
+        self._real = real = prism.fit_alpha_from_traces
+
+        def fit(*a, **k):
+            out = real(*a, **k)
+            if self.replay is not None:
+                alpha = self.replay[len(self.alphas)]
+                out = (alpha, out[1]) if isinstance(out, tuple) else alpha
+            self.alphas.append(out[0] if isinstance(out, tuple) else out)
+            return out
+
+        prism.fit_alpha_from_traces = fit
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import prism
+
+        prism.fit_alpha_from_traces = self._real
 
 
 def count_syncs(torch, fn):
@@ -564,22 +895,26 @@ def count_syncs(torch, fn):
             if "called a synchronizing CUDA operation" in str(w.message)]
 
 
-def train_path(torch, prism):
-    """The gpt2-paper Muon step at full width with PRISM configuration
-    ``prism``: STEPS steps through the launcher's ``build``, the launch,
-    loss and update gates, and the timings."""
+def train_path(torch, path):
+    """The gpt2-paper training step at full width on ``path`` (a key of
+    PATHS: the optimizer and its PRISM configuration): STEPS steps through
+    the launcher's ``build``, the launch, loss and update gates, and the
+    timings."""
     from repro_torch.core.rng import Key
     from repro_torch.kernels import ops
     from repro_torch.launch import train_lm
 
+    optimizer, prism = PATHS[path]
     model, opt, step, batch_fn, (seq, batch) = train_lm.build(
-        "full", "prism", "float32", device="cuda", seed=0, prism=prism)
+        "full", "prism", "float32", device="cuda", seed=0, prism=prism,
+        optimizer=optimizer, precondition_every=1)
     pc = opt.cfg.prism
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  model {model.cfg.name}: {n_params} params, seq {seq}, batch "
-        f"{batch}, Muon {prism} (degree {pc.degree}, "
+        f"{batch}, {optimizer} {prism} (degree {pc.degree}, "
         f"{pc.warm_alpha_iters} warm of {pc.iterations} iterations, sketch "
-        f"{pc.sketch_dim}), use_kernels=True, matfn_dtype float32")
+        f"{pc.sketch_dim}, lr {opt.cfg.learning_rate}), use_kernels=True, "
+        f"matfn_dtype float32")
     batches = [batch_fn(s) for s in range(STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -603,9 +938,9 @@ def train_path(torch, prism):
         f"{seq * batch / (step_ms / 1e3):.0f} tokens/s, "
         f"max_memory_allocated {peak_mem / 2**30:.2f} GiB")
     log(f"  launches over {STEPS} steps: {counts}")
-    per_step = PER_STEP[prism]
+    per_step = PER_STEP[path]
     _expect_launches(counts, {k: v * STEPS for k, v in per_step.items()},
-                     f"{prism} ({sum(per_step.values())} a step: "
+                     f"{path} ({sum(per_step.values())} a step: "
                      f"{per_step})")
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite loss: {losses}")
@@ -614,25 +949,48 @@ def train_path(torch, prism):
         fail(f"first loss {losses[0]:.4f} not within 1.5 of ln(V) "
              f"{ln_v:.4f}")
 
-    # one Muon update through the kernels vs through the plain versions,
-    # on the clipped gradients the last step left in .grad, with the key
-    # the next step would use
+    # one update through the kernels vs through the plain versions, on the
+    # clipped gradients the last step left in .grad, with the key the next
+    # step would use
     run = dict(model=model, opt=opt, key=Key(0).fold_in(STEPS),
                before={k: p.detach().clone()
                        for k, p in model.named_parameters()},
                grads={k: p.grad.clone()
                       for k, p in model.named_parameters()},
-               state=_clone_state(opt), counts=counts, step_ms=step_ms)
-    deltas, muon_ms = {}, {"kernels": [], "plain": []}
+               state=_clone_state(opt), counts=counts, step_ms=step_ms,
+               peak_gib=peak_mem / 2**30)
+    deltas, opt_ms, tapes = {}, {"kernels": [], "plain": []}, {}
     for tag in ("kernels", "plain", "plain", "kernels"):
         cfg = _with_prism(opt.cfg, use_kernels=tag == "kernels")
-        ms, d = _muon_step(torch, model, cfg, run, run["key"])
-        muon_ms[tag].append(ms)
+        with AlphaTape() as tape:
+            ms, d = _opt_step(torch, model, cfg, run, run["key"])
+        opt_ms[tag].append(ms)
         deltas.setdefault(tag, d)
+        tapes.setdefault(tag, tape.alphas)
+    pinned = path in PINNED_ALPHA
     worst = _worst_gap(torch, deltas["kernels"], deltas["plain"],
-                       f"{prism} kernels vs plain")
-    run.update(deltas=deltas, muon_ms=muon_ms)
-    # forward + backward alone (the rest of a step is clipping and Muon)
+                       f"{path} kernels vs plain", gate=not pinned)
+    if pinned:
+        # the same update through torch.matmul with the kernel run's
+        # fitted alphas: what the kernels compute, apart from the fit
+        dalpha = max((float((a - b).abs().max()) for a, b in
+                      zip(tapes["kernels"], tapes["plain"])), default=0.0)
+        with AlphaTape(replay=tapes["kernels"]) as tape:
+            _, d = _opt_step(torch, model,
+                             _with_prism(opt.cfg, use_kernels=False), run,
+                             run["key"])
+        if len(tape.alphas) != len(tapes["kernels"]):
+            fail(f"{path}: {len(tape.alphas)} fits through torch.matmul, "
+                 f"{len(tapes['kernels'])} through the kernels")
+        worst_pinned = _worst_gap(torch, deltas["kernels"], d,
+                                  f"{path} kernels vs plain, same alphas")
+        log(f"  {len(tape.alphas)} alpha fits a step; largest alpha gap "
+            f"kernels vs plain {dalpha:.3e}; update gap with the kernel "
+            f"run's alphas {worst_pinned:.3e} (bound {UPDATE_REL_TOL})")
+        run.update(dalpha=dalpha, worst_pinned=worst_pinned)
+    run.update(deltas=deltas, opt_ms=opt_ms, worst=worst)
+    # forward + backward alone (the rest of a step is clipping and the
+    # optimizer)
     fb = []
     for b in batches[1:]:
         for p in model.parameters():
@@ -644,18 +1002,24 @@ def train_path(torch, prism):
         fb.append((time.perf_counter() - t0) * 1e3)
     log(f"  forward+backward alone (median of {len(fb)}): "
         f"{statistics.median(fb):.1f} ms")
-    log(f"  Muon update, kernels vs plain versions: worst relative gap "
-        f"{worst:.3e} (bound {UPDATE_REL_TOL})")
-    log("  Muon step through the kernels "
-        + ", ".join(f"{t:.1f}" for t in muon_ms["kernels"])
+    gate = ("printed; the gate holds the same alphas" if pinned
+            else f"bound {UPDATE_REL_TOL}")
+    log(f"  {optimizer} update, kernels vs plain versions: worst relative "
+        f"gap {worst:.3e} ({gate})")
+    log(f"  {optimizer} step through the kernels "
+        + ", ".join(f"{t:.1f}" for t in opt_ms["kernels"])
         + " ms; through torch.matmul (use_kernels=False) "
-        + ", ".join(f"{t:.1f}" for t in muon_ms["plain"]) + " ms")
-    # the synchronizing calls of one Muon step through the kernels
-    o = _muon_from(torch, model, opt.cfg, run["state"])
+        + ", ".join(f"{t:.1f}" for t in opt_ms["plain"]) + " ms")
+    # the synchronizing calls of one optimizer step through the kernels
+    o = _opt_from(torch, model, opt.cfg, run["state"])
     _restore(torch, model, run)
     run["syncs"] = count_syncs(torch, lambda: o.step(key=run["key"]))
-    log(f"  synchronizing calls in one Muon step: {len(run['syncs'])} "
-        f"{sorted(set(run['syncs']))}")
+    log(f"  synchronizing calls in one {optimizer} step: "
+        f"{len(run['syncs'])} {sorted(set(run['syncs']))}")
+    if len(run["syncs"]) > SYNCS_BOUND:
+        fail(f"{path}: {len(run['syncs'])} synchronizing calls in one "
+             f"{optimizer} step, more than the {SYNCS_BOUND} of K3's former "
+             f"alpha copy")
     return run
 
 
@@ -673,7 +1037,7 @@ def fallback_path(torch, run):
         run["model"].cfg.d_model, pc.sketch_dim, 4) - 16
     cfg = _with_prism(run["opt"].cfg, vmem_budget=budget)
     ops.reset_launches()
-    ms, d = _muon_step(torch, run["model"], cfg, run, run["key"])
+    ms, d = _opt_step(torch, run["model"], cfg, run, run["key"])
     counts = ops.launch_counts()
     log(f"  Muon step with vmem_budget={budget}: {ms:.1f} ms, launches "
         f"{counts}")
@@ -687,13 +1051,15 @@ def fallback_path(torch, run):
     return counts
 
 
-def profile_muon(torch, run):
-    """A torch.profiler trace of one PRISM-3 Muon step through the kernels:
-    the device time of the port's kernels and of all other device work
-    (memory copies and PyTorch's own kernels), against the step's wall
-    time; and the alpha fit (the sketch draws and the closed-form fits,
-    marked with record_function here): its host time (a clock around each
-    call) and the device time of the kernels it launched."""
+def profile_step(torch, run, what, fit_buckets=()):
+    """A torch.profiler trace of one optimizer step through the kernels
+    (``what`` names it): the device time of each of the port's kernels and
+    of all other device work (memory copies and PyTorch's own kernels),
+    against the step's wall time; and the alpha fit (the sketch draws and
+    the closed-form fits, marked with record_function here): its host time
+    (a clock around each call) and the device time of the kernels it
+    launched.  ``fit_buckets``: (batch, fits a step) of each bucket whose
+    closed-form fit is then timed alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -715,10 +1081,10 @@ def profile_muon(torch, run):
     sketch.gaussian_sketch = newton_schulz.sk.gaussian_sketch = \
         marked(saved[1])
     try:
-        o = _muon_from(torch, run["model"], run["opt"].cfg, run["state"])
+        o = _opt_from(torch, run["model"], run["opt"].cfg, run["state"])
         _restore(torch, run["model"], run)
         o.step(key=run["key"])  # warm
-        o = _muon_from(torch, run["model"], run["opt"].cfg, run["state"])
+        o = _opt_from(torch, run["model"], run["opt"].cfg, run["state"])
         _restore(torch, run["model"], run)
         torch.cuda.synchronize()
         fit_host[0] = 0.0
@@ -732,8 +1098,8 @@ def profile_muon(torch, run):
         prism.fit_alpha_from_traces = saved[0]
         sketch.gaussian_sketch = newton_schulz.sk.gaussian_sketch = saved[1]
 
-    ours = tuple(f"{n}_kernel" for n in KERNEL_NAMES)
     kernel_us, other_us, fit_dev_us, fit_calls = 0.0, 0.0, 0.0, 0
+    per_kernel = dict.fromkeys(KERNEL_NAMES, 0.0)
     for e in prof.key_averages():
         if e.key == "alpha_fit":
             fit_dev_us = max(fit_dev_us, e.device_time_total)
@@ -743,34 +1109,41 @@ def profile_muon(torch, run):
         elif e.device_type == DeviceType.CUDA and not (
                 getattr(e, "is_user_annotation", False)
                 or e.key.startswith("Optimizer.")):
-            if any(n in e.key for n in ours):
+            name = next((n for n in KERNEL_NAMES
+                         if f"{n}_kernel" in e.key), None)
+            if name is not None:
                 kernel_us += e.self_device_time_total
+                per_kernel[name] += e.self_device_time_total / 1e3
             else:
                 other_us += e.self_device_time_total
     busy_ms = (kernel_us + other_us) / 1e3
     fit_ms = fit_host[0] * 1e3
-    log(f"  profiled Muon step: wall {wall_ms:.1f} ms; device busy "
+    log(f"  profiled {what} step: wall {wall_ms:.1f} ms; device busy "
         f"{busy_ms:.2f} ms (port kernels {kernel_us / 1e3:.2f} ms, other "
         f"device work {other_us / 1e3:.2f} ms); idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; port kernels: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in per_kernel.items() if v))
     log(f"  alpha fit ({fit_calls} marked calls): host {fit_ms:.2f} ms "
         f"({fit_ms / wall_ms:.3f} of the step's wall time), device "
         f"{fit_dev_us / 1e3:.3f} ms")
     # the fit alone, unprofiled: one closed-form fit from fp32 traces of
-    # each PRISM-3 bucket (two fitted iterations each per step)
+    # each bucket, times its fitted iterations a step
     from repro_torch.core import polynomials as poly
 
     pc = run["opt"].cfg.prism
     apoly = poly.newton_schulz_residual(pc.degree)
     lo, hi = pc.bounds
     per_fit = []
-    for B in (40, 20, 30):
+    for B, _ in fit_buckets:
         t = torch.rand((B, poly.max_trace_power(apoly) + 1), device="cuda")
         per_fit.append(time_ms(torch, lambda: prism.fit_alpha_from_traces(
             t, apoly, lo, hi)))
-    log(f"  one closed-form fit alone (B = 40, 20, 30): "
-        + ", ".join(f"{v:.3f}" for v in per_fit) + f" ms; two a bucket: "
-        f"{2 * sum(per_fit):.2f} ms a step")
+    if fit_buckets:
+        log(f"  one closed-form fit alone (B = "
+            + ", ".join(str(B) for B, _ in fit_buckets) + "): "
+            + ", ".join(f"{v:.3f}" for v in per_fit) + " ms; "
+            + f"{sum(v * k for v, (_, k) in zip(per_fit, fit_buckets)):.2f}"
+            + " ms a step")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms)
 
 
@@ -821,6 +1194,96 @@ def adaptive_runs(torch):
         _expect_launches(counts, want, f"adaptive {tier}")
 
 
+def shampoo_extras(torch, run):
+    """On the fitted Shampoo path: a Shampoo with precondition_every=2 takes
+    two steps from the saved state (count 0: it refreshes; count 1: it
+    serves the cached inverse roots and must launch nothing); and one
+    Shampoo step with matfn_method="eigh" (torch.linalg.eigh, the paper's
+    baseline) is timed beside the one through the kernels."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+
+    model = run["model"]
+    cfg2 = dataclasses.replace(run["opt"].cfg, precondition_every=2)
+    o = _opt_from(torch, model, cfg2, (run["state"][0], 0))
+    _restore(torch, model, run)
+    ops.reset_launches()
+    o.step(key=run["key"])
+    torch.cuda.synchronize()
+    first = ops.launch_counts()
+    ops.reset_launches()
+    _restore(torch, model, run)
+    o.step(key=run["key"].fold_in(1))
+    torch.cuda.synchronize()
+    second = ops.launch_counts()
+    log(f"  precondition_every=2: step 0 launches {first}; step 1 launches "
+        f"{second}")
+    _expect_launches(first, PER_STEP["shampoo_fig5"],
+                     "precondition_every=2, step 0")
+    _expect_launches(second, {}, "precondition_every=2, step 1")
+    cfg_e = dataclasses.replace(run["opt"].cfg, matfn_method="eigh")
+    eigh_ms = [_opt_step(torch, model, cfg_e, run, run["key"])[0]
+               for _ in range(3)]
+    log("  Shampoo step with matfn_method='eigh' (torch.linalg.eigh): "
+        + ", ".join(f"{t:.1f}" for t in eigh_ms) + " ms; through the "
+        "kernels (fitted PRISM) "
+        + ", ".join(f"{t:.1f}" for t in run["opt_ms"]["kernels"]) + " ms")
+    return dict(eigh_ms=eigh_ms)
+
+
+def adaptive_sqrtm_runs(torch):
+    """matfn.sqrtm with a tol and a budget of 5 fitted iterations after one
+    warm iteration on a grid-tier bucket and a fused-tier one, symmetric
+    positive definite inputs of condition 1 to 1e3: prints each slice's
+    iterations and status, and holds the launches to the iterations that
+    ran (a fitted grid iteration: 1 matmul_add for Y X, one sketch_chain,
+    2d matmul_add for the two Horner sides; a fitted fused one:
+    residual_chain + apply_g; the warm iteration: 1 + 2d matmul_add, or one
+    warm_tail)."""
+    from repro_torch.config import PrismConfig
+    from repro_torch.core import matfn, prism
+    from repro_torch.core.rng import Key
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    d, warm, budget = 2, 1, 5
+    for shape, tier in (((20, 1024, 1024), "grid"), ((30, 64, 64),
+                                                      "fused")):
+        B, n, _ = shape
+        q, _ = torch.linalg.qr(randn(torch, shape, gen))
+        cond = torch.linspace(0.0, 3.0, B, device="cuda")[:, None, None]
+        lam = 10.0 ** (-cond * torch.linspace(0.0, 1.0, n, device="cuda"))
+        a = (q * lam) @ q.transpose(-1, -2)
+        tol = 0.05 * n ** 0.5
+        cfg = PrismConfig(degree=d, iterations=warm + budget,
+                          warm_alpha_iters=warm, sketch_dim=8, tol=tol,
+                          use_kernels=True)
+        ops.reset_launches()
+        (x, y), used, status = matfn.sqrtm(a, cfg=cfg, key=Key(5),
+                                           return_iters=True,
+                                           return_status=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if not (bool(torch.isfinite(x).all()) and
+                bool(torch.isfinite(y).all())):
+            fail(f"adaptive sqrtm {tier}: non-finite result")
+        used_l, status_l = used.tolist(), status.tolist()
+        fitted = budget
+        if prism.STATUS_MAXITER not in status_l:
+            fitted = min(budget, max(used_l) - warm + 1)
+        if tier == "grid":
+            want = dict(matmul_add=(1 + 2 * d) * (warm + fitted),
+                        sketch_chain=fitted)
+        else:
+            want = dict(warm_tail=1, residual_chain=fitted, apply_g=fitted)
+        log(f"  adaptive sqrtm {tier} {shape} tol {tol:.3g}: iters_used "
+            f"{used_l}; status {status_l}; {fitted} fitted iterations ran; "
+            f"launches {counts}")
+        _expect_launches(counts, want, f"adaptive sqrtm {tier}")
+
+
 # --------------------------------------------------------------- main
 
 def main() -> None:
@@ -859,55 +1322,131 @@ def main() -> None:
     log("phase 3: kernels against their plain versions")
     rows = kernel_checks(torch)
     rows = fit_kernel_checks(torch, rows)
+    rows = family_checks(torch, rows)
     timings = kernel_timings(torch, rows)
     timings.update(fit_kernel_timings(torch, rows))
+    timings.update(family_timings(torch))
 
-    log("phase 4: PRISM-5 path, gpt2-paper training step at full width")
-    run5 = train_path(torch, "prism5")
-    for k in ("model", "opt", "state", "before", "grads", "deltas"):
-        del run5[k]
-    torch.cuda.empty_cache()
+    runs = {}
+    log("phase 4: PRISM-5 path, gpt2-paper Muon step at full width")
+    runs["prism5"] = train_path(torch, "prism5")
+    _drop(torch, runs["prism5"])
 
     log("phase 5: PRISM-3 path (fitted iterations) at full width")
-    run3 = train_path(torch, "prism3")
+    run3 = runs["prism3"] = train_path(torch, "prism3")
     fallback = fallback_path(torch, run3)
-    if len(run3["syncs"]) > len(run5["syncs"]):
+    if len(run3["syncs"]) > len(runs["prism5"]["syncs"]):
         fail(f"the fitted iterations add synchronizing calls: PRISM-3 "
-             f"{run3['syncs']} vs PRISM-5 {run5['syncs']}")
-    log(f"  synchronizing calls a Muon step: PRISM-5 {len(run5['syncs'])}, "
-        f"PRISM-3 {len(run3['syncs'])} (the fit adds none)")
-    profile_muon(torch, run3)
+             f"{run3['syncs']} vs PRISM-5 {runs['prism5']['syncs']}")
+    profile_step(torch, run3, "PRISM-3 Muon", ((40, 2), (20, 2), (30, 2)))
     log("  adaptive runs (tol, budget 5)")
     adaptive_runs(torch)
+    _drop(torch, run3)
 
-    replaces = {"matmul_add": "src/repro/kernels/matmul_add.py:55",
-                "gram_upper": "src/repro/kernels/gram.py:81",
-                "warm_tail": "src/repro/kernels/fused_iter.py:301",
-                "sketch_step": "src/repro/kernels/sketch_traces.py:64",
-                "sketch_chain": "src/repro/kernels/sketch_traces.py:163",
-                "residual_chain": "src/repro/kernels/fused_iter.py:138",
-                "apply_g": "src/repro/kernels/fused_iter.py:209"}
-    by_path = {"prism5": run5["counts"], "prism3": run3["counts"],
-               "fallback": fallback}
-    kernels = []
-    for name in KERNEL_NAMES:
-        t = timings[name]
-        path = "fallback" if name == "sketch_step" else "prism3"
-        kernels.append({
-            "name": name, "status": "ported", "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name], "path": path,
-            "launches": by_path[path][name],
-            "launches_by_path": {k: v[name] for k, v in by_path.items()},
-            "max_abs_err": rows[name]["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            "shape": rows[name]["shape"], "dtype": "float32"})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    log("phase 6: Shampoo PRISM-5 path, gpt2-paper step at full width")
+    runs["shampoo_prism5"] = train_path(torch, "shampoo_prism5")
+    profile_step(torch, runs["shampoo_prism5"], "Shampoo PRISM-5")
+    _drop(torch, runs["shampoo_prism5"])
+
+    log("phase 7: Shampoo fitted path (Fig. 5 PRISM) at full width")
+    runf = runs["shampoo_fig5"] = train_path(torch, "shampoo_fig5")
+    shampoo_extras(torch, runf)
+    profile_step(torch, runf, "fitted Shampoo", ((30, 5), (30, 5), (100, 5)))
+    if len(runf["syncs"]) > len(runs["shampoo_prism5"]["syncs"]):
+        fail(f"the fitted iterations add synchronizing calls: fitted "
+             f"{runf['syncs']} vs warm {runs['shampoo_prism5']['syncs']}")
+    log("  synchronizing calls an optimizer step: "
+        + ", ".join(f"{k} {len(r['syncs'])}" for k, r in runs.items())
+        + f" (bound {SYNCS_BOUND}, K3's former alpha copy)")
+    log("  adaptive sqrtm runs (tol, budget 5)")
+    adaptive_sqrtm_runs(torch)
+    _drop(torch, runf)
+
+    by_path = {k: r["counts"] for k, r in runs.items()}
+    by_path["fallback"] = fallback
+    print(json.dumps({"kernels": kernel_rows(rows, timings, by_path)}),
+          flush=True)
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _drop(torch, run):
+    """Free a path's model, optimizer and saved tensors; keep its counts."""
+    for k in ("model", "opt", "state", "before", "grads", "deltas"):
+        run.pop(k, None)
+    torch.cuda.empty_cache()
+
+
+# The kernels line: for each kernel, the measurements of each family and
+# main-path shape it was timed at, as (family, row/timing key, path); the
+# first entry, the one this slice's path runs where it runs one, gives the
+# kernel's top-level numbers.  Sign runs on no training path (signm only).
+VARIANTS = {
+    "matmul_add": [
+        ("-", ("matmul_add", (100, 1024, 1024)), "shampoo_prism5"),
+        ("-", ("matmul_add", (20, 4096, 1024)), "prism5"),
+        ("-", ("matmul_add", (40, 1024, 1024)), "prism5")],
+    "gram_upper": [
+        ("polar", ("gram_upper", (20, 4096, 1024)), "prism3"),
+        ("polar", ("gram_upper", (40, 1024, 1024)), "prism3")],
+    "warm_tail": [
+        ("sqrt", ("warm_tail/sqrt", (30, 64, 64)), "shampoo_prism5"),
+        ("sqrt", ("warm_tail/sqrt", (30, 16, 16)), "shampoo_prism5"),
+        ("sign", ("warm_tail/sign", (30, 64, 64)), None),
+        ("polar", ("warm_tail", (30, 64, 16)), "prism5")],
+    "sketch_step": [
+        ("-", ("sketch_step", (40, 1024, 1024)), "fallback")],
+    "sketch_chain": [
+        ("-", ("sketch_chain", (100, 1024, 1024, 10)), "shampoo_fig5"),
+        ("-", ("sketch_chain", (40, 1024, 1024, 6)), "prism3")],
+    "residual_chain": [
+        ("sqrt", ("residual_chain/sqrt", (30, 64, 64)), "shampoo_fig5"),
+        ("sqrt", ("residual_chain/sqrt", (30, 16, 16)), "shampoo_fig5"),
+        ("sign", ("residual_chain/sign", (30, 64, 64)), None),
+        ("polar", ("residual_chain", (30, 64, 16, 6)), "prism3")],
+    "apply_g": [
+        ("coupled", ("apply_g/coupled", (30, 64, 64)), "shampoo_fig5"),
+        ("coupled", ("apply_g/coupled", (30, 16, 16)), "shampoo_fig5"),
+        ("polar", ("apply_g", (30, 64, 16)), "prism3")],
+}
+REPLACES = {"matmul_add": "src/repro/kernels/matmul_add.py:55",
+            "gram_upper": "src/repro/kernels/gram.py:81",
+            "warm_tail": "src/repro/kernels/fused_iter.py:301",
+            "sketch_step": "src/repro/kernels/sketch_traces.py:64",
+            "sketch_chain": "src/repro/kernels/sketch_traces.py:163",
+            "residual_chain": "src/repro/kernels/fused_iter.py:138",
+            "apply_g": "src/repro/kernels/fused_iter.py:209"}
+
+
+def kernel_rows(rows, timings, by_path):
+    """The entries of the kernels line (see VARIANTS)."""
+    out = []
+    for name in KERNEL_NAMES:
+        variants = []
+        for family, key, path in VARIANTS[name]:
+            t = timings[key]
+            variants.append({
+                "family": family, "shape": rows[key]["shape"],
+                "path": path,
+                "launches": by_path[path][name] if path else 0,
+                "max_abs_err": rows[key]["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+                "dtype": "float32"})
+        top = variants[0]
+        out.append({
+            "name": name, "status": "ported", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": REPLACES[name],
+            "families": sorted({v["family"] for v in variants}),
+            "launches_by_path": {k: v[name] for k, v in by_path.items()},
+            **{k: top[k] for k in ("path", "launches", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "shape", "dtype")},
+            "variants": variants})
+    return out
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Carry parameters across between the reference package and the port.
+"""Carry parameters and optimizer state across between the reference
+package and the port.
 
 The reference keeps parameters as a nested dict of arrays (``Model.init``);
 the port as a flat name -> tensor dict with dotted names
@@ -13,8 +14,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, torch_dtype
 from repro_torch.models.transformer import param_specs
+
+#: the per-parameter state keys of the reference's Shampoo that the port
+#: carries (optim/shampoo.py): momentum, the EMA Kronecker factors, their
+#: cached inverse roots, the diagonal fallback and Adam's second moment
+SHAMPOO_STATE_KEYS = ("mom", "L", "R", "Linv", "Rinv", "diagL", "diagR",
+                      "nu")
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -59,3 +66,29 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         node[leaf] = t.detach().float().cpu().numpy()
     return tree
+
+
+def shampoo_state_from_jax(opt, named_params, state: Dict[str, Any]) -> None:
+    """Install the reference's Shampoo state into the port's ``Shampoo``
+    ``opt`` (built over ``named_params``): ``state`` is what
+    ``make_shampoo(...).init``/``update`` return, {"leaves": a tree of
+    per-parameter dicts shaped like the parameters, "count": int}, arrays
+    as numpy (bf16 allowed).  The cached inverse roots take the port's
+    ``cache_dtype``, everything else fp32; a key the port does not carry
+    (the async and telemetry twins) raises."""
+    cache = torch_dtype(opt.cfg.cache_dtype)
+    leaves = state["leaves"]
+    for name, p in named_params:
+        node = leaves
+        for part in name.split("."):
+            node = node[part]
+        unknown = sorted(set(node) - set(SHAMPOO_STATE_KEYS))
+        if unknown:
+            raise KeyError(f"{name}: state keys {unknown} are not carried "
+                           f"by the port's Shampoo")
+        opt.state[p] = {
+            k: torch.from_numpy(np.asarray(v, dtype=np.float32).copy()).to(
+                device=p.device,
+                dtype=cache if k in ("Linv", "Rinv") else torch.float32)
+            for k, v in node.items()}
+    opt.count = int(np.asarray(state["count"]))

@@ -1,7 +1,10 @@
-"""Newton-Schulz polar iteration, classical and PRISM (counterpart of
-``repro/core/newton_schulz.py``, polar family).
+"""Newton-Schulz iterations, classical and PRISM (counterpart of
+``repro/core/newton_schulz.py``):
 
-    X_{k+1} = X_k g_d(R_k; a),  R_k = I - X_k^T X_k          (Thm 4)
+  * matrix sign              X_{k+1} = X_k g_d(R_k; a),  R_k = I - X_k^2
+  * square / inverse sqrt    coupled (X, Y), R_k = sym(I - Y_k X_k),
+                             X <- X g_d(R; a), Y <- g_d(R; a) Y    (Thm 3)
+  * polar factor U V^T       R_k = I - X_k^T X_k                   (Thm 4)
 
 for d=1 (3rd order) and d=2 (5th order).  ``alpha`` per iteration is the
 classical Taylor coefficient, the fixed warm value u (paper Sec. C), or
@@ -22,7 +25,10 @@ back to the host.
 The two tiers keep their own rounding orders: the grid tier rounds the
 accumulator to the compute dtype after every GEMM and starts from
 (alpha X) rounded; the fused tier keeps the f_j X epilogues in fp32 and
-rounds only each GEMM's operand.
+rounds only each GEMM's operand.  The coupled residual differs the same
+way: the grid tier rounds Y X, subtracts it from I and symmetrizes in the
+compute dtype; the fused tier does all three on the fp32 accumulator and
+rounds once.
 
 Adaptive early stopping (DESIGN.md §11): with ``cfg.tol`` set, each
 maximal run of fitted iterations becomes one certify-then-freeze loop
@@ -30,9 +36,6 @@ maximal run of fitted iterations becomes one certify-then-freeze loop
 off the trace chain the fit already computes; ``iterations`` is then a
 budget, and ``return_iters`` / ``return_status`` surface the per-matrix
 counts and guardian codes.
-
-The sign and coupled sqrt families come with Shampoo (ROADMAP.md Queue 1
-item 6).
 """
 from __future__ import annotations
 
@@ -96,10 +99,27 @@ def _gram_residual(X: torch.Tensor, use_kernels: bool) -> torch.Tensor:
     return kref.gram(X, alpha=1.0, beta=-1.0)
 
 
+def _coupled_residual(X, Y, use_kernels: bool) -> torch.Tensor:
+    """R = sym(I - Y X) on the grid tier (Thm 3 coupling: X <- X h(YX),
+    Y <- h(YX) Y, Higham's stable form).  Y X rounds to the compute dtype
+    (K1 when enabled), then I - (.) and the re-symmetrization run in the
+    compute dtype, as in the reference."""
+    eye = torch.eye(X.shape[-1], dtype=X.dtype, device=X.device)
+    R = eye - _mm(Y, X, use_kernels)
+    return 0.5 * (R + R.transpose(-1, -2))
+
+
+def _sign_residual(X, use_kernels: bool) -> torch.Tensor:
+    """R = I - X X on the grid tier: X X rounds (K1 when enabled), the
+    subtraction runs in the compute dtype."""
+    eye = torch.eye(X.shape[-1], dtype=X.dtype, device=X.device)
+    return eye - _mm(X, X, use_kernels)
+
+
 def apply_g(X: torch.Tensor, R: torch.Tensor, alpha, d: int,
-            use_kernels: bool = False) -> torch.Tensor:
-    """X @ g_d(R; alpha) (the left-side application of the coupled sqrt
-    family comes with Shampoo, ROADMAP.md Queue 1 item 6).
+            side: str = "right", use_kernels: bool = False) -> torch.Tensor:
+    """X @ g_d(R; alpha) (``side="right"``) or g_d(R; alpha) @ X
+    (``"left"``).
 
     g_d(x; a) = f_{d-1}(x) + a x^d with f the Taylor series of
     (1-x)^{-1/2}, evaluated as a chain of d GEMMs (Horner on R), never
@@ -114,7 +134,10 @@ def apply_g(X: torch.Tensor, R: torch.Tensor, alpha, d: int,
             alpha = alpha[..., None, None]
     acc = (alpha * X.float()).to(X.dtype)
     for j in range(d - 1, -1, -1):
-        acc = _mm(acc, R, use_kernels, C=X, beta=float(f[j]))
+        if side == "right":
+            acc = _mm(acc, R, use_kernels, C=X, beta=float(f[j]))
+        else:
+            acc = _mm(R, acc, use_kernels, C=X, beta=float(f[j]))
     return acc
 
 
@@ -172,32 +195,35 @@ def _phase_plan(iters: int, cfg: PrismConfig,
     return phases
 
 
-def _fused_tier(cfg: PrismConfig, mshape, return_info: bool = False
-                ) -> bool:
+def _fused_tier(cfg: PrismConfig, mshape, return_info: bool = False,
+                coupled: bool = False) -> bool:
     """Fused-tier choice: kernels on, not a diagnostics run (``return_info``
     needs per-iteration residuals the fused launches never materialize),
-    and the slice fits one block's shared memory in every fused kernel.
-    ``fuse="on"`` on a shape that does not fit raises: an over-budget
-    kernel is never launched."""
+    and the slice (with the coupled family's Y when ``coupled``) fits one
+    block's shared memory in every fused kernel.  ``fuse="on"`` on a shape
+    that does not fit raises: an over-budget kernel is never launched."""
     if not cfg.use_kernels or return_info or cfg.fuse == "off":
         return False
     from repro_torch.kernels import ops as kops
 
     fits = kops.fused_fits(mshape, cfg.dtype, budget=cfg.vmem_budget,
-                           sketch_dim=cfg.sketch_dim)
+                           sketch_dim=cfg.sketch_dim, coupled=coupled)
     if cfg.fuse == "on" and not fits:
         need = kops.fused_smem_bytes(mshape, cfg.dtype,
-                                     sketch_dim=cfg.sketch_dim)
+                                     sketch_dim=cfg.sketch_dim,
+                                     coupled=coupled)
         raise ValueError(
             f"PrismConfig.fuse='on' but an {tuple(mshape)} {cfg.dtype} "
-            f"slice needs {need} bytes of shared memory, over the budget "
-            f"of {kops.smem_budget(cfg.vmem_budget)}")
+            f"slice{' pair' if coupled else ''} needs {need} bytes of "
+            f"shared memory, over the budget of "
+            f"{kops.smem_budget(cfg.vmem_budget)}")
     return fits
 
 
-def _fused_fit(X, cfg: PrismConfig, k: int, key, n_real):
+def _fused_fit(X, cfg: PrismConfig, k: int, key, n_real, family: str,
+               Y=None):
     """(R, alpha, est_r) of fitted iteration k on the fused tier: the
-    residual and its sketched chain in one launch (K6), then the
+    family residual and its sketched chain in one launch (K6), then the
     closed-form fit as torch ops on the device."""
     from repro_torch.kernels import ops as kops
 
@@ -205,28 +231,42 @@ def _fused_fit(X, cfg: PrismConfig, k: int, key, n_real):
     lo, hi = cfg.bounds
     S = sk.gaussian_sketch(prism.alpha_schedule_key(key, k), cfg.sketch_dim,
                            X.shape[-1], dtype=X.dtype, device=X.device)
-    R, t = kops.residual_chain(X, S, poly.max_trace_power(apoly))
+    R, t = kops.residual_chain(X, S, poly.max_trace_power(apoly),
+                               family=family, Y=Y)
     a, est = prism.fit_alpha_from_traces(t, apoly, lo, hi, S=S,
                                          n_real=n_real, return_est_r=True)
     return R, a, est
 
 
-def _fused_fit_step(X, cfg: PrismConfig, k: int, key, n_real):
+def _fused_fit_step(X, cfg: PrismConfig, k: int, key, n_real, family: str,
+                    Y=None):
     """One fitted iteration in TWO launches: K6 with the fit, then the
-    Horner application with the fitted alpha (K7)."""
+    Horner application with the fitted alpha (K7; X' or, coupled,
+    (X', Y'))."""
     from repro_torch.kernels import ops as kops
 
-    R, a, _ = _fused_fit(X, cfg, k, key, n_real)
-    return kops.apply_g(X, R, a, degree=cfg.degree)
+    R, a, _ = _fused_fit(X, cfg, k, key, n_real, family, Y)
+    return kops.apply_g(X, R, a, degree=cfg.degree, Y=Y)
 
 
-def _adaptive_fit_run(X, cfg: PrismConfig, k0: int, count: int, key,
-                      n_real, fused: bool):
+def _grid_update(X, Y, R, a, cfg: PrismConfig):
+    """One §7-tier update from R: X g_d(R; a) and, coupled, g_d(R; a) Y
+    (d K1 launches a side)."""
+    X = apply_g(X, R, a, cfg.degree, "right", cfg.use_kernels)
+    if Y is not None:
+        Y = apply_g(Y, R, a, cfg.degree, "left", cfg.use_kernels)
+    return X, Y
+
+
+def _adaptive_fit_run(X, Y, cfg: PrismConfig, k0: int, count: int, key,
+                      n_real, family: str, residual_fn, fused: bool):
     """A maximal run of fitted iterations as one certify-then-freeze loop
     (DESIGN.md §11, ``prism.adaptive_masked_loop``).  Each loop step is
     the body of one fitted iteration — 2 launches on the fused tier, 2+d
-    on the §7 tier — issued once per runtime iteration.  Returns
-    (X, used, status)."""
+    on the §7 tier (1 + 1 + 2d for the coupled family) — issued once per
+    runtime iteration; the coupled iterates freeze together.  Returns
+    (X, Y, used, status)."""
+    coupled = Y is not None
     apoly = poly.newton_schulz_residual(cfg.degree)
     lo, hi = cfg.bounds
     use_fused_fit = fused and key is not None and cfg.sketch_dim > 0
@@ -235,10 +275,10 @@ def _adaptive_fit_run(X, cfg: PrismConfig, k0: int, count: int, key,
 
     def fit(it, k):
         """(R, alpha, est_r) for iteration k."""
-        X_ = it["X"]
+        X_, Y_ = it["X"], it.get("Y")
         if use_fused_fit:
-            return _fused_fit(X_, cfg, k, key, n_real)
-        R = _gram_residual(X_, cfg.use_kernels)
+            return _fused_fit(X_, cfg, k, key, n_real, family, Y_)
+        R = residual_fn(X_, Y_)
         kk = prism.alpha_schedule_key(key, k) if key is not None else None
         a, est = prism.fit_alpha(R, apoly, lo, hi, key=kk,
                                  sketch_dim=cfg.sketch_dim,
@@ -248,27 +288,37 @@ def _adaptive_fit_run(X, cfg: PrismConfig, k0: int, count: int, key,
         return R, a, est
 
     def step(it, R, a):
+        X_, Y_ = it["X"], it.get("Y")
         if fused:
-            return {"X": kops.apply_g(it["X"], R, a, degree=cfg.degree)}
-        return {"X": apply_g(it["X"], R, a, cfg.degree, cfg.use_kernels)}
+            out = kops.apply_g(X_, R, a, degree=cfg.degree, Y=Y_)
+            Xn, Yn = out if coupled else (out, None)
+        else:
+            Xn, Yn = _grid_update(X_, Y_, R, a, cfg)
+        return {"X": Xn, "Y": Yn} if coupled else {"X": Xn}
 
+    iterates = {"X": X, "Y": Y} if coupled else {"X": X}
     out, used, status = prism.adaptive_masked_loop(
-        {"X": X}, fit, step, cfg.tol, k0, count, tuple(X.shape[:-2]),
+        iterates, fit, step, cfg.tol, k0, count, tuple(X.shape[:-2]),
         divergence_factor=cfg.divergence_factor)
-    return out["X"], used, status
+    return out["X"], out.get("Y", Y), used, status
 
 
 def _run_phases(X, cfg: PrismConfig, method: str, iters: int, key,
-                return_info: bool, n_real=None):
-    """Warm/fit phase driver of the polar family (§10/§11).
+                return_info: bool, family: str, residual_fn, Y=None,
+                n_real=None):
+    """Warm/fit phase driver shared by the three families (§10/§11).
 
-    Returns (X, alphas, fros, iters_used, status): the info lists are
-    filled only under ``return_info`` (which turns off the fused tier and
-    the adaptive loop); ``iters_used`` is the per-matrix count of applied
-    updates and ``status`` the per-matrix int8 guardian code, the
-    severity maximum over the adaptive fit runs (zeros on static chains).
+    ``residual_fn(X, Y)`` is the family residual on the §7 tier; ``Y`` is
+    set only for the coupled sqrt family, whose two iterates update
+    together in every phase.  Returns (X, Y, alphas, fros, iters_used,
+    status): the info lists are filled only under ``return_info`` (which
+    turns off the fused tier and the adaptive loop); ``iters_used`` is the
+    per-matrix count of applied updates and ``status`` the per-matrix
+    int8 guardian code, the severity maximum over the adaptive fit runs
+    (zeros on static chains).
     """
-    fused = _fused_tier(cfg, X.shape[-2:], return_info)
+    coupled = Y is not None
+    fused = _fused_tier(cfg, X.shape[-2:], return_info, coupled=coupled)
     if fused:
         from repro_torch.kernels import ops as kops
     alphas, fros = [], []
@@ -277,16 +327,19 @@ def _run_phases(X, cfg: PrismConfig, method: str, iters: int, key,
     status = torch.zeros(lead, dtype=torch.int8, device=X.device)
     adaptive = cfg.tol is not None and not return_info
 
+    def unpack(out):
+        return out if coupled else (out, Y)
+
     for kind, payload in _phase_plan(iters, cfg, method):
         if kind == "warm":
             iters_used = iters_used + len(payload)
             if fused:
-                X = kops.warm_tail(X, payload, degree=cfg.degree,
-                                   family="polar")
+                X, Y = unpack(kops.warm_tail(X, payload, degree=cfg.degree,
+                                             family=family, Y=Y))
                 continue
             for a in payload:
-                R = _gram_residual(X, cfg.use_kernels)
-                X = apply_g(X, R, a, cfg.degree, cfg.use_kernels)
+                R = residual_fn(X, Y)
+                X, Y = _grid_update(X, Y, R, a, cfg)
                 if return_info:
                     alphas.append(torch.full(lead, a, dtype=torch.float32,
                                              device=X.device))
@@ -294,26 +347,28 @@ def _run_phases(X, cfg: PrismConfig, method: str, iters: int, key,
             continue
         k0, count = payload
         if adaptive:
-            X, used, st = _adaptive_fit_run(X, cfg, k0, count, key, n_real,
-                                            fused)
+            X, Y, used, st = _adaptive_fit_run(X, Y, cfg, k0, count, key,
+                                               n_real, family, residual_fn,
+                                               fused)
             iters_used = iters_used + used
             status = torch.maximum(status, st)
             continue
         for k in range(k0, k0 + count):
             iters_used = iters_used + 1
             if fused and key is not None and cfg.sketch_dim > 0:
-                X = _fused_fit_step(X, cfg, k, key, n_real)
+                X, Y = unpack(_fused_fit_step(X, cfg, k, key, n_real, family,
+                                              Y))
                 continue
-            R = _gram_residual(X, cfg.use_kernels)
+            R = residual_fn(X, Y)
             a = _resolve_alpha(k, R, cfg, method, key, n_real=n_real)
             if fused:
-                X = kops.apply_g(X, R, a, degree=cfg.degree)
+                X, Y = unpack(kops.apply_g(X, R, a, degree=cfg.degree, Y=Y))
             else:
-                X = apply_g(X, R, a, cfg.degree, cfg.use_kernels)
+                X, Y = _grid_update(X, Y, R, a, cfg)
             if return_info:
                 alphas.append(a)
                 fros.append(_fro(R)[..., 0, 0])
-    return X, alphas, fros, iters_used, status
+    return X, Y, alphas, fros, iters_used, status
 
 
 def _with_telemetry(out, info, iters_used, return_info, return_iters,
@@ -356,9 +411,58 @@ def polar(A: torch.Tensor, cfg: Optional[PrismConfig] = None,
     in_dtype = X.dtype
     dt = torch_dtype(cfg.dtype)
     X = X.to(dt) / _safe_fro(X).to(dt)
-    X, alphas, fros, used, status = _run_phases(
-        X, cfg, method, iters, key, return_info, n_real=n_real)
+    X, _, alphas, fros, used, status = _run_phases(
+        X, cfg, method, iters, key, return_info, "polar",
+        lambda x, y: _gram_residual(x, cfg.use_kernels), n_real=n_real)
     X = X.transpose(-1, -2) if transpose else X
     X = X.to(in_dtype)
     return _with_telemetry(X, (alphas, fros), used, return_info,
+                           return_iters, status, return_status)
+
+
+# ---------------------------------------------------------------------------
+# Coupled square root / inverse square root (Higham Thm 3), matrix sign
+# ---------------------------------------------------------------------------
+
+
+def sqrtm(A: torch.Tensor, cfg: Optional[PrismConfig] = None,
+          method: str = "prism", iters: Optional[int] = None, key=None,
+          return_info: bool = False, return_iters: bool = False,
+          return_status: bool = False):
+    """(A^{1/2}, A^{-1/2}) for symmetric PSD A [..., n, n] via the coupled
+    (PRISM-)Newton-Schulz iteration from X = A / ||A||_F, Y = I, with the
+    outputs rescaled by sqrt(||A||_F).  With ``cfg.tol`` both iterates of
+    a slice freeze together once its certificate est_r ~ ||I - Y X||_F
+    clears tol (DESIGN.md §11); the telemetry flags are ``polar``'s."""
+    cfg = PrismConfig() if cfg is None else cfg
+    iters = cfg.iterations if iters is None else iters
+    in_dtype = A.dtype
+    dt = torch_dtype(cfg.dtype)
+    c = _safe_fro(A).to(dt)
+    X = A.to(dt) / c
+    Y = torch.eye(X.shape[-1], dtype=dt, device=X.device).expand(X.shape)
+    X, Y, alphas, fros, used, status = _run_phases(
+        X, cfg, method, iters, key, return_info, "sqrt",
+        lambda x, y: _coupled_residual(x, y, cfg.use_kernels), Y=Y)
+    sqrt_c = torch.sqrt(c)
+    out = (X * sqrt_c).to(in_dtype), (Y / sqrt_c).to(in_dtype)
+    return _with_telemetry(out, (alphas, fros), used, return_info,
+                           return_iters, status, return_status)
+
+
+def signm(A: torch.Tensor, cfg: Optional[PrismConfig] = None,
+          method: str = "prism", iters: Optional[int] = None, key=None,
+          return_info: bool = False, return_iters: bool = False,
+          return_status: bool = False):
+    """sign(A) for A [..., n, n] with A^2 symmetric and ||A||_2 <= 1 after
+    the ||.||_F scaling; the telemetry flags are ``polar``'s."""
+    cfg = PrismConfig() if cfg is None else cfg
+    iters = cfg.iterations if iters is None else iters
+    in_dtype = A.dtype
+    dt = torch_dtype(cfg.dtype)
+    X = A.to(dt) / _safe_fro(A).to(dt)
+    X, _, alphas, fros, used, status = _run_phases(
+        X, cfg, method, iters, key, return_info, "sign",
+        lambda x, y: _sign_residual(x, cfg.use_kernels))
+    return _with_telemetry(X.to(in_dtype), (alphas, fros), used, return_info,
                            return_iters, status, return_status)

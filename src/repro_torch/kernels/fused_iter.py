@@ -1,5 +1,6 @@
 """K3 ``warm_tail``, K6 ``residual_chain`` and K7 ``apply_g``: the fused
-tier's single-launch kernels, polar family.
+tier's single-launch kernels, for the polar, sign and coupled sqrt
+families.
 
 Counterpart of ``repro/kernels/fused_iter.py`` (DESIGN.md §10).  Each
 kernel runs one block per batch slice and keeps the slice's whole working
@@ -7,31 +8,33 @@ set in that block's shared memory:
 
   * ``warm_tail`` (K3, ``csrc/warm_tail.cu``): an entire run of
     constant-alpha Newton-Schulz iterations (the warm phase of PRISM, or a
-    whole classical chain) as ONE launch, with X, R, the rounded Horner
-    operand and the fp32 Horner accumulator in shared memory; the alphas
-    come from a small device array, one per iteration.
+    whole classical chain) as ONE launch, with X (and the coupled Y), R,
+    the rounded Horner operand and the fp32 Horner accumulator in shared
+    memory; the alphas, one per iteration, are kernel arguments passed by
+    value (at most ``MAX_WARM_ITERS``), so nothing is copied to the device
+    first.
   * ``residual_chain`` (K6, ``csrc/residual_chain.cu``): the first launch
-    of a fitted iteration — R = I - X^T X formed on an fp32 accumulator,
-    rounded once, written out, and the whole sketched power chain run on
-    the rounded R in shared memory, each trace reduced from the fp32
-    accumulator before V rounds.
+    of a fitted iteration — the family residual (I - X^T X, I - X X, or
+    sym(I - Y X)) formed on an fp32 accumulator, rounded once, written
+    out, and the whole sketched power chain run on the rounded R in shared
+    memory, each trace reduced from the fp32 accumulator before V rounds.
   * ``apply_g`` (K7, ``csrc/apply_g.cu``): the second launch — the d Horner
-    GEMMs of X g_d(R; alpha) on an fp32 accumulator, with the FITTED fp32
-    alpha read per slice from a device tensor (never rounded, never read
-    back to the host).
+    GEMMs of X g_d(R; alpha) (and, coupled, g_d(R; alpha) Y, in the same
+    launch) on an fp32 accumulator, with the FITTED fp32 alpha read per
+    slice from a device tensor (never rounded, never read back to the
+    host).
 
 Their accumulation order is the fused one (``ref._horner``): the f_j * X
 epilogues stay fp32 and only each product's operand rounds.  The
 ``*_smem_bytes`` functions are the kernels' shared-memory layouts, which
 ``ops.fused_fits`` chooses the tier with and each launcher re-checks.
-The sign and coupled sqrt families come with Shampoo (ROADMAP.md Queue 1
-item 6).  ``plain`` (K3), ``plain_residual_chain`` and ``plain_apply_g``
-are the plain PyTorch versions.
+``plain`` (K3), ``plain_residual_chain`` and ``plain_apply_g`` are the
+plain PyTorch versions.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -45,38 +48,66 @@ plain_apply_g = ref.apply_g
 MAX_SMEM_BYTES = 232_448
 MAX_DEGREE = 4
 MAX_SKETCH = 16
+MAX_WARM_ITERS = 64   # alphas one K3 launch takes (csrc/warm_tail.cu)
 THREADS = 256     # threads of a K3/K6/K7 block (csrc/*.cu)
-
-_SYMBOL = "prism_warm_tail"
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
-    [ctypes.POINTER(ctypes.c_float), ctypes.c_longlong, ctypes.c_int,
-     ctypes.c_void_p]
+FAMILIES = ("polar", "sign", "sqrt")   # the kernels' family codes 0, 1, 2
 
 
 def _align16(b: int) -> int:
     return (b + 15) // 16 * 16
 
 
-def smem_bytes(m: int, n: int, itemsize: int) -> int:
+def smem_bytes(m: int, n: int, itemsize: int, coupled: bool = False) -> int:
     """Shared memory one K3 block needs for an [m, n] slice: X and the
-    rounded Horner operand ([m, n] each), R ([n, n]), all in the operand
-    dtype and 16-byte aligned, plus the fp32 Horner accumulator."""
-    return 2 * _align16(m * n * itemsize) + _align16(n * n * itemsize) + \
-        4 * m * n
+    rounded Horner operand ([m, n] each), R ([n, n]) and, coupled, Y
+    ([n, n]), all in the operand dtype and 16-byte aligned, plus the fp32
+    accumulator, whose rows the coupled family pads to n + 1."""
+    c = int(coupled)
+    return 2 * _align16(m * n * itemsize) + \
+        (1 + c) * _align16(n * n * itemsize) + 4 * m * (n + c)
 
 
-def residual_chain_smem_bytes(m: int, n: int, p: int, itemsize: int) -> int:
+def residual_chain_smem_bytes(m: int, n: int, p: int, itemsize: int,
+                              coupled: bool = False) -> int:
     """Shared memory one K6 block needs: X [m, n], R [n, n] and St plus the
     two V buffers ([p, n] each), all in the operand dtype and 16-byte
-    aligned, plus one fp32 trace partial per thread."""
-    return _align16(m * n * itemsize) + _align16(n * n * itemsize) + \
+    aligned, one fp32 trace partial per thread and, coupled, Y [n, n] and
+    the fp32 residual [n, n + 1]."""
+    need = _align16(m * n * itemsize) + _align16(n * n * itemsize) + \
         3 * _align16(p * n * itemsize) + 4 * THREADS
+    if coupled:
+        need += _align16(n * n * itemsize) + 4 * n * (n + 1)
+    return need
 
 
-def apply_g_smem_bytes(m: int, n: int, itemsize: int) -> int:
-    """Shared memory one K7 block needs: the K3 layout (X, the rounded
-    Horner operand, R and the fp32 accumulator)."""
-    return smem_bytes(m, n, itemsize)
+def apply_g_smem_bytes(m: int, n: int, itemsize: int,
+                       coupled: bool = False) -> int:
+    """Shared memory one K7 block needs: X and the rounded Horner operand
+    ([m, n] each), R and, coupled, Y ([n, n] each), 16-byte aligned, plus
+    the fp32 accumulator [m, n]."""
+    c = int(coupled)
+    return 2 * _align16(m * n * itemsize) + \
+        (1 + c) * _align16(n * n * itemsize) + 4 * m * n
+
+
+def _family_code(name: str, family: str, Y: Optional[torch.Tensor],
+                 X: torch.Tensor) -> int:
+    if family not in FAMILIES:
+        raise ValueError(f"{name}: unknown family {family!r}")
+    if (family == "sqrt") != (Y is not None):
+        raise ValueError(f"{name}: the sqrt family takes Y, the others "
+                         f"do not (family {family!r})")
+    if family != "polar" and X.shape[-1] != X.shape[-2]:
+        raise ValueError(f"{name}: the {family} family needs square X, got "
+                         f"{tuple(X.shape)}")
+    if Y is not None and tuple(Y.shape) != tuple(X.shape):
+        raise ValueError(f"{name}: Y {tuple(Y.shape)} is not X's shape "
+                         f"{tuple(X.shape)}")
+    return FAMILIES.index(family)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _check_smem(name: str, need: int, m: int, n: int, dtype) -> None:
@@ -86,45 +117,66 @@ def _check_smem(name: str, need: int, m: int, n: int, dtype) -> None:
                          f"{MAX_SMEM_BYTES} a block has; use the grid tier")
 
 
+_SYMBOL = "prism_warm_tail"
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_float)] + \
+    [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                          ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+
 def warm_tail(X: torch.Tensor, alphas: Sequence[float], *,
-              coeffs: Sequence[float]) -> torch.Tensor:
-    """Launch K3 on a contiguous CUDA tensor X [Bt, m, n] (fp32 or bf16):
-    ``len(alphas)`` polar iterations, one launch.  ``coeffs`` are the
-    ascending Taylor coefficients f_0..f_{d-1} of g_d."""
-    _build.check_cuda_operands("warm_tail", (X,))
+              coeffs: Sequence[float], family: str = "polar",
+              Y: Optional[torch.Tensor] = None):
+    """Launch K3 on a contiguous CUDA tensor X [Bt, m, n] (fp32 or bf16;
+    square for sign and sqrt) and, for sqrt, Y [Bt, n, n]:
+    ``len(alphas)`` iterations (at most ``MAX_WARM_ITERS``), one launch.
+    ``coeffs`` are the ascending Taylor coefficients f_0..f_{d-1} of g_d.
+    Returns X', or (X', Y') for sqrt."""
+    _build.check_cuda_operands("warm_tail", (X,) if Y is None else (X, Y))
+    code = _family_code("warm_tail", family, Y, X)
     nb, m, n = X.shape
     degree = len(coeffs)
     if not 1 <= degree <= MAX_DEGREE:
         raise ValueError(f"warm_tail: degree {degree} outside "
                          f"1..{MAX_DEGREE}")
-    smem = smem_bytes(m, n, X.element_size())
+    if len(alphas) > MAX_WARM_ITERS:
+        raise ValueError(f"warm_tail: {len(alphas)} iterations, more than "
+                         f"the {MAX_WARM_ITERS} one launch takes")
+    smem = smem_bytes(m, n, X.element_size(), coupled=Y is not None)
     _check_smem("warm_tail", smem, m, n, X.dtype)
-    out = torch.empty_like(X)
-    if out.numel() == 0 or not alphas:
-        return out.copy_(X)
-    a = torch.tensor([float(v) for v in alphas], dtype=torch.float32,
-                     device=X.device)
-    c = (ctypes.c_float * degree)(*[float(v) for v in coeffs])
-    lib = _build.library("warm_tail", _SYMBOL, _ARGTYPES)
-    with torch.cuda.device(X.device):
-        _build.launch("warm_tail", lib, _SYMBOL, X.data_ptr(),
-                      out.data_ptr(), a.data_ptr(), len(alphas), nb, m, n,
-                      degree, c, smem, int(X.dtype == torch.bfloat16),
-                      _build.stream_handle(X))
-    return out
+    x_out = torch.empty_like(X)
+    y_out = None if Y is None else torch.empty_like(Y)
+    if x_out.numel() == 0 or not alphas:
+        x_out.copy_(X)
+        if Y is not None:
+            y_out.copy_(Y)
+    else:
+        a = (ctypes.c_float * len(alphas))(*[float(v) for v in alphas])
+        c = (ctypes.c_float * degree)(*[float(v) for v in coeffs])
+        lib = _build.library("warm_tail", _SYMBOL, _ARGTYPES)
+        with torch.cuda.device(X.device):
+            _build.launch("warm_tail", lib, _SYMBOL, X.data_ptr(), _ptr(Y),
+                          x_out.data_ptr(), _ptr(y_out), a, len(alphas), nb,
+                          m, n, degree, c, code, smem,
+                          int(X.dtype == torch.bfloat16),
+                          _build.stream_handle(X))
+    return x_out if Y is None else (x_out, y_out)
 
 
 _RC_SYMBOL = "prism_residual_chain"
-_RC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+_RC_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
     [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
-def residual_chain(X: torch.Tensor, St: torch.Tensor, max_power: int
+def residual_chain(X: torch.Tensor, St: torch.Tensor, max_power: int, *,
+                   family: str = "polar", Y: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K6 on a contiguous CUDA X [Bt, m, n] and St [n, p] (one
-    dtype): (R [Bt, n, n] in X's dtype, fp32 traces [Bt, max_power] of
-    powers 1..max_power), one launch."""
-    _build.check_cuda_operands("residual_chain", (X,))
+    """Launch K6 on a contiguous CUDA X [Bt, m, n] (square for sign and
+    sqrt; with Y [Bt, n, n] for sqrt) and St [n, p] (one dtype): (R
+    [Bt, n, n] in X's dtype, fp32 traces [Bt, max_power] of powers
+    1..max_power), one launch."""
+    _build.check_cuda_operands("residual_chain",
+                               (X,) if Y is None else (X, Y))
+    code = _family_code("residual_chain", family, Y, X)
     nb, m, n = X.shape
     _build.check_companion("residual_chain", X, St)
     if St.dim() != 2 or St.shape[0] != n or \
@@ -132,7 +184,8 @@ def residual_chain(X: torch.Tensor, St: torch.Tensor, max_power: int
         raise ValueError(f"residual_chain: St must be [{n}, p] with p in "
                          f"1..{MAX_SKETCH}, got {tuple(St.shape)}")
     p = St.shape[1]
-    smem = residual_chain_smem_bytes(m, n, p, X.element_size())
+    smem = residual_chain_smem_bytes(m, n, p, X.element_size(),
+                                     coupled=Y is not None)
     _check_smem("residual_chain", smem, m, n, X.dtype)
     R = torch.empty((nb, n, n), dtype=X.dtype, device=X.device)
     t = torch.empty((nb, max_power), dtype=torch.float32, device=X.device)
@@ -141,28 +194,35 @@ def residual_chain(X: torch.Tensor, St: torch.Tensor, max_power: int
     lib = _build.library("residual_chain", _RC_SYMBOL, _RC_ARGTYPES)
     with torch.cuda.device(X.device):
         _build.launch("residual_chain", lib, _RC_SYMBOL, X.data_ptr(),
-                      St.data_ptr(), R.data_ptr(), t.data_ptr(), nb, m, n,
-                      p, max_power, smem, int(X.dtype == torch.bfloat16),
+                      _ptr(Y), St.data_ptr(), R.data_ptr(), t.data_ptr(),
+                      nb, m, n, p, max_power, code, smem,
+                      int(X.dtype == torch.bfloat16),
                       _build.stream_handle(X))
     return R, t
 
 
 _AG_SYMBOL = "prism_apply_g"
-_AG_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+_AG_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
     [ctypes.POINTER(ctypes.c_float), ctypes.c_longlong, ctypes.c_int,
      ctypes.c_void_p]
 
 
 def apply_g(X: torch.Tensor, R: torch.Tensor, alpha: torch.Tensor, *,
-            coeffs: Sequence[float]) -> torch.Tensor:
+            coeffs: Sequence[float], Y: Optional[torch.Tensor] = None):
     """Launch K7 on contiguous CUDA X [Bt, m, n], R [Bt, n, n] (one dtype)
     and alpha [Bt] fp32 on the same device: X g_d(R; alpha) with alpha
-    read per slice on the device, one launch.  ``coeffs`` are the
-    ascending Taylor coefficients f_0..f_{d-1} of g_d."""
-    _build.check_cuda_operands("apply_g", (X, R))
+    read per slice on the device, one launch; with Y [Bt, n, n] (square
+    X) also g_d(R; alpha) Y in the same launch, returning (X', Y').
+    ``coeffs`` are the ascending Taylor coefficients f_0..f_{d-1} of g_d."""
+    _build.check_cuda_operands("apply_g",
+                               (X, R) if Y is None else (X, R, Y))
     nb, m, n = X.shape
     if tuple(R.shape) != (nb, n, n):
         raise ValueError(f"apply_g: R {tuple(R.shape)} is not {(nb, n, n)}")
+    if Y is not None and (m != n or tuple(Y.shape) != (nb, n, n)):
+        raise ValueError(f"apply_g: the coupled application needs square X "
+                         f"and Y of X's shape, got {tuple(X.shape)} and "
+                         f"{tuple(Y.shape)}")
     if not (torch.is_tensor(alpha) and alpha.dtype == torch.float32
             and alpha.device == X.device and tuple(alpha.shape) == (nb,)
             and alpha.is_contiguous()):
@@ -172,16 +232,17 @@ def apply_g(X: torch.Tensor, R: torch.Tensor, alpha: torch.Tensor, *,
     if not 1 <= degree <= MAX_DEGREE:
         raise ValueError(f"apply_g: degree {degree} outside "
                          f"1..{MAX_DEGREE}")
-    smem = apply_g_smem_bytes(m, n, X.element_size())
+    smem = apply_g_smem_bytes(m, n, X.element_size(), coupled=Y is not None)
     _check_smem("apply_g", smem, m, n, X.dtype)
     out = torch.empty_like(X)
-    if out.numel() == 0:
-        return out
-    c = (ctypes.c_float * degree)(*[float(v) for v in coeffs])
-    lib = _build.library("apply_g", _AG_SYMBOL, _AG_ARGTYPES)
-    with torch.cuda.device(X.device):
-        _build.launch("apply_g", lib, _AG_SYMBOL, X.data_ptr(),
-                      R.data_ptr(), alpha.data_ptr(), out.data_ptr(), nb, m,
-                      n, degree, c, smem, int(X.dtype == torch.bfloat16),
-                      _build.stream_handle(X))
-    return out
+    y_out = None if Y is None else torch.empty_like(Y)
+    if out.numel():
+        c = (ctypes.c_float * degree)(*[float(v) for v in coeffs])
+        lib = _build.library("apply_g", _AG_SYMBOL, _AG_ARGTYPES)
+        with torch.cuda.device(X.device):
+            _build.launch("apply_g", lib, _AG_SYMBOL, X.data_ptr(), _ptr(Y),
+                          R.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+                          _ptr(y_out), nb, m, n, degree, c, smem,
+                          int(X.dtype == torch.bfloat16),
+                          _build.stream_handle(X))
+    return out if Y is None else (out, y_out)

@@ -19,8 +19,10 @@ contract.  fp32 operands never use TF32.
 
 Fused-iteration tier (DESIGN.md §10): ``warm_tail`` runs a whole
 constant-alpha run as one launch, and ``residual_chain`` + ``apply_g`` a
-fitted iteration as two.  On the TPU the tier was chosen by a model of
-VMEM (~16 MiB a core, double-buffered grid blocks padded to 128 lanes).
+fitted iteration as two, for the polar, sign and coupled sqrt families
+(the coupled ones take and return the pair (X, Y)).  On the TPU the tier
+was chosen by a model of VMEM (~16 MiB a core, double-buffered grid
+blocks padded to 128 lanes).
 On Hopper each of the three kernels keeps one slice's working set in the
 shared memory of ONE block, so the model is the largest of the three
 blocks' footprints (``fused_smem_bytes``, computed by the functions the
@@ -68,22 +70,26 @@ def _itemsize(dtype) -> int:
     return torch.empty((), dtype=torch_dtype(dtype)).element_size()
 
 
-def fused_smem_bytes(mshape, dtype, *, sketch_dim: int = 8) -> int:
+def fused_smem_bytes(mshape, dtype, *, sketch_dim: int = 8,
+                     coupled: bool = False) -> int:
     """Shared memory the fused tier needs for one [m, n] slice: the
     largest block of the kernels a fused bucket runs (K3, K6 with a
-    ``sketch_dim``-row sketch, K7)."""
+    ``sketch_dim``-row sketch, K7), with the coupled sqrt family's Y and
+    fp32 residual when ``coupled``."""
     m, n = int(mshape[-2]), int(mshape[-1])
     item = _itemsize(dtype)
-    return max(_fused.smem_bytes(m, n, item),
+    return max(_fused.smem_bytes(m, n, item, coupled),
                _fused.residual_chain_smem_bytes(m, n, max(sketch_dim, 1),
-                                                item),
-               _fused.apply_g_smem_bytes(m, n, item))
+                                                item, coupled),
+               _fused.apply_g_smem_bytes(m, n, item, coupled))
 
 
-def fused_fits(mshape, dtype, *, budget: int = 0,
-               sketch_dim: int = 8) -> bool:
-    """Fused-tier choice for a bucket of [m, n] matrices."""
-    return fused_smem_bytes(mshape, dtype, sketch_dim=sketch_dim) <= \
+def fused_fits(mshape, dtype, *, budget: int = 0, sketch_dim: int = 8,
+               coupled: bool = False) -> bool:
+    """Fused-tier choice for a bucket of [m, n] matrices (``coupled``: the
+    sqrt family's (X, Y) pair)."""
+    return fused_smem_bytes(mshape, dtype, sketch_dim=sketch_dim,
+                            coupled=coupled) <= \
         min(smem_budget(budget), _fused.MAX_SMEM_BYTES)
 
 
@@ -150,27 +156,22 @@ def gram(X, *, alpha: float = 1.0, beta: float = -1.0):
     return R.reshape(lead + tuple(R.shape[-2:]))
 
 
-def _polar_only(family: str, Y) -> None:
-    if family != "polar" or Y is not None:
-        raise NotImplementedError(
-            f"the fused kernels for the {family!r} family are ported with "
-            "the sign/sqrt families and Shampoo (ROADMAP.md Queue 1 item 6)")
-
-
 def warm_tail(X, alphas: Sequence[float], *, degree: int,
               family: str = "polar", Y=None):
     """An entire run of constant-alpha iterations in ONE launch: device
-    memory sees one read and one write of X for the whole run
-    (DESIGN.md §10).  ``alphas``: static per-iteration floats."""
-    _polar_only(family, Y)
+    memory sees one read and one write of X (and Y) for the whole run
+    (DESIGN.md §10).  ``alphas``: static per-iteration floats.  Returns X'
+    or, for the coupled sqrt family, (X', Y')."""
     alphas = tuple(float(a) for a in alphas)
     coeffs = _gd_coeffs(degree)
-    if not _on_cuda(X):
-        return _ref.warm_tail(X, alphas, coeffs=coeffs)
+    if not _on_cuda(X, Y):
+        return _ref.warm_tail(X, alphas, coeffs=coeffs, family=family, Y=Y)
     lead = tuple(X.shape[:-2])
-    (Xb,) = _collapse(lead, X)
-    out = _fused.warm_tail(Xb, alphas, coeffs=coeffs)
-    return out.reshape(lead + tuple(out.shape[1:]))
+    Xb, Yb = _collapse(lead, X, Y)
+    out = _fused.warm_tail(Xb, alphas, coeffs=coeffs, family=family, Y=Yb)
+    if Y is None:
+        return out.reshape(lead + tuple(out.shape[1:]))
+    return tuple(o.reshape(lead + tuple(o.shape[1:])) for o in out)
 
 
 def sketch_traces(R, S, max_power: int, *, budget: int = 0):
@@ -200,21 +201,22 @@ def sketch_traces(R, S, max_power: int, *, budget: int = 0):
 
 
 def residual_chain(X, S, max_power: int, *, family: str = "polar", Y=None):
-    """(R, t): the polar residual AND the whole sketched power-trace chain
-    in ONE launch (K6) — R reaches device memory once, as the output the
-    Horner launch reads.  X: [..., m, n]; S: [p, n].  Returns R [..., n, n]
-    in X's dtype and fp32 traces t [..., max_power + 1] for powers
-    0..max_power (t_0 is sketch-only, computed here)."""
-    _polar_only(family, Y)
+    """(R, t): the family residual AND the whole sketched power-trace
+    chain in ONE launch (K6) — R reaches device memory once, as the output
+    the Horner launch reads.  X: [..., m, n]; S: [p, n]; Y: the coupled
+    sqrt family's second iterate.  Returns R [..., n, n] in X's dtype and
+    fp32 traces t [..., max_power + 1] for powers 0..max_power (t_0 is
+    sketch-only, computed here)."""
     S32 = S.float()
     t0 = torch.sum(S32 * S32)
     lead = tuple(X.shape[:-2])
-    if not _on_cuda(X, S):
-        R, ts = _ref.residual_chain(X, S, max_power)
+    if not _on_cuda(X, S, Y):
+        R, ts = _ref.residual_chain(X, S, max_power, family=family, Y=Y)
     else:
-        (Xb,) = _collapse(lead, X)
+        Xb, Yb = _collapse(lead, X, Y)
         St = S.transpose(-1, -2).to(X.dtype).contiguous()
-        Rb, ts = _fused.residual_chain(Xb, St, max_power)
+        Rb, ts = _fused.residual_chain(Xb, St, max_power, family=family,
+                                       Y=Yb)
         n = Rb.shape[-1]
         R = Rb.reshape(lead + (n, n))
         ts = ts.reshape(lead + (max_power,))
@@ -223,26 +225,27 @@ def residual_chain(X, S, max_power: int, *, family: str = "polar", Y=None):
 
 
 def apply_g(X, R, alpha, *, degree: int, Y=None):
-    """X g_d(R; alpha): the d Horner GEMMs in ONE launch (K7), the fp32
-    alpha applied on the fp32 accumulator and never rounded first
-    (DESIGN.md §9/§10).  alpha: a float or an fp32 tensor over X's
-    leading dims, on X's device; it is read per slice by the kernel and
-    never copied to or from the host."""
-    if Y is not None:
-        _polar_only("sqrt", Y)
+    """X g_d(R; alpha) (and, coupled, g_d(R; alpha) Y): the d Horner GEMMs
+    of each side in ONE launch (K7), the fp32 alpha applied on the fp32
+    accumulator and never rounded first (DESIGN.md §9/§10).  alpha: a
+    float or an fp32 tensor over X's leading dims, on X's device; it is
+    read per slice by the kernel and never copied to or from the host.
+    Returns X' or, with ``Y``, (X', Y')."""
     coeffs = _gd_coeffs(degree)
-    if not _on_cuda(X, R):
-        return _ref.apply_g(X, R, alpha, coeffs=coeffs)
+    if not _on_cuda(X, R, Y):
+        return _ref.apply_g(X, R, alpha, coeffs=coeffs, Y=Y)
     lead = tuple(X.shape[:-2])
-    Xb, Rb = _collapse(lead, X, R)
+    Xb, Rb, Yb = _collapse(lead, X, R, Y)
     nb = Xb.shape[0]
     if torch.is_tensor(alpha):
         a = alpha.to(torch.float32).expand(lead).reshape(nb).contiguous()
     else:
         a = torch.full((nb,), float(alpha), dtype=torch.float32,
                        device=X.device)
-    out = _fused.apply_g(Xb, Rb, a, coeffs=coeffs)
-    return out.reshape(lead + tuple(out.shape[1:]))
+    out = _fused.apply_g(Xb, Rb, a, coeffs=coeffs, Y=Yb)
+    if Y is None:
+        return out.reshape(lead + tuple(out.shape[1:]))
+    return tuple(o.reshape(lead + tuple(o.shape[1:])) for o in out)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -37,34 +37,56 @@ def gram(X, *, alpha: float = 1.0, beta: float = -1.0):
     return (alpha * eye + beta * G).to(X.dtype)
 
 
-def _residual(X):
-    """Polar residual with the fused kernels' accumulation order: the
-    I - X^T X epilogue runs on the fp32 accumulator, rounding ONCE to the
-    compute dtype.  (The sign and coupled sqrt families come with
-    Shampoo, ROADMAP.md Queue 1 item 6.)"""
-    G = _mm32(X.transpose(-1, -2), X)
+def _residual(X, Y=None, *, family: str = "polar"):
+    """Family residual with the fused kernels' accumulation order: the
+    I - <product> epilogue (and the sqrt re-symmetrization) runs on the
+    fp32 accumulator, rounding ONCE to the compute dtype.
+
+      polar  I - X^T X       sign  I - X X       sqrt  sym(I - Y X)
+    """
+    if family == "polar":
+        G = _mm32(X.transpose(-1, -2), X)
+    elif family == "sign":
+        G = _mm32(X, X)
+    elif family == "sqrt":
+        G = _mm32(Y, X)
+    else:
+        raise ValueError(f"unknown family {family!r}")
     eye = torch.eye(G.shape[-1], dtype=torch.float32, device=X.device)
-    return (eye - G).to(X.dtype)
+    r32 = eye - G
+    if family == "sqrt":
+        r32 = 0.5 * (r32 + r32.transpose(-1, -2))
+    return r32.to(X.dtype)
 
 
-def _horner(X, R, alpha32, coeffs: Sequence[float]):
-    """fp32 Horner accumulator of X g_d(R; a): each dot's operand rounds to
-    the compute dtype, the carried f_j * X epilogues never do."""
+def _horner(X, R, alpha32, coeffs: Sequence[float], side: str = "right"):
+    """fp32 Horner accumulator of X g_d(R; a) (``side="right"``) or
+    g_d(R; a) X (``"left"``): each dot's operand rounds to the compute
+    dtype, the carried f_j * X epilogues never do."""
     x32 = X.float()
     acc = alpha32 * x32
     for j in range(len(coeffs) - 1, -1, -1):
-        acc = _mm32(acc.to(X.dtype), R) + coeffs[j] * x32
+        lo = acc.to(X.dtype)
+        prod = _mm32(lo, R) if side == "right" else _mm32(R, lo)
+        acc = prod + coeffs[j] * x32
     return acc.to(X.dtype)
 
 
-def warm_tail(X, alphas: Sequence[float], *, coeffs: Sequence[float]):
-    """Fused constant-alpha multi-iteration oracle of the polar family (one
-    residual + one Horner application per alpha, fused accumulation order
-    throughout)."""
+def warm_tail(X, alphas: Sequence[float], *, coeffs: Sequence[float],
+              family: str = "polar", Y=None):
+    """Fused constant-alpha multi-iteration oracle (one residual + one
+    Horner application per alpha, fused accumulation order throughout).
+    The coupled sqrt family updates X on the right and Y on the left from
+    the same R and returns (X, Y)."""
     for a in alphas:
+        R = _residual(X, Y, family=family)
         a32 = torch.tensor(a, dtype=torch.float32, device=X.device)
-        X = _horner(X, _residual(X), a32, coeffs)
-    return X
+        if family == "sqrt":
+            X, Y = (_horner(X, R, a32, coeffs, "right"),
+                    _horner(Y, R, a32, coeffs, "left"))
+        else:
+            X = _horner(X, R, a32, coeffs, "right")
+    return (X, Y) if family == "sqrt" else X
 
 
 def _chain(R, St, max_power: int, V=None):
@@ -101,21 +123,25 @@ def sketch_step(R, V, St):
     return Vn, ts[..., 0]
 
 
-def residual_chain(X, S, max_power: int):
-    """(R, t): the polar residual I - X^T X rounded once to X's dtype, and
-    the sketched chain on that ROUNDED R, fp32 traces [..., max_power] for
+def residual_chain(X, S, max_power: int, *, family: str = "polar", Y=None):
+    """(R, t): the family residual rounded once to X's dtype, and the
+    sketched chain on that ROUNDED R, fp32 traces [..., max_power] for
     powers 1..max_power (the plain version of K6)."""
-    R = _residual(X)
+    R = _residual(X, Y, family=family)
     ts, _ = _chain(R, S.transpose(-1, -2).to(R.dtype), max_power)
     return R, ts
 
 
-def apply_g(X, R, alpha, *, coeffs: Sequence[float]):
-    """X g_d(R; alpha) with the fused accumulation order (the plain version
-    of K7): the fp32 alpha multiplies the fp32 X inside the fp32 Horner
-    accumulator and is never rounded first.  ``alpha``: a float or an
-    fp32 tensor over X's leading dims."""
+def apply_g(X, R, alpha, *, coeffs: Sequence[float], Y=None):
+    """X g_d(R; alpha) (and, coupled, g_d(R; alpha) Y) with the fused
+    accumulation order (the plain version of K7): the fp32 alpha
+    multiplies the fp32 operand inside the fp32 Horner accumulator and is
+    never rounded first.  ``alpha``: a float or an fp32 tensor over X's
+    leading dims.  Returns X' or, with ``Y``, (X', Y')."""
     a = torch.as_tensor(alpha, dtype=torch.float32, device=X.device)
     if a.dim():
         a = a[..., None, None]
-    return _horner(X, R, a, coeffs)
+    out = _horner(X, R, a, coeffs, "right")
+    if Y is None:
+        return out
+    return out, _horner(Y, R, a, coeffs, "left")

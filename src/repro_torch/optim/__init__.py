@@ -1,4 +1,5 @@
-"""Optimizers of the port: Muon (+PRISM) with its AdamW branch."""
+"""Optimizers of the port: Muon (+PRISM) with its AdamW branch, and
+Shampoo with PRISM inverse square roots and its Adam branch."""
 from typing import Dict, Iterable, Tuple
 
 import torch
@@ -6,6 +7,7 @@ import torch
 from repro_torch.config import OptimizerConfig
 from repro_torch.optim import base, bucketing
 from repro_torch.optim.muon import Muon
+from repro_torch.optim.shampoo import Shampoo
 
 
 def make_optimizer(cfg: OptimizerConfig,
@@ -19,9 +21,11 @@ def make_optimizer(cfg: OptimizerConfig,
             "optimizer spine (ROADMAP.md Queue 1 item 4)")
     if cfg.name == "muon":
         return Muon(named_params, cfg, axes)
+    if cfg.name == "shampoo":
+        return Shampoo(named_params, cfg, axes)
     raise NotImplementedError(
         f"optimizer {cfg.name!r} is not ported yet (adamw: ROADMAP.md "
-        "Queue 1 item 4; shampoo: item 6)")
+        "Queue 1 item 4)")
 
 
-__all__ = ["Muon", "base", "bucketing", "make_optimizer"]
+__all__ = ["Muon", "Shampoo", "base", "bucketing", "make_optimizer"]

@@ -1,10 +1,11 @@
 """Optimizer utilities shared by the port's optimizers (counterpart of
-``repro/optim/base.py``): global-norm clipping and the matrix views Muon
-orthogonalizes.
+``repro/optim/base.py``): global-norm clipping, the matrix views Muon and
+Shampoo precondition, and the refresh period.
 
 The reference's functional ``Optimizer(init, update, refresh)`` contract
-becomes ``torch.optim.Optimizer`` subclasses (``muon.Muon``): ``init`` is
-the lazily created per-parameter ``state``, ``update`` is ``step()``.  The
+becomes ``torch.optim.Optimizer`` subclasses (``muon.Muon``,
+``shampoo.Shampoo``): ``init`` is the lazily created per-parameter
+``state``, ``update`` is ``step()``.  The
 async refresh plane, ``skip_nonfinite`` and the pending-buffer helpers
 come with later slices (ROADMAP.md Queue 1 items 4 and 8).
 """
@@ -40,6 +41,18 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
                                     max=1.0),
                         torch.ones_like(gn))
     return [g.float() * scale for g in grads], gn
+
+
+def resolve_refresh_period(cfg, name: Optional[str] = None) -> int:
+    """Effective preconditioner refresh period K of one optimizer: Muon
+    refreshes every ``precond_every`` steps; Shampoo also honours its
+    legacy ``precondition_every``, so its period is the max of the two.
+    ``name`` overrides ``cfg.name``."""
+    name = cfg.name if name is None else name
+    k = max(1, int(cfg.precond_every))
+    if name == "shampoo":
+        k = max(k, int(cfg.precondition_every))
+    return k
 
 
 def is_matrix_param(path_axes: tuple, shape: tuple,

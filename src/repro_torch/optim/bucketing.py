@@ -20,6 +20,9 @@ pad-blind by the ``n_real`` trace correction (``prism.fit_alpha``).  Each
 bucket draws its sketches from the step's key folded with the bucket's
 index, as in the reference.  The plan is pure Python over static shapes.
 
+``transform_bucketed`` is the same engine for matrix functions without a
+pad-exactness story (Shampoo's inverse roots): exact-shape buckets only.
+
 Not ported yet: mesh sharding over the batch dim (``shard_over_batch``)
 and the lowrank tier (ROADMAP.md Queue 1 items 7, 11).
 """
@@ -223,3 +226,35 @@ def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
     if with_iters:
         return outs, iters, statuses
     return outs  # type: ignore[return-value]
+
+
+def transform_bucketed(mats: Sequence[torch.Tensor], fn,
+                       with_aux: int = 0):
+    """Apply ``fn(stacked, bucket, bucket_index)`` once per exact-shape
+    bucket and scatter the [B, n, n] results back.
+
+    ``with_aux``: N > 0 when fn returns (out [B, n, n], aux_1 [B], ...,
+    aux_N [B]), per-slice companions scattered back alongside; returns
+    (outs, auxs_1, ..., auxs_N).  Gathers stay fp32 (the stacked arrays
+    are Shampoo's fp32 EMA Kronecker factors, whose eps-ridge must apply
+    in fp32 before the chain casts down, DESIGN.md §9): fn owns the cast.
+    fn must be per-slice (elementwise over the batch dim) and may use the
+    bucket and its index only for static metadata (shape, key folding).
+    The fused tier resolves inside the iteration family from the bucket
+    shape.  The reference's ``cfg`` argument, which shards the batch dim
+    over a mesh, is ported with ROADMAP.md Queue 1 item 11.
+    """
+    n_aux = int(with_aux)
+    buckets = plan_buckets([tuple(m.shape) for m in mats], pad=False)
+    outs: List[Optional[torch.Tensor]] = [None] * len(mats)
+    auxs = [[None] * len(mats) for _ in range(n_aux)]
+    for bi, b in enumerate(buckets):
+        out = fn(gather_bucket(b, mats), b, bi)
+        if n_aux:
+            out, *aux = out
+            for k in range(n_aux):
+                scatter_bucket_aux(b, aux[k], auxs[k])
+        scatter_bucket(b, out, outs)
+    if n_aux:
+        return (outs, *auxs)
+    return outs

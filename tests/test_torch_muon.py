@@ -230,4 +230,4 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="precond_every"):
         make_optimizer(tcfg, [], {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(OptimizerConfig(name="shampoo"), [], {})
+        make_optimizer(OptimizerConfig(name="adamw"), [], {})

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Mutation check of chip_smoke.py's bf16 comparisons of the fitted-
 iteration kernels (K4 sketch_step, K5 sketch_chain, K6 residual_chain,
-K7 apply_g) on a CUDA card.
+K7 apply_g) and of the sign and coupled sqrt families of K3, K6 and K7
+on a CUDA card.
 
 For each mutant — one deliberate fault in one kernel source — the script
 copies ``src/`` and ``chip_smoke.py`` into ``build/mutants/<name>/``
 (git-ignored), applies the fault there, builds the kernels of that copy
-and runs ``chip_smoke.fit_kernel_checks`` with bf16 as the only dtype.
+and runs ``chip_smoke.fit_kernel_checks`` and ``chip_smoke.family_checks``
+with bf16 as the only dtype.
 The unbroken copy must pass; a mutant in ``EXPECT_FAIL`` must fail a
 bf16 comparison; a mutant in ``EXPECT_PASS`` shows a fault that lies
 below the bf16 tolerance.  Run from the root of a checkout, on a machine
@@ -42,6 +44,33 @@ EXPECT_FAIL = {
     "k7_alpha_of_slice_0": (
         "apply_g.cu",
         "const float a = alpha[b];", "const float a = alpha[0];"),
+    # the families: each fault is invisible on symmetric or commuting
+    # inputs, and must show on the independent, non-symmetric ones
+    "k6_sign_computes_xtx": (
+        "residual_chain.cu",
+        "const float xi = FAMILY == POLAR ? N::to_f32(x[(size_t)k * n + i])",
+        "const float xi = FAMILY != SQRT ? N::to_f32(x[(size_t)k * n + i])"),
+    "k3_sqrt_reads_xy_for_yx": (
+        "warm_tail.cu",
+        "s = fmaf(N::to_f32(y[(size_t)i * n + k]),\n"
+        "                   N::to_f32(x[(size_t)k * n + j]), s);",
+        "s = fmaf(N::to_f32(x[(size_t)i * n + k]),\n"
+        "                   N::to_f32(y[(size_t)k * n + j]), s);"),
+    "k3_sqrt_without_symmetrization": (
+        "warm_tail.cu",
+        "__fmul_rn(0.5f, __fadd_rn(acc[(size_t)i * ld + j],\n"
+        "                                      acc[(size_t)j * ld + i]));",
+        "__fmul_rn(1.0f, __fadd_rn(acc[(size_t)i * ld + j], 0.f));"),
+    "k7_y_horner_on_the_right": (
+        "apply_g.cu",
+        "horner<T, true>(y, Y_out + b * nn,",
+        "horner<T, false>(y, Y_out + b * nn,"),
+    "k7_y_written_from_x_accumulator": (
+        "apply_g.cu",
+        "    horner<T, true>(y, Y_out + b * nn, r, lo, acc, n, n, a, degree, "
+        "coeffs);",
+        "    for (size_t i = tid; i < nn; i += AG_THREADS)\n"
+        "      Y_out[b * nn + i] = prism::Num<T>::from_f32(acc[i]);"),
 }
 EXPECT_PASS = {
     "k5_trace_from_rounded_v": (
@@ -54,7 +83,7 @@ EXPECT_PASS = {
 CHECK = ("import sys; sys.path.insert(0, 'src'); import torch; "
          "import chip_smoke as cs; cs.DTYPES = ('bfloat16',); "
          "from repro_torch.kernels import _build; _build.build(); "
-         "cs.fit_kernel_checks(torch, {})")
+         "cs.fit_kernel_checks(torch, {}); cs.family_checks(torch, {})")
 
 
 def run_copy(name, mutation, log_dir):
