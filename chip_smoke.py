@@ -9,21 +9,24 @@ Phases (any failure exits non-zero and prints no result):
 
   1. the card: CUDA present, its name and power limit (nvidia-smi);
   2. build every kernel from src/repro_torch/kernels/csrc (one nvcc per
-     source, all at once) and print the compiler's register/spill report;
+     source, all at once) and print the compiler's register/spill report,
+     with a summary of each K1/K2 instantiation (a spill fails);
   3. each kernel against its plain PyTorch version on the card, in fp32 and
      bf16, at the shapes the main paths give it and at ragged ones, with the
      reference's tolerances on results of unit scale (see ``check``); the
      sign and coupled sqrt families of K3, K6 and K7 also on non-symmetric,
      independent X and Y, at the Shampoo bias shapes and at the largest
      coupled slice the fused tier admits in each dtype (one just above it
-     must take the grid tier); at every main-path shape, in fp32, the
-     kernel, the plain version and one PyTorch library call (where one
-     computes the same function) are timed with CUDA events (median of 20
-     launches);
+     must take the grid tier); every main-path K1/K2 shape must take the
+     kernels' aligned instantiation; at every main-path shape, in fp32
+     (K1 and K2 also in bf16), the kernel, the plain version and one
+     PyTorch library call (where one computes the same function) are
+     timed with CUDA events (median of 20 launches);
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
      width (seq 512, batch 4, random weights from seed 0), STEPS steps
      through ``repro_torch.launch.train_lm.build``; the launch counts are
-     zeroed just before and read just after, and must be 19 a step
+     zeroed just before and read just after (no K1/K2 launch may take
+     the unaligned instantiation on any path), and must be 19 a step
      (matmul_add 12, gram_upper 6, warm_tail 1); the losses must be finite
      and start near ln(50257); one Muon update through the kernels must
      agree with the same update through the plain versions
@@ -206,6 +209,13 @@ def check(torch, name, shape, dtype, got, want, tol) -> float:
 
 # --------------------------------------------------------------- phase 3
 
+def unaligned_launches() -> int:
+    """Launches of K1's and K2's element-by-element instantiation so far."""
+    from repro_torch.kernels import gram, matmul_add
+
+    return matmul_add.unaligned_launches + gram.unaligned_launches
+
+
 def kernel_checks(torch):
     from repro_torch.kernels import fused_iter, gram, matmul_add, ops
 
@@ -234,6 +244,8 @@ def kernel_checks(torch):
         for dtype in DTYPES:
             dt = getattr(torch, dtype)
             a, b, c, x = (t.to(dt) for t in (a32, b32, c32, x32))
+            fast = matmul_add.aligned(a, b, c) and matmul_add.aligned(x)
+            before = unaligned_launches()
             want = matmul_add.plain(a, b, c, alpha=1.0, beta=0.5)
             poison(torch, shape, dt)
             got = matmul_add.matmul_add(a, b, c, alpha=1.0, beta=0.5)
@@ -255,10 +267,21 @@ def kernel_checks(torch):
                          f"symmetric")
                 if beta == -1.0:
                     err_g = err
-            if B in (20, 40, 100) and dtype == "float32":
-                rows[("matmul_add", shape)] = dict(
+            took = unaligned_launches() - before
+            log(f"  matmul_add/gram_upper {shape} {dtype}: "
+                f"{'aligned' if fast else 'unaligned'} instantiation "
+                f"({took} of 4 launches unaligned)")
+            if took != (0 if fast else 4):
+                fail(f"{shape} {dtype}: {took} unaligned launches, "
+                     f"predicate says {'aligned' if fast else 'unaligned'}")
+            if B in (20, 40, 100):
+                if not fast:
+                    fail(f"main-path shape {shape} {dtype} takes K1/K2's "
+                         f"unaligned instantiation")
+                key = (shape,) if dtype == "float32" else (shape, dtype)
+                rows[("matmul_add",) + key] = dict(
                     shape=[list(shape), [B, n, n]], max_abs_err=err_mm)
-                rows[("gram_upper", shape)] = dict(shape=[list(shape)],
+                rows[("gram_upper",) + key] = dict(shape=[list(shape)],
                                                    max_abs_err=err_g)
 
     # K3 on the bias bucket (3 warm iterations of alpha = u = 1.45)
@@ -711,22 +734,26 @@ def family_timings(torch):
 def kernel_timings(torch, rows):
     """ms / plain_ms / library_ms / bound_ms of one launch of each kernel at
     each main-path shape, fp32 (the main paths' matfn dtype), keyed by
-    (name, shape)."""
+    (name, shape); K1 and K2 also in bf16 (tensor cores, bf16 bound),
+    keyed by (name, shape, "bfloat16")."""
     from repro_torch.kernels import fused_iter, gram, matmul_add, ops
 
     coeffs = ops._gd_coeffs(2)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    item = 4
-    main_shapes = [("matmul_add", (40, 1024, 1024)),
-                   ("matmul_add", (20, 4096, 1024)),
-                   ("matmul_add", (100, 1024, 1024)),
-                   ("gram_upper", (40, 1024, 1024)),
-                   ("gram_upper", (20, 4096, 1024)),
-                   ("warm_tail", (30, 64, 16))]
+    main_shapes = [("matmul_add", (40, 1024, 1024), "float32"),
+                   ("matmul_add", (20, 4096, 1024), "float32"),
+                   ("matmul_add", (100, 1024, 1024), "float32"),
+                   ("gram_upper", (40, 1024, 1024), "float32"),
+                   ("gram_upper", (20, 4096, 1024), "float32"),
+                   ("warm_tail", (30, 64, 16), "float32")]
+    main_shapes += [(name, shape, "bfloat16")
+                    for name, shape, _ in main_shapes[:5]]
     out = {}
-    for name, shape in main_shapes:
+    for name, shape, dtype in main_shapes:
         B, m, n = shape
+        dt = getattr(torch, dtype)
+        item = 2 if dtype == "bfloat16" else 4
         if name == "warm_tail":
             x = rows["warm_tail"]["operands"][0]
             alphas, d = (1.45,) * 3, 2
@@ -741,7 +768,7 @@ def kernel_timings(torch, rows):
                 bound=bound_ms(flops, item * 2 * B * m * n + 4 * len(alphas),
                                "float32"))
         else:
-            x = normalized(torch, shape, gen)
+            x = normalized(torch, shape, gen).to(dt)
             if name == "matmul_add":
                 r = gram.plain(x)
                 acc = 1.45 * x
@@ -755,9 +782,9 @@ def kernel_timings(torch, rows):
                     # A, C, D [B, m, n] and R [B, n, n], each moved once
                     bound=bound_ms(2.0 * B * m * n * n + 3.0 * B * m * n,
                                    item * (3 * B * m * n + B * n * n),
-                                   "float32"))
+                                   dtype))
             else:
-                eye = torch.eye(n, device="cuda")
+                eye = torch.eye(n, device="cuda", dtype=dt)
                 xt = x.transpose(-1, -2)
                 t = dict(
                     ms=time_ms(torch, lambda: gram.gram_upper(x)),
@@ -766,13 +793,14 @@ def kernel_timings(torch, rows):
                         eye, xt, x, alpha=-1.0)),
                     bound=bound_ms(1.0 * B * m * n * (n + 1),
                                    item * (B * m * n + B * n * n),
-                                   "float32"))
+                                   dtype))
             del x
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        log(f"  {name:10s} {str(shape):18s} float32 kernel {t['ms']:.4f} ms"
-            f"  plain {t['plain_ms']:.4f} ms  library {lib} ms  bound "
-            f"{t['bound'][0]:.4f} ms ({t['bound'][1]})")
-        out[(name, shape)] = t
+        log(f"  {name:10s} {str(shape):18s} {dtype:8s} kernel "
+            f"{t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  library {lib} "
+            f"ms  bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
+        out[(name, shape) if dtype == "float32"
+            else (name, shape, dtype)] = t
     return out
 
 
@@ -905,6 +933,7 @@ def train_path(torch, path):
     from repro_torch.launch import train_lm
 
     optimizer, prism = PATHS[path]
+    unaligned = unaligned_launches()
     model, opt, step, batch_fn, (seq, batch) = train_lm.build(
         "full", "prism", "float32", device="cuda", seed=0, prism=prism,
         optimizer=optimizer, precondition_every=1)
@@ -929,6 +958,9 @@ def train_path(torch, path):
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss)
     counts = ops.launch_counts()
+    if unaligned_launches() != unaligned:
+        fail(f"{path}: K1/K2 launched their unaligned instantiation "
+             f"({unaligned} -> {unaligned_launches()} launches)")
 
     peak_mem = torch.cuda.max_memory_allocated()
     for i, (loss, t) in enumerate(zip(losses, times)):
@@ -1318,6 +1350,7 @@ def main() -> None:
     per_source = _build.build(verbose=True)
     log(f"  built {sorted(per_source) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
+    ptxas_summary(_build)
 
     log("phase 3: kernels against their plain versions")
     rows = kernel_checks(torch)
@@ -1372,6 +1405,40 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def ptxas_summary(build) -> None:
+    """Registers, spills and static shared memory of each instantiation of
+    K1 and K2, from the compiler's -Xptxas -v report of this build."""
+    import re
+
+    from repro_torch.kernels import matmul_add
+
+    spills = []
+    for name in ("matmul_add", "gram_upper"):
+        text = build.LOGS.get(name)
+        if text is None:
+            log(f"  ptxas {name}: cached build, no report")
+            continue
+        for entry in text.split("Compiling entry function")[1:]:
+            kernel = re.search(r"_kernelI(\w+?)Lb([01])E", entry)
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", entry)
+            smem = re.search(r"(\d+) bytes smem", entry)
+            what = (f"{'bf16' if 'bfloat16' in kernel.group(1) else 'fp32'}"
+                    f" {'aligned' if kernel.group(2) == '1' else 'unaligned'}"
+                    if kernel else "?")
+            log(f"  ptxas {name} {what}: "
+                f"{regs.group(1) if regs else '?'} registers, spill stores "
+                f"{spill.group(1) if spill else '?'} B, spill loads "
+                f"{spill.group(2) if spill else '?'} B, static smem "
+                f"{smem.group(1) if smem else 0} B (+ dynamic "
+                f"{matmul_add.smem_bytes()} B)")
+            if spill and (spill.group(1) != "0" or spill.group(2) != "0"):
+                spills.append(f"{name} {what}")
+    if spills:
+        fail(f"register spills in {spills}")
+
+
 def _drop(torch, run):
     """Free a path's model, optimizer and saved tensors; keep its counts."""
     for k in ("model", "opt", "state", "before", "grads", "deltas"):
@@ -1382,15 +1449,21 @@ def _drop(torch, run):
 # The kernels line: for each kernel, the measurements of each family and
 # main-path shape it was timed at, as (family, row/timing key, path); the
 # first entry, the one this slice's path runs where it runs one, gives the
-# kernel's top-level numbers.  Sign runs on no training path (signm only).
+# kernel's top-level numbers.  Sign runs on no training path (signm only),
+# nor do K1's and K2's bf16 rows (the paths' matfn dtype is fp32).
 VARIANTS = {
     "matmul_add": [
         ("-", ("matmul_add", (100, 1024, 1024)), "shampoo_prism5"),
         ("-", ("matmul_add", (20, 4096, 1024)), "prism5"),
-        ("-", ("matmul_add", (40, 1024, 1024)), "prism5")],
+        ("-", ("matmul_add", (40, 1024, 1024)), "prism5"),
+        ("-", ("matmul_add", (100, 1024, 1024), "bfloat16"), None),
+        ("-", ("matmul_add", (20, 4096, 1024), "bfloat16"), None),
+        ("-", ("matmul_add", (40, 1024, 1024), "bfloat16"), None)],
     "gram_upper": [
         ("polar", ("gram_upper", (20, 4096, 1024)), "prism3"),
-        ("polar", ("gram_upper", (40, 1024, 1024)), "prism3")],
+        ("polar", ("gram_upper", (40, 1024, 1024)), "prism3"),
+        ("polar", ("gram_upper", (20, 4096, 1024), "bfloat16"), None),
+        ("polar", ("gram_upper", (40, 1024, 1024), "bfloat16"), None)],
     "warm_tail": [
         ("sqrt", ("warm_tail/sqrt", (30, 64, 64)), "shampoo_prism5"),
         ("sqrt", ("warm_tail/sqrt", (30, 16, 16)), "shampoo_prism5"),
@@ -1434,7 +1507,7 @@ def kernel_rows(rows, timings, by_path):
                 "max_abs_err": rows[key]["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                 "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-                "dtype": "float32"})
+                "dtype": key[2] if len(key) > 2 else "float32"})
         top = variants[0]
         out.append({
             "name": name, "status": "ported", "route": "cuda",

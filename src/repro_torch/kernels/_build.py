@@ -36,6 +36,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# the compiler's report of each source built with ``verbose``
+LOGS: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -88,6 +90,7 @@ def build(names: Iterable[str] = KERNELS, verbose: bool = False
             continue
         if verbose and log:
             print(f"--- nvcc {n}.cu\n{log}", flush=True)
+            LOGS[n] = log
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

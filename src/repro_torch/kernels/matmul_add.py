@@ -9,6 +9,12 @@ accumulator over the contraction, reads C only in the epilogue and rounds
 once; the grid carries the batch, so a [B, m, n] bucket is one launch
 (DESIGN.md §7).  ``plain`` is the plain PyTorch version of the same
 function.
+
+K1 and K2 (``gram.py``) share one GEMM core (``csrc/gemm.cuh``), with two
+instantiations of each kernel: the aligned one copies 16-byte chunks
+into its shared-memory ring, the other loads element by element.
+``aligned`` chooses between them; ``smem_bytes`` mirrors ``gemm.cuh``'s
+footprint, and the launchers refuse any other.
 """
 from __future__ import annotations
 
@@ -23,7 +29,36 @@ plain = ref.matmul_add
 
 _SYMBOL = "prism_matmul_add"
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
-    [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    [ctypes.c_float] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+TILE = 128          # output tile of one block (gemm.cuh)
+STAGES = 4          # slots of the ring
+STAGE_K_BYTES = 64  # bytes of the contraction per operand row and stage
+
+# launches of the element-by-element instantiation (the main paths take
+# none: chip_smoke.py reads this beside the launch counts)
+unaligned_launches = 0
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory of one K1/K2 block, in either dtype: the ring
+    (both operands' [128, 64-byte] stage tiles in each slot) or the fp32
+    128 x 128 output tile staged after the loop, whichever is larger."""
+    ring = STAGES * 2 * TILE * STAGE_K_BYTES
+    return max(ring, TILE * TILE * 4)
+
+
+def aligned(*tensors: torch.Tensor) -> bool:
+    """Whether K1/K2 may take their aligned instantiation for these
+    operands: every row holds a whole number of 16-byte chunks and every
+    operand starts on 16 bytes (so does each slice of a contiguous
+    batch)."""
+    for t in tensors:
+        if t is None:
+            continue
+        if (t.shape[-1] * t.element_size()) % 16 or t.data_ptr() % 16:
+            return False
+    return True
 
 
 def matmul_add(A: torch.Tensor, B: torch.Tensor,
@@ -47,12 +82,15 @@ def matmul_add(A: torch.Tensor, B: torch.Tensor,
     D = torch.empty((nb, m, n), dtype=A.dtype, device=A.device)
     if D.numel() == 0:
         return D
+    global unaligned_launches
     has_c = C is not None and beta != 0.0
+    fast = aligned(A, B, C if has_c else None, D)
     lib = _build.library("matmul_add", _SYMBOL, _ARGTYPES)
     with torch.cuda.device(A.device):
         _build.launch("matmul_add", lib, _SYMBOL, A.data_ptr(),
                       B.data_ptr(), C.data_ptr() if has_c else None,
                       D.data_ptr(), nb, m, n, k, float(alpha), float(beta),
-                      int(has_c), int(A.dtype == torch.bfloat16),
-                      _build.stream_handle(A))
+                      int(has_c), int(A.dtype == torch.bfloat16), int(fast),
+                      smem_bytes(), _build.stream_handle(A))
+    unaligned_launches += not fast
     return D

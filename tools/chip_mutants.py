@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""Mutation check of chip_smoke.py's bf16 comparisons of the fitted-
-iteration kernels (K4 sketch_step, K5 sketch_chain, K6 residual_chain,
-K7 apply_g) and of the sign and coupled sqrt families of K3, K6 and K7
-on a CUDA card.
+"""Mutation check of chip_smoke.py's comparisons on a CUDA card: the bf16
+checks of the fitted-iteration kernels (K4 sketch_step, K5 sketch_chain,
+K6 residual_chain, K7 apply_g) and of the sign and coupled sqrt families
+of K3, K6 and K7, and the fp32 and bf16 checks of K1 matmul_add and K2
+gram_upper on their GEMM core (``csrc/gemm.cuh``).
 
-For each mutant — one deliberate fault in one kernel source — the script
+For each mutant — one deliberate fault in the kernel sources — the script
 copies ``src/`` and ``chip_smoke.py`` into ``build/mutants/<name>/``
 (git-ignored), applies the fault there, builds the kernels of that copy
-and runs ``chip_smoke.fit_kernel_checks`` and ``chip_smoke.family_checks``
-with bf16 as the only dtype.
-The unbroken copy must pass; a mutant in ``EXPECT_FAIL`` must fail a
-bf16 comparison; a mutant in ``EXPECT_PASS`` shows a fault that lies
-below the bf16 tolerance.  Run from the root of a checkout, on a machine
-with a CUDA card and nvcc:
+and runs its check: ``chip_smoke.fit_kernel_checks`` and
+``chip_smoke.family_checks`` with bf16 as the only dtype, or, for the
+mutants in ``GEMM_EXPECT_FAIL``, ``chip_smoke.kernel_checks`` in fp32 and
+bf16 (every K1/K2 shape, ragged ones included, with the NaN poison and
+the symmetry check).
+The unbroken copy must pass both checks; a mutant in ``EXPECT_FAIL`` or
+``GEMM_EXPECT_FAIL`` must fail a comparison; a mutant in ``EXPECT_PASS``
+shows a fault that lies below the bf16 tolerance.  Run from the root of a
+checkout, on a machine with a CUDA card and nvcc:
 
-    python3 tools/chip_mutants.py [--log-dir DIR]
+    python3 tools/chip_mutants.py [--log-dir DIR] [--only PREFIX ...]
 
-Exits non-zero when any outcome differs from the expected one.
+``--only`` runs the unbroken copy and the mutants whose names start with
+one of the prefixes (``--only k1_ k2_`` for the GEMM core's).  Exits
+non-zero when any outcome differs from the expected one.
 """
 from __future__ import annotations
 
@@ -80,49 +86,94 @@ EXPECT_PASS = {
         " tpart);"),
 }
 
+# K1/K2 on the GEMM core: name -> [(source, text, replacement), ...]
+GEMM_EXPECT_FAIL = {
+    # the mainloop computes on the slot of stage kt + 1, still in flight
+    "k1_k2_ring_reads_the_stage_being_filled": [(
+        "gemm.cuh", "const int cur = kt % STAGES;",
+        "const int cur = (kt + 1) % STAGES;")],
+    # the tile edges are no longer zero-filled: the 16-byte copies of the
+    # aligned variant copy the clamped source instead of zeros ((1, 1000,
+    # 300) fp32), and the scalar loads of the unaligned one read past the
+    # contraction's end ((1, 55, 55))
+    "k1_k2_ragged_edge_without_zero_fill": [
+        ("gemm.cuh", '"l"(src), "r"(pred ? 16 : 0));', '"l"(src), "r"(16));'),
+        ("gemm.cuh",
+         "if (k0 + k < K && c0 + x < cols) v = g[(size_t)(k0 + k) * ld + "
+         "c0 + x];",
+         "if (c0 + x < cols) v = g[(size_t)(k0 + k) * ld + c0 + x];"),
+        ("gemm.cuh",
+         "if (row0 + m < M && k0 + k < K) v = a[(size_t)(row0 + m) * K + "
+         "k0 + k];",
+         "if (row0 + m < M) v = a[(size_t)(row0 + m) * K + k0 + k];")],
+    # an off-diagonal Gram tile no longer writes its transpose
+    "k2_off_diagonal_tile_without_its_transpose": [(
+        "gram_upper.cu",
+        "    if (bi == bj) return;\n    // its transpose",
+        "    return;\n    // its transpose")],
+    # the last group of row tiles is never computed
+    "k1_grouped_order_skips_its_last_group": [(
+        "matmul_add.cu", "  const int bi = first + w % rows;",
+        "  if (first + rows == mt && first > 0) return;\n"
+        "  const int bi = first + w % rows;")],
+}
+
 CHECK = ("import sys; sys.path.insert(0, 'src'); import torch; "
          "import chip_smoke as cs; cs.DTYPES = ('bfloat16',); "
          "from repro_torch.kernels import _build; _build.build(); "
          "cs.fit_kernel_checks(torch, {}); cs.family_checks(torch, {})")
+GEMM_CHECK = ("import sys; sys.path.insert(0, 'src'); import torch; "
+              "import chip_smoke as cs; "
+              "from repro_torch.kernels import _build; _build.build(); "
+              "cs.kernel_checks(torch)")
 
 
-def run_copy(name, mutation, log_dir):
-    """Build and check one copy; returns (passed, first failing line)."""
+def run_copy(name, edits, checks, log_dir):
+    """Build and check one copy with ``edits`` applied; returns (passed,
+    first failing line)."""
     d = ROOT / "build" / "mutants" / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(ROOT / "src", d / "src",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", d)
-    if mutation is not None:
-        source, text, replacement = mutation
+    for source, text, replacement in edits:
         f = d / "src" / "repro_torch" / "kernels" / "csrc" / source
         code = f.read_text()
         if text not in code:
             raise SystemExit(f"{name}: the text to break is not in {source}")
         f.write_text(code.replace(text, replacement))
-    r = subprocess.run([sys.executable, "-c", CHECK], cwd=d,
-                       capture_output=True, text=True, timeout=900)
-    out = r.stdout + r.stderr
+    out, code = "", 0
+    for check in checks:
+        r = subprocess.run([sys.executable, "-c", check], cwd=d,
+                           capture_output=True, text=True, timeout=900)
+        out += r.stdout + r.stderr
+        code = code or r.returncode
     if log_dir is not None:
         (log_dir / f"mutant_{name}.log").write_text(out)
     fails = [line.strip() for line in out.splitlines()
-             if line.rstrip().endswith("FAIL")]
-    return r.returncode == 0, fails[0] if fails else ""
+             if "FAIL" in line]
+    return code == 0, fails[0] if fails else ""
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log-dir", type=Path, default=None,
                     help="write each copy's output there")
+    ap.add_argument("--only", nargs="*", default=None,
+                    help="run only the mutants with these name prefixes")
     args = ap.parse_args()
     if args.log_dir is not None:
         args.log_dir.mkdir(parents=True, exist_ok=True)
-    plan = [("unbroken", None, True)]
-    plan += [(n, m, False) for n, m in EXPECT_FAIL.items()]
-    plan += [(n, m, True) for n, m in EXPECT_PASS.items()]
+    plan = [(n, [m], (CHECK,), False) for n, m in EXPECT_FAIL.items()]
+    plan += [(n, m, (GEMM_CHECK,), False)
+             for n, m in GEMM_EXPECT_FAIL.items()]
+    plan += [(n, [m], (CHECK,), True) for n, m in EXPECT_PASS.items()]
+    if args.only is not None:
+        plan = [p for p in plan if p[0].startswith(tuple(args.only))]
+    plan.insert(0, ("unbroken", [], (CHECK, GEMM_CHECK), True))
     wrong = []
-    for name, mutation, want_pass in plan:
-        passed, first_fail = run_copy(name, mutation, args.log_dir)
+    for name, edits, checks, want_pass in plan:
+        passed, first_fail = run_copy(name, edits, checks, args.log_dir)
         print(f"{name}: {'passed' if passed else 'failed'} "
               f"(expected to {'pass' if want_pass else 'fail'}) "
               f"{first_fail}", flush=True)
