@@ -17,9 +17,11 @@ Phases (any failure exits non-zero and prints no result):
      sign and coupled sqrt families of K3, K6 and K7 also on non-symmetric,
      independent X and Y, at the Shampoo bias shapes and at the largest
      coupled slice the fused tier admits in each dtype (one just above it
-     must take the grid tier); every main-path K1/K2 shape must take the
-     kernels' aligned instantiation; at every main-path shape, in fp32
-     (K1 and K2 also in bf16), the kernel, the plain version and one
+     must take the grid tier); K5 (one thread-block cluster a slice) at
+     every main-path shape, at n below its cluster size and at p = 1 and
+     16, with two launches bitwise equal; every main-path K1/K2 shape must
+     take the kernels' aligned instantiation; at every main-path shape, in
+     fp32 (K1 and K2 also in bf16), the kernel, the plain version and one
      PyTorch library call (where one computes the same function) are
      timed with CUDA events (median of 20 launches);
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
@@ -317,38 +319,88 @@ def spectrum_r(torch, B, n, gen, radius=0.95):
     return (q * d) @ q.transpose(-1, -2)
 
 
+# K5's checks: the grid-tier residual buckets of the main paths (fp32 and
+# bf16) and ragged cases (n below the cluster size, n not a multiple of
+# the vector width, p = 1 and p = 16): (shape, p, chain lengths)
+CHAIN_CASES = [((40, 1024, 1024), 8, (6, 10)),
+               ((20, 1024, 1024), 8, (6,)),
+               ((100, 1024, 1024), 8, (6, 10)),
+               ((3, 300, 300), 5, (6, 10)),
+               ((2, 37, 37), 12, (6, 10)),
+               ((1, 5, 5), 1, (1,)),
+               ((1, 1024, 1024), 16, (6, 10))]
+
+
+def chain_case(torch, r, st, powers, rows):
+    """K5 against its plain version on R [B, n, n] and St [n, p] for each
+    chain length in ``powers`` (traces checked per slice as [B, 1, powers]
+    so that ``check`` scales per slice); at [40, 1024, 1024] x 6 two
+    launches must agree bit for bit."""
+    from repro_torch.kernels import sketch_traces
+
+    B, n, _ = r.shape
+    p = st.shape[1]
+    dtype = str(r.dtype).replace("torch.", "")
+    for maxp in powers:
+        want = sketch_traces.plain_chain(r, st, maxp)
+        poison(torch, (B, maxp), torch.float32)
+        got = sketch_traces.sketch_chain(r, st, maxp)
+        err = check(torch, "sketch_chain", (B, n, p, maxp), dtype,
+                    got.reshape(B, 1, maxp), want.reshape(B, 1, maxp),
+                    FIT_TOL[dtype])
+        if (B, maxp) == (40, 6):
+            # every trace has a fixed order of summation
+            poison(torch, (B, maxp), torch.float32)
+            again = sketch_traces.sketch_chain(r, st, maxp)
+            torch.cuda.synchronize()
+            if not torch.equal(again, got):
+                fail(f"sketch_chain {tuple(r.shape)} {dtype}: two launches "
+                     f"differ (worst {max_err(torch, again, got):.3e})")
+            log(f"  sketch_chain {tuple(r.shape)} {dtype}: two launches "
+                f"bitwise equal")
+            if dtype == "float32":
+                rows["sketch_chain"] = dict(
+                    shape=[[B, n, n], [n, p], maxp], max_abs_err=err,
+                    operands=(r, st))
+        if B in (20, 40, 100) and dtype == "float32":
+            rows[("sketch_chain", (B, n, n, maxp))] = dict(
+                shape=[[B, n, n], [n, p], maxp], max_abs_err=err)
+
+
+def chain_checks(torch):
+    """K5 alone on every case of ``CHAIN_CASES``, in each of ``DTYPES``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    rows = {}
+    for shape, p, powers in CHAIN_CASES:
+        B, n, _ = shape
+        r32 = spectrum_r(torch, B, n, gen)
+        s32 = randn(torch, (p, n), gen, p ** -0.5)
+        for dtype in DTYPES:
+            dt = getattr(torch, dtype)
+            chain_case(torch, r32.to(dt), s32.t().contiguous().to(dt),
+                       powers, rows)
+    return rows
+
+
 def fit_kernel_checks(torch, rows):
     """K4-K7 against their plain versions, fp32 and bf16, at the PRISM-3
-    main-path shapes and at ragged ones.  Traces are checked per slice as
-    [B, 1, powers] so that ``check`` scales per slice."""
+    main-path shapes and at ragged ones (K5 by ``chain_case`` on
+    ``CHAIN_CASES``).  Traces are checked per slice as [B, 1, powers] so
+    that ``check`` scales per slice."""
     from repro_torch.kernels import fused_iter, ops, sketch_traces
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    # K5 / K4 on the grid-tier residual bucket: R with eigenvalues +-0.95,
-    # St ~ N(0, 1/p): traces of unit size (|t_i| up to ~p)
-    for shape, p in [((40, 1024, 1024), 8), ((100, 1024, 1024), 8),
-                     ((3, 300, 300), 5), ((2, 37, 37), 12)]:
+    # K5 / K4 on the grid-tier residual buckets and at ragged ones
+    for shape, p, powers in CHAIN_CASES:
         B, n, _ = shape
         r32 = spectrum_r(torch, B, n, gen)
         s32 = randn(torch, (p, n), gen, p ** -0.5)
         for dtype in DTYPES:
             dt = getattr(torch, dtype)
             r, st = r32.to(dt), s32.t().contiguous().to(dt)
-            for maxp in (6, 10):
-                want = sketch_traces.plain_chain(r, st, maxp)
-                poison(torch, (B, maxp), torch.float32)
-                got = sketch_traces.sketch_chain(r, st, maxp)
-                err = check(torch, "sketch_chain", (B, n, p, maxp), dtype,
-                            got.reshape(B, 1, maxp),
-                            want.reshape(B, 1, maxp), FIT_TOL[dtype])
-                if shape[0] == 40 and dtype == "float32" and maxp == 6:
-                    rows["sketch_chain"] = dict(
-                        shape=[list(shape), [n, p], maxp], max_abs_err=err,
-                        operands=(r, st))
-                if shape[0] in (40, 100) and dtype == "float32":
-                    rows[("sketch_chain", shape + (maxp,))] = dict(
-                        shape=[list(shape), [n, p], maxp], max_abs_err=err)
+            chain_case(torch, r, st, powers, rows)
             # K4: two powers, the second from the first's V'
             v = st.expand(B, n, p).contiguous()
             for pw in range(2):
@@ -584,8 +636,10 @@ def eye_like(torch, n, dt):
 
 def fit_kernel_timings(torch, rows):
     """ms / plain_ms / bound_ms of one launch of K4-K7 (polar) at their
-    main-path shapes, fp32, and of K5 at the Shampoo factor bucket
-    [100, 1024, 1024] with 10 powers; keyed by (name, shape).  No single
+    main-path shapes, fp32 (K5 at all three: the Shampoo factor bucket
+    [100, 1024, 1024] with 10 powers, and PRISM-3's [40, 1024, 1024] and
+    [20, 1024, 1024] with 6), with K5's cluster size, resident clusters,
+    registers, spills and achieved rate; keyed by (name, shape).  No single
     PyTorch call computes any of them (a chain of products with a trace
     epilogue; a residual with its chain; a Horner chain with a per-slice
     alpha), so ``library_ms`` is null."""
@@ -599,23 +653,30 @@ def fit_kernel_timings(torch, rows):
     maxp = 6
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
-    r100 = spectrum_r(torch, 100, n, gen)
-    out[("sketch_chain", (100, n, n, 10))] = dict(
-        ms=time_ms(torch, lambda: sketch_traces.sketch_chain(r100, st, 10)),
-        plain_ms=time_ms(torch, lambda: sketch_traces.plain_chain(
-            r100, st, 10)),
-        library_ms=None,
-        bound=bound_ms(2.0 * 100 * 10 * n * n * p,
-                       item * (100 * n * n + n * p + 100 * 10), "float32"))
-    del r100
-    out[("sketch_chain", (B, n, n, maxp))] = dict(
-        ms=time_ms(torch, lambda: sketch_traces.sketch_chain(r, st, maxp)),
-        plain_ms=time_ms(torch, lambda: sketch_traces.plain_chain(
-            r, st, maxp)),
-        library_ms=None,
-        # 2 n^2 p flops a power; R read once, St read, traces written
-        bound=bound_ms(2.0 * B * maxp * n * n * p,
-                       item * (B * n * n + n * p + B * maxp), "float32"))
+    for nb, powers in ((100, 10), (40, 6), (20, 6)):
+        rb = r if nb == B else spectrum_r(torch, nb, n, gen)
+        t = out[("sketch_chain", (nb, n, n, powers))] = dict(
+            ms=time_ms(torch, lambda: sketch_traces.sketch_chain(
+                rb, st, powers)),
+            plain_ms=time_ms(torch, lambda: sketch_traces.plain_chain(
+                rb, st, powers)),
+            library_ms=None,
+            # 2 n^2 p flops a power; R read once, St read, traces written
+            bound=bound_ms(2.0 * nb * powers * n * n * p,
+                           item * (nb * n * n + n * p + nb * powers),
+                           "float32"))
+        info = sketch_traces.chain_launch_info(rb, st)
+        streamed = item * nb * powers * n * n   # R once a power
+        log(f"  sketch_chain ({nb}, {n}, {n}) x {powers}: cluster "
+            f"{info['cluster']}, {info['active_clusters']} clusters "
+            f"resident ({info['active_clusters'] * item * n * n / 1e6:.1f} "
+            f"MB of R in their slices), {info['registers']} registers, "
+            f"{info['local_bytes']} B local (spills), {info['threads']} "
+            f"threads, {info['stages']} stages, {info['rows_a_warp']} rows "
+            f"a warp, {info['smem_bytes']} B shared; R streamed "
+            f"{streamed / 1e9:.3f} GB at {streamed / t['ms'] / 1e6:.1f} GB/s "
+            f"(device-memory floor {streamed / PEAK_BYTES * 1e3:.4f} ms)")
+        del rb
     v = st.expand(B, n, p).contiguous()
     out[("sketch_step", (B, n, n))] = dict(
         ms=time_ms(torch, lambda: sketch_traces.sketch_step(r, v, st)),
@@ -1407,7 +1468,8 @@ def main() -> None:
 
 def ptxas_summary(build) -> None:
     """Registers, spills and static shared memory of each instantiation of
-    K1 and K2, from the compiler's -Xptxas -v report of this build."""
+    K1 and K2 (a spill fails), and registers and spills of K5's, from the
+    compiler's -Xptxas -v report of this build."""
     import re
 
     from repro_torch.kernels import matmul_add
@@ -1437,6 +1499,20 @@ def ptxas_summary(build) -> None:
                 spills.append(f"{name} {what}")
     if spills:
         fail(f"register spills in {spills}")
+    text = build.LOGS.get("sketch_chain")
+    for entry in (text or "").split("Compiling entry function")[1:]:
+        kernel = re.search(r"sketch_chain_kernelI(\w+?)Li(\d+)ELi(\d+)E",
+                           entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+        if kernel:
+            log(f"  ptxas sketch_chain "
+                f"{'bf16' if 'bfloat16' in kernel.group(1) else 'fp32'} "
+                f"vec {kernel.group(2)} tile {kernel.group(3)}: "
+                f"{regs.group(1) if regs else '?'} registers, spill stores "
+                f"{spill.group(1) if spill else '?'} B, spill loads "
+                f"{spill.group(2) if spill else '?'} B")
 
 
 def _drop(torch, run):
@@ -1473,7 +1549,8 @@ VARIANTS = {
         ("-", ("sketch_step", (40, 1024, 1024)), "fallback")],
     "sketch_chain": [
         ("-", ("sketch_chain", (100, 1024, 1024, 10)), "shampoo_fig5"),
-        ("-", ("sketch_chain", (40, 1024, 1024, 6)), "prism3")],
+        ("-", ("sketch_chain", (40, 1024, 1024, 6)), "prism3"),
+        ("-", ("sketch_chain", (20, 1024, 1024, 6)), "prism3")],
     "residual_chain": [
         ("sqrt", ("residual_chain/sqrt", (30, 64, 64)), "shampoo_fig5"),
         ("sqrt", ("residual_chain/sqrt", (30, 16, 16)), "shampoo_fig5"),

@@ -1,12 +1,15 @@
 // Shared pieces of the sketched power-chain kernels K4 (sketch_step.cu)
 // and K5 (sketch_chain.cu): the products V' = R @ V of the chain
 // V_i = R V_{i-1}, V_0 = St ([n, p], p <= 16), with R streamed from
-// device memory.
+// device memory.  Both use the 16-byte operand loads (Vec16, load_vec)
+// and the choice of instantiation (dispatch_chain); the row-group product
+// and the all-reduce below are K4's (K5 stages R through a ring and
+// reduce-scatters its sums instead).
 //
-// Work split: a warp carries CHAIN_ROWS rows of R at a time.  Its lanes
-// stride over the contraction dimension with 16-byte loads of R (4 fp32 or
-// 8 bf16 values; a scalar path covers an n that is not a multiple of
-// that), and each lane keeps CHAIN_ROWS x p fp32 partial sums in
+// K4's work split: a warp carries CHAIN_ROWS rows of R at a time.  Its
+// lanes stride over the contraction dimension with 16-byte loads of R (4
+// fp32 or 8 bf16 values; a scalar path covers an n that is not a multiple
+// of that), and each lane keeps CHAIN_ROWS x p fp32 partial sums in
 // registers.  V lives in shared memory TRANSPOSED, as [p][ldv], so that the
 // lanes' 16-byte reads of one V row walk consecutive addresses, and each V
 // value read from shared memory feeds CHAIN_ROWS FMAs.  A butterfly of

@@ -33,7 +33,8 @@ only, never on the batch size (the batch is the grid).  The config field
 bytes; there is no environment variable.
 
 Sketched traces (``sketch_traces``): K5 runs the whole chain of a bucket
-in one launch when St and its two V buffers fit one block
+in one launch, one thread-block cluster a slice, when a cluster block's
+two V buffers, ring of R and sketch rows fit its shared memory
 (``sketch_traces.chain_smem_bytes`` against the same budget), else a
 loop of K4 launches, one per power, never an over-budget launch.  The
 reference padded the sketch dim p to 128 TPU lanes; the CUDA kernels take
@@ -95,7 +96,8 @@ def fused_fits(mshape, dtype, *, budget: int = 0, sketch_dim: int = 8,
 
 def chain_fits(n: int, p: int, dtype, *, budget: int = 0) -> bool:
     """Whether K5 may run the whole chain of an [n, n] residual with a
-    p-row sketch in one block (else ``sketch_traces`` loops K4)."""
+    p-row sketch (one block of its cluster fits the budget; else
+    ``sketch_traces`` loops K4)."""
     return _sk.chain_smem_bytes(n, p, _itemsize(dtype)) <= \
         min(smem_budget(budget), _sk.MAX_SMEM_BYTES)
 
@@ -176,8 +178,8 @@ def warm_tail(X, alphas: Sequence[float], *, degree: int,
 
 def sketch_traces(R, S, max_power: int, *, budget: int = 0):
     """t_i = tr(S R^i S^T), i = 0..max_power, fp32 [..., max_power + 1]:
-    one K5 launch for the whole bucket when the chain fits one block
-    (``chain_fits``), else ``max_power`` K4 launches.  t_0 is sketch-only
+    one K5 launch for the whole bucket when the chain fits (``chain_fits``),
+    else ``max_power`` K4 launches.  t_0 is sketch-only
     and computed here."""
     if not _on_cuda(R, S):
         return _ref.sketch_traces(R, S, max_power)

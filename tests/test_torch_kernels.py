@@ -132,6 +132,7 @@ def _st(x):
     lambda x: gram.gram_upper(x),
     lambda x: fused_iter.warm_tail(x, (1.45,), coeffs=COEFFS),
     lambda x: sketch_traces.sketch_chain(x, _st(x), 6),
+    lambda x: sketch_traces.chain_launch_info(x, _st(x)),
     lambda x: sketch_traces.sketch_step(x, x[:, :, :8].contiguous(), _st(x)),
     lambda x: fused_iter.residual_chain(x, _st(x), 6),
     lambda x: fused_iter.apply_g(x, x, torch.ones(1), coeffs=COEFFS),
@@ -292,11 +293,17 @@ def test_apply_g_plain_matches_reference(lead, m, n, dtype, degree):
                                           (4096, "bfloat16", True)])
 def test_chain_model_picks_the_whole_chain_kernel_when_it_fits(n, dtype,
                                                                fits):
-    """K5 keeps St and two V buffers ([8, n] each) in one block; at
-    n = 4096 in fp32 they exceed 232,448 bytes and the chain loops K4."""
+    """A K5 cluster block keeps both V buffers ([8, n] each), its ring of
+    R and St at its rows; at n = 4096 in fp32 they exceed 232,448 bytes
+    and the chain loops K4."""
     item = 4 if dtype == "float32" else 2
     need = sketch_traces.chain_smem_bytes(n, 8, item)
-    assert need == 3 * 8 * n * item + 4 * sketch_traces.CHAIN_WARPS
+    ring = (sketch_traces.CHAIN_STAGES * sketch_traces.chain_rows_a_warp(8)
+            * 16 * sketch_traces.CHAIN_THREADS)
+    rank_rows = -(-n // sketch_traces.CHAIN_CLUSTER)
+    assert need == (2 * 8 * n * item + ring + rank_rows * 8 * item
+                    + 4 * (sketch_traces.CHAIN_WARPS
+                           + 2 * sketch_traces.CHAIN_CLUSTER))
     assert ops.chain_fits(n, 8, dtype) is fits
     assert ops.chain_fits(n, 8, dtype, budget=need) is fits
     assert not ops.chain_fits(n, 8, dtype, budget=need - 1)

@@ -1,28 +1,33 @@
 #!/usr/bin/env python3
 """Mutation check of chip_smoke.py's comparisons on a CUDA card: the bf16
-checks of the fitted-iteration kernels (K4 sketch_step, K5 sketch_chain,
-K6 residual_chain, K7 apply_g) and of the sign and coupled sqrt families
-of K3, K6 and K7, and the fp32 and bf16 checks of K1 matmul_add and K2
-gram_upper on their GEMM core (``csrc/gemm.cuh``).
+checks of the fitted-iteration kernels (K4 sketch_step, K6
+residual_chain, K7 apply_g) and of the sign and coupled sqrt families of
+K3, K6 and K7, the fp32 and bf16 checks of K5 sketch_chain (its thread-
+block clusters: ``K5_EXPECT_FAIL``), and the fp32 and bf16 checks of K1
+matmul_add and K2 gram_upper on their GEMM core (``csrc/gemm.cuh``).
 
 For each mutant — one deliberate fault in the kernel sources — the script
 copies ``src/`` and ``chip_smoke.py`` into ``build/mutants/<name>/``
 (git-ignored), applies the fault there, builds the kernels of that copy
 and runs its check: ``chip_smoke.fit_kernel_checks`` and
-``chip_smoke.family_checks`` with bf16 as the only dtype, or, for the
-mutants in ``GEMM_EXPECT_FAIL``, ``chip_smoke.kernel_checks`` in fp32 and
-bf16 (every K1/K2 shape, ragged ones included, with the NaN poison and
-the symmetry check).
-The unbroken copy must pass both checks; a mutant in ``EXPECT_FAIL`` or
-``GEMM_EXPECT_FAIL`` must fail a comparison; a mutant in ``EXPECT_PASS``
-shows a fault that lies below the bf16 tolerance.  Run from the root of a
-checkout, on a machine with a CUDA card and nvcc:
+``chip_smoke.family_checks`` with bf16 as the only dtype; for the
+mutants in ``K5_EXPECT_FAIL``, ``chip_smoke.chain_checks`` (K5 alone, the
+only kernel built) in fp32 and bf16, with two launches bitwise equal; for
+the mutants in ``GEMM_EXPECT_FAIL``, ``chip_smoke.kernel_checks`` in fp32
+and bf16 (every K1/K2 shape, ragged ones included, with the NaN poison
+and the symmetry check).
+The unbroken copy must pass every check the chosen mutants run; a mutant
+in ``EXPECT_FAIL``, ``K5_EXPECT_FAIL`` or ``GEMM_EXPECT_FAIL`` must fail a
+comparison (or its run: a mutant may also fault); a mutant in
+``EXPECT_PASS`` shows a fault that lies below the bf16 tolerance.  Run
+from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 tools/chip_mutants.py [--log-dir DIR] [--only PREFIX ...]
 
 ``--only`` runs the unbroken copy and the mutants whose names start with
-one of the prefixes (``--only k1_ k2_`` for the GEMM core's).  Exits
-non-zero when any outcome differs from the expected one.
+one of the prefixes (``--only k1_ k2_`` for the GEMM core's, ``--only
+k5_`` for K5's).  Exits non-zero when any outcome differs from the
+expected one.
 """
 from __future__ import annotations
 
@@ -40,10 +45,6 @@ EXPECT_FAIL = {
         "sketch_step.cu",
         "    if (nrows > 0)\n      prism::row_group_dot",
         "    if (nrows > 0 && tile != tiles - 1)\n      prism::row_group_dot"),
-    "k5_every_power_reads_v0": (
-        "sketch_chain.cu",
-        "const T* vin = pw == 0 ? stt : ((pw & 1) ? v0 : v1);",
-        "const T* vin = stt;"),
     "k6_residual_without_identity": (
         "residual_chain.cu",
         "__fsub_rn(i == j ? 1.f : 0.f, s)", "__fsub_rn(0.f, s)"),
@@ -79,11 +80,37 @@ EXPECT_FAIL = {
         "      Y_out[b * nn + i] = prism::Num<T>::from_f32(acc[i]);"),
 }
 EXPECT_PASS = {
+    # the trace of the rounded V_i: below the bf16 tolerance (and nothing
+    # in fp32), so the §9 order is not what these checks can see
     "k5_trace_from_rounded_v": (
         "sketch_chain.cu",
-        "tpart = fmaf(N::to_f32(stt[o]), acc[j][c], tpart);",
-        "tpart = fmaf(N::to_f32(stt[o]), N::to_f32(N::from_f32(acc[j][c])),"
-        " tpart);"),
+        "tsum = fmaf(N::to_f32(sto[row * p + c]), s, tsum);",
+        "tsum = fmaf(N::to_f32(sto[row * p + c]), N::to_f32(N::from_f32(s)),"
+        " tsum);"),
+}
+
+# K5 alone (``chip_smoke.chain_checks``, fp32 and bf16): name -> (source,
+# text, replacement)
+K5_EXPECT_FAIL = {
+    "k5_every_power_reads_v0": (
+        "sketch_chain.cu", "const T* vin = (pw & 1) ? v1 : v0;",
+        "const T* vin = v0;"),
+    # no cluster barrier between powers (the last one stays, so that no
+    # block leaves while others store into it): a rank reads V_i before
+    # its peers wrote it, and rank 0 sums partials not yet stored
+    "k5_no_cluster_barrier_between_powers": (
+        "sketch_chain.cu",
+        "    cluster.sync();\n    if (rank == 0 && tid == 0) {",
+        "    if (push) __syncthreads(); else cluster.sync();\n"
+        "    if (rank == 0 && tid == 0) {"),
+    # rank 0 leaves the last rank's trace partial out of its sum
+    "k5_last_rank_partial_left_out": (
+        "sketch_chain.cu", "for (int src = 0; src < CLUSTER; ++src)",
+        "for (int src = 0; src < CLUSTER - 1; ++src)"),
+    # the rank that holds the ragged edge of R skips its last row
+    "k5_ragged_rank_skips_its_last_row": (
+        "sketch_chain.cu", "const int rows = min(q, n - r0);",
+        "const int rows = min(q, n - r0) - (n - r0 < q && n > r0);"),
 }
 
 # K1/K2 on the GEMM core: name -> [(source, text, replacement), ...]
@@ -126,6 +153,12 @@ GEMM_CHECK = ("import sys; sys.path.insert(0, 'src'); import torch; "
               "import chip_smoke as cs; "
               "from repro_torch.kernels import _build; _build.build(); "
               "cs.kernel_checks(torch)")
+# builds K5 only
+K5_CHECK = ("import sys; sys.path.insert(0, 'src'); import torch; "
+            "import chip_smoke as cs; "
+            "from repro_torch.kernels import _build; "
+            "_build.KERNELS = ('sketch_chain',); "
+            "_build.build(('sketch_chain',)); cs.chain_checks(torch)")
 
 
 def run_copy(name, edits, checks, log_dir):
@@ -151,7 +184,7 @@ def run_copy(name, edits, checks, log_dir):
     if log_dir is not None:
         (log_dir / f"mutant_{name}.log").write_text(out)
     fails = [line.strip() for line in out.splitlines()
-             if "FAIL" in line]
+             if "FAIL" in line or "Error" in line]
     return code == 0, fails[0] if fails else ""
 
 
@@ -165,12 +198,17 @@ def main() -> None:
     if args.log_dir is not None:
         args.log_dir.mkdir(parents=True, exist_ok=True)
     plan = [(n, [m], (CHECK,), False) for n, m in EXPECT_FAIL.items()]
+    plan += [(n, [m], (K5_CHECK,), False)
+             for n, m in K5_EXPECT_FAIL.items()]
     plan += [(n, m, (GEMM_CHECK,), False)
              for n, m in GEMM_EXPECT_FAIL.items()]
-    plan += [(n, [m], (CHECK,), True) for n, m in EXPECT_PASS.items()]
+    plan += [(n, [m], (K5_CHECK,), True) for n, m in EXPECT_PASS.items()]
     if args.only is not None:
         plan = [p for p in plan if p[0].startswith(tuple(args.only))]
-    plan.insert(0, ("unbroken", [], (CHECK, GEMM_CHECK), True))
+    # the unbroken copy passes every check the chosen mutants run
+    checks = tuple(c for c in (CHECK, K5_CHECK, GEMM_CHECK)
+                   if any(c in p[2] for p in plan))
+    plan.insert(0, ("unbroken", [], checks, True))
     wrong = []
     for name, edits, checks, want_pass in plan:
         passed, first_fail = run_copy(name, edits, checks, args.log_dir)
