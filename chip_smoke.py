@@ -19,11 +19,15 @@ Phases (any failure exits non-zero and prints no result):
      coupled slice the fused tier admits in each dtype (one just above it
      must take the grid tier); K5 (one thread-block cluster a slice) at
      every main-path shape, at n below its cluster size and at p = 1 and
-     16, with two launches bitwise equal; every main-path K1/K2 shape must
-     take the kernels' aligned instantiation; at every main-path shape, in
-     fp32 (K1 and K2 also in bf16), the kernel, the plain version and one
-     PyTorch library call (where one computes the same function) are
-     timed with CUDA events (median of 20 launches);
+     16, with two launches bitwise equal, and two K6 launches bitwise
+     equal in every family; every main-path K1/K2 shape must take the
+     kernels' aligned instantiation; at every main-path shape, in fp32 (K1
+     and K2 also in bf16), the kernel, the plain version and one PyTorch
+     library call (where one computes the same function) are timed with
+     CUDA events (median of 20 launches; K3, K6 and K7, shorter than the
+     host's time to launch them, also as the median of 20 runs of 10
+     launches back to back and as the mean device time of 20 launches in
+     a profiler trace);
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
      width (seq 512, batch 4, random weights from seed 0), STEPS steps
      through ``repro_torch.launch.train_lm.build``; the launch counts are
@@ -80,6 +84,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 STEPS = 4                 # full-width training steps; the first warms up
 TIMED_REPS = 20           # launches per CUDA-event median
+BACK_TO_BACK = 10         # launches a run of the back-to-back timing
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 WARM_TOL = {"float32": 2e-4, "bfloat16": 5e-2}     # tests/test_fused_iter.py
 # K4/K5 traces (tests/test_kernels.py) and K6/K7 (tests/test_fused_iter.py)
@@ -135,8 +140,12 @@ def log(msg: str) -> None:
 
 # --------------------------------------------------------------- timing
 
-def time_ms(torch, fn, reps: int = TIMED_REPS, warmup: int = 3) -> float:
-    """Median device time of one call of ``fn`` over ``reps`` calls."""
+def time_ms(torch, fn, reps: int = TIMED_REPS, warmup: int = 3,
+            batch: int = 1) -> float:
+    """Median time of one call of ``fn`` over ``reps`` runs of ``batch``
+    calls back to back between two CUDA events: with ``batch`` 1 the host's
+    launch time is inside; with more, the device's time of a kernel that
+    runs longer than the host takes to launch it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -145,11 +154,55 @@ def time_ms(torch, fn, reps: int = TIMED_REPS, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, kernel: str, reps: int = TIMED_REPS):
+    """Mean device time of one launch of ``kernel`` (the CUDA kernels whose
+    name holds ``<kernel>_kernel``) over ``reps`` calls of ``fn``, from a
+    torch.profiler trace: the card's time, whatever the host's.  None when
+    the trace holds none of its launches (the profiler drops a trace now
+    and then); it is a measurement, not a gate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and f"{kernel}_kernel" in e.key:
+            total += e.self_device_time_total
+            count += e.count
+    if not count:
+        log(f"  {kernel}: the profile holds none of its {reps} launches")
+        return None
+    return total / 1e3 / count
+
+
+def small_times(torch, fn, kernel: str) -> dict:
+    """A fused-tier kernel (K3, K6, K7) runs for less than the host takes
+    to launch it, so a single launch between two events times the host:
+    its back-to-back time (``BACK_TO_BACK`` launches between two events,
+    still host-bound below ~30 us) and its profiled device time."""
+    return dict(b2b_ms=time_ms(torch, fn, batch=BACK_TO_BACK),
+                device_ms=device_ms(torch, fn, kernel))
+
+
+def small_note(t: dict) -> str:
+    if "b2b_ms" not in t:
+        return ""
+    dev = t["device_ms"]
+    dev = "not measured" if dev is None else f"{dev:.4f} ms"
+    return f" (back to back {t['b2b_ms']:.4f} ms, device {dev})"
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str):
@@ -173,12 +226,22 @@ def normalized(torch, shape, gen):
     return x / torch.linalg.matrix_norm(x, keepdim=True)
 
 
-def poison(torch, shape, dtype) -> None:
-    """Free a NaN-filled block of this size just before a kernel call: the
-    caching allocator hands it to the kernel's output, so an output the
-    kernel fails to write reads as NaN instead of stale, plausible data."""
-    t = torch.full(tuple(shape), float("nan"), dtype=dtype, device="cuda")
-    del t
+def poison(torch, shape, dtype, count: int = 1) -> None:
+    """Free ``count`` NaN-filled blocks of this size just before a kernel
+    call: the caching allocator hands them to the kernel's outputs, so an
+    output the kernel fails to write reads as NaN instead of stale,
+    plausible data."""
+    ts = [torch.full(tuple(shape), float("nan"), dtype=dtype, device="cuda")
+          for _ in range(count)]
+    del ts
+
+
+def same_twice(torch, name, shape, dtype, first, again) -> None:
+    """A second launch on the same inputs gives bitwise the same outputs:
+    every sum of the kernel runs in a fixed order."""
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail(f"{name} {shape} {dtype}: two launches are not bitwise equal")
 
 
 def max_err(torch, got, want) -> float:
@@ -448,6 +511,9 @@ def fit_kernel_checks(torch, rows):
                 err_t = check(torch, "residual_chain", (B, m, n, maxp),
                               dtype, got_t.reshape(B, 1, maxp),
                               want_t.reshape(B, 1, maxp), FIT_TOL[dtype])
+                same_twice(torch, "residual_chain", (B, m, n, maxp), dtype,
+                           (got_r, got_t),
+                           fused_iter.residual_chain(x, st, maxp))
                 if shape == (30, 64, 16) and dtype == "float32" and \
                         maxp == 6:
                     rows["residual_chain"] = dict(
@@ -577,6 +643,9 @@ def family_checks(torch, rows):
                     if fam == "sqrt" and not torch.equal(
                             got_r, got_r.transpose(-1, -2)):
                         fail(f"{name} {shape} {dtype}: R not symmetric")
+                    same_twice(torch, name, (B, n, n, maxp), dtype,
+                               (got_r, got_t), fused_iter.residual_chain(
+                                   x, st, maxp, family=fam, Y=yy))
                     if main and maxp == 10:
                         rows[(name, shape)] = dict(
                             shape=[list(shape), [n, 8], maxp],
@@ -592,7 +661,7 @@ def family_checks(torch, rows):
                 alpha = torch.linspace(lo, hi, B, device="cuda")
                 want = fused_iter.plain_apply_g(xa, r, alpha, coeffs=cf,
                                                 Y=ya)
-                poison(torch, shape, dt)
+                poison(torch, shape, dt, count=2)
                 got = fused_iter.apply_g(xa, r, alpha, coeffs=cf, Y=ya)
                 err = max(check(torch, "apply_g/coupled",
                                 (B, n, n, f"d{degree}", side), dtype, g, w,
@@ -691,6 +760,8 @@ def fit_kernel_timings(torch, rows):
     p = st6.shape[1]
     out[("residual_chain", (B, m, n, maxp))] = dict(
         ms=time_ms(torch, lambda: fused_iter.residual_chain(x, st6, maxp)),
+        **small_times(torch, lambda: fused_iter.residual_chain(x, st6, maxp),
+                      "residual_chain"),
         plain_ms=time_ms(torch, lambda: fused_iter.plain_residual_chain(
             x, S6, maxp)),
         library_ms=None,
@@ -704,6 +775,8 @@ def fit_kernel_timings(torch, rows):
     out[("apply_g", (B, m, n))] = dict(
         ms=time_ms(torch, lambda: fused_iter.apply_g(xa, ra, alpha,
                                                      coeffs=coeffs)),
+        **small_times(torch, lambda: fused_iter.apply_g(
+            xa, ra, alpha, coeffs=coeffs), "apply_g"),
         plain_ms=time_ms(torch, lambda: fused_iter.plain_apply_g(
             xa, ra, alpha, coeffs=coeffs)),
         library_ms=None,
@@ -711,8 +784,9 @@ def fit_kernel_timings(torch, rows):
                        item * (2 * B * m * n + B * n * n + B), "float32"))
     for (name, shape), t in out.items():
         log(f"  {name:14s} {str(shape):22s} float32 kernel "
-            f"{t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  library none"
-            f"  bound {t['bound'][0]:.5f} ms ({t['bound'][1]})")
+            f"{t['ms']:.4f} ms{small_note(t)}  plain {t['plain_ms']:.4f} "
+            f"ms  library none  bound {t['bound'][0]:.5f} ms "
+            f"({t['bound'][1]})")
     return out
 
 
@@ -782,13 +856,15 @@ def family_timings(torch):
                 B * 2 * horner, item * (5 * mat + B)),
         }
         for name, (kern, plain, flops, nbytes) in cases.items():
-            t = dict(ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
-                     library_ms=None,
+            t = dict(ms=time_ms(torch, kern),
+                     **small_times(torch, kern, name.split("/")[0]),
+                     plain_ms=time_ms(torch, plain), library_ms=None,
                      bound=bound_ms(flops, nbytes, "float32"))
             out[(name, shape)] = t
             log(f"  {name:20s} {str(shape):14s} float32 kernel "
-                f"{t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  library "
-                f"none  bound {t['bound'][0]:.6f} ms ({t['bound'][1]})")
+                f"{t['ms']:.4f} ms{small_note(t)}  plain "
+                f"{t['plain_ms']:.4f} ms  library none  bound "
+                f"{t['bound'][0]:.6f} ms ({t['bound'][1]})")
     return out
 
 
@@ -823,6 +899,8 @@ def kernel_timings(torch, rows):
             t = dict(
                 ms=time_ms(torch, lambda: fused_iter.warm_tail(
                     x, alphas, coeffs=coeffs)),
+                **small_times(torch, lambda: fused_iter.warm_tail(
+                    x, alphas, coeffs=coeffs), "warm_tail"),
                 plain_ms=time_ms(torch, lambda: fused_iter.plain(
                     x, alphas, coeffs=coeffs)),
                 library_ms=None,
@@ -858,8 +936,9 @@ def kernel_timings(torch, rows):
             del x
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         log(f"  {name:10s} {str(shape):18s} {dtype:8s} kernel "
-            f"{t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  library {lib} "
-            f"ms  bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
+            f"{t['ms']:.4f} ms{small_note(t)}  plain {t['plain_ms']:.4f} "
+            f"ms  library {lib} ms  bound {t['bound'][0]:.4f} ms "
+            f"({t['bound'][1]})")
         out[(name, shape) if dtype == "float32"
             else (name, shape, dtype)] = t
     return out
@@ -1119,7 +1198,7 @@ def train_path(torch, path):
 def fallback_path(torch, run):
     """One PRISM-3 Muon step with the shared-memory budget forced just
     below sketch_chain's footprint on the grid buckets' Gram side (96 KiB
-    at d_model = 1024, fp32, p = 8; the fused tier's bias view needs 13 KB
+    at d_model = 1024, fp32, p = 8; the fused tier's bias view needs 17 KB
     and keeps its tier): the chains run as sketch_step launches (2 buckets
     x 2 fits x 6 powers), and the update stays within UPDATE_REL_TOL of
     the update through sketch_chain."""
@@ -1468,8 +1547,8 @@ def main() -> None:
 
 def ptxas_summary(build) -> None:
     """Registers, spills and static shared memory of each instantiation of
-    K1 and K2 (a spill fails), and registers and spills of K5's, from the
-    compiler's -Xptxas -v report of this build."""
+    K1 and K2 (a spill fails), and registers and spills of K5's, K6's and
+    K7's, from the compiler's -Xptxas -v report of this build."""
     import re
 
     from repro_torch.kernels import matmul_add
@@ -1499,6 +1578,20 @@ def ptxas_summary(build) -> None:
                 spills.append(f"{name} {what}")
     if spills:
         fail(f"register spills in {spills}")
+    for name in ("residual_chain", "apply_g"):
+        for entry in (build.LOGS.get(name) or "").split(
+                "Compiling entry function")[1:]:
+            kernel = re.search(r"_kernelI(\w+?)Li?b?(\w+?)EE", entry)
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", entry)
+            if kernel:
+                log(f"  ptxas {name} "
+                    f"{'bf16' if 'bfloat16' in kernel.group(1) else 'fp32'}"
+                    f" {kernel.group(2)}: {regs.group(1) if regs else '?'} "
+                    f"registers, spill stores "
+                    f"{spill.group(1) if spill else '?'} B, spill loads "
+                    f"{spill.group(2) if spill else '?'} B")
     text = build.LOGS.get("sketch_chain")
     for entry in (text or "").split("Compiling entry function")[1:]:
         kernel = re.search(r"sketch_chain_kernelI(\w+?)Li(\d+)ELi(\d+)E",
@@ -1584,6 +1677,8 @@ def kernel_rows(rows, timings, by_path):
                 "max_abs_err": rows[key]["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                 "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+                "back_to_back_ms": t.get("b2b_ms"),
+                "device_ms": t.get("device_ms"),
                 "dtype": key[2] if len(key) > 2 else "float32"})
         top = variants[0]
         out.append({
@@ -1594,7 +1689,8 @@ def kernel_rows(rows, timings, by_path):
             "launches_by_path": {k: v[name] for k, v in by_path.items()},
             **{k: top[k] for k in ("path", "launches", "max_abs_err", "ms",
                                    "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms", "shape", "dtype")},
+                                   "library_ms", "back_to_back_ms",
+                                   "device_ms", "shape", "dtype")},
             "variants": variants})
     return out
 

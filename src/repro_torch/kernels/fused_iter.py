@@ -3,8 +3,8 @@ tier's single-launch kernels, for the polar, sign and coupled sqrt
 families.
 
 Counterpart of ``repro/kernels/fused_iter.py`` (DESIGN.md §10).  Each
-kernel runs one block per batch slice and keeps the slice's whole working
-set in that block's shared memory:
+kernel keeps the slice's working set in shared memory, one block per batch
+slice (K7: a few blocks a slice, each with its share):
 
   * ``warm_tail`` (K3, ``csrc/warm_tail.cu``): an entire run of
     constant-alpha Newton-Schulz iterations (the warm phase of PRISM, or a
@@ -22,14 +22,18 @@ set in that block's shared memory:
     GEMMs of X g_d(R; alpha) (and, coupled, g_d(R; alpha) Y, in the same
     launch) on an fp32 accumulator, with the FITTED fp32 alpha read per
     slice from a device tensor (never rounded, never read back to the
-    host).
+    host).  Its grid is (batch, splits x sides): a block takes
+    ``apply_g_rows`` rows of X or, coupled, as many columns of Y, so that
+    a launch spreads over the SMs.
 
-Their accumulation order is the fused one (``ref._horner``): the f_j * X
-epilogues stay fp32 and only each product's operand rounds.  The
-``*_smem_bytes`` functions are the kernels' shared-memory layouts, which
-``ops.fused_fits`` chooses the tier with and each launcher re-checks.
-``plain`` (K3), ``plain_residual_chain`` and ``plain_apply_g`` are the
-plain PyTorch versions.
+K6 and K7 register-tile their products (``csrc/tiles.cuh``) over shared
+operands with the row pitch ``tile_pitch``.  Their accumulation order is
+the fused one (``ref._horner``): the f_j * X epilogues stay fp32 and only
+each product's operand rounds.  The ``*_smem_bytes`` functions are the
+kernels' shared-memory layouts, which ``ops.fused_fits`` chooses the tier
+with and each launcher re-checks.  ``plain`` (K3),
+``plain_residual_chain`` and ``plain_apply_g`` are the plain PyTorch
+versions.
 """
 from __future__ import annotations
 
@@ -49,7 +53,8 @@ MAX_SMEM_BYTES = 232_448
 MAX_DEGREE = 4
 MAX_SKETCH = 16
 MAX_WARM_ITERS = 64   # alphas one K3 launch takes (csrc/warm_tail.cu)
-THREADS = 256     # threads of a K3/K6/K7 block (csrc/*.cu)
+RC_WARPS = 8      # warps of a K6 block (csrc/residual_chain.cu)
+AG_TARGET_BLOCKS = 132   # blocks a K7 launch aims at: the H100's SMs
 FAMILIES = ("polar", "sign", "sqrt")   # the kernels' family codes 0, 1, 2
 
 
@@ -67,27 +72,51 @@ def smem_bytes(m: int, n: int, itemsize: int, coupled: bool = False) -> int:
         (1 + c) * _align16(n * n * itemsize) + 4 * m * (n + c)
 
 
+def tile_pitch(cols: int) -> int:
+    """Row pitch (elements) of a K6/K7 shared operand with ``cols``
+    columns (``csrc/tiles.cuh``): a multiple of 4 whose quarter is odd."""
+    return (cols + 7) // 8 * 8 + 4
+
+
 def residual_chain_smem_bytes(m: int, n: int, p: int, itemsize: int,
                               coupled: bool = False) -> int:
-    """Shared memory one K6 block needs: X [m, n], R [n, n] and St plus the
-    two V buffers ([p, n] each), all in the operand dtype and 16-byte
-    aligned, one fp32 trace partial per thread and, coupled, Y [n, n] and
-    the fp32 residual [n, n + 1]."""
-    need = _align16(m * n * itemsize) + _align16(n * n * itemsize) + \
-        3 * _align16(p * n * itemsize) + 4 * THREADS
+    """Shared memory one K6 block needs: X [m, n] and R [n, n] with rows
+    of ``tile_pitch(n)``, St and the two V buffers ([n, p] each) with rows
+    of ``tile_pitch(p)``, all in the operand dtype and 16-byte aligned, two
+    fp32 trace partials per warp and, coupled, Y [n, n] and the fp32
+    residual [n, n + 1]."""
+    ld = tile_pitch(n)
+    need = _align16(m * ld * itemsize) + _align16(n * ld * itemsize) + \
+        3 * _align16(n * tile_pitch(p) * itemsize) + 2 * 4 * RC_WARPS
     if coupled:
-        need += _align16(n * n * itemsize) + 4 * n * (n + 1)
+        need += _align16(n * ld * itemsize) + 4 * n * (n + 1)
     return need
 
 
+def apply_g_rows(batch: int, m: int) -> int:
+    """Rows of X (or, coupled, columns of Y) one K7 block takes: a
+    multiple of 4 (or m), chosen so that a side's batch x ceil(m / rows)
+    blocks come near ``AG_TARGET_BLOCKS`` (the coupled Y side adds as many
+    blocks again)."""
+    splits = max(1, -(-AG_TARGET_BLOCKS // batch))
+    rows = -(-m // splits)
+    return min(-(-rows // 4) * 4, m)
+
+
 def apply_g_smem_bytes(m: int, n: int, itemsize: int,
-                       coupled: bool = False) -> int:
-    """Shared memory one K7 block needs: X and the rounded Horner operand
-    ([m, n] each), R and, coupled, Y ([n, n] each), 16-byte aligned, plus
-    the fp32 accumulator [m, n]."""
-    c = int(coupled)
-    return 2 * _align16(m * n * itemsize) + \
-        (1 + c) * _align16(n * n * itemsize) + 4 * m * n
+                       coupled: bool = False, rows: Optional[int] = None
+                       ) -> int:
+    """Shared memory one K7 block needs: R [n, n] and three buffers of its
+    share of the slice (its ``rows`` rows of X or, coupled, [n, rows]
+    columns of Y, and the two rounded Horner operands), all in the operand
+    dtype with the pitch of ``tile_pitch`` and 16-byte aligned.  ``rows``
+    defaults to m, the most any launch takes (the fused tier's model)."""
+    rows = m if rows is None else rows
+    ld = tile_pitch(n)
+    chunk = rows * ld
+    if coupled:
+        chunk = max(chunk, n * tile_pitch(rows))
+    return _align16(n * ld * itemsize) + 3 * _align16(chunk * itemsize)
 
 
 def _family_code(name: str, family: str, Y: Optional[torch.Tensor],
@@ -202,7 +231,7 @@ def residual_chain(X: torch.Tensor, St: torch.Tensor, max_power: int, *,
 
 
 _AG_SYMBOL = "prism_apply_g"
-_AG_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
+_AG_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
     [ctypes.POINTER(ctypes.c_float), ctypes.c_longlong, ctypes.c_int,
      ctypes.c_void_p]
 
@@ -232,7 +261,9 @@ def apply_g(X: torch.Tensor, R: torch.Tensor, alpha: torch.Tensor, *,
     if not 1 <= degree <= MAX_DEGREE:
         raise ValueError(f"apply_g: degree {degree} outside "
                          f"1..{MAX_DEGREE}")
-    smem = apply_g_smem_bytes(m, n, X.element_size(), coupled=Y is not None)
+    rows = apply_g_rows(nb, m)
+    smem = apply_g_smem_bytes(m, n, X.element_size(), coupled=Y is not None,
+                              rows=rows)
     _check_smem("apply_g", smem, m, n, X.dtype)
     out = torch.empty_like(X)
     y_out = None if Y is None else torch.empty_like(Y)
@@ -242,7 +273,7 @@ def apply_g(X: torch.Tensor, R: torch.Tensor, alpha: torch.Tensor, *,
         with torch.cuda.device(X.device):
             _build.launch("apply_g", lib, _AG_SYMBOL, X.data_ptr(), _ptr(Y),
                           R.data_ptr(), alpha.data_ptr(), out.data_ptr(),
-                          _ptr(y_out), nb, m, n, degree, c, smem,
+                          _ptr(y_out), nb, m, n, rows, degree, c, smem,
                           int(X.dtype == torch.bfloat16),
                           _build.stream_handle(X))
     return out if Y is None else (out, y_out)

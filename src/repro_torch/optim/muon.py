@@ -10,10 +10,13 @@ momentum matrices stack into one [B, m, n] polar call per bucket.
 ``step(key=...)`` does what the reference's ``make_muon(cfg, axes).update``
 does for ``precond_every=1`` without telemetry; the step's sketch key
 (``core.rng.Key``) seeds the fitted PRISM iterations, bucket ``bi``
-drawing from ``key.fold_in(bi)``.  Momentum and the applied update stay
-fp32 whatever ``matfn_dtype`` is.  The staleness cache, the async refresh
-plane, adaptive ``matfn_tol`` telemetry and the lowrank tier are ported
-with later slices and raise here.
+drawing from ``key.fold_in(bi)``; with ``bucketed=False`` each matrix
+leaf draws from ``key.fold_in(i)``, ``i`` its index in the reference's
+leaf order (``leaf_order``), not its place in ``named_params``.
+Momentum and the applied update stay fp32 whatever ``matfn_dtype`` is.
+The staleness cache, the async refresh plane, adaptive ``matfn_tol``
+telemetry and the lowrank tier are ported with later slices and raise
+here.
 """
 from __future__ import annotations
 
@@ -47,6 +50,20 @@ def _check_supported(cfg: OptimizerConfig) -> None:
                                   + "; ".join(missing))
 
 
+def leaf_order(names):
+    """Each name's index in the reference's leaf order: ``jax.tree``
+    flattens the nested parameter dict with its keys sorted at every
+    level, i.e. the names sorted by ``tuple(name.split("."))``.  Per-leaf
+    sketch keys fold in this index, so that a leaf draws the sketch the
+    reference draws for it."""
+    order = sorted(range(len(names)),
+                   key=lambda i: tuple(names[i].split(".")))
+    rank = [0] * len(names)
+    for r, i in enumerate(order):
+        rank[i] = r
+    return rank
+
+
 class Muon(torch.optim.Optimizer):
     """Muon over named parameters with their logical axes.
 
@@ -63,6 +80,7 @@ class Muon(torch.optim.Optimizer):
         super().__init__([p for _, p in named], defaults={})
         self.cfg = cfg
         self.axes = [tuple(axes[n]) for n, _ in named]
+        self.leaf_idx = leaf_order([n for n, _ in named])
         self.count = 0
 
     def _matrix(self, a: tuple, p: torch.Tensor) -> bool:
@@ -74,7 +92,8 @@ class Muon(torch.optim.Optimizer):
             return bucketing.polar_bucketed(views, cfg, key)
         return [matfn.polar(M, method=cfg.matfn_method,
                             cfg=cfg.resolved_prism,
-                            key=key.fold_in(i) if key is not None else None)
+                            key=(key.fold_in(self.leaf_idx[i])
+                                 if key is not None else None))
                 for M, i in zip(views, idx)]
 
     @torch.no_grad()

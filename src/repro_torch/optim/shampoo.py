@@ -56,7 +56,8 @@ def _check_supported(cfg: OptimizerConfig, p_root: int) -> None:
         f"matfn_method={cfg.matfn_method!r} (polar_express: ROADMAP.md "
         "Queue 1 item 3; newton: item 6)":
             cfg.matfn_method not in ("prism", "eigh"),
-        "bucketed=False (the per-leaf loop, ROADMAP.md Queue 1 item 6)":
+        "bucketed=False (the per-leaf loop, ROADMAP.md Queue 1 item 6; "
+        "its sketch keys fold in optim/muon.py::leaf_order's index)":
             not cfg.bucketed,
     }
     missing = [k for k, v in unported.items() if v]

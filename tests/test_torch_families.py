@@ -152,18 +152,24 @@ def test_coupled_footprint_and_limit(dtype, limit):
     """The coupled fused kernels hold X, Y, R, the rounded operand and the
     fp32 accumulator (K3 pads its rows to n + 1): [64, 64] fits, the
     limit is the largest n that does, [1024, 1024] takes the grid tier;
-    the model is the largest of K3, K6 and K7's coupled footprints (K6's
-    per-thread partials dominate a [16, 16] slice, K3 the larger ones)."""
+    the model is the largest of K3, K6 and K7's coupled footprints.  K6
+    and K7 keep their operands with rows of ``tile_pitch`` (K6: X, Y, R,
+    and St and two V buffers [n, 8], two partials a warp, the fp32
+    residual [n, n + 1]; K7 at its largest share, the whole slice: R, X or
+    Y and two Horner operands); K6 dominates a [16, 16] slice, K3 the
+    larger ones."""
     item = 4 if dtype == "float32" else 2
     a16 = fused_iter._align16
     for n in (16, 64, limit):
+        ld = fused_iter.tile_pitch(n)
         k3 = 4 * a16(n * n * item) + 4 * n * (n + 1)
         assert fused_iter.smem_bytes(n, n, item, coupled=True) == k3
         k6 = fused_iter.residual_chain_smem_bytes(n, n, 8, item, True)
-        assert k6 == 3 * a16(n * n * item) + 3 * a16(8 * n * item) + \
-            4 * fused_iter.THREADS + 4 * n * (n + 1)
+        ldp = fused_iter.tile_pitch(8)
+        assert k6 == 3 * a16(n * ld * item) + 3 * a16(n * ldp * item) + \
+            8 * fused_iter.RC_WARPS + 4 * n * (n + 1)
         k7 = fused_iter.apply_g_smem_bytes(n, n, item, coupled=True)
-        assert k7 == 4 * a16(n * n * item) + 4 * n * n
+        assert k7 == 4 * a16(n * ld * item)
         assert ops.fused_smem_bytes((n, n), dtype, coupled=True) == \
             max(k3, k6, k7) == (k6 if n == 16 else k3)
         assert ops.fused_fits((n, n), dtype, coupled=True)

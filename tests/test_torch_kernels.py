@@ -11,6 +11,9 @@ warm_tail, residual_chain and apply_g 2e-4 and 5e-2,
 tests/test_fused_iter.py; the sketched traces 2e-4 and 5e-2,
 tests/test_kernels.py.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -161,9 +164,15 @@ def test_collapse_flattens_lead_dims_and_broadcasts():
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_smem_model_admits_the_bias_view(dtype):
+    """The bias view's footprint is K7's block at its largest share (the
+    whole [64, 16] slice: R and three [64, 16] buffers, X and two Horner
+    operands, rows of ``tile_pitch(16)`` = 20) in fp32, and K3's (X, the
+    rounded operand, R, the fp32 accumulator) in bf16."""
     need = ops.fused_smem_bytes((64, 16), dtype)
     item = 4 if dtype == "float32" else 2
-    assert need == 2 * 64 * 16 * item + 16 * 16 * item + 4 * 64 * 16
+    k3 = 2 * 64 * 16 * item + 16 * 16 * item + 4 * 64 * 16
+    k7 = 16 * 20 * item + 3 * 64 * 20 * item
+    assert need == (k7 if dtype == "float32" else k3) == max(k3, k7)
     assert ops.fused_fits((64, 16), dtype)
 
 
@@ -312,16 +321,76 @@ def test_chain_model_picks_the_whole_chain_kernel_when_it_fits(n, dtype,
 def test_fused_model_is_the_largest_fused_kernel():
     """fused_smem_bytes is the largest of K3, K6 and K7's footprints: at a
     square [16, 16] slice with a 16-row sketch, K6's chain buffers
-    dominate."""
+    dominate; at the polar bias view [64, 16], K7's three pitched [64, 16]
+    buffers beside R."""
     k3 = fused_iter.smem_bytes(16, 16, 4)
     k6 = fused_iter.residual_chain_smem_bytes(16, 16, 16, 4)
-    assert k6 > k3 == fused_iter.apply_g_smem_bytes(16, 16, 4)
+    k7 = fused_iter.apply_g_smem_bytes(16, 16, 4)
+    assert k6 > k7 > k3
     assert ops.fused_smem_bytes((16, 16), "float32", sketch_dim=16) == k6
     assert ops.fused_smem_bytes((64, 16), "float32", sketch_dim=8) == \
-        fused_iter.smem_bytes(64, 16, 4)
+        fused_iter.apply_g_smem_bytes(64, 16, 4) > \
+        max(fused_iter.smem_bytes(64, 16, 4),
+            fused_iter.residual_chain_smem_bytes(64, 16, 8, 4))
     assert ops.fused_fits((16, 16), "float32", budget=k6, sketch_dim=16)
     assert not ops.fused_fits((16, 16), "float32", budget=k6 - 1,
                               sketch_dim=16)
+
+
+# every bucket of the four main paths: (matrix shape of a slice, coupled,
+# fused tier) -- Muon's q/k/v bias view and its two weight buckets,
+# Shampoo's bias preconditioners and its 1024-side factor bucket
+MAIN_BUCKETS = [((64, 16), False, True), ((16, 16), True, True),
+                ((64, 64), True, True), ((1024, 1024), False, False),
+                ((1024, 4096), False, False), ((1024, 1024), True, False)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mshape,coupled,fused", MAIN_BUCKETS)
+def test_main_path_buckets_keep_their_tier(mshape, coupled, fused, dtype):
+    assert ops.fused_fits(mshape, dtype, sketch_dim=8,
+                          coupled=coupled) is fused
+
+
+CSRC = Path(fused_iter.__file__).parent / "csrc"
+
+
+def test_fused_layout_constants_mirror_the_kernel_sources():
+    threads = re.search(r"constexpr int RC_THREADS = (\d+);",
+                        (CSRC / "residual_chain.cu").read_text())
+    assert int(threads.group(1)) // 32 == fused_iter.RC_WARPS
+    assert "return (cols + 7) / 8 * 8 + 4;" in \
+        (CSRC / "tiles.cuh").read_text()
+    for cols in range(1, 300):
+        ld = fused_iter.tile_pitch(cols)
+        # room for a 4-wide chunk at the last column, 4-aligned rows whose
+        # quarter is odd (adjacent rows in different bank groups)
+        assert ld >= -(-cols // 4) * 4 and ld % 4 == 0 and (ld // 4) % 2
+
+
+@pytest.mark.parametrize("batch,m,blocks", [(30, 64, 120), (30, 16, 120),
+                                            (40, 64, 160), (5, 55, 70),
+                                            (1, 3, 1), (200, 64, 200)])
+def test_apply_g_split_covers_every_row_once(batch, m, blocks):
+    """K7's grid (batch, ceil(m / rows)): rows is a multiple of 4 (or m),
+    the main-path buckets of 30 slices take 120 blocks, and the blocks'
+    4 x 4 tiles (rows ti + a TI) cover every row of a slice once; a share
+    needs no more shared memory than the whole slice (the tier's model)."""
+    rows = fused_iter.apply_g_rows(batch, m)
+    splits = -(-m // rows)
+    assert rows % 4 == 0 or rows == m
+    assert batch * splits == blocks
+    seen = []
+    for s in range(splits):
+        r0 = s * rows
+        h = min(rows, m - r0)
+        ti_count = -(-h // 4)
+        seen += [r0 + ti + a * ti_count for ti in range(ti_count)
+                 for a in range(4) if ti + a * ti_count < h]
+    assert sorted(seen) == list(range(m))
+    for n, coupled in ((m, True), (16, False)):
+        assert fused_iter.apply_g_smem_bytes(m, n, 4, coupled, rows=rows) \
+            <= fused_iter.apply_g_smem_bytes(m, n, 4, coupled)
 
 
 def test_plain_chain_reads_the_accumulator_before_rounding():

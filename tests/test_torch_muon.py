@@ -21,7 +21,7 @@ from repro_torch.config import OptimizerConfig, PrismConfig
 from repro_torch.configs import gpt2_paper
 from repro_torch.core.rng import Key
 from repro_torch.models.transformer import param_specs
-from repro_torch.optim import base, bucketing, make_optimizer
+from repro_torch.optim import base, bucketing, make_optimizer, muon
 from test_torch_prism import JaxKey
 
 PRISM5 = dict(degree=2, iterations=3, warm_alpha_iters=3, sketch_dim=8,
@@ -83,16 +83,17 @@ def _smoke_params():
     return cfg, model, params
 
 
-def _muon_both(steps, matfn_dtype, prism, keyed):
+def _muon_both(steps, matfn_dtype, prism, keyed, **kw):
     """``steps`` Muon updates of the SMOKE params through both packages
-    with the same grads; step s draws from PRNGKey(s) when ``keyed``."""
+    with the same grads; step s draws from PRNGKey(s) when ``keyed``;
+    ``kw`` goes to both optimizer configs."""
     cfg, jmodel, params = _smoke_params()
     tparams = convert.params_from_jax(params, gpt2_paper.SMOKE)
     rng = np.random.default_rng(0)
     grads = [{k: rng.standard_normal(v.shape).astype(np.float32) * 0.1
               for k, v in convert._flatten(params).items()}
              for _ in range(steps)]
-    jcfg, tcfg = _ocfgs(prism, matfn_dtype=matfn_dtype)
+    jcfg, tcfg = _ocfgs(prism, matfn_dtype=matfn_dtype, **kw)
 
     jopt = jmake_optimizer(jcfg, jmodel.logical_axes())
     jp = jax.tree.map(jnp.asarray, params)
@@ -151,6 +152,30 @@ def test_prism3_muon_update_matches_reference(steps, matfn_dtype):
         np.testing.assert_allclose(p.detach().numpy(), jflat[k], rtol=tol,
                                    atol=tol, err_msg=k)
     assert topt.count == int(js["count"]) == steps
+
+
+def test_prism3_per_leaf_muon_update_matches_reference():
+    """``bucketed=False``: one polar chain a matrix leaf, each drawing its
+    sketch from ``fold_in(key, i)`` with ``i`` the leaf's index in the
+    reference's (sorted-key) leaf order; the fitted alphas, hence the
+    updates, agree at the fp32 bound."""
+    tcfg, jp, js, named, topt = _muon_both(1, "float32", PRISM3, keyed=True,
+                                           bucketed=False)
+    assert not tcfg.bucketed
+    jflat = convert._flatten(jax.tree.map(np.asarray, jp))
+    for k, p in named:
+        np.testing.assert_allclose(p.detach().numpy(), jflat[k], rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+
+
+def test_leaf_order_is_the_reference_flatten_order():
+    _, _, params = _smoke_params()
+    jnames = [".".join(k.key for k in path) for path, _ in
+              jax.tree_util.tree_flatten_with_path(params)[0]]
+    names = list(param_specs(gpt2_paper.SMOKE))
+    assert names != jnames
+    idx = muon.leaf_order(names)
+    assert [names[idx.index(r)] for r in range(len(names))] == jnames
 
 
 def test_prism3_update_reads_the_key():

@@ -11,23 +11,27 @@ copies ``src/`` and ``chip_smoke.py`` into ``build/mutants/<name>/``
 (git-ignored), applies the fault there, builds the kernels of that copy
 and runs its check: ``chip_smoke.fit_kernel_checks`` and
 ``chip_smoke.family_checks`` with bf16 as the only dtype; for the
-mutants in ``K5_EXPECT_FAIL``, ``chip_smoke.chain_checks`` (K5 alone, the
-only kernel built) in fp32 and bf16, with two launches bitwise equal; for
-the mutants in ``GEMM_EXPECT_FAIL``, ``chip_smoke.kernel_checks`` in fp32
-and bf16 (every K1/K2 shape, ragged ones included, with the NaN poison
-and the symmetry check).
+mutants of K6's and K7's register-tiled designs
+(``FUSED_EXPECT_FAIL``: K7's split grid, K6's trace reduction and
+barrier), the same checks in fp32 first, then bf16; for the mutants in
+``K5_EXPECT_FAIL``, ``chip_smoke.chain_checks`` (K5 alone, the only
+kernel built) in fp32 and bf16, with two launches bitwise equal; for the
+mutants in ``GEMM_EXPECT_FAIL``, ``chip_smoke.kernel_checks`` in fp32 and
+bf16 (every K1/K2 shape, ragged ones included, with the NaN poison and
+the symmetry check).
 The unbroken copy must pass every check the chosen mutants run; a mutant
-in ``EXPECT_FAIL``, ``K5_EXPECT_FAIL`` or ``GEMM_EXPECT_FAIL`` must fail a
-comparison (or its run: a mutant may also fault); a mutant in
-``EXPECT_PASS`` shows a fault that lies below the bf16 tolerance.  Run
-from the root of a checkout, on a machine with a CUDA card and nvcc:
+in ``EXPECT_FAIL``, ``FUSED_EXPECT_FAIL``, ``K5_EXPECT_FAIL`` or
+``GEMM_EXPECT_FAIL`` must fail a comparison (or its run: a mutant may
+also fault); a mutant in ``EXPECT_PASS`` shows a fault that lies below
+the bf16 tolerance.  Run from the root of a checkout, on a machine with a
+CUDA card and nvcc:
 
     python3 tools/chip_mutants.py [--log-dir DIR] [--only PREFIX ...]
 
 ``--only`` runs the unbroken copy and the mutants whose names start with
 one of the prefixes (``--only k1_ k2_`` for the GEMM core's, ``--only
-k5_`` for K5's).  Exits non-zero when any outcome differs from the
-expected one.
+k5_`` for K5's, ``--only k6_ k7_`` for K6's and K7's).  Exits non-zero
+when any outcome differs from the expected one.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ EXPECT_FAIL = {
         "    if (nrows > 0 && tile != tiles - 1)\n      prism::row_group_dot"),
     "k6_residual_without_identity": (
         "residual_chain.cu",
-        "__fsub_rn(i == j ? 1.f : 0.f, s)", "__fsub_rn(0.f, s)"),
+        "__fsub_rn(u == w ? 1.f : 0.f, s[a][b])", "__fsub_rn(0.f, s[a][b])"),
     "k7_alpha_of_slice_0": (
         "apply_g.cu",
         "const float a = alpha[b];", "const float a = alpha[0];"),
@@ -55,8 +59,8 @@ EXPECT_FAIL = {
     # inputs, and must show on the independent, non-symmetric ones
     "k6_sign_computes_xtx": (
         "residual_chain.cu",
-        "const float xi = FAMILY == POLAR ? N::to_f32(x[(size_t)k * n + i])",
-        "const float xi = FAMILY != SQRT ? N::to_f32(x[(size_t)k * n + i])"),
+        "  if (FAMILY == POLAR) {\n    // R = I - X^T X",
+        "  if (FAMILY != SQRT) {\n    // R = I - X^T X"),
     "k3_sqrt_reads_xy_for_yx": (
         "warm_tail.cu",
         "s = fmaf(N::to_f32(y[(size_t)i * n + k]),\n"
@@ -70,14 +74,37 @@ EXPECT_FAIL = {
         "__fmul_rn(1.0f, __fadd_rn(acc[(size_t)i * ld + j], 0.f));"),
     "k7_y_horner_on_the_right": (
         "apply_g.cu",
-        "horner<T, true>(y, Y_out + b * nn,",
-        "horner<T, false>(y, Y_out + b * nn,"),
-    "k7_y_written_from_x_accumulator": (
+        "horner<T, true>(src, ldw,", "horner<T, false>(src, ldw,"),
+    # Y' computed from the block's columns of X instead of Y's
+    "k7_y_staged_from_x": (
         "apply_g.cu",
-        "    horner<T, true>(y, Y_out + b * nn, r, lo, acc, n, n, a, degree, "
-        "coeffs);",
-        "    for (size_t i = tid; i < nn; i += AG_THREADS)\n"
-        "      Y_out[b * nn + i] = prism::Num<T>::from_f32(acc[i]);"),
+        "stage<T, AG_THREADS>(src, ldw, Y + ",
+        "stage<T, AG_THREADS>(src, ldw, X + "),
+}
+
+# the fused kernels' new designs (register tiles, K7's split grid, K6's
+# trace reduction), checked in fp32 and bf16: name -> (source, text,
+# replacement)
+FUSED_EXPECT_FAIL = {
+    # the last block of a slice's split skips its last row of X'
+    "k7_last_split_skips_its_last_row": (
+        "apply_g.cu", "const int h = min(H, m - r0);",
+        "const int h = min(H, m - r0) - (s + 1 == splits);"),
+    # ... or its last column of Y'
+    "k7_last_split_skips_its_last_y_column": (
+        "apply_g.cu", "const int w = min(H, n - r0);",
+        "const int w = min(H, n - r0) - (s + 1 == splits);"),
+    # thread 0 leaves the first warp's trace partial out of its sum
+    "k6_trace_drops_a_warp_partial": (
+        "residual_chain.cu",
+        "for (int w = 0; w < RC_WARPS; ++w) sum",
+        "for (int w = 1; w < RC_WARPS; ++w) sum"),
+    # no barrier after a power: the next power (and thread 0's sum of the
+    # partials) reads before the others wrote
+    "k6_chain_reads_before_the_barrier": (
+        "residual_chain.cu",
+        "    __syncthreads();  // V' and this power's partials are written\n",
+        ""),
 }
 EXPECT_PASS = {
     # the trace of the rounded V_i: below the bf16 tolerance (and nothing
@@ -149,6 +176,7 @@ CHECK = ("import sys; sys.path.insert(0, 'src'); import torch; "
          "import chip_smoke as cs; cs.DTYPES = ('bfloat16',); "
          "from repro_torch.kernels import _build; _build.build(); "
          "cs.fit_kernel_checks(torch, {}); cs.family_checks(torch, {})")
+FUSED_CHECK = CHECK.replace("('bfloat16',)", "('float32', 'bfloat16')")
 GEMM_CHECK = ("import sys; sys.path.insert(0, 'src'); import torch; "
               "import chip_smoke as cs; "
               "from repro_torch.kernels import _build; _build.build(); "
@@ -198,6 +226,8 @@ def main() -> None:
     if args.log_dir is not None:
         args.log_dir.mkdir(parents=True, exist_ok=True)
     plan = [(n, [m], (CHECK,), False) for n, m in EXPECT_FAIL.items()]
+    plan += [(n, [m], (FUSED_CHECK,), False)
+             for n, m in FUSED_EXPECT_FAIL.items()]
     plan += [(n, [m], (K5_CHECK,), False)
              for n, m in K5_EXPECT_FAIL.items()]
     plan += [(n, m, (GEMM_CHECK,), False)
@@ -206,8 +236,10 @@ def main() -> None:
     if args.only is not None:
         plan = [p for p in plan if p[0].startswith(tuple(args.only))]
     # the unbroken copy passes every check the chosen mutants run
-    checks = tuple(c for c in (CHECK, K5_CHECK, GEMM_CHECK)
-                   if any(c in p[2] for p in plan))
+    # (FUSED_CHECK covers CHECK: the same checks in both dtypes)
+    used = {c for p in plan for c in p[2]}
+    checks = tuple(c for c in (FUSED_CHECK, K5_CHECK, GEMM_CHECK)
+                   if c in used or (c == FUSED_CHECK and CHECK in used))
     plan.insert(0, ("unbroken", [], checks, True))
     wrong = []
     for name, edits, checks, want_pass in plan:
