@@ -20,14 +20,18 @@ Phases (any failure exits non-zero and prints no result):
      must take the grid tier); K5 (one thread-block cluster a slice) at
      every main-path shape, at n below its cluster size and at p = 1 and
      16, with two launches bitwise equal, and two K6 launches bitwise
-     equal in every family; every main-path K1/K2 shape must take the
-     kernels' aligned instantiation; at every main-path shape, in fp32 (K1
+     equal in every family; K4 at the same shapes and at [4, 4096, 4096]
+     (which only K4 takes), two powers, each launch made twice and
+     bitwise equal (its arrival counters are zero after every launch),
+     and at n = 1024, p = 8 the K4 loop's traces bitwise K5's;
+     every main-path K1/K2 shape must take the kernels' aligned
+     instantiation; at every main-path shape, in fp32 (K1
      and K2 also in bf16), the kernel, the plain version and one PyTorch
      library call (where one computes the same function) are timed with
      CUDA events (median of 20 launches; K3, K6 and K7, shorter than the
      host's time to launch them, also as the median of 20 runs of 10
      launches back to back and as the mean device time of 20 launches in
-     a profiler trace);
+     a profiler trace; K4 too, with R's streamed rate);
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
      width (seq 512, batch 4, random weights from seed 0), STEPS steps
      through ``repro_torch.launch.train_lm.build``; the launch counts are
@@ -42,13 +46,16 @@ Phases (any failure exits non-zero and prints no result):
      fitted iterations), which runs the fitted-iteration kernels: 29
      launches a step (matmul_add 10, gram_upper 10, warm_tail 1,
      sketch_chain 4, residual_chain 2, apply_g 2), the same loss and update
-     gates; the fallback path: one PRISM-3 Muon step with the shared-memory
-     budget forced below sketch_chain's footprint, so that the chain runs
-     as sketch_step launches (24), within the same bound of the step
-     through sketch_chain; the synchronizing calls of one Muon step of each
-     configuration (the fit must add none); a profiler trace of one PRISM-3
-     Muon step; an adaptive run (``tol``) on a grid-tier and a fused-tier
-     bucket whose launches must match the iterations it ran;
+     gates; the route (``ops.chain_route``: K5 or K4) of each grid
+     bucket with the card's budget and with a forced one, beside the
+     card's resident K5 clusters; the fallback path: one PRISM-3 Muon step
+     with the shared-memory budget forced below sketch_chain's footprint,
+     so that the chain runs as sketch_step launches (24), within the same
+     bound of the step through sketch_chain; the synchronizing calls of
+     one Muon step of each configuration (the fit must add none); a
+     profiler trace of one PRISM-3 Muon step; an adaptive run (``tol``) on
+     a grid-tier and a fused-tier bucket whose launches must match the
+     iterations it ran;
   6. the Shampoo PRISM-5 path: the gpt2-paper step with Shampoo and its
      default PRISM (degree 2, 3 warm iterations), ``precondition_every=1``
      so that every step computes the inverse roots: 17 launches a step
@@ -446,11 +453,51 @@ def chain_checks(torch):
     return rows
 
 
+# K4's timed shapes: the fallback step's buckets (CHAIN_CASES) and one
+# that only K4 takes, [4, 4096, 4096] (p = 8)
+STEP_SHAPES = [(40, 1024, 1024), (20, 1024, 1024), (4, 4096, 4096)]
+STEP_ONLY = STEP_SHAPES[2]
+
+
+def step_case(torch, r, st, rows):
+    """K4 against its plain version on R [B, n, n] and St [n, p]: two
+    powers, the second from the first's V', and each launch made twice:
+    V' and the trace must come out bitwise equal (the slices' arrival
+    counters are zero again after every launch, and the trace partials add
+    in tile order).  The trace is checked per slice as [B, 1, 1]."""
+    from repro_torch.kernels import sketch_traces
+
+    B, n, _ = r.shape
+    p = st.shape[1]
+    dtype = str(r.dtype).replace("torch.", "")
+    v = st.expand(B, n, p).contiguous()
+    err = 0.0
+    for _ in range(2):
+        want_v, want_t = sketch_traces.plain_step(r, v, st)
+        poison(torch, (B, n, p), r.dtype)
+        poison(torch, (B,), torch.float32, count=2)
+        got_v, got_t = sketch_traces.sketch_step(r, v, st)
+        err = max(err,
+                  check(torch, "sketch_step", (B, n, p), dtype, got_v,
+                        want_v, FIT_TOL[dtype]),
+                  check(torch, "sketch_step", (B, n, p), dtype,
+                        got_t.reshape(B, 1, 1), want_t.reshape(B, 1, 1),
+                        FIT_TOL[dtype]))
+        same_twice(torch, "sketch_step", (B, n, p), dtype, (got_v, got_t),
+                   sketch_traces.sketch_step(r, v, st))
+        v = want_v
+    if (B, n, n) in STEP_SHAPES and dtype == "float32" and p == 8:
+        rows[("sketch_step", (B, n, n))] = dict(
+            shape=[[B, n, n], [B, n, p]], max_abs_err=err, operands=(r, st))
+
+
 def fit_kernel_checks(torch, rows):
     """K4-K7 against their plain versions, fp32 and bf16, at the PRISM-3
-    main-path shapes and at ragged ones (K5 by ``chain_case`` on
-    ``CHAIN_CASES``).  Traces are checked per slice as [B, 1, powers] so
-    that ``check`` scales per slice."""
+    main-path shapes and at ragged ones (K5 by ``chain_case`` and K4 by
+    ``step_case`` on ``CHAIN_CASES``; K4 also at n = 4096, which only it
+    takes; at n = 1024, p = 8 the K4 loop's traces must be bitwise K5's).
+    Traces are checked per slice as [B, 1, powers] so that ``check``
+    scales per slice."""
     from repro_torch.kernels import fused_iter, ops, sketch_traces
 
     gen = torch.Generator(device="cuda")
@@ -464,29 +511,28 @@ def fit_kernel_checks(torch, rows):
             dt = getattr(torch, dtype)
             r, st = r32.to(dt), s32.t().contiguous().to(dt)
             chain_case(torch, r, st, powers, rows)
-            # K4: two powers, the second from the first's V'
-            v = st.expand(B, n, p).contiguous()
-            for pw in range(2):
-                want_v, want_t = sketch_traces.plain_step(r, v, st)
-                poison(torch, (B, n, p), dt)
-                got_v, got_t = sketch_traces.sketch_step(r, v, st)
-                err_v = check(torch, "sketch_step", (B, n, p), dtype, got_v,
-                              want_v, FIT_TOL[dtype])
-                err_t = check(torch, "sketch_step", (B, n, p), dtype,
-                              got_t.reshape(B, 1, 1),
-                              want_t.reshape(B, 1, 1), FIT_TOL[dtype])
-                v = want_v
-            if shape[0] == 40 and dtype == "float32":
-                rows["sketch_step"] = dict(
-                    shape=[list(shape), [B, n, p]],
-                    max_abs_err=max(err_v, err_t), operands=(r, st))
-                rows[("sketch_step", shape)] = rows["sketch_step"]
+            step_case(torch, r, st, rows)
             # ops.sketch_traces with the budget forced down runs K4's loop
             t_k5 = ops.sketch_traces(r, s32.to(dt), 6)
             t_k4 = ops.sketch_traces(r, s32.to(dt), 6, budget=1024)
             check(torch, "sketch_step", (B, n, p, "chain"), dtype,
                   t_k4.reshape(B, 1, 7), t_k5.reshape(B, 1, 7),
                   FIT_TOL[dtype])
+            if n == 1024 and p <= 8:
+                # a K4 block holds the rows of a K5 rank here (64, 8 a
+                # warp), and K4 sums each V' and trace in K5's order
+                if not torch.equal(t_k4, t_k5):
+                    fail(f"sketch_step {shape} {dtype}: the K4 loop's traces "
+                         f"are not bitwise K5's")
+                log(f"  sketch_step {shape} {dtype}: the K4 loop's traces "
+                    f"are bitwise K5's")
+    # K4 where only K4 runs: n = 4096 (K5's block does not fit in fp32)
+    r32 = spectrum_r(torch, *STEP_ONLY[:2], gen)
+    s32 = randn(torch, (8, STEP_ONLY[1]), gen, 8 ** -0.5)
+    for dtype in DTYPES:
+        dt = getattr(torch, dtype)
+        step_case(torch, r32.to(dt), s32.t().contiguous().to(dt), rows)
+    del r32
 
     # K6 / K7 on the fused-tier bias bucket.  K6: X ~ N(0, 0.9/m), so that
     # X^T X spreads over ~[0.2, 2] and R = I - X^T X over ~[-1, 0.8]
@@ -578,7 +624,8 @@ def family_checks(torch, rows):
     inputs (X = A symmetric positive definite, Y = I; sign on a symmetric
     X).  K7 runs with a non-symmetric R (0.95 times an orthogonal matrix)
     and a different alpha in every slice.  A coupled slice one larger than
-    the limit must take the grid tier."""
+    the limit must take the grid tier, and K3's launcher must refuse one
+    past its own block."""
     from repro_torch.config import PrismConfig
     from repro_torch.core import newton_schulz
     from repro_torch.core.rng import Key
@@ -677,14 +724,22 @@ def family_checks(torch, rows):
         if newton_schulz._fused_tier(cfg, (over, over), coupled=True) or \
                 not newton_schulz._fused_tier(cfg, (big, big), coupled=True):
             fail(f"coupled fused-tier limit in {dtype} is not {big}")
+        # K3's launcher refuses a coupled slice past its own block (in bf16
+        # K6's block sets the tier's limit, below K3's)
+        item = 2 if dtype == "bfloat16" else 4
+        k3_over = over
+        while fused_iter.smem_bytes(k3_over, k3_over, item, True) <= \
+                fused_iter.MAX_SMEM_BYTES:
+            k3_over += 1
         try:
-            fused_iter.warm_tail(eye_like(torch, over, dt), (1.0,),
+            fused_iter.warm_tail(eye_like(torch, k3_over, dt), (1.0,),
                                  coeffs=coeffs, family="sqrt",
-                                 Y=eye_like(torch, over, dt))
+                                 Y=eye_like(torch, k3_over, dt))
         except ValueError:
             pass
         else:
-            fail(f"warm_tail took a coupled [{over}, {over}] {dtype} slice")
+            fail(f"warm_tail took a coupled [{k3_over}, {k3_over}] {dtype} "
+                 f"slice")
         ops.reset_launches()
         matfn.sqrtm(spd(torch, 2, over, gen).to(dt), cfg=cfg, key=Key(1))
         counts = ops.launch_counts()
@@ -707,11 +762,12 @@ def fit_kernel_timings(torch, rows):
     """ms / plain_ms / bound_ms of one launch of K4-K7 (polar) at their
     main-path shapes, fp32 (K5 at all three: the Shampoo factor bucket
     [100, 1024, 1024] with 10 powers, and PRISM-3's [40, 1024, 1024] and
-    [20, 1024, 1024] with 6), with K5's cluster size, resident clusters,
-    registers, spills and achieved rate; keyed by (name, shape).  No single
-    PyTorch call computes any of them (a chain of products with a trace
-    epilogue; a residual with its chain; a Horner chain with a per-slice
-    alpha), so ``library_ms`` is null."""
+    [20, 1024, 1024] with 6; K4 at ``STEP_SHAPES``, also back to back and
+    profiled, with R's streamed rate), with K5's cluster size, resident
+    clusters, registers, spills and achieved rate; keyed by (name, shape).
+    No single PyTorch call computes any of them (a chain of products with a
+    trace epilogue; a residual with its chain; a Horner chain with a
+    per-slice alpha), so ``library_ms`` is null."""
     from repro_torch.kernels import fused_iter, ops, sketch_traces
 
     item = 4
@@ -746,14 +802,28 @@ def fit_kernel_timings(torch, rows):
             f"{streamed / 1e9:.3f} GB at {streamed / t['ms'] / 1e6:.1f} GB/s "
             f"(device-memory floor {streamed / PEAK_BYTES * 1e3:.4f} ms)")
         del rb
-    v = st.expand(B, n, p).contiguous()
-    out[("sketch_step", (B, n, n))] = dict(
-        ms=time_ms(torch, lambda: sketch_traces.sketch_step(r, v, st)),
-        plain_ms=time_ms(torch, lambda: sketch_traces.plain_step(r, v, st)),
-        library_ms=None,
-        bound=bound_ms(2.0 * B * n * n * p,
-                       item * (B * n * n + 2 * B * n * p + n * p + B),
-                       "float32"))
+    for shape in STEP_SHAPES:
+        # let go of the operands after: phases 4-7 report peak memory
+        r, st = rows[("sketch_step", shape)].pop("operands")
+        B, n, _ = shape
+        ps = st.shape[1]
+        v = st.expand(B, n, ps).contiguous()
+        t = out[("sketch_step", shape)] = dict(
+            ms=time_ms(torch, lambda: sketch_traces.sketch_step(r, v, st)),
+            **small_times(torch, lambda: sketch_traces.sketch_step(r, v, st),
+                          "sketch_step"),
+            plain_ms=time_ms(torch, lambda: sketch_traces.plain_step(
+                r, v, st)),
+            library_ms=None,
+            # 2 n^2 p flops; R, V and St read once, V' and t' written
+            bound=bound_ms(2.0 * B * n * n * ps,
+                           item * (B * n * n + 2 * B * n * ps + n * ps + B),
+                           "float32"))
+        dev = t["device_ms"]
+        log(f"  sketch_step {shape}: R streamed {item * B * n * n / 1e9:.3f}"
+            f" GB, at " + ("not measured" if dev is None else
+                           f"{item * B * n * n / dev / 1e6:.1f} GB/s") +
+            " (profiled device time)")
     x, st6 = rows["residual_chain"]["operands"]
     S6 = st6.t().contiguous()
     B, m, n = x.shape
@@ -1207,6 +1277,7 @@ def fallback_path(torch, run):
     pc = run["opt"].cfg.prism
     budget = sketch_traces.chain_smem_bytes(
         run["model"].cfg.d_model, pc.sketch_dim, 4) - 16
+    route_report(torch, pc.sketch_dim, budget)
     cfg = _with_prism(run["opt"].cfg, vmem_budget=budget)
     ops.reset_launches()
     ms, d = _opt_step(torch, run["model"], cfg, run, run["key"])
@@ -1221,6 +1292,36 @@ def fallback_path(torch, run):
     log(f"  update through sketch_step vs through sketch_chain: worst "
         f"relative gap {worst:.3e} (bound {UPDATE_REL_TOL})")
     return counts
+
+
+# the residual buckets whose sketched chains run on K5 or K4: Muon's two
+# grid buckets (R = I - X^T X of [40, 1024, 1024] and [20, 4096, 1024])
+# and Shampoo's 1024-side factor bucket
+GRID_BUCKETS = [(40, 1024, 1024), (20, 1024, 1024), (100, 1024, 1024)]
+
+
+def route_report(torch, p, forced_budget):
+    """Which of K5 and K4 ``ops.chain_route`` picks for each grid bucket,
+    fp32, with the card's budget and with ``forced_budget``, beside the
+    card's resident K5 clusters: K5 with the first (the main paths' launch
+    counts hold that), K4 with the second."""
+    from repro_torch.kernels import ops, sketch_traces
+
+    for shape in GRID_BUCKETS:
+        B, n, _ = shape
+        r = torch.empty(shape, device="cuda")
+        st = torch.empty((n, p), device="cuda")
+        clusters = sketch_traces.resident_clusters(r, st)
+        routes = [ops.chain_route(n, p, torch.float32, budget=b,
+                                  resident_clusters=clusters)
+                  for b in (0, forced_budget)]
+        log(f"  route of {shape}, p = {p}: {routes[0]} ({clusters} K5 "
+            f"clusters resident, block "
+            f"{sketch_traces.chain_smem_bytes(n, p, 4)} B); with the budget "
+            f"forced to {forced_budget} B: {routes[1]}")
+        if routes != ["sketch_chain", "sketch_step"]:
+            fail(f"route of {shape}: {routes}")
+        del r, st
 
 
 def profile_step(torch, run, what, fit_buckets=()):
@@ -1547,8 +1648,8 @@ def main() -> None:
 
 def ptxas_summary(build) -> None:
     """Registers, spills and static shared memory of each instantiation of
-    K1 and K2 (a spill fails), and registers and spills of K5's, K6's and
-    K7's, from the compiler's -Xptxas -v report of this build."""
+    K1 and K2 (a spill fails), and registers and spills of K3's to K7's,
+    from the compiler's -Xptxas -v report of this build."""
     import re
 
     from repro_torch.kernels import matmul_add
@@ -1578,7 +1679,7 @@ def ptxas_summary(build) -> None:
                 spills.append(f"{name} {what}")
     if spills:
         fail(f"register spills in {spills}")
-    for name in ("residual_chain", "apply_g"):
+    for name in ("warm_tail", "residual_chain", "apply_g"):
         for entry in (build.LOGS.get(name) or "").split(
                 "Compiling entry function")[1:]:
             kernel = re.search(r"_kernelI(\w+?)Li?b?(\w+?)EE", entry)
@@ -1592,20 +1693,21 @@ def ptxas_summary(build) -> None:
                     f"registers, spill stores "
                     f"{spill.group(1) if spill else '?'} B, spill loads "
                     f"{spill.group(2) if spill else '?'} B")
-    text = build.LOGS.get("sketch_chain")
-    for entry in (text or "").split("Compiling entry function")[1:]:
-        kernel = re.search(r"sketch_chain_kernelI(\w+?)Li(\d+)ELi(\d+)E",
-                           entry)
-        regs = re.search(r"Used (\d+) registers", entry)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", entry)
-        if kernel:
-            log(f"  ptxas sketch_chain "
-                f"{'bf16' if 'bfloat16' in kernel.group(1) else 'fp32'} "
-                f"vec {kernel.group(2)} tile {kernel.group(3)}: "
-                f"{regs.group(1) if regs else '?'} registers, spill stores "
-                f"{spill.group(1) if spill else '?'} B, spill loads "
-                f"{spill.group(2) if spill else '?'} B")
+    for name in ("sketch_step", "sketch_chain"):
+        for entry in (build.LOGS.get(name) or "").split(
+                "Compiling entry function")[1:]:
+            kernel = re.search(rf"{name}_kernelI(\w+?)Li(\d+)ELi(\d+)E",
+                               entry)
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", entry)
+            if kernel:
+                log(f"  ptxas {name} "
+                    f"{'bf16' if 'bfloat16' in kernel.group(1) else 'fp32'}"
+                    f" vec {kernel.group(2)} tile {kernel.group(3)}: "
+                    f"{regs.group(1) if regs else '?'} registers, spill "
+                    f"stores {spill.group(1) if spill else '?'} B, spill "
+                    f"loads {spill.group(2) if spill else '?'} B")
 
 
 def _drop(torch, run):
@@ -1639,7 +1741,9 @@ VARIANTS = {
         ("sign", ("warm_tail/sign", (30, 64, 64)), None),
         ("polar", ("warm_tail", (30, 64, 16)), "prism5")],
     "sketch_step": [
-        ("-", ("sketch_step", (40, 1024, 1024)), "fallback")],
+        ("-", ("sketch_step", (40, 1024, 1024)), "fallback"),
+        ("-", ("sketch_step", (20, 1024, 1024)), "fallback"),
+        ("-", ("sketch_step", (4, 4096, 4096)), None)],
     "sketch_chain": [
         ("-", ("sketch_chain", (100, 1024, 1024, 10)), "shampoo_fig5"),
         ("-", ("sketch_chain", (40, 1024, 1024, 6)), "prism3"),

@@ -1,21 +1,22 @@
 // Shared pieces of the sketched power-chain kernels K4 (sketch_step.cu)
 // and K5 (sketch_chain.cu): the products V' = R @ V of the chain
 // V_i = R V_{i-1}, V_0 = St ([n, p], p <= 16), with R streamed from
-// device memory.  Both use the 16-byte operand loads (Vec16, load_vec)
-// and the choice of instantiation (dispatch_chain); the row-group product
-// and the all-reduce below are K4's (K5 stages R through a ring and
-// reduce-scatters its sums instead).
+// device memory.
 //
-// K4's work split: a warp carries CHAIN_ROWS rows of R at a time.  Its
-// lanes stride over the contraction dimension with 16-byte loads of R (4
-// fp32 or 8 bf16 values; a scalar path covers an n that is not a multiple
-// of that), and each lane keeps CHAIN_ROWS x p fp32 partial sums in
-// registers.  V lives in shared memory TRANSPOSED, as [p][ldv], so that the
-// lanes' 16-byte reads of one V row walk consecutive addresses, and each V
-// value read from shared memory feeds CHAIN_ROWS FMAs.  A butterfly of
-// warp shuffles then leaves every lane with the same fp32 sums.  Every
-// order of summation is fixed by the thread layout, so a trace reduced from
-// these sums is the same from run to run.
+// Both kernels carry the same row-group product: a warp holds ROWS rows of
+// R at a time (ROWS x PB = 64 fp32 sums a lane, PB = 8 or 16 >= p, the
+// register tile's width), its lanes stride the contraction 16 bytes at a
+// time (4 fp32 or 8 bf16 values; VEC = 1, one element, where n or R's
+// alignment does not allow that), each lane streams its own pieces of R
+// through a private cp.async ring in shared memory (fetch / unpack below:
+// no barrier, a thread reads only what it copied itself), V is read from
+// shared memory TRANSPOSED ([PB][ld]: a lane's VEC consecutive values of
+// one column as one 16-byte load, each feeding ROWS FMAs), and the lanes'
+// partial sums are reduce-scattered (reduce_scatter), so that every lane
+// ends with finished sums.  Each sum V'[row, c] is therefore one fixed
+// order: the lane's k ascending (k = step * 32 VEC + lane * VEC + e), then
+// the reduce-scatter's tree; K4 and K5 take the same order, so the V' of a
+// K4 launch is bitwise the V_i of K5's chain on the same R and V.
 #pragma once
 
 #include <stdint.h>
@@ -24,9 +25,6 @@
 
 namespace prism {
 
-constexpr int CHAIN_THREADS = 256;
-constexpr int CHAIN_WARPS = CHAIN_THREADS / 32;
-constexpr int CHAIN_ROWS = 4;
 constexpr int MAX_SKETCH = 16;
 
 __host__ __device__ inline size_t align16(size_t b) {
@@ -75,56 +73,64 @@ __device__ __forceinline__ void load_vec(const T* p, float (&out)[VEC]) {
   }
 }
 
-// acc[j][c] += sum over k in [k_lo, k_hi) of R[row0 + j, k] * vt[c, k - vk0]
-// for j < nrows, c < p.  R is row-major with leading dimension n (device
-// memory); vt is [p][ldv] in shared memory.  With VEC > 1, n, ldv, k_lo
-// and vk0 are multiples of VEC and R is 16-byte aligned.
-template <typename T, int VEC, int PB>
-__device__ __forceinline__ void row_group_dot(
-    const T* __restrict__ R, int n, int row0, int nrows, int k_lo, int k_hi,
-    const T* vt, int ldv, int vk0, int p, float (&acc)[CHAIN_ROWS][PB]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll 2
-  for (int k = k_lo + lane * VEC; k < k_hi; k += 32 * VEC) {
-    float r[CHAIN_ROWS][VEC];
-#pragma unroll
-    for (int j = 0; j < CHAIN_ROWS; ++j) {
-      if (j < nrows) {
-        load_vec<T, VEC>(R + (size_t)(row0 + j) * n + k, r[j]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) r[j][e] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < PB; ++c) {
-      if (c < p) {
-        float v[VEC];
-        load_vec<T, VEC>(vt + (size_t)c * ldv + (k - vk0), v);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-#pragma unroll
-          for (int j = 0; j < CHAIN_ROWS; ++j)
-            acc[j][c] = fmaf(r[j][e], v[e], acc[j][c]);
-      }
-    }
+// cp.async with "memory" clobbers: no barrier follows the wait, so the
+// clobber is what keeps the compiler from moving a ring read above it
+__device__ __forceinline__ void ring_copy16(uint4* dst, const void* src,
+                                            bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void ring_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void ring_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one lane's piece of one row of R for one step into its ring slot: 16
+// bytes by cp.async (zero-filled where `ok` is false), or one element
+// through registers, as fp32
+template <typename T, int VEC>
+__device__ __forceinline__ void fetch(uint4* slot, const T* src, bool ok) {
+  if constexpr (VEC == 1) {
+    *reinterpret_cast<float*>(slot) = ok ? Num<T>::to_f32(*src) : 0.f;
+  } else {
+    ring_copy16(slot, src, ok);
   }
 }
 
-// Every lane ends with the full sums (a butterfly: each step adds the
-// same two values on both lanes of a pair, so all lanes agree bit for
-// bit).  p is the same on every lane.
-template <int PB>
-__device__ __forceinline__ void warp_allreduce(float (&acc)[CHAIN_ROWS][PB],
-                                               int p) {
+template <typename T, int VEC>
+__device__ __forceinline__ void unpack(const uint4* slot, float (&out)[VEC]) {
+  if constexpr (VEC == 1) {
+    out[0] = *reinterpret_cast<const float*>(slot);
+  } else {
+    Vec16<T>::unpack(*slot, out);
+  }
+}
+
+// v[0 .. 32 M) on every lane -> lane L holds in v[0 .. M) the warp's sums
+// of indices L M .. L M + M - 1.  Each step (OFF = 16, 8, .., 1) sends the
+// half a lane gives up to its partner and keeps the other half (16 M + ..
+// + M = 31 M shuffles); the order of every sum is fixed by the lane
+// pattern.  A recursion, so that every index is a constant and v stays in
+// registers.
+template <int M, int OFF = 16>
+__device__ __forceinline__ void reduce_scatter(float (&v)[32 * M],
+                                               int lane) {
+  constexpr int HALF = OFF * M;
+  const bool upper = lane & OFF;
 #pragma unroll
-  for (int j = 0; j < CHAIN_ROWS; ++j)
-#pragma unroll
-    for (int c = 0; c < PB; ++c)
-      if (c < p)
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          acc[j][c] += __shfl_xor_sync(0xffffffffu, acc[j][c], off);
+  for (int i = 0; i < HALF; ++i) {
+    const float send = upper ? v[i] : v[i + HALF];
+    const float keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  }
+  if constexpr (OFF > 1) reduce_scatter<M, OFF / 2>(v, lane);
 }
 
 // Picks the vector width (16-byte loads when n and R allow them) and the

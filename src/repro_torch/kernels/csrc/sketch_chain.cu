@@ -79,6 +79,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 using prism::align16;
+using prism::fetch;
+using prism::reduce_scatter;
+using prism::ring_commit;
+using prism::ring_wait;
+using prism::unpack;
 
 constexpr int CLUSTER = 16;     // blocks a slice (> 8: non-portable size)
 constexpr int THREADS = 256;
@@ -102,66 +107,6 @@ __host__ __device__ inline size_t chain_smem_bytes(int n, int p, int item) {
   return 2 * align16((size_t)tile_width(p) * n * item) + ring_bytes(p) +
          align16((size_t)rank_rows(n) * p * item) +
          4 * (WARPS + 2 * CLUSTER);
-}
-
-// cp.async with "memory" clobbers: no barrier follows the wait here, so
-// the clobber is what keeps the compiler from moving a ring read above it
-__device__ __forceinline__ void ring_copy16(uint4* dst, const void* src,
-                                            bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void ring_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void ring_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// one lane's piece of one row of R for one step into its ring slot: 16
-// bytes by cp.async (zero-filled past the rank's rows or n), or one element
-// through registers, as fp32
-template <typename T, int VEC>
-__device__ __forceinline__ void fetch(uint4* slot, const T* src, bool ok) {
-  if constexpr (VEC == 1) {
-    *reinterpret_cast<float*>(slot) = ok ? prism::Num<T>::to_f32(*src) : 0.f;
-  } else {
-    ring_copy16(slot, src, ok);
-  }
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void unpack(const uint4* slot, float (&out)[VEC]) {
-  if constexpr (VEC == 1) {
-    out[0] = *reinterpret_cast<const float*>(slot);
-  } else {
-    prism::Vec16<T>::unpack(*slot, out);
-  }
-}
-
-// v[0 .. 32 M) on every lane -> lane L holds in v[0 .. M) the warp's sums
-// of indices L M .. L M + M - 1.  Each step (OFF = 16, 8, .., 1) sends the
-// half a lane gives up to its partner and keeps the other half (16 M + ..
-// + M = 31 M shuffles); the order of every sum is fixed by the lane
-// pattern.  A recursion, so that every index is a constant and v stays in
-// registers.
-template <int M, int OFF = 16>
-__device__ __forceinline__ void reduce_scatter(float (&v)[32 * M],
-                                               int lane) {
-  constexpr int HALF = OFF * M;
-  const bool upper = lane & OFF;
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float send = upper ? v[i] : v[i + HALF];
-    const float keep = upper ? v[i + HALF] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
-  }
-  if constexpr (OFF > 1) reduce_scatter<M, OFF / 2>(v, lane);
 }
 
 template <typename T, int VEC, int PB>

@@ -21,48 +21,85 @@
 // coefficients are kernel arguments passed by value: the launch copies
 // nothing from the host to the device beforehand.
 //
-// What bounds it on the H100: neither the card's memory nor its arithmetic.
-// The main paths' warm-tail buckets are small — the q/k/v bias view
-// [30, 64, 16] (Muon, polar) and the bias preconditioners [30, 16, 16] and
-// [30, 64, 64] (Shampoo, sqrt), 3 iterations each: X (and Y) are read once
-// and written once (under 1 MB), and the work is tens of MFLOP, so one
-// block per slice leaves most of the 132 SMs idle and the launch and the
-// block's dependent chain of small products set the time.
+// What bounds it on the H100: neither the card's memory nor its peak
+// arithmetic.  The main paths' warm-tail buckets are small — the q/k/v
+// bias view [30, 64, 16] (Muon, polar) and the bias preconditioners
+// [30, 16, 16] and [30, 64, 64] (Shampoo, sqrt), 3 iterations each: X (and
+// Y) are read once and written once (under 1 MB), and the work is tens of
+// MFLOP in a chain of dependent small products, each of which needs the
+// whole of the one before; a slice stays in one block, so one SM's
+// shared-memory loads set the time (an LDS.128 costs four wavefronts even
+// where the lanes share its address: a 4 x 4 tile's 8 loads take longer
+// than its 64 FMAs).
 //
-// Design: the TPU grid (B, iters), whose X ping-pongs between two VMEM
-// buffers, becomes one block per batch slice that loops over the
-// iterations; X (and Y), R, the rounded Horner operand and the fp32
-// accumulator all stay in shared memory, so device memory sees one read and
-// one write of each iterate for the whole run.  The coupled residual reads
-// the fp32 accumulator transposed, so its rows are padded to n + 1 floats:
-// the 32 lanes of a warp then read 32 different banks.  X's Horner may
-// overwrite X in place before Y's runs because R is already stored.  The
-// footprint is
-//   2 align16(m n item) + (1 + coupled) align16(n n item) + 4 m ld,
-//   ld = n + coupled,
-// the model kernels/fused_iter.py::smem_bytes gives kernels/ops.py to pick
-// the fused tier with (at most 232,448 bytes a block: the [64, 64] coupled
-// slice needs 82 KB in fp32, a [1024, 1024] one would need 21 MB and takes
+// Design (redesigned for Hopper): one block per batch slice loops over
+// the iterations; X (and Y), R and two rounded Horner operands live in
+// shared memory in the operand dtype with the row pitch warm_pitch(n) (a
+// multiple of 4 whose quarter is odd, as tiles.cuh's tile_pitch, but the
+// smallest one: the coupled family's five operands at [107, 107] fp32
+// then fit one block).  Every product is register-tiled (tiles.cuh): a
+// thread holds a 4 x 4 tile of outputs and reads 16-byte chunks (8-byte
+// in bf16) that adjacent lanes take from adjacent rows or share — no bank
+// conflicts, 8 FMAs a load:
+//   polar R = I - X^T X      tile_outer (outer products of rows of X)
+//   sign R = I - X X, sqrt I - Y X, X's Horner round(acc) @ R:  tile_rows
+//   Y's Horner R @ round(acc):                     tile_rows with R as A;
+// a product whose 4 x 4 tiles would leave most threads idle (the [16, 16]
+// slices, the [64, 16] Horner) takes 1 x 4 tiles (tile_row) instead.
+// Each output keeps its own fp32 sum, k ascending with one fmaf a term,
+// and its epilogue round(sum + f_j X) runs with __fmul_rn / __fadd_rn on
+// it: exactly the element-by-element kernel's arithmetic, so X' and Y' are
+// bitwise what it gave.  The fp32 Horner accumulator never reaches shared
+// memory: a thread owns the same tiles through every step of an
+// iteration, so acc stays in its registers from the product to the
+// epilogue, and only round(acc), the next step's operand, is stored (the
+// two operand buffers alternate: one barrier a step); the last step
+// rounds into X itself (each thread reads X only at its own tiles, for
+// the f_0 X term).  The coupled residual keeps the fp32 I - Y X in an
+// [n][n + 1] buffer over the two operand buffers (idle until the Horner
+// starts; the pad puts the transposed read of the symmetrization on 32
+// different banks).  Footprint, ld = warm_pitch(n), op = align16(m ld
+// item):
+//   op (X) + max(2 op, coupled align16(4 n (n + 1))) (operands, fp32 R)
+//   + align16(n ld item) (R) + coupled op (Y)
+// (kernels/fused_iter.py::smem_bytes, part of the model kernels/ops.py
+// picks the fused tier with; at most 232,448 bytes a block: the [64, 64]
+// coupled slice needs 87 KB in fp32, a [1024, 1024] one 21 MB and takes
 // the grid tier).
-#include "common.cuh"
+#include "tiles.cuh"
 
 namespace {
+
+using prism::tiles::align16;
+using prism::tiles::ceil4;
+using prism::tiles::load4;
+using prism::tiles::store4;
 
 constexpr int WARM_THREADS = 256;
 constexpr int MAX_DEGREE = 4;
 constexpr int MAX_ITERS = 64;  // alphas of one launch (kernel argument)
 enum Family { POLAR = 0, SIGN = 1, SQRT = 2 };
 
-__host__ __device__ inline size_t align16(size_t b) {
-  return (b + 15) & ~static_cast<size_t>(15);
+// row pitch (elements) of a shared operand with `cols` columns: the
+// smallest multiple of 4 that holds them whose quarter is odd
+__host__ __device__ inline int warm_pitch(int cols) {
+  return 4 * (((cols + 3) / 4) | 1);
+}
+
+// bytes of the two rounded Horner operands, which the coupled family's
+// fp32 residual [n][n + 1] shares
+__host__ __device__ inline size_t horner_bytes(size_t op, int n,
+                                               int family) {
+  const size_t r32 = align16((size_t)4 * n * (n + 1));
+  return family == SQRT && r32 > 2 * op ? r32 : 2 * op;
 }
 
 __host__ __device__ inline size_t warm_smem_bytes(int m, int n, int item,
                                                   int family) {
-  const size_t coupled = family == SQRT ? 1 : 0;
-  const size_t ld = n + coupled;
-  return 2 * align16((size_t)m * n * item) +
-         (1 + coupled) * align16((size_t)n * n * item) + (size_t)m * ld * 4;
+  const size_t ld = warm_pitch(n);
+  const size_t op = align16((size_t)m * ld * item);
+  return op + horner_bytes(op, n, family) + align16((size_t)n * ld * item) +
+         (family == SQRT ? op : 0);
 }
 
 struct Coeffs {
@@ -73,142 +110,298 @@ struct Alphas {
   float a[MAX_ITERS];
 };
 
-// dst = round(Horner of src on R): src g_d(R; a) (LEFT false) or
-// g_d(R; a) src (LEFT true), src and dst [m, n] (they may alias); the
-// fp32 accumulator has row stride ld.  Ends after a barrier.
-template <typename T, bool LEFT>
-__device__ __forceinline__ void horner(const T* src, T* dst, const T* r,
-                                       T* lo, float* acc, int m, int n,
-                                       int ld, float a, int degree,
-                                       const Coeffs& coeffs) {
-  using N = prism::Num<T>;
-  const size_t mn = (size_t)m * n;
-  const int tid = threadIdx.x;
-  for (size_t idx = tid; idx < mn; idx += WARM_THREADS)
-    acc[(idx / n) * ld + idx % n] = __fmul_rn(a, N::to_f32(src[idx]));
-  __syncthreads();
-  for (int j = degree - 1; j >= 0; --j) {
-    for (size_t idx = tid; idx < mn; idx += WARM_THREADS)
-      lo[idx] = N::from_f32(acc[(idx / n) * ld + idx % n]);
-    __syncthreads();
-    const float f = coeffs.f[j];
-    for (size_t idx = tid; idx < mn; idx += WARM_THREADS) {
-      const int row = idx / n;
-      const int col = idx % n;
-      float s = 0.f;
-      if (LEFT) {
-        for (int k = 0; k < n; ++k)
-          s = fmaf(N::to_f32(r[(size_t)row * n + k]),
-                   N::to_f32(lo[(size_t)k * n + col]), s);
-      } else {
-        for (int k = 0; k < n; ++k)
-          s = fmaf(N::to_f32(lo[(size_t)row * n + k]),
-                   N::to_f32(r[(size_t)k * n + col]), s);
-      }
-      acc[(size_t)row * ld + col] =
-          __fadd_rn(s, __fmul_rn(f, N::to_f32(src[idx])));
+// Whether a product with `rows` output rows and n columns takes 1 x 4
+// tiles: where its 4 x 4 tiles would leave most of the block idle (fewer
+// than half as many as threads: the [16, 16] slices, the [64, 16] Horner),
+// four times as many threads share it.  Chosen once a launch, from the
+// Horner's products ([m, n]; sign and sqrt have m = n, and polar's
+// residual takes outer products), as a template argument: each
+// instantiation holds one shape's code, and its products run a few
+// percent faster than with both (PERF.md §6).
+__host__ __device__ inline bool narrow_tiles(int rows, int n) {
+  return ceil4(rows) * ceil4(n) < WARM_THREADS / 2;
+}
+
+// The block's share of P = A @ B (A [rows, K], B [K, n], both with pitch
+// ld): each thread takes tiles tid, tid + WARM_THREADS, ... — 4 x 4 (rows
+// ti + a TI, lanes on consecutive ti) or, narrow, 1 x 4 (one row, lanes
+// on consecutive rows); lanes share B's chunks — and calls emit(u, w0,
+// cnt, s) with the fp32 sums s[b] = P[u][w0 + b], b < cnt, of each of its
+// rows.  Every sum is one fmaf a term, k ascending, in either shape.
+template <bool NARROW, typename T, typename Emit>
+__device__ __forceinline__ void row_products(const T* A, const T* B,
+                                             int rows, int n, int K, int ld,
+                                             Emit emit) {
+  const int TJ = ceil4(n);
+  if (NARROW) {
+    for (int tile = threadIdx.x; tile < rows * TJ; tile += WARM_THREADS) {
+      const int tj = tile / rows;
+      const int u = tile - tj * rows;
+      float s[4];
+      prism::tiles::tile_row(A, ld, u, B, ld, 4 * tj, K, s);
+      emit(u, 4 * tj, min(4, n - 4 * tj), s);
     }
-    __syncthreads();
+    return;
   }
-  for (size_t idx = tid; idx < mn; idx += WARM_THREADS)
-    dst[idx] = N::from_f32(acc[(idx / n) * ld + idx % n]);
+  const int TI = ceil4(rows);
+  for (int tile = threadIdx.x; tile < TI * TJ; tile += WARM_THREADS) {
+    const int tj = tile / TI;
+    const int ti = tile - tj * TI;
+    float s[4][4];
+    prism::tiles::tile_rows(A, ld, rows, ti, TI, B, ld, 4 * tj, K, s);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int u = ti + a * TI;
+      if (u >= rows) break;
+      emit(u, 4 * tj, min(4, n - 4 * tj), s[a]);
+    }
+  }
+}
+
+// The epilogues of the products (functors, so that each inlines into its
+// tile loop): what each output's fp32 sum s[b] = P[u][w0 + b] becomes.
+// Sign: R = round(I - X X).
+template <typename T>
+struct SignResidual {
+  T* r;
+  int ld;
+  __device__ __forceinline__ void operator()(int u, int w0, int cnt,
+                                             const float (&s)[4]) const {
+    T o[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      o[b] = prism::Num<T>::from_f32(
+          __fsub_rn(u == w0 + b ? 1.f : 0.f, s[b]));
+    store4(r + (size_t)u * ld + w0, o, cnt, true);
+  }
+};
+
+// Sqrt: the fp32 S = I - Y X, rows padded to ld32 = n + 1 floats.
+struct SqrtResidual {
+  float* r32;
+  int ld32;
+  __device__ __forceinline__ void operator()(int u, int w0, int cnt,
+                                             const float (&s)[4]) const {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (b < cnt)
+        r32[u * ld32 + w0 + b] = __fsub_rn(u == w0 + b ? 1.f : 0.f, s[b]);
+  }
+};
+
+// A Horner step: dst = round(s + f src), src read at the thread's own
+// outputs only.
+template <typename T>
+struct HornerStep {
+  const T* src;
+  T* dst;
+  int ld;
+  float f;
+  __device__ __forceinline__ void operator()(int u, int w0, int cnt,
+                                             const float (&s)[4]) const {
+    float xs[4];
+    load4(src + (size_t)u * ld + w0, xs);
+    T o[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      o[b] = prism::Num<T>::from_f32(__fadd_rn(s[b], __fmul_rn(f, xs[b])));
+    store4(dst + (size_t)u * ld + w0, o, cnt, true);
+  }
+};
+
+// R = round(I - X^T X) (polar), round(I - X X) (sign) or, coupled,
+// round(0.5 (S + S^T)) with S = I - Y X on the fp32 sums; x and y [m, n]
+// and r with pitch ld, r32 the coupled family's fp32 S.  Ends after a
+// barrier.
+template <typename T, int FAMILY, bool NARROW>
+__device__ __forceinline__ void residual(const T* x, const T* y, T* r,
+                                         float* r32, int m, int n, int ld) {
+  using N = prism::Num<T>;
+  const int tid = threadIdx.x;
+  if (FAMILY == POLAR) {
+    // outer products of the rows of X, lanes on consecutive column tiles
+    const int T4 = ceil4(n);
+    for (int tile = tid; tile < T4 * T4; tile += WARM_THREADS) {
+      const int ti = tile / T4;
+      const int w0 = 4 * (tile - ti * T4);
+      const int cnt = min(4, n - w0);
+      float s[4][4];
+      prism::tiles::tile_outer(x, ld, 4 * ti, x, ld, w0, m, s);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int u = 4 * ti + a;
+        if (u >= n) break;
+        T o[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          o[b] = N::from_f32(__fsub_rn(u == w0 + b ? 1.f : 0.f, s[a][b]));
+        store4(r + (size_t)u * ld + w0, o, cnt, true);
+      }
+    }
+  } else if (FAMILY == SIGN) {
+    // the left operand by rows
+    row_products<NARROW>(x, x, n, n, n, ld,
+                 SignResidual<T>{r, ld});
+  } else {
+    // the fp32 S, then 0.5 (S + S^T) rounded once, four columns a thread
+    // at a time (lanes on consecutive rows: both reads of S hit 32
+    // different banks)
+    const int ld32 = n + 1;
+    row_products<NARROW>(y, x, n, n, n, ld,
+                 SqrtResidual{r32, ld32});
+    __syncthreads();
+    const int TJ = ceil4(n);
+    for (int c = tid; c < n * TJ; c += WARM_THREADS) {
+      const int w0 = 4 * (c / n);
+      const int u = c - (w0 / 4) * n;
+      const int cnt = min(4, n - w0);
+      T o[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int w = b < cnt ? w0 + b : w0;
+        o[b] = N::from_f32(__fmul_rn(
+            0.5f, __fadd_rn(r32[u * ld32 + w], r32[w * ld32 + u])));
+      }
+      store4(r + (size_t)u * ld + w0, o, cnt, true);
+    }
+  }
   __syncthreads();
 }
 
-template <typename T, int FAMILY>
-__global__ void __launch_bounds__(WARM_THREADS)
+// src <- round(Horner of src on R), in place: src g_d(R; a) (LEFT false,
+// src [rows, n]) or g_d(R; a) src (LEFT true, src [n, n]); src, lo0, lo1
+// and r with pitch ld.  A thread's tiles are the same at every step, so
+// each step's fp32 acc goes from its product to its epilogue in registers;
+// only round(acc) is stored, into lo0 / lo1 in turn, and the last step's
+// into src (each thread reads src only at its own tiles).  Ends after a
+// barrier.
+template <typename T, bool LEFT, bool NARROW>
+__device__ __forceinline__ void horner(T* src, int rows, T* lo0, T* lo1,
+                                       const T* r, int n, int ld, float a,
+                                       int degree, const Coeffs& coeffs) {
+  using N = prism::Num<T>;
+  // round(a src), four columns a thread at a time
+  const int TJ = ceil4(n);
+  for (int c = threadIdx.x; c < rows * TJ; c += WARM_THREADS) {
+    const int w0 = 4 * (c / rows);
+    const int u = c - (w0 / 4) * rows;
+    float xs[4];
+    load4(src + (size_t)u * ld + w0, xs);
+    T o[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) o[b] = N::from_f32(__fmul_rn(a, xs[b]));
+    store4(lo0 + (size_t)u * ld + w0, o, min(4, n - w0), true);
+  }
+  __syncthreads();
+  const T* cur = lo0;
+  T* nxt = lo1;
+  for (int j = degree - 1; j >= 0; --j) {
+    const HornerStep<T> step{src, j > 0 ? nxt : src, ld, coeffs.f[j]};
+    if (LEFT)
+      row_products<NARROW>(r, cur, rows, n, n, ld, step);
+    else
+      row_products<NARROW>(cur, r, rows, n, n, ld, step);
+    __syncthreads();
+    T* done = const_cast<T*>(cur);
+    cur = nxt;
+    nxt = done;
+  }
+}
+
+// a [rows, cols] operand with pitch ld from shared memory to device memory
+// (row stride cols): four neighbours a store when the rows allow it
+template <typename T>
+__device__ __forceinline__ void unstage(T* __restrict__ dst, const T* src,
+                                        int ld, int rows, int cols) {
+  using Q = typename prism::tiles::Quad<T>::type;
+  if ((cols & 3) == 0 && reinterpret_cast<uintptr_t>(dst) % sizeof(Q) == 0) {
+    const int quads = cols / 4;
+    for (int i = threadIdx.x; i < rows * quads; i += WARM_THREADS) {
+      const int u = i / quads;
+      const int c = 4 * (i - u * quads);
+      *reinterpret_cast<Q*>(dst + (size_t)u * cols + c) =
+          *reinterpret_cast<const Q*>(src + (size_t)u * ld + c);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * cols; i += WARM_THREADS) {
+    const int u = i / cols;
+    dst[i] = src[(size_t)u * ld + (i - u * cols)];
+  }
+}
+
+// minimum 1 block an SM: a launch has one block a slice (30 on the main
+// paths, fewer than the SMs), so nothing is gained by capping registers to
+// fit more (the compiler's own choice held the coupled instantiations to
+// 80 registers, and they spilled)
+template <typename T, int FAMILY, bool NARROW>
+__global__ void __launch_bounds__(WARM_THREADS, 1)
     warm_tail_kernel(const T* __restrict__ X_in, const T* __restrict__ Y_in,
                      T* __restrict__ X_out, T* __restrict__ Y_out,
                      Alphas alphas, int n_iters, int m, int n, int degree,
                      Coeffs coeffs) {
   extern __shared__ __align__(16) unsigned char smem[];
-  using N = prism::Num<T>;
   constexpr bool coupled = FAMILY == SQRT;
-  const int ld = n + (coupled ? 1 : 0);
+  const int ld = warm_pitch(n);
+  const size_t op = align16((size_t)m * ld * sizeof(T));
+  const size_t hb = horner_bytes(op, n, FAMILY);
+  T* x = reinterpret_cast<T*>(smem);
+  T* lo0 = reinterpret_cast<T*>(smem + op);
+  T* lo1 = reinterpret_cast<T*>(smem + 2 * op);
+  float* r32 = reinterpret_cast<float*>(smem + op);  // coupled: over lo0/lo1
+  T* r = reinterpret_cast<T*>(smem + op + hb);
+  T* y = reinterpret_cast<T*>(smem + op + hb +
+                              align16((size_t)n * ld * sizeof(T)));
+  const size_t b = blockIdx.x;
   const size_t mn = (size_t)m * n;
   const size_t nn = (size_t)n * n;
-  unsigned char* base = smem;
-  T* x = reinterpret_cast<T*>(base);
-  base += align16(mn * sizeof(T));
-  T* lo = reinterpret_cast<T*>(base);
-  base += align16(mn * sizeof(T));
-  T* r = reinterpret_cast<T*>(base);
-  base += align16(nn * sizeof(T));
-  T* y = reinterpret_cast<T*>(base);  // coupled only
-  if (coupled) base += align16(nn * sizeof(T));
-  float* acc = reinterpret_cast<float*>(base);
-  const size_t b = blockIdx.x;
-  X_in += b * mn;
-  X_out += b * mn;
-  const int tid = threadIdx.x;
 
-  for (size_t i = tid; i < mn; i += WARM_THREADS) x[i] = X_in[i];
+  prism::tiles::stage<T, WARM_THREADS>(x, ld, X_in + b * mn, n, m, n);
   if (coupled)
-    for (size_t i = tid; i < nn; i += WARM_THREADS) y[i] = Y_in[b * nn + i];
+    prism::tiles::stage<T, WARM_THREADS>(y, ld, Y_in + b * nn, n, n, n);
   __syncthreads();
 
   for (int it = 0; it < n_iters; ++it) {
-    if (coupled) {
-      // the fp32 residual I - Y X, then 0.5 (R + R^T) rounded once
-      for (size_t idx = tid; idx < nn; idx += WARM_THREADS) {
-        const int i = idx / n;
-        const int j = idx % n;
-        float s = 0.f;
-        for (int k = 0; k < n; ++k)
-          s = fmaf(N::to_f32(y[(size_t)i * n + k]),
-                   N::to_f32(x[(size_t)k * n + j]), s);
-        acc[(size_t)i * ld + j] = __fsub_rn(i == j ? 1.f : 0.f, s);
-      }
-      __syncthreads();
-      for (size_t idx = tid; idx < nn; idx += WARM_THREADS) {
-        const int i = idx / n;
-        const int j = idx % n;
-        const float sym =
-            __fmul_rn(0.5f, __fadd_rn(acc[(size_t)i * ld + j],
-                                      acc[(size_t)j * ld + i]));
-        r[idx] = N::from_f32(sym);
-      }
-    } else {
-      // R = I - X^T X (polar) or I - X X (sign), rounded once
-      for (size_t idx = tid; idx < nn; idx += WARM_THREADS) {
-        const int i = idx / n;
-        const int j = idx % n;
-        float s = 0.f;
-        for (int k = 0; k < m; ++k) {
-          const float xi = FAMILY == POLAR ? N::to_f32(x[(size_t)k * n + i])
-                                           : N::to_f32(x[(size_t)i * n + k]);
-          s = fmaf(xi, N::to_f32(x[(size_t)k * n + j]), s);
-        }
-        r[idx] = N::from_f32(__fsub_rn(i == j ? 1.f : 0.f, s));
-      }
-    }
-    __syncthreads();
+    residual<T, FAMILY, NARROW>(x, y, r, r32, m, n, ld);
     const float a = alphas.a[it];
-    horner<T, false>(x, x, r, lo, acc, m, n, ld, a, degree, coeffs);
+    horner<T, false, NARROW>(x, m, lo0, lo1, r, n, ld, a, degree, coeffs);
     if (coupled)
-      horner<T, true>(y, y, r, lo, acc, n, n, ld, a, degree, coeffs);
+      horner<T, true, NARROW>(y, n, lo0, lo1, r, n, ld, a, degree, coeffs);
   }
 
-  for (size_t i = tid; i < mn; i += WARM_THREADS) X_out[i] = x[i];
-  if (coupled)
-    for (size_t i = tid; i < nn; i += WARM_THREADS) Y_out[b * nn + i] = y[i];
+  unstage(X_out + b * mn, x, ld, m, n);
+  if (coupled) unstage(Y_out + b * nn, y, ld, n, n);
+}
+
+template <typename T, int FAMILY, bool NARROW>
+int launch_shape(const void* X, const void* Y, void* X_out, void* Y_out,
+                 const Alphas& alphas, int n_iters, int batch, int m, int n,
+                 int degree, const Coeffs& coeffs, size_t smem,
+                 cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        warm_tail_kernel<T, FAMILY, NARROW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  warm_tail_kernel<T, FAMILY, NARROW><<<batch, WARM_THREADS, smem, s>>>(
+      static_cast<const T*>(X), static_cast<const T*>(Y),
+      static_cast<T*>(X_out), static_cast<T*>(Y_out), alphas, n_iters, m, n,
+      degree, coeffs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int FAMILY>
 int launch(const void* X, const void* Y, void* X_out, void* Y_out,
            const Alphas& alphas, int n_iters, int batch, int m, int n,
            int degree, const Coeffs& coeffs, size_t smem, cudaStream_t s) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        warm_tail_kernel<T, FAMILY>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  warm_tail_kernel<T, FAMILY><<<batch, WARM_THREADS, smem, s>>>(
-      static_cast<const T*>(X), static_cast<const T*>(Y),
-      static_cast<T*>(X_out), static_cast<T*>(Y_out), alphas, n_iters, m, n,
-      degree, coeffs);
-  return static_cast<int>(cudaGetLastError());
+  if (narrow_tiles(m, n))
+    return launch_shape<T, FAMILY, true>(X, Y, X_out, Y_out, alphas,
+                                         n_iters, batch, m, n, degree,
+                                         coeffs, smem, s);
+  return launch_shape<T, FAMILY, false>(X, Y, X_out, Y_out, alphas, n_iters,
+                                        batch, m, n, degree, coeffs, smem,
+                                        s);
 }
 
 template <typename T>

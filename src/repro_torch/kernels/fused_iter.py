@@ -8,11 +8,12 @@ slice (K7: a few blocks a slice, each with its share):
 
   * ``warm_tail`` (K3, ``csrc/warm_tail.cu``): an entire run of
     constant-alpha Newton-Schulz iterations (the warm phase of PRISM, or a
-    whole classical chain) as ONE launch, with X (and the coupled Y), R,
-    the rounded Horner operand and the fp32 Horner accumulator in shared
-    memory; the alphas, one per iteration, are kernel arguments passed by
-    value (at most ``MAX_WARM_ITERS``), so nothing is copied to the device
-    first.
+    whole classical chain) as ONE launch, with X (and the coupled Y), R
+    and two rounded Horner operands in shared memory (rows of
+    ``warm_pitch``); the fp32 Horner accumulator stays in each thread's
+    registers.  The alphas, one per iteration, are kernel arguments passed
+    by value (at most ``MAX_WARM_ITERS``), so nothing is copied to the
+    device first.
   * ``residual_chain`` (K6, ``csrc/residual_chain.cu``): the first launch
     of a fitted iteration — the family residual (I - X^T X, I - X X, or
     sym(I - Y X)) formed on an fp32 accumulator, rounded once, written
@@ -26,8 +27,9 @@ slice (K7: a few blocks a slice, each with its share):
     ``apply_g_rows`` rows of X or, coupled, as many columns of Y, so that
     a launch spreads over the SMs.
 
-K6 and K7 register-tile their products (``csrc/tiles.cuh``) over shared
-operands with the row pitch ``tile_pitch``.  Their accumulation order is
+All three register-tile their products (``csrc/tiles.cuh``) over shared
+operands with a row pitch whose quarter is odd (``tile_pitch``; K3 the
+smallest such, ``warm_pitch``).  Their accumulation order is
 the fused one (``ref._horner``): the f_j * X epilogues stay fp32 and only
 each product's operand rounds.  The ``*_smem_bytes`` functions are the
 kernels' shared-memory layouts, which ``ops.fused_fits`` chooses the tier
@@ -62,14 +64,26 @@ def _align16(b: int) -> int:
     return (b + 15) // 16 * 16
 
 
+def warm_pitch(cols: int) -> int:
+    """Row pitch (elements) of a K3 shared operand with ``cols`` columns
+    (``csrc/warm_tail.cu``): the smallest multiple of 4 that holds them
+    whose quarter is odd."""
+    return 4 * ((-(-cols // 4)) | 1)
+
+
 def smem_bytes(m: int, n: int, itemsize: int, coupled: bool = False) -> int:
-    """Shared memory one K3 block needs for an [m, n] slice: X and the
-    rounded Horner operand ([m, n] each), R ([n, n]) and, coupled, Y
-    ([n, n]), all in the operand dtype and 16-byte aligned, plus the fp32
-    accumulator, whose rows the coupled family pads to n + 1."""
-    c = int(coupled)
-    return 2 * _align16(m * n * itemsize) + \
-        (1 + c) * _align16(n * n * itemsize) + 4 * m * (n + c)
+    """Shared memory one K3 block needs for an [m, n] slice: X and two
+    rounded Horner operands ([m, n] each), R ([n, n]) and, coupled, Y
+    ([n, n]), all in the operand dtype with rows of ``warm_pitch(n)`` and
+    16-byte aligned; the coupled family's fp32 residual [n, n + 1] lies
+    over the two Horner operands (which it outgrows only in bf16)."""
+    ld = warm_pitch(n)
+    op = _align16(m * ld * itemsize)
+    horner = 2 * op
+    if coupled:
+        horner = max(horner, _align16(4 * n * (n + 1)))
+    return op + horner + _align16(n * ld * itemsize) + \
+        (op if coupled else 0)
 
 
 def tile_pitch(cols: int) -> int:

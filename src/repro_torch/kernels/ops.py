@@ -35,8 +35,11 @@ bytes; there is no environment variable.
 Sketched traces (``sketch_traces``): K5 runs the whole chain of a bucket
 in one launch, one thread-block cluster a slice, when a cluster block's
 two V buffers, ring of R and sketch rows fit its shared memory
-(``sketch_traces.chain_smem_bytes`` against the same budget), else a
-loop of K4 launches, one per power, never an over-budget launch.  The
+(``sketch_traces.chain_smem_bytes`` against the same budget) and the card
+can hold at least one of its clusters at once; else a loop of K4
+launches, one per power, which needs no cluster (``chain_route``).  The
+route is chosen before any launch, as the reference chose by footprint;
+K5 itself still refuses a cluster that cannot be resident.  The
 reference padded the sketch dim p to 128 TPU lanes; the CUDA kernels take
 any p up to 16 as it is, so nothing is padded.
 
@@ -95,11 +98,24 @@ def fused_fits(mshape, dtype, *, budget: int = 0, sketch_dim: int = 8,
 
 
 def chain_fits(n: int, p: int, dtype, *, budget: int = 0) -> bool:
-    """Whether K5 may run the whole chain of an [n, n] residual with a
-    p-row sketch (one block of its cluster fits the budget; else
-    ``sketch_traces`` loops K4)."""
+    """Whether one block of K5's cluster fits the budget for the chain of
+    an [n, n] residual with a p-row sketch (``chain_route`` also asks the
+    card whether it holds one of its clusters)."""
     return _sk.chain_smem_bytes(n, p, _itemsize(dtype)) <= \
         min(smem_budget(budget), _sk.MAX_SMEM_BYTES)
+
+
+def chain_route(n: int, p: int, dtype, *, budget: int = 0,
+                resident_clusters: int) -> str:
+    """The kernel that runs the sketched chain of an [n, n] residual with a
+    p-row sketch, chosen before any launch: ``"sketch_chain"`` (K5, one
+    launch) when one block of its cluster fits the budget (``chain_fits``)
+    and the card holds at least one of its clusters at once
+    (``resident_clusters``, ``sketch_traces.resident_clusters``), else
+    ``"sketch_step"`` (K4, one launch a power)."""
+    if chain_fits(n, p, dtype, budget=budget) and resident_clusters > 0:
+        return "sketch_chain"
+    return "sketch_step"
 
 
 def _gd_coeffs(degree: int):
@@ -178,9 +194,8 @@ def warm_tail(X, alphas: Sequence[float], *, degree: int,
 
 def sketch_traces(R, S, max_power: int, *, budget: int = 0):
     """t_i = tr(S R^i S^T), i = 0..max_power, fp32 [..., max_power + 1]:
-    one K5 launch for the whole bucket when the chain fits (``chain_fits``),
-    else ``max_power`` K4 launches.  t_0 is sketch-only
-    and computed here."""
+    one K5 launch for the whole bucket, or ``max_power`` K4 launches, as
+    ``chain_route`` picks.  t_0 is sketch-only and computed here."""
     if not _on_cuda(R, S):
         return _ref.sketch_traces(R, S, max_power)
     St = S.transpose(-1, -2).to(R.dtype).contiguous()
@@ -189,7 +204,10 @@ def sketch_traces(R, S, max_power: int, *, budget: int = 0):
     lead = tuple(R.shape[:-2])
     (Rb,) = _collapse(lead, R)
     n, p = St.shape
-    if chain_fits(n, p, R.dtype, budget=budget):
+    clusters = (_sk.resident_clusters(Rb, St)
+                if chain_fits(n, p, R.dtype, budget=budget) else 0)
+    if chain_route(n, p, R.dtype, budget=budget,
+                   resident_clusters=clusters) == "sketch_chain":
         ts = _sk.sketch_chain(Rb, St, max_power)
     else:
         V = St.expand((Rb.shape[0],) + tuple(St.shape)).contiguous()

@@ -16,11 +16,15 @@ the operand dtype (DESIGN.md §9).
     ``chain_smem_bytes`` grows with n, so ``ops.sketch_traces`` launches it
     only when it fits one block.
   * ``sketch_step`` (K4, ``csrc/sketch_step.cu``): one power, a grid over
-    (row tile, slice), with a bounded footprint (a k-tile of V in shared
-    memory); the fallback loop of ``ops.sketch_traces``.  The trace is a
-    sum across blocks, reduced in a fixed order (per-tile partials, then
-    the last block of each slice sums them in order), so it is the same
-    from run to run.
+    (row tile, slice) with a footprint that does not grow with n (R
+    streamed through each thread's cp.async ring, V staged a k-tile at a
+    time); the fallback loop of ``ops.sketch_traces``, which needs no
+    cluster.  A warp carries K5's row group, so every V'[row, c] is summed
+    in K5's order.  The trace is a sum across blocks, reduced in a fixed
+    order (per-tile partials, then the last block of each slice sums them
+    in order and sets the slice's arrival counter back to zero), so it is
+    the same from run to run, and the counters (``step_counter``) are
+    zeroed once, never per call.
 
 ``sketch`` p may be at most ``MAX_SKETCH``; there is no padding of p.
 ``plain_chain``/``plain_step`` are the plain PyTorch versions.
@@ -36,7 +40,10 @@ from repro_torch.kernels import _build, ref
 
 MAX_SMEM_BYTES = 232_448
 MAX_SKETCH = 16
-STEP_ROWS = 32     # rows of R one K4 block covers (8 warps x 4 rows)
+# K4's layout, mirrored from csrc/sketch_step.cu
+STEP_THREADS = 256
+STEP_WARPS = STEP_THREADS // 32
+STEP_GROUP_SUMS = 64   # sums a lane carries: rows a warp x (8 or 16)
 # K5's layout, mirrored from csrc/sketch_chain.cu
 CHAIN_CLUSTER = 16     # blocks a slice
 CHAIN_THREADS = 256
@@ -173,8 +180,56 @@ def chain_launch_info(R: torch.Tensor, St: torch.Tensor) -> Dict[str, int]:
                            f"({code})")
     return dict(zip(_INFO_KEYS, out), smem_bytes=smem)
 
+_CLUSTERS: Dict[Tuple, int] = {}
+
+
+def resident_clusters(R: torch.Tensor, St: torch.Tensor) -> int:
+    """How many K5 clusters the card holds at once for a launch on these
+    operands (``chain_launch_info``'s ``active_clusters``): queried once
+    per device, n, p, dtype and instantiation (16-byte loads or not), then
+    cached.  Launches nothing."""
+    n, p = R.shape[-1], St.shape[1]
+    vec = n % (16 // R.element_size()) == 0 and R.data_ptr() % 16 == 0
+    key = (R.device, n, p, R.dtype, vec)
+    if key not in _CLUSTERS:
+        _CLUSTERS[key] = chain_launch_info(R, St)["active_clusters"]
+    return _CLUSTERS[key]
+
+
+def step_rows_a_warp(p: int) -> int:
+    """Rows of R a K4 warp carries: K5's row group (``chain_rows_a_warp``)."""
+    return STEP_GROUP_SUMS // (8 if p <= 8 else 16)
+
+
+def step_tiles(n: int, p: int) -> int:
+    """Row-tile blocks of one K4 slice: ``STEP_WARPS`` warps a block, each
+    with ``step_rows_a_warp(p)`` consecutive rows (warp w of block i owns
+    rows (i STEP_WARPS + w) rows_a_warp onwards); a block writes one trace
+    partial, [slice, tile]."""
+    block_rows = STEP_WARPS * step_rows_a_warp(p)
+    return -(-n // block_rows)
+
+
+_COUNTERS: Dict[Tuple, torch.Tensor] = {}
+
+
+def step_counter(device, stream: int, batch: int) -> torch.Tensor:
+    """K4's arrival counters ([batch] int32) for launches on ``stream`` of
+    ``device``: every launch leaves them zero (the last block of a slice
+    resets its counter), so they are zeroed once, when first allocated or
+    grown, and a call makes no fill launch.  One set a (device, stream):
+    launches on one stream run in order, so they never share a counter
+    while it counts."""
+    key = (torch.device(device), stream)
+    counter = _COUNTERS.get(key)
+    if counter is None or counter.numel() < batch:
+        counter = torch.zeros((batch,), dtype=torch.int32, device=device)
+        _COUNTERS[key] = counter
+    return counter
+
+
 _STEP_SYMBOL = "prism_sketch_step"
-_STEP_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
+_STEP_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + \
     [ctypes.c_void_p]
 
 
@@ -196,14 +251,15 @@ def sketch_step(R: torch.Tensor, V: torch.Tensor, St: torch.Tensor
     t = torch.empty((nb,), dtype=torch.float32, device=R.device)
     if V.numel() == 0:
         return Vn, t.zero_()
-    tiles = (n + STEP_ROWS - 1) // STEP_ROWS
+    tiles = step_tiles(n, p)
     partial = torch.empty((nb, tiles), dtype=torch.float32, device=R.device)
-    counter = torch.zeros((nb,), dtype=torch.int32, device=R.device)
+    stream = _build.stream_handle(R)
+    counter = step_counter(R.device, stream, nb)
     lib = _build.library("sketch_step", _STEP_SYMBOL, _STEP_ARGTYPES)
     with torch.cuda.device(R.device):
         _build.launch("sketch_step", lib, _STEP_SYMBOL, R.data_ptr(),
                       V.data_ptr(), St.data_ptr(), Vn.data_ptr(),
                       t.data_ptr(), partial.data_ptr(), counter.data_ptr(),
-                      nb, n, p, int(R.dtype == torch.bfloat16),
-                      _build.stream_handle(R))
+                      nb, n, p, tiles, int(R.dtype == torch.bfloat16),
+                      stream)
     return Vn, t

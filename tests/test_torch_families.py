@@ -146,23 +146,33 @@ def test_warm_tail_matches_reference(family, kind, alphas, dtype):
         _close(got, want, dtype)
 
 
+# the coupled fused-tier limits: the parent's (its K3 set both) and this
+# layout's (K3 still sets fp32; in bf16 K6 does now, with an 8-row sketch)
+LIMITS = {"float32": 107, "bfloat16": 145}
+
+
 @pytest.mark.parametrize("dtype,limit", [("float32", 107),
                                          ("bfloat16", 138)])
 def test_coupled_footprint_and_limit(dtype, limit):
-    """The coupled fused kernels hold X, Y, R, the rounded operand and the
-    fp32 accumulator (K3 pads its rows to n + 1): [64, 64] fits, the
-    limit is the largest n that does, [1024, 1024] takes the grid tier;
-    the model is the largest of K3, K6 and K7's coupled footprints.  K6
-    and K7 keep their operands with rows of ``tile_pitch`` (K6: X, Y, R,
-    and St and two V buffers [n, 8], two partials a warp, the fp32
+    """The coupled fused kernels hold X, Y, R, the rounded operands and an
+    fp32 residual: [64, 64] fits, the parent's limit (``limit``) still
+    fits, the new limit is the largest n that does, [1024, 1024] takes the
+    grid tier; the model is the largest of K3, K6 and K7's coupled
+    footprints.  K3 keeps X, Y, R and two Horner operands with rows of
+    ``warm_pitch`` and its fp32 residual [n, n + 1] over the two operands;
+    K6 and K7 keep their operands with rows of ``tile_pitch`` (K6: X, Y,
+    R, and St and two V buffers [n, 8], two partials a warp, the fp32
     residual [n, n + 1]; K7 at its largest share, the whole slice: R, X or
-    Y and two Horner operands); K6 dominates a [16, 16] slice, K3 the
-    larger ones."""
+    Y and two Horner operands).  K3 dominates fp32 slices above [16, 16],
+    K6 the rest."""
     item = 4 if dtype == "float32" else 2
     a16 = fused_iter._align16
-    for n in (16, 64, limit):
+    new_limit = LIMITS[dtype]
+    assert new_limit >= limit
+    for n in (16, 64, limit, new_limit):
         ld = fused_iter.tile_pitch(n)
-        k3 = 4 * a16(n * n * item) + 4 * n * (n + 1)
+        op = a16(n * fused_iter.warm_pitch(n) * item)
+        k3 = 3 * op + max(2 * op, a16(4 * n * (n + 1)))
         assert fused_iter.smem_bytes(n, n, item, coupled=True) == k3
         k6 = fused_iter.residual_chain_smem_bytes(n, n, 8, item, True)
         ldp = fused_iter.tile_pitch(8)
@@ -170,14 +180,16 @@ def test_coupled_footprint_and_limit(dtype, limit):
             8 * fused_iter.RC_WARPS + 4 * n * (n + 1)
         k7 = fused_iter.apply_g_smem_bytes(n, n, item, coupled=True)
         assert k7 == 4 * a16(n * ld * item)
+        dominant = k3 if dtype == "float32" and n > 16 else k6
         assert ops.fused_smem_bytes((n, n), dtype, coupled=True) == \
-            max(k3, k6, k7) == (k6 if n == 16 else k3)
+            max(k3, k6, k7) == dominant
         assert ops.fused_fits((n, n), dtype, coupled=True)
-    assert not ops.fused_fits((limit + 1, limit + 1), dtype, coupled=True)
+    assert not ops.fused_fits((new_limit + 1, new_limit + 1), dtype,
+                              coupled=True)
     assert not ops.fused_fits((1024, 1024), dtype, coupled=True)
-    # the polar layout is what it was
+    # the polar layout: X, two Horner operands and R, rows of warm_pitch
     assert fused_iter.smem_bytes(64, 16, item) == \
-        2 * a16(64 * 16 * item) + a16(16 * 16 * item) + 4 * 64 * 16
+        3 * a16(64 * 20 * item) + a16(16 * 20 * item)
 
 
 def test_cpu_family_calls_count_nothing():

@@ -166,13 +166,14 @@ def test_collapse_flattens_lead_dims_and_broadcasts():
 def test_smem_model_admits_the_bias_view(dtype):
     """The bias view's footprint is K7's block at its largest share (the
     whole [64, 16] slice: R and three [64, 16] buffers, X and two Horner
-    operands, rows of ``tile_pitch(16)`` = 20) in fp32, and K3's (X, the
-    rounded operand, R, the fp32 accumulator) in bf16."""
+    operands, rows of ``tile_pitch(16)`` = 20), which K3's block equals
+    (the same four operands, rows of ``warm_pitch(16)`` = 20)."""
     need = ops.fused_smem_bytes((64, 16), dtype)
     item = 4 if dtype == "float32" else 2
-    k3 = 2 * 64 * 16 * item + 16 * 16 * item + 4 * 64 * 16
+    k3 = 3 * 64 * 20 * item + 16 * 20 * item
     k7 = 16 * 20 * item + 3 * 64 * 20 * item
-    assert need == (k7 if dtype == "float32" else k3) == max(k3, k7)
+    assert fused_iter.smem_bytes(64, 16, item) == k3
+    assert need == k7 == k3
     assert ops.fused_fits((64, 16), dtype)
 
 
@@ -322,16 +323,17 @@ def test_fused_model_is_the_largest_fused_kernel():
     """fused_smem_bytes is the largest of K3, K6 and K7's footprints: at a
     square [16, 16] slice with a 16-row sketch, K6's chain buffers
     dominate; at the polar bias view [64, 16], K7's three pitched [64, 16]
-    buffers beside R."""
+    buffers beside R, and K3's, which hold the same (one-sided families:
+    K3 is never larger than K7)."""
     k3 = fused_iter.smem_bytes(16, 16, 4)
     k6 = fused_iter.residual_chain_smem_bytes(16, 16, 16, 4)
     k7 = fused_iter.apply_g_smem_bytes(16, 16, 4)
-    assert k6 > k7 > k3
+    assert k6 > k7 == k3
     assert ops.fused_smem_bytes((16, 16), "float32", sketch_dim=16) == k6
     assert ops.fused_smem_bytes((64, 16), "float32", sketch_dim=8) == \
-        fused_iter.apply_g_smem_bytes(64, 16, 4) > \
-        max(fused_iter.smem_bytes(64, 16, 4),
-            fused_iter.residual_chain_smem_bytes(64, 16, 8, 4))
+        fused_iter.apply_g_smem_bytes(64, 16, 4) == \
+        fused_iter.smem_bytes(64, 16, 4) > \
+        fused_iter.residual_chain_smem_bytes(64, 16, 8, 4)
     assert ops.fused_fits((16, 16), "float32", budget=k6, sketch_dim=16)
     assert not ops.fused_fits((16, 16), "float32", budget=k6 - 1,
                               sketch_dim=16)
@@ -404,3 +406,162 @@ def test_plain_chain_reads_the_accumulator_before_rounding():
     acc = torch.matmul(r.float(), st.float())
     assert float(t) == float(torch.sum(st.float() * acc))
     assert float(t) != float(torch.sum(st.float() * v.float()))
+
+
+# ------------------------------------------------ K3's layout and the tier
+
+def test_warm_tail_layout_mirrors_the_kernel_source():
+    """K3's constants and row pitch are the ones ``csrc/warm_tail.cu``
+    lays its block out with; the pitch is the smallest multiple of 4 that
+    holds a row and whose quarter is odd (adjacent rows in different bank
+    groups)."""
+    src = (CSRC / "warm_tail.cu").read_text()
+    for name, mirror in (("MAX_DEGREE", fused_iter.MAX_DEGREE),
+                         ("MAX_ITERS", fused_iter.MAX_WARM_ITERS)):
+        got = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert int(got.group(1)) == mirror
+    assert "return 4 * (((cols + 3) / 4) | 1);" in src
+    for cols in range(1, 300):
+        ld = fused_iter.warm_pitch(cols)
+        assert ld >= -(-cols // 4) * 4 and ld % 4 == 0 and (ld // 4) % 2
+        assert ld - 4 < cols or (ld // 4 - 1) % 2 == 0
+        assert ld <= fused_iter.tile_pitch(cols)
+
+
+def _a16(b):
+    return -(-b // 16) * 16
+
+
+@pytest.mark.parametrize("m,n", [(64, 16), (16, 16), (64, 64), (55, 23),
+                                 (107, 107), (145, 145), (3, 5)])
+@pytest.mark.parametrize("item", [4, 2])
+@pytest.mark.parametrize("coupled", [False, True])
+def test_warm_tail_footprint_is_the_layout(m, n, item, coupled):
+    """csrc/warm_tail.cu's block, written out: X, two rounded Horner
+    operands (the coupled fp32 residual [n, n + 1] over them, padded past
+    them where it is larger), R and, coupled, Y, rows of warm_pitch(n)."""
+    if coupled and m != n:
+        return
+    ld = fused_iter.warm_pitch(n)
+    op = _a16(m * ld * item)
+    horner = max(2 * op, _a16(4 * n * (n + 1)) if coupled else 0)
+    want = op + horner + _a16(n * ld * item) + (op if coupled else 0)
+    assert fused_iter.smem_bytes(m, n, item, coupled) == want
+
+
+def _parent_k3_bytes(m, n, item, coupled):
+    """The parent design's K3 block: X, one rounded operand, R (and Y),
+    unpadded, and the fp32 accumulator [m, n + coupled]."""
+    c = int(coupled)
+    return 2 * _a16(m * n * item) + (1 + c) * _a16(n * n * item) + \
+        4 * m * (n + c)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sketch_dim", [8, 16])
+def test_no_fused_slice_of_the_parent_leaves_the_tier(dtype, sketch_dim):
+    """Every polar slice and every coupled slice that the parent's model
+    (its K3 beside the same K6 and K7) admitted to the fused tier is
+    still admitted; a one-sided K3 block is never larger than K7's."""
+    item = 4 if dtype == "float32" else 2
+    budget = fused_iter.MAX_SMEM_BYTES
+
+    def parent_fits(m, n, coupled):
+        need = max(_parent_k3_bytes(m, n, item, coupled),
+                   fused_iter.residual_chain_smem_bytes(m, n, sketch_dim,
+                                                        item, coupled),
+                   fused_iter.apply_g_smem_bytes(m, n, item, coupled))
+        return need <= budget
+
+    for n in range(1, 200):
+        if parent_fits(n, n, True):
+            assert ops.fused_fits((n, n), dtype, sketch_dim=sketch_dim,
+                                  coupled=True), n
+    for m in range(1, 200, 3):
+        for n in range(1, min(m, 130) + 1, 3):
+            assert fused_iter.smem_bytes(m, n, item) <= \
+                fused_iter.apply_g_smem_bytes(m, n, item)
+            if parent_fits(m, n, False):
+                assert ops.fused_fits((m, n), dtype, sketch_dim=sketch_dim)
+
+
+# ------------------------------------------------ the K5 / K4 route
+
+@pytest.mark.parametrize("n,p,dtype,budget,clusters,want", [
+    (1024, 8, "float32", 0, 7, "sketch_chain"),
+    (1024, 8, "float32", 0, 1, "sketch_chain"),
+    # the footprint fits, but the card holds none of K5's clusters
+    (1024, 8, "float32", 0, 0, "sketch_step"),
+    (300, 5, "bfloat16", 0, 0, "sketch_step"),
+    # a budget below K5's block, or n = 4096 in fp32: K4 whatever the card
+    (1024, 8, "float32", 1024, 7, "sketch_step"),
+    (4096, 8, "float32", 0, 7, "sketch_step"),
+    (4096, 8, "bfloat16", 0, 7, "sketch_chain"),
+])
+def test_chain_route_asks_the_footprint_and_the_card(n, p, dtype, budget,
+                                                     clusters, want):
+    assert ops.chain_route(n, p, dtype, budget=budget,
+                           resident_clusters=clusters) == want
+
+
+@pytest.mark.parametrize("clusters,budget,want", [(7, 0, "sketch_chain"),
+                                                  (0, 0, "sketch_step"),
+                                                  (7, 1024, "sketch_step")])
+def test_sketch_traces_routes_before_any_launch(monkeypatch, clusters,
+                                                budget, want):
+    """ops.sketch_traces on (stand-in) CUDA operands: K5 once, or K4 once
+    a power, as chain_route picks from the footprint and the cached
+    resident-cluster query; the query runs only where K5's block fits, and
+    no launch is tried first and replaced."""
+    calls = {"sketch_chain": 0, "sketch_step": 0, "query": 0}
+
+    def chain(R, St, max_power):
+        calls["sketch_chain"] += 1
+        return sketch_traces.plain_chain(R, St, max_power)
+
+    def step(R, V, St):
+        calls["sketch_step"] += 1
+        return sketch_traces.plain_step(R, V, St)
+
+    def query(R, St):
+        calls["query"] += 1
+        return clusters
+
+    monkeypatch.setattr(ops, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(sketch_traces, "sketch_chain", chain)
+    monkeypatch.setattr(sketch_traces, "sketch_step", step)
+    monkeypatch.setattr(sketch_traces, "resident_clusters", query)
+    rng = np.random.default_rng(9)
+    r = torch.tensor(_sym(rng, (2,), 64, 16.0))
+    s = torch.tensor(rng.standard_normal((8, 64)) / np.sqrt(8),
+                     dtype=torch.float32)
+    got = ops.sketch_traces(r, s, 6, budget=budget)
+    want_t = ref.sketch_traces(r, s, 6)
+    torch.testing.assert_close(got, want_t, rtol=2e-4, atol=2e-4)
+    assert calls["query"] == (1 if budget == 0 else 0)
+    if want == "sketch_chain":
+        assert (calls["sketch_chain"], calls["sketch_step"]) == (1, 0)
+    else:
+        assert (calls["sketch_chain"], calls["sketch_step"]) == (0, 6)
+
+
+def test_resident_cluster_query_is_cached(monkeypatch):
+    """The query runs once per device, n, p, dtype and instantiation."""
+    asked = []
+
+    def info(R, St):
+        asked.append((tuple(R.shape), St.shape[1], R.dtype))
+        return {"active_clusters": 5}
+
+    monkeypatch.setattr(sketch_traces, "chain_launch_info", info)
+    monkeypatch.setattr(sketch_traces, "_CLUSTERS", {})
+    r = torch.zeros((3, 64, 64))
+    st = torch.zeros((64, 8))
+    for _ in range(3):
+        assert sketch_traces.resident_clusters(r, st) == 5
+    sketch_traces.resident_clusters(torch.zeros((5, 64, 64)), st)
+    assert len(asked) == 1
+    sketch_traces.resident_clusters(r, torch.zeros((64, 16)))
+    sketch_traces.resident_clusters(r.to(torch.bfloat16),
+                                    st.to(torch.bfloat16))
+    assert len(asked) == 3

@@ -69,7 +69,8 @@ CHANGES = {
                          + _const("GROUP_SUMS", "CHAIN_GROUP_SUMS", 64, 32)),
     # R's copies marked to stay in L2 (evict_last) rather than the default
     "evict_last": [(
-        CU, 'asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n"',
+        "csrc/chain.cuh",
+        'asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n"',
         'asm volatile("{\\n.reg .b64 pol;\\ncreatepolicy.fractional.L2::'
         'evict_last.b64 pol, 1.0;\\ncp.async.cg.shared.global.L2::cache_hint'
         ' [%0], [%1], 16, %2, pol;\\n}\\n"')],

@@ -2,23 +2,25 @@
 """Mutation check of chip_smoke.py's comparisons on a CUDA card: the bf16
 checks of the fitted-iteration kernels (K4 sketch_step, K6
 residual_chain, K7 apply_g) and of the sign and coupled sqrt families of
-K3, K6 and K7, the fp32 and bf16 checks of K5 sketch_chain (its thread-
-block clusters: ``K5_EXPECT_FAIL``), and the fp32 and bf16 checks of K1
-matmul_add and K2 gram_upper on their GEMM core (``csrc/gemm.cuh``).
+K3, K6 and K7, the fp32 and bf16 checks of the redesigned K3, K4, K6 and
+K7 (``FUSED_EXPECT_FAIL``), the fp32 and bf16 checks of K5 sketch_chain
+(its thread-block clusters: ``K5_EXPECT_FAIL``), and the fp32 and bf16
+checks of K1 matmul_add and K2 gram_upper on their GEMM core
+(``csrc/gemm.cuh``).
 
 For each mutant — one deliberate fault in the kernel sources — the script
 copies ``src/`` and ``chip_smoke.py`` into ``build/mutants/<name>/``
 (git-ignored), applies the fault there, builds the kernels of that copy
 and runs its check: ``chip_smoke.fit_kernel_checks`` and
 ``chip_smoke.family_checks`` with bf16 as the only dtype; for the
-mutants of K6's and K7's register-tiled designs
-(``FUSED_EXPECT_FAIL``: K7's split grid, K6's trace reduction and
-barrier), the same checks in fp32 first, then bf16; for the mutants in
-``K5_EXPECT_FAIL``, ``chip_smoke.chain_checks`` (K5 alone, the only
-kernel built) in fp32 and bf16, with two launches bitwise equal; for the
-mutants in ``GEMM_EXPECT_FAIL``, ``chip_smoke.kernel_checks`` in fp32 and
-bf16 (every K1/K2 shape, ragged ones included, with the NaN poison and
-the symmetry check).
+mutants of the redesigned kernels (``FUSED_EXPECT_FAIL``: K3's Horner
+tiles, K4's V tiles and arrival counters, K7's split grid, K6's trace
+reduction and barrier), the same checks in fp32 first, then bf16; for
+the mutants in ``K5_EXPECT_FAIL``, ``chip_smoke.chain_checks`` (K5
+alone, the only kernel built) in fp32 and bf16, with two launches
+bitwise equal; for the mutants in ``GEMM_EXPECT_FAIL``,
+``chip_smoke.kernel_checks`` in fp32 and bf16 (every K1/K2 shape, ragged
+ones included, with the NaN poison and the symmetry check).
 The unbroken copy must pass every check the chosen mutants run; a mutant
 in ``EXPECT_FAIL``, ``FUSED_EXPECT_FAIL``, ``K5_EXPECT_FAIL`` or
 ``GEMM_EXPECT_FAIL`` must fail a comparison (or its run: a mutant may
@@ -30,8 +32,9 @@ CUDA card and nvcc:
 
 ``--only`` runs the unbroken copy and the mutants whose names start with
 one of the prefixes (``--only k1_ k2_`` for the GEMM core's, ``--only
-k5_`` for K5's, ``--only k6_ k7_`` for K6's and K7's).  Exits non-zero
-when any outcome differs from the expected one.
+k3_ k4_`` for K3's and K4's, ``--only k5_`` for K5's, ``--only k6_ k7_``
+for K6's and K7's).  Exits non-zero when any outcome differs from the
+expected one.
 """
 from __future__ import annotations
 
@@ -45,10 +48,12 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # name -> (source, text, replacement)
 EXPECT_FAIL = {
+    # the last row tile of every slice loads, computes and writes nothing
     "k4_last_row_tile_idle": (
         "sketch_step.cu",
-        "    if (nrows > 0)\n      prism::row_group_dot",
-        "    if (nrows > 0 && tile != tiles - 1)\n      prism::row_group_dot"),
+        "  const int rows = max(0, min(ROWS, n - row0));",
+        "  const int rows = tile == tiles - 1 ? 0 : "
+        "max(0, min(ROWS, n - row0));"),
     "k6_residual_without_identity": (
         "residual_chain.cu",
         "__fsub_rn(u == w ? 1.f : 0.f, s[a][b])", "__fsub_rn(0.f, s[a][b])"),
@@ -63,15 +68,12 @@ EXPECT_FAIL = {
         "  if (FAMILY != SQRT) {\n    // R = I - X^T X"),
     "k3_sqrt_reads_xy_for_yx": (
         "warm_tail.cu",
-        "s = fmaf(N::to_f32(y[(size_t)i * n + k]),\n"
-        "                   N::to_f32(x[(size_t)k * n + j]), s);",
-        "s = fmaf(N::to_f32(x[(size_t)i * n + k]),\n"
-        "                   N::to_f32(y[(size_t)k * n + j]), s);"),
+        "row_products<NARROW>(y, x, n, n, n, ld,",
+        "row_products<NARROW>(x, y, n, n, n, ld,"),
     "k3_sqrt_without_symmetrization": (
         "warm_tail.cu",
-        "__fmul_rn(0.5f, __fadd_rn(acc[(size_t)i * ld + j],\n"
-        "                                      acc[(size_t)j * ld + i]));",
-        "__fmul_rn(1.0f, __fadd_rn(acc[(size_t)i * ld + j], 0.f));"),
+        "0.5f, __fadd_rn(r32[u * ld32 + w], r32[w * ld32 + u])));",
+        "1.0f, __fadd_rn(r32[u * ld32 + w], 0.f)));"),
     "k7_y_horner_on_the_right": (
         "apply_g.cu",
         "horner<T, true>(src, ldw,", "horner<T, false>(src, ldw,"),
@@ -82,10 +84,34 @@ EXPECT_FAIL = {
         "stage<T, AG_THREADS>(src, ldw, X + "),
 }
 
-# the fused kernels' new designs (register tiles, K7's split grid, K6's
-# trace reduction), checked in fp32 and bf16: name -> (source, text,
-# replacement)
+# the redesigned kernels (register tiles, K7's split grid, K6's trace
+# reduction, K3's Horner in registers, K4's V tiles and arrival
+# counters), checked in fp32 and bf16: name -> (source, text, replacement)
 FUSED_EXPECT_FAIL = {
+    # every 4 x 4 tile (of each Horner step, and of the sign/sqrt
+    # residual) leaves its last row unwritten
+    "k3_horner_tile_skips_its_last_row": (
+        "warm_tail.cu",
+        "    for (int a = 0; a < 4; ++a) {\n      const int u = ti + a * TI;\n"
+        "      if (u >= rows) break;\n      emit(",
+        "    for (int a = 0; a < 3; ++a) {\n      const int u = ti + a * TI;\n"
+        "      if (u >= rows) break;\n      emit("),
+    # the Horner accumulator rounds into X one step early: at degree 2 the
+    # first step overwrites X, and the last reads a stale operand
+    "k3_horner_rounds_into_x_one_step_early": (
+        "warm_tail.cu", "step{src, j > 0 ? nxt : src,",
+        "step{src, j > 1 ? nxt : src,"),
+    # the last block of a slice leaves its counter at `tiles`: the next
+    # launch on the stream never sees its last block, and writes no trace
+    "k4_counter_not_reset": (
+        "sketch_step.cu",
+        "      atomicExch(counter + b, 0);  // zero for the next launch\n",
+        ""),
+    # no barrier after a V tile: a warp reads the next tile before the
+    # others stored their shares of it
+    "k4_reads_next_v_tile_before_its_barrier": (
+        "sketch_step.cu",
+        "    __syncthreads();  // the next tile is in place\n", ""),
     # the last block of a slice's split skips its last row of X'
     "k7_last_split_skips_its_last_row": (
         "apply_g.cu", "const int h = min(H, m - r0);",

@@ -13,7 +13,10 @@ own process, on inputs made from one seed:
 
   * K3: sqrt [30, 64, 64] and [30, 16, 16] (Shampoo PRISM-5: 3 warm
     iterations of degree 2, X symmetric positive definite, Y = I), polar
-    [30, 64, 16] (Muon PRISM-5);
+    [30, 64, 16] (Muon PRISM-5); and, for the bitwise comparison, sign
+    [30, 64, 64] (3 iterations), sqrt on independent non-symmetric X and
+    Y at [4, 107, 107] (1 iteration) and polar [5, 55, 23]; and sqrt
+    [30, 64, 64] with 1 and 6 iterations (the cost of one);
   * K6: sqrt [30, 64, 64] and [30, 16, 16] x 10 powers (fitted Shampoo),
     and with no power (the residual alone; its plain version is the plain
     residual), polar [30, 64, 16] x 6 powers (Muon PRISM-3), p = 8;
@@ -34,9 +37,13 @@ the trees' outputs are bitwise equal (R, X', Y') and how far the traces
 differ (a redesign may sum them in another order).  With two trees the
 timing runs go tree 1, tree 2, tree 2, tree 1, so that a drift of the
 card's clock shows.
-Run from the root of a checkout, on a machine with a CUDA card and nvcc:
+``--change NAME ...`` adds named variants of this checkout's K3
+(``CHANGES``; those in ``TIMING_ONLY`` leave a phase out, give wrong
+results and are left out of the comparison) as further trees.  Run from
+the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 tools/fused_probe.py [--tree DIR ...] [--dtype float32|bfloat16]
+        [--change NAME ...]
 
 Print only its ``^probe`` lines: the nvcc log is long.  Exits non-zero when
 a tree fails to build or run, or when the trees' R, X' or Y' differ.
@@ -51,6 +58,25 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = ("warm_tail", "residual_chain", "apply_g")
+
+# variants of this checkout's K3 (``--change``): name -> [(file under
+# src/repro_torch/kernels/csrc, text, replacement), ...]
+CHANGES = {
+    # every product in 4 x 4 tiles, none in 1 x 4
+    "k3_quad_tiles": [(
+        "warm_tail.cu",
+        "  return ceil4(rows) * ceil4(n) < WARM_THREADS / 2;",
+        "  return false;")],
+}
+# timing only (wrong results): what is left without them
+TIMING_ONLY = {
+    # no term of any sign/sqrt residual or Horner product (each sum stays
+    # 0): the staging, epilogues, element-wise passes and barriers
+    "k3_no_products": [(
+        "warm_tail.cu",
+        "  const int TJ = ceil4(n);\n  if (NARROW) {",
+        "  const int TJ = ceil4(n);\n  K = 0;\n  if (NARROW) {")],
+}
 
 PROBE = r"""
 import contextlib, io, re, statistics, subprocess, sys, time
@@ -211,6 +237,45 @@ cases += [
      lambda: fused_iter.plain_apply_g(xa, r16, alpha, coeffs=coeffs1),
      True)]
 
+# K3's other family and ragged slices, for the trees' bitwise comparison:
+# sign on a symmetric [30, 64, 64] X (3 iterations), sqrt on independent
+# non-symmetric X and Y at the fp32 coupled limit [107, 107] (1 iteration),
+# polar on a ragged [5, 55, 23]
+xs = randn((30, 64, 64))
+xs = (xs + xs.transpose(-1, -2)) / 2
+xs = (xs / torch.linalg.matrix_norm(xs, keepdim=True)).to(dtype)
+xn, yn = (randn((4, 107, 107), 0.5 * 107 ** -0.5).to(dtype)
+          for _ in range(2))
+xr = randn((5, 55, 23))
+xr = (xr / torch.linalg.matrix_norm(xr, keepdim=True)).to(dtype)
+cases += [
+    ("warm_tail/sign", (30, 64, 64, 3),
+     lambda: fused_iter.warm_tail(xs, warm, coeffs=coeffs2, family="sign"),
+     lambda: fused_iter.plain(xs, warm, coeffs=coeffs2, family="sign"),
+     True),
+    ("warm_tail/sqrt", (4, 107, 107, 1),
+     lambda: fused_iter.warm_tail(xn, warm[:1], coeffs=coeffs2,
+                                  family="sqrt", Y=yn),
+     lambda: fused_iter.plain(xn, warm[:1], coeffs=coeffs2, family="sqrt",
+                              Y=yn), False),
+    ("warm_tail", (5, 55, 23, 3),
+     lambda: fused_iter.warm_tail(xr, warm, coeffs=coeffs2),
+     lambda: fused_iter.plain(xr, warm, coeffs=coeffs2), False)]
+
+# K3 sqrt [30, 64, 64] with 1 and 6 iterations beside the 3 above: what
+# one iteration costs once a launch runs
+a64 = spd(30, 64).to(dtype)
+eye64 = torch.eye(64, device="cuda", dtype=dtype).expand(30, 64, 64)
+eye64 = eye64.contiguous()
+for iters in (1, 6):
+    cases.append((
+        "warm_tail/sqrt", (30, 64, 64, iters),
+        lambda iters=iters: fused_iter.warm_tail(
+            a64, (1.45,) * iters, coeffs=coeffs2, family="sqrt", Y=eye64),
+        lambda iters=iters: fused_iter.plain(
+            a64, (1.45,) * iters, coeffs=coeffs2, family="sqrt", Y=eye64),
+        False))
+
 saved = {}
 for name, shape, kern, plain, largest in cases:
     out = kern()
@@ -237,20 +302,39 @@ def main() -> None:
     ap.add_argument("--tree", type=Path, nargs="+", default=[ROOT])
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
+    ap.add_argument("--change", nargs="*", default=[],
+                    help="also time these variants of this checkout")
     args = ap.parse_args()
+    edits = {**CHANGES, **TIMING_ONLY}
+    for change in args.change:
+        if change not in edits:
+            raise SystemExit(f"unknown change {change}: one of "
+                             f"{sorted(edits)}")
+    names = [t.resolve().name for t in args.tree] + list(args.change)
+    sources = list(args.tree) + [ROOT] * len(args.change)
     dirs = []
-    for i, tree in enumerate(args.tree):
-        d = ROOT / "build" / "probe" / f"fused-{i}-{tree.resolve().name}"
+    for i, (name, tree) in enumerate(zip(names, sources)):
+        d = ROOT / "build" / "probe" / f"fused-{i}-{name}"
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(tree / "src", d / "src",
                         ignore=shutil.ignore_patterns("__pycache__"))
+        for source, text, replacement in edits.get(name, []) \
+                if i >= len(args.tree) else []:
+            f = d / "src" / "repro_torch" / "kernels" / "csrc" / source
+            code = f.read_text()
+            if text not in code:
+                raise SystemExit(f"{name}: the text to change is not in "
+                                 f"{source}")
+            f.write_text(code.replace(text, replacement))
         dirs.append(d)
     order = list(range(len(dirs)))
     if len(dirs) == 2:
         order = [0, 1, 1, 0]
     code = 0
     for run, i in enumerate(order):
-        print(f"probe run {run}: tree {i} {args.tree[i]}", flush=True)
+        print(f"probe run {run}: tree {i} {names[i]}"
+              f"{' (timing only)' if names[i] in TIMING_ONLY else ''}",
+              flush=True)
         r = subprocess.run([sys.executable, "-c", PROBE, args.dtype,
                             str(dirs[i] / f"outputs-{run}.pt"),
                             f"tree{i}"], cwd=dirs[i], timeout=900)
@@ -262,6 +346,8 @@ def main() -> None:
 
         first = torch.load(dirs[0] / "outputs-0.pt")
         for i in range(1, len(dirs)):
+            if names[i] in TIMING_ONLY:
+                continue
             other = torch.load(dirs[i] / f"outputs-{order.index(i)}.pt")
             for key, outs in first.items():
                 theirs = other[key]
