@@ -73,7 +73,25 @@ Phases (any failure exits non-zero and prints no result):
      one step; adaptive ``matfn.sqrtm`` runs whose launches must match
      their iterations; the Shampoo step with ``matfn_method="eigh"``
      timed beside it;
-  8. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+  8. the main example through the ``Trainer`` (gpt2-paper at full width,
+     Muon PRISM-5, ``precond_every=5``) in a temporary checkpoint
+     directory under ``build/``, removed at the end: run A, 7 steps with
+     a checkpoint every 3 (2 kept), must launch 19 a step (K1 12, K2 6,
+     K3 1) at steps 0 and 5 and nothing at the others, leave HEARTBEAT at
+     step 6 and steps 3 and 6 that verify; run B, a fresh Trainer with
+     another model seed over a copy of step 3 alone, must restore the
+     parameters, the optimizer state and its count bitwise as run A held
+     them after step 2, launch 0, 0, 19, 0 at steps 3 to 6, and keep its
+     losses within RESUME_LOSS_TOL of run A's; per-step times, each
+     checkpoint's bytes and write time and the restore time are logged;
+     then two steps each of ``--method polar_express`` and ``--optimizer
+     adamw`` (finite losses, no port kernel launched; their optimizer ms
+     beside PRISM-5's from phase 4), one Muon step with
+     ``matfn_method="svd"`` (timed, a finite update), and the
+     ``skip_nonfinite`` guard on a NaN gradient: parameters, state and
+     count bitwise unchanged, ``bad_steps`` 1, the launches of a good
+     step, no more synchronizing calls than phase 4's step;
+  9. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -131,6 +149,17 @@ SYNCS_BOUND = 1
 # that and far below any real fault (a wrong tile or epilogue moves whole
 # entries).
 UPDATE_REL_TOL = 1e-3
+# phase 8: run B resumes run A bitwise, so the losses of steps 3..6 differ
+# only by what cuBLAS and the backward pass (atomic adds into the
+# embedding gradient) leave nondeterministic, ~1e-6 of a loss near 11; a
+# lost count or sketch key moves them by far more (AdamW's bias
+# correction alone triples the embedding update at step 3)
+RESUME_LOSS_TOL = 1e-3
+# phase 8: Muon PRISM-5 through the Trainer refreshes every TRAINER_K steps
+TRAINER_K = 5
+TRAINER_STEPS = 7
+TRAINER_EVERY = 3
+DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA's data sheet: dense rates, 700 W)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
@@ -1160,9 +1189,9 @@ def train_path(torch, path):
 
     ops.reset_launches()
     losses, times = [], []
-    for b in batches:
+    for s, b in enumerate(batches):
         t0 = time.perf_counter()
-        m = step(b)
+        m = step(b, s)
         loss = float(m["loss"])
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
@@ -1557,6 +1586,318 @@ def adaptive_sqrtm_runs(torch):
         _expect_launches(counts, want, f"adaptive sqrtm {tier}")
 
 
+# --------------------------------------------------------------- phase 8
+
+def _host_state(torch, trainer):
+    """The trainer's checkpoint tree, flattened with "|", copied to the
+    host."""
+    out = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}|")
+            elif isinstance(v, torch.Tensor):
+                out[prefix + k] = v.detach().to("cpu", copy=True)
+            else:
+                out[prefix + k] = torch.as_tensor(int(v))
+    walk(trainer.state_tree(), "")
+    return out
+
+
+def _per_step_launches(log_to):
+    """Zeroes the launch counts and returns an ``on_metrics`` that files
+    each step's launches (and loss) from there on."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    last = [ops.launch_counts()]
+
+    def on_metrics(t, m):
+        now = ops.launch_counts()
+        log_to[t] = ({k: now[k] - last[0][k] for k in now},
+                     float(m["loss"]))
+        last[0] = now
+    return on_metrics
+
+
+def _trainer_for(cfgs, ckpt_dir, seed, **tkw):
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import Model
+    from repro_torch.train import Trainer
+
+    cfg, ocfg, dcfg = cfgs
+    return Trainer(Model(cfg, device=DEVICE, seed=seed), ocfg,
+                   TrainConfig(checkpoint_dir=str(ckpt_dir), log_every=1,
+                               **tkw), dcfg)
+
+
+def trainer_path(torch, preset="full"):
+    """Phase 8's runs A and B (see the module docstring) in a temporary
+    directory under build/, removed at the end; returns run A's launch
+    counts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train_lm
+
+    cfgs = train_lm.configs(preset, "prism", "float32",
+                            precond_every=TRAINER_K)
+    base_dir = ROOT / "build"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase8_", dir=base_dir))
+    try:
+        return _trainer_runs(torch, cfgs, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _trainer_runs(torch, cfgs, work):
+    import os
+    import shutil
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.kernels import ops
+
+    refresh_steps = {t for t in range(TRAINER_STEPS) if t % TRAINER_K == 0}
+    a_dir, b_dir = work / "a", work / "b"
+    tr = _trainer_for(cfgs, a_dir, 0, steps=TRAINER_STEPS,
+                      checkpoint_every=TRAINER_EVERY, keep_checkpoints=2,
+                      async_checkpoint=False)
+    writes, held, run_a = [], {}, {}
+    write = tr._checkpoint
+
+    def timed_write(step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write(step)
+        writes.append((step, time.perf_counter() - t0))
+    tr._checkpoint = timed_write
+    log(f"  run A: {TRAINER_STEPS} steps, Muon PRISM-5, precond_every "
+        f"{TRAINER_K}, a checkpoint every {TRAINER_EVERY} steps (2 kept), "
+        f"synchronous writes")
+    filed = _per_step_launches(run_a)
+
+    def on_a(t, m):
+        filed(t, m)
+        if t == TRAINER_EVERY - 1:  # the state step_00000003 holds
+            held.update(_host_state(torch, tr))
+    tr.run(on_metrics=on_a)
+    counts_a = ops.launch_counts()
+    for t, (c, _) in sorted(run_a.items()):
+        _expect_launches(c, PER_STEP["prism5"] if t in refresh_steps else {},
+                         f"trainer run A, step {t}")
+    losses_a = {t: loss for t, (_, loss) in run_a.items()}
+    if not all(math.isfinite(v) for v in losses_a.values()):
+        fail(f"trainer run A: non-finite loss {losses_a}")
+    times = dict(zip(range(1, TRAINER_STEPS), tr.step_times))
+    log("  run A per step: " + "; ".join(
+        f"{t} loss {losses_a[t]:.4f} launches {sum(run_a[t][0].values())}"
+        + (f" {times[t] * 1e3:.1f} ms" if t in times else "")
+        for t in sorted(losses_a)) + " (step 0 is the run's first: "
+        "excluded from the Trainer's step times)")
+    refresh_ms = [times[t] * 1e3 for t in times if t in refresh_steps]
+    skip_ms = [times[t] * 1e3 for t in times if t not in refresh_steps]
+    log(f"  refresh step {', '.join(f'{v:.1f}' for v in refresh_ms)} ms; "
+        f"skip steps median {statistics.median(skip_ms):.1f} ms ("
+        + ", ".join(f"{v:.1f}" for v in skip_ms) + ")")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    syncs = count_syncs(torch, lambda: tr.batch_fn(TRAINER_STEPS))
+    log(f"  one batch_fn(step) alone (the synthetic bigram stream, "
+        f"{cfgs[2].seq_len - 1} sequential draws, inside each step's time): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, {len(syncs)} "
+        f"synchronizing calls")
+    hb = (a_dir / "HEARTBEAT").read_text().split()
+    if hb[0] != str(TRAINER_STEPS - 1):
+        fail(f"trainer run A: HEARTBEAT reads {hb}, want step "
+             f"{TRAINER_STEPS - 1}")
+    kept = sorted(d.name for d in a_dir.iterdir() if d.name != "HEARTBEAT")
+    want = [f"step_{s:08d}" for s in range(TRAINER_EVERY, TRAINER_STEPS,
+                                           TRAINER_EVERY)]
+    if kept != want:
+        fail(f"trainer run A: checkpoint directory holds {kept}, want {want}")
+    for step, secs in writes:
+        d = a_dir / f"step_{step:08d}"
+        nbytes = sum(f.stat().st_size for f in d.iterdir())
+        t0 = time.perf_counter()
+        ok = ckpt.verify_step(str(a_dir), step)
+        verify_s = time.perf_counter() - t0
+        log(f"  checkpoint step {step}: {nbytes} bytes, written in "
+            f"{secs:.2f} s ({nbytes / secs / 1e9:.2f} GB/s: host copy, npz, "
+            f"crc32, rename), verified in {verify_s:.2f} s")
+        if not ok:
+            fail(f"trainer run A: step {step} does not verify")
+    del tr
+    torch.cuda.empty_cache()
+
+    # run B: a fresh Trainer (another model seed) over step 3 alone
+    first = TRAINER_EVERY
+    b_dir.mkdir()
+    shutil.copytree(a_dir / f"step_{first:08d}", b_dir / f"step_{first:08d}",
+                    copy_function=os.link)
+    tr = _trainer_for(cfgs, b_dir, 1, steps=TRAINER_STEPS,
+                      checkpoint_every=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = tr.restore_or_init()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if start != first:
+        fail(f"trainer run B resumed at step {start}, want {first}")
+    got = _host_state(torch, tr)
+    if set(got) != set(held):
+        fail(f"trainer run B restored {sorted(set(got) ^ set(held))[:5]} "
+             f"unlike run A's state")
+    differ = [k for k in held if not torch.equal(got[k], held[k])]
+    if differ:
+        fail(f"trainer run B: {len(differ)} restored leaves differ from run "
+             f"A's state after step {first - 1}, e.g. {differ[:3]}")
+    log(f"  run B restored step {first} in {restore_s:.2f} s (crc32 check "
+        f"of the step, npz read, host-to-device copy): {len(held)} leaves, "
+        f"count {int(got['opt|count'])}, bitwise equal to run A's state "
+        f"after step {first - 1}")
+    run_b = {}
+    tr.run(on_metrics=_per_step_launches(run_b))
+    if sorted(run_b) != list(range(first, TRAINER_STEPS)):
+        fail(f"trainer run B ran steps {sorted(run_b)}")
+    for t, (c, _) in sorted(run_b.items()):
+        _expect_launches(c, PER_STEP["prism5"] if t in refresh_steps else {},
+                         f"trainer run B, step {t}")
+    gaps = {t: abs(loss - losses_a[t]) for t, (_, loss) in run_b.items()}
+    log("  run B per step: " + "; ".join(
+        f"{t} loss {run_b[t][1]:.6f} launches {sum(run_b[t][0].values())}"
+        f" |loss - run A's| {gaps[t]:.3e}" for t in sorted(run_b))
+        + f" (bound {RESUME_LOSS_TOL})")
+    if not all(g <= RESUME_LOSS_TOL for g in gaps.values()):
+        fail(f"trainer run B: losses {gaps} off run A's by more than "
+             f"{RESUME_LOSS_TOL}")
+    del tr
+    torch.cuda.empty_cache()
+    return counts_a
+
+
+def baseline_steps(torch, prism5_ms, preset="full"):
+    """Two train steps each of ``--method polar_express`` and ``--optimizer
+    adamw`` (finite losses, no port kernel), their optimizer step timed
+    beside PRISM-5's; one Muon step with ``matfn_method="svd"``."""
+    import dataclasses
+
+    from repro_torch.core.rng import Key
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_lm
+    from repro_torch.optim import make_optimizer
+
+    for what, method, optimizer in (("polar_express", "polar_express",
+                                     "muon"), ("adamw", "prism", "adamw")):
+        model, opt, step, batch_fn, _ = train_lm.build(
+            preset, method, "float32", device=DEVICE, optimizer=optimizer)
+        ops.reset_launches()
+        losses = [float(step(batch_fn(s), s)["loss"]) for s in range(2)]
+        _expect_launches(ops.launch_counts(), {}, f"{what} steps")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{what}: non-finite losses {losses}")
+        ms = []
+        for s in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.step(key=Key(0).fold_in(2 + s))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  {what}: losses {', '.join(f'{v:.4f}' for v in losses)}, no "
+            f"port kernel; optimizer step {', '.join(f'{v:.1f}' for v in ms)}"
+            f" ms (Muon PRISM-5 through the kernels, phase 4: "
+            f"{', '.join(f'{v:.1f}' for v in prism5_ms)} ms)")
+        if what == "polar_express":
+            o = make_optimizer(dataclasses.replace(opt.cfg,
+                                                   matfn_method="svd"),
+                               model.named_parameters(),
+                               model.logical_axes())
+            before = {k: p.detach().clone()
+                      for k, p in model.named_parameters()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o.step()
+            torch.cuda.synchronize()
+            svd_ms = (time.perf_counter() - t0) * 1e3
+            moved = max(float((p.detach() - before[k]).abs().max())
+                        for k, p in model.named_parameters())
+            finite = all(bool(torch.isfinite(p).all())
+                         for p in model.parameters())
+            log(f"  Muon step with matfn_method='svd' (torch.linalg.svd, "
+                f"fp32): {svd_ms:.1f} ms; largest parameter change "
+                f"{moved:.3e}")
+            if not finite or not moved > 0:
+                fail(f"svd Muon step: finite {finite}, largest change "
+                     f"{moved}")
+            del o, before
+        del model, opt, step
+        torch.cuda.empty_cache()
+
+
+def guard_check(torch, syncs_bound, preset="full"):
+    """``skip_nonfinite`` on the card: a NaN written into one gradient
+    leaves the parameters, the state and the count bitwise as they were,
+    advances bad_steps to 1, launches what a good step launches and makes
+    no more synchronizing calls than ``syncs_bound``."""
+    import dataclasses
+
+    from repro_torch.core.rng import Key
+    from repro_torch.data import make_batch_fn
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_lm
+    from repro_torch.models import Model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import make_train_step
+
+    cfg, ocfg, dcfg = train_lm.configs(preset, "prism", "float32")
+    ocfg = dataclasses.replace(ocfg, skip_nonfinite=True)
+    model = Model(cfg, device=DEVICE, seed=0)
+    opt = make_optimizer(ocfg, model.named_parameters(),
+                         model.logical_axes())
+    make_train_step(model, opt, ocfg)(make_batch_fn(cfg, dcfg, DEVICE)(0), 0)
+    grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+    ops.reset_launches()
+    opt.step(key=Key(0).fold_in(1))
+    torch.cuda.synchronize()
+    good = ops.launch_counts()
+    _expect_launches(good, PER_STEP["prism5"], "guarded good step")
+    named = dict(model.named_parameters())
+    for k, p in named.items():
+        p.grad = grads[k].clone()
+    named["layers.attn.wq"].grad.view(-1)[12345] = float("nan")
+
+    def state():
+        out = {f"param|{k}": p.detach().clone() for k, p in named.items()}
+        for k, p in named.items():
+            out.update({f"{k}|{n}": v.clone()
+                        for n, v in opt.state[p].items()})
+        out["count"] = opt.count.clone()
+        return out
+    before = state()
+    ops.reset_launches()
+    syncs = count_syncs(torch, lambda: opt.step(key=Key(0).fold_in(2)))
+    poisoned = ops.launch_counts()
+    after = state()
+    differ = [k for k in before if not torch.equal(before[k], after[k])]
+    bad = int(opt.bad_steps)
+    log(f"  skip_nonfinite: a NaN in layers.attn.wq's gradient; "
+        f"{len(before)} buffers, {len(differ)} changed; bad_steps {bad}; "
+        f"launches {sum(poisoned.values())} (a good step "
+        f"{sum(good.values())}); synchronizing calls {len(syncs)} (phase 4's"
+        f" step {syncs_bound})")
+    if differ or bad != 1:
+        fail(f"skip_nonfinite: {differ[:3]} changed, bad_steps {bad}")
+    if poisoned != good:
+        fail(f"skip_nonfinite: the poisoned step launched {poisoned}, a "
+             f"good one {good}")
+    if len(syncs) > syncs_bound:
+        fail(f"skip_nonfinite: {len(syncs)} synchronizing calls {syncs}, "
+             f"more than phase 4's {syncs_bound}")
+    del model, opt, grads, before, after
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------- main
 
 def main() -> None:
@@ -1636,8 +1977,15 @@ def main() -> None:
     adaptive_sqrtm_runs(torch)
     _drop(torch, runf)
 
+    log("phase 8: the main example through the Trainer, gpt2-paper Muon "
+        f"PRISM-5, precond_every {TRAINER_K}, at full width")
+    trainer_counts = trainer_path(torch)
+    baseline_steps(torch, runs["prism5"]["opt_ms"]["kernels"])
+    guard_check(torch, len(runs["prism5"]["syncs"]))
+
     by_path = {k: r["counts"] for k, r in runs.items()}
     by_path["fallback"] = fallback
+    by_path["trainer"] = trainer_counts
     print(json.dumps({"kernels": kernel_rows(rows, timings, by_path)}),
           flush=True)
     log(f"card: {card}")
@@ -1724,22 +2072,22 @@ def _drop(torch, run):
 # nor do K1's and K2's bf16 rows (the paths' matfn dtype is fp32).
 VARIANTS = {
     "matmul_add": [
+        ("-", ("matmul_add", (20, 4096, 1024)), "trainer"),
+        ("-", ("matmul_add", (40, 1024, 1024)), "trainer"),
         ("-", ("matmul_add", (100, 1024, 1024)), "shampoo_prism5"),
-        ("-", ("matmul_add", (20, 4096, 1024)), "prism5"),
-        ("-", ("matmul_add", (40, 1024, 1024)), "prism5"),
         ("-", ("matmul_add", (100, 1024, 1024), "bfloat16"), None),
         ("-", ("matmul_add", (20, 4096, 1024), "bfloat16"), None),
         ("-", ("matmul_add", (40, 1024, 1024), "bfloat16"), None)],
     "gram_upper": [
-        ("polar", ("gram_upper", (20, 4096, 1024)), "prism3"),
-        ("polar", ("gram_upper", (40, 1024, 1024)), "prism3"),
+        ("polar", ("gram_upper", (20, 4096, 1024)), "trainer"),
+        ("polar", ("gram_upper", (40, 1024, 1024)), "trainer"),
         ("polar", ("gram_upper", (20, 4096, 1024), "bfloat16"), None),
         ("polar", ("gram_upper", (40, 1024, 1024), "bfloat16"), None)],
     "warm_tail": [
+        ("polar", ("warm_tail", (30, 64, 16)), "trainer"),
         ("sqrt", ("warm_tail/sqrt", (30, 64, 64)), "shampoo_prism5"),
         ("sqrt", ("warm_tail/sqrt", (30, 16, 16)), "shampoo_prism5"),
-        ("sign", ("warm_tail/sign", (30, 64, 64)), None),
-        ("polar", ("warm_tail", (30, 64, 16)), "prism5")],
+        ("sign", ("warm_tail/sign", (30, 64, 64)), None)],
     "sketch_step": [
         ("-", ("sketch_step", (40, 1024, 1024)), "fallback"),
         ("-", ("sketch_step", (20, 1024, 1024)), "fallback"),

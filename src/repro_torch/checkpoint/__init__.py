@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.checkpoint import (latest_step, restore, save,
+                                               verify_step)
+
+__all__ = ["latest_step", "restore", "save", "verify_step"]

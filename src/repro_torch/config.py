@@ -554,7 +554,8 @@ class TrainConfig:
     steps: int = 100
     log_every: int = 10
     checkpoint_every: int = 50
-    checkpoint_dir: str = "/tmp/repro_ckpt"
+    # None: no checkpoints and no HEARTBEAT (the Trainer writes nothing)
+    checkpoint_dir: Optional[str] = None
     async_checkpoint: bool = True
     seed: int = 0
     straggler_slack: float = 3.0  # flag steps slower than slack x median

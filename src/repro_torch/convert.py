@@ -19,9 +19,21 @@ from repro_torch.models.transformer import param_specs
 
 #: the per-parameter state keys of the reference's Shampoo that the port
 #: carries (optim/shampoo.py): momentum, the EMA Kronecker factors, their
-#: cached inverse roots, the diagonal fallback and Adam's second moment
+#: cached inverse roots, the diagonal fallback, Adam's second moment and
+#: the adaptive-tol telemetry of the inverse roots
 SHAMPOO_STATE_KEYS = ("mom", "L", "R", "Linv", "Rinv", "diagL", "diagR",
-                      "nu")
+                      "nu", "Linv_iters", "Rinv_iters", "Linv_status",
+                      "Rinv_status")
+
+
+def _state_dtype(key: str, cache: torch.dtype) -> torch.dtype:
+    if key in ("Linv", "Rinv"):
+        return cache
+    if key.endswith("_iters"):
+        return torch.int32
+    if key.endswith("_status"):
+        return torch.int8
+    return torch.float32
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -74,8 +86,9 @@ def shampoo_state_from_jax(opt, named_params, state: Dict[str, Any]) -> None:
     ``make_shampoo(...).init``/``update`` return, {"leaves": a tree of
     per-parameter dicts shaped like the parameters, "count": int}, arrays
     as numpy (bf16 allowed).  The cached inverse roots take the port's
-    ``cache_dtype``, everything else fp32; a key the port does not carry
-    (the async and telemetry twins) raises."""
+    ``cache_dtype``, the telemetry int32/int8, everything else fp32; a
+    key the port does not carry (the async refresh plane's twins)
+    raises."""
     cache = torch_dtype(opt.cfg.cache_dtype)
     leaves = state["leaves"]
     for name, p in named_params:
@@ -88,7 +101,6 @@ def shampoo_state_from_jax(opt, named_params, state: Dict[str, Any]) -> None:
                            f"by the port's Shampoo")
         opt.state[p] = {
             k: torch.from_numpy(np.asarray(v, dtype=np.float32).copy()).to(
-                device=p.device,
-                dtype=cache if k in ("Linv", "Rinv") else torch.float32)
+                device=p.device, dtype=_state_dtype(k, cache))
             for k, v in node.items()}
     opt.count = int(np.asarray(state["count"]))

@@ -2,17 +2,19 @@
 
 Ported so far, ``method`` per function:
 
-  polar:     prism | newton_schulz
-  sqrtm:     prism | newton_schulz | eigh
+  polar:     prism | newton_schulz | polar_express | svd
+  sqrtm:     prism | newton_schulz | polar_express | eigh
   inv_sqrtm: same as sqrtm (the coupled iteration's Y output)
   signm:     prism | newton_schulz | eigh
   inv_proot: eigh
 
 "prism" adapts alpha per iteration from the sketched spectrum (warm and
 fitted iterations, adaptive ``cfg.tol``); "newton_schulz" uses the
-classical Taylor alpha; "eigh" is the LAPACK baseline, pinned fp32
-(``torch.linalg.eigh``).  The other methods raise ``NotImplementedError``
-naming their ROADMAP.md item.  Entry points construct a fresh
+classical Taylor alpha; "polar_express" is the fixed minimax schedule of
+Amsel et al. (``core/polar_express.py``), run at ``cfg.dtype``; "svd" and
+"eigh" are the LAPACK baselines, pinned fp32 (``torch.linalg.svd`` /
+``eigh``).  The other methods raise ``NotImplementedError`` naming their
+ROADMAP.md item.  Entry points construct a fresh
 ``PrismConfig()`` per call when none is given.
 """
 from __future__ import annotations
@@ -23,11 +25,9 @@ import torch
 
 from repro_torch.config import PrismConfig
 from repro_torch.core import newton_schulz as _ns
+from repro_torch.core import polar_express as _pe
 
 _UNPORTED = {
-    "polar_express": "polar_express is ported with ROADMAP.md Queue 1 "
-                     "item 3",
-    "svd": "the svd method is ported with ROADMAP.md Queue 1 item 3",
     "newton": "DB-Newton (core/newton.py) is ported with ROADMAP.md "
               "Queue 1 item 6",
     "newton_classical": "DB-Newton (core/newton.py) is ported with "
@@ -68,6 +68,27 @@ def _telemetry_shim(out, A, kw, method: str):
     return res if len(res) > 1 else out
 
 
+def _run_fixed_schedule(fn, A, kw):
+    """Run a fixed-schedule (fit-free) family that supports
+    ``return_info`` but not ``return_iters``/``return_status``
+    (polar_express): pops those keys and appends int32 / int8 zeros flat
+    after the family's (out[, info]) result, keeping the documented
+    (out[, info][, iters][, status]) shape."""
+    ri = kw.pop("return_iters", False)
+    rs = kw.pop("return_status", False)
+    res = fn(**kw)
+    if not (ri or rs):
+        return res
+    if not kw.get("return_info"):
+        res = (res,)
+    lead = tuple(A.shape[:-2])
+    if ri:
+        res = res + (torch.zeros(lead, dtype=torch.int32, device=A.device),)
+    if rs:
+        res = res + (torch.zeros(lead, dtype=torch.int8, device=A.device),)
+    return res
+
+
 def _eigh(A: torch.Tensor):
     """(w, V, V^T) of the fp32 symmetric eigendecomposition of A."""
     w, V = torch.linalg.eigh(A.float())
@@ -84,6 +105,13 @@ def polar(A: torch.Tensor, method: str = "prism",
     ``return_info``, ``return_iters``, ``return_status``, ``n_real``.
     ``cfg.tol`` enables adaptive early stopping.
     """
+    if method == "svd":
+        U, _, Vh = torch.linalg.svd(A.float(), full_matrices=False)
+        return _telemetry_shim((U @ Vh).to(A.dtype), A, kw, method)
+    if method == "polar_express":
+        kw.setdefault("dtype", (PrismConfig() if cfg is None else cfg).dtype)
+        return _run_fixed_schedule(
+            lambda **k: _pe.polar(A, iters=iters or 8, **k), A, kw)
     if method in ("prism", "newton_schulz"):
         return _ns.polar(A, cfg=cfg, method=method, iters=iters, key=key,
                          **kw)
@@ -107,6 +135,10 @@ def sqrtm(A: torch.Tensor, method: str = "prism",
         out = (((V * s[..., None, :]) @ Vt).to(A.dtype),
                ((V * si[..., None, :]) @ Vt).to(A.dtype))
         return _telemetry_shim(out, A, kw, method)
+    if method == "polar_express":
+        kw.setdefault("dtype", (PrismConfig() if cfg is None else cfg).dtype)
+        return _run_fixed_schedule(
+            lambda **k: _pe.sqrtm(A, iters=iters or 8, **k), A, kw)
     if method in ("prism", "newton_schulz"):
         return _ns.sqrtm(A, cfg=cfg, method=method, iters=iters, key=key,
                          **kw)

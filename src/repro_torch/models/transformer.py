@@ -134,6 +134,14 @@ class Model(nn.Module):
         return {k: p.to(dts[k]) for k, p in self.named_parameters()}
 
     @torch.no_grad()
+    def reinit(self, seed: int) -> None:
+        """Draw the masters anew from ``seed``, as the constructor does."""
+        dev = self.embed.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        self.load_params(_init_values(self.cfg, gen, dev))
+
+    @torch.no_grad()
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Copy ``params`` (name -> tensor, any float dtype) into the
         masters; names and shapes must match exactly."""

@@ -1,19 +1,32 @@
 """Optimizer utilities shared by the port's optimizers (counterpart of
 ``repro/optim/base.py``): global-norm clipping, the matrix views Muon and
-Shampoo precondition, and the refresh period.
+Shampoo precondition, the refresh period, Adam's bias corrections and the
+§15 skip-step guard.
 
 The reference's functional ``Optimizer(init, update, refresh)`` contract
 becomes ``torch.optim.Optimizer`` subclasses (``muon.Muon``,
-``shampoo.Shampoo``): ``init`` is the lazily created per-parameter
-``state``, ``update`` is ``step()``.  The
-async refresh plane, ``skip_nonfinite`` and the pending-buffer helpers
-come with later slices (ROADMAP.md Queue 1 items 4 and 8).
+``shampoo.Shampoo``, ``adamw.AdamW``): ``init`` is the per-parameter
+``state`` each creates in its constructor, ``update`` is
+``step(key=, refresh=)``, and the reference's ``state["count"]`` is the
+optimizer's ``count``, a host int (a device tensor under
+``skip_nonfinite``).  The async refresh plane and the pending-buffer
+helpers come with a later slice (ROADMAP.md Queue 1 item 8b).
 """
 from __future__ import annotations
 
 from typing import Iterable, List, Optional, Tuple
 
 import torch
+
+#: the per-parameter state keys of the §12 async refresh plane's pending
+#: twins: checkpoints drop them (``checkpoint.save(drop=)``) and a
+#: restore keeps the target's own value.  Nothing in the port sets them
+#: until the refresh plane is ported (ROADMAP.md Queue 1 item 8b).
+PENDING_STATE_KEYS = frozenset({
+    "ortho_p", "Linv_p", "Rinv_p",
+    "iters_p", "Linv_iters_p", "Rinv_iters_p",
+    "status_p", "Linv_status_p", "Rinv_status_p",
+})
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -53,6 +66,99 @@ def resolve_refresh_period(cfg, name: Optional[str] = None) -> int:
     if name == "shampoo":
         k = max(k, int(cfg.precondition_every))
     return k
+
+
+def adam_bias_corrections(b1: float, b2: float, count):
+    """(1 - b1**t, 1 - b2**t) for t = count + 1, Adam's bias corrections.
+
+    A host ``count`` gives Python floats; a device ``count`` (under
+    ``skip_nonfinite``) gives fp32 device scalars, so nothing is read back
+    to the host."""
+    if isinstance(count, torch.Tensor):
+        t = (count + 1).float()
+        return 1 - torch.pow(b1, t), 1 - torch.pow(b2, t)
+    t = float(count + 1)
+    return 1 - b1 ** t, 1 - b2 ** t
+
+
+class SkipNonfinite:
+    """§15 skip-step guard around an optimizer (``skip_nonfinite``).
+
+    A non-finite gradient would contaminate the momentum and EMA
+    accumulators for good (0 * NaN is NaN).  Each ``step`` therefore
+    snapshots the parameters and the whole state, lets the inner
+    optimizer propose its update, and commits every buffer with
+    ``torch.where(ok, new, old)``, where ``ok`` is ONE fused finiteness
+    flag on the device over the gradients and the proposed parameters.
+    Nothing is read back to the host: the inner step makes the same
+    launches either way, and no branch waits on the device.
+
+    ``bad_steps`` (a device int32) advances on a skipped step; ``count``
+    (the inner optimizer's, made a device int32 here so that it can roll
+    back) does not.  The refresh schedule of a period K > 1 cannot read
+    that device count without a synchronization, so the guard keeps a
+    host clock of its own (the steps taken) and passes the inner step an
+    explicit ``refresh = clock % K == 0`` when the caller gives none;
+    after a skipped step it runs one step ahead of ``count``.  The
+    Trainer always passes ``refresh``.  Everything else (``state``,
+    ``param_groups``, ``cfg``) is the inner optimizer's.
+    """
+
+    def __init__(self, opt):
+        self.opt = opt
+        dev = opt.param_groups[0]["params"][0].device
+        self.bad_steps = torch.zeros((), dtype=torch.int32, device=dev)
+        self.clock = 0
+        self.count = opt.count
+
+    def __getattr__(self, name):
+        if name == "opt":  # not set yet: no recursion
+            raise AttributeError(name)
+        return getattr(self.opt, name)
+
+    @property
+    def count(self):
+        return self.opt.count
+
+    @count.setter
+    def count(self, value) -> None:
+        """Set the step count (a restore): the host clock follows it."""
+        self.clock = int(value)
+        dev = self.opt.param_groups[0]["params"][0].device
+        self.opt.count = torch.full((), self.clock, dtype=torch.int32,
+                                    device=dev)
+
+    @torch.no_grad()
+    def step(self, closure=None, key=None, refresh=None):
+        if closure is not None:
+            raise ValueError("SkipNonfinite.step takes no closure")
+        opt = self.opt
+        params = opt.param_groups[0]["params"]
+        period = resolve_refresh_period(opt.cfg)
+        if refresh is None and period > 1:
+            refresh = self.clock % period == 0
+        old_p = [p.detach().clone() for p in params]
+        old_s = [{k: v.clone() for k, v in opt.state[p].items()}
+                 for p in params]
+        old_count = opt.count.clone()
+        opt.step(key=key, refresh=refresh)
+        checks = [p.grad for p in params if p.grad is not None] + params
+        ok = torch.stack([torch.isfinite(t).all() for t in checks]).all()
+        for p, old in zip(params, old_p):
+            p.copy_(torch.where(ok, p, old))
+        for p, old in zip(params, old_s):
+            st = opt.state[p]
+            for k, v in old.items():
+                st[k] = torch.where(ok, st[k], v)
+        opt.count = torch.where(ok, opt.count, old_count)
+        self.bad_steps = self.bad_steps + (~ok).to(torch.int32)
+        self.clock += 1
+
+
+def skip_nonfinite(opt) -> SkipNonfinite:
+    """Wrap ``opt`` in the §15 skip-step guard (``SkipNonfinite``);
+    ``make_optimizer`` does so when ``cfg.skip_nonfinite``."""
+    return SkipNonfinite(opt)
 
 
 def is_matrix_param(path_axes: tuple, shape: tuple,

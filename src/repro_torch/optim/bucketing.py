@@ -187,22 +187,29 @@ def resolve_tier(cfg: OptimizerConfig, mshape: Tuple[int, int]) -> str:
 def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
                    key=None, with_iters: bool = False):
     """Polar factor of every matrix view via one batched call per bucket,
-    gathered directly in the engine's compute dtype (``matfn_dtype``).
+    gathered directly in the engine's compute dtype (``matfn_dtype``) —
+    the SVD method excepted, whose LAPACK path is pinned fp32: its buckets
+    gather as they come (fp32 momentum) and are never padded.
 
     ``key`` is the step's sketch key; bucket ``bi`` draws from
-    ``key.fold_in(bi)``.  ``with_iters`` also returns per-view
-    ``iters_used`` and guardian ``status`` (DESIGN.md §11/§15), scattered
-    back to each view's lead shape: (outs, iters, statuses).
+    ``key.fold_in(bi)``.  ``with_iters`` (the NS family only: methods
+    prism and newton_schulz) also returns per-view ``iters_used`` and
+    guardian ``status`` (DESIGN.md §11/§15), scattered back to each
+    view's lead shape: (outs, iters, statuses).
     """
     method = cfg.matfn_method
     if cfg.lowrank_rank:
         raise NotImplementedError(
             "the lowrank tier (OptimizerConfig.lowrank_rank) is ported "
             "with ROADMAP.md Queue 1 item 7")
+    if with_iters and method not in ("prism", "newton_schulz"):
+        raise ValueError(f"with_iters needs an NS-family method, not "
+                         f"{method!r}")
     pcfg = cfg.resolved_prism
-    compute = cfg.matfn_precision.compute_dtype
+    compute = None if method == "svd" else \
+        cfg.matfn_precision.compute_dtype
     buckets = plan_buckets([tuple(v.shape) for v in views],
-                           pad=cfg.bucket_pad,
+                           pad=cfg.bucket_pad and method != "svd",
                            pad_slack=cfg.bucket_pad_slack)
     outs: List[Optional[torch.Tensor]] = [None] * len(views)
     iters: List[Optional[torch.Tensor]] = [None] * len(views)

@@ -5,8 +5,9 @@
 
 with L/R the EMA Kronecker factors G G^T / G^T G of each matrix view.
 ``matfn_method`` selects how the inverse roots are computed: ``prism``
-(the coupled PRISM Newton-Schulz iteration, ``matfn.sqrtm``'s Y output)
-or ``eigh`` (the classical baseline).  A side longer than
+(the coupled PRISM Newton-Schulz iteration, ``matfn.sqrtm``'s Y output),
+``polar_express`` (its fixed schedule in the same coupled form) or
+``eigh`` (the classical baseline).  A side longer than
 ``max_precond_dim`` falls back to a diagonal (AdaGrad) preconditioner.
 Preconditioned updates are norm-grafted to the raw gradient norm, then
 go through heavy-ball momentum and decoupled weight decay; leaves that
@@ -16,23 +17,27 @@ The inverse roots of every matrix leaf's L and R factors — across leaves,
 L before R in the reference's leaf order — stack into one [B, n, n] call
 per distinct n (``bucketing.transform_bucketed``), bucket ``bi`` drawing
 its sketches from the step's key folded with ``bi``.  They are recomputed
-every ``base.resolve_refresh_period`` steps, a count kept on the host: a
-step that does not refresh serves "Linv"/"Rinv" from the state and
-launches nothing.
+every ``base.resolve_refresh_period`` steps, a count kept on the host (a
+Python-bool ``refresh`` forces the choice): a step that does not refresh
+serves "Linv"/"Rinv" from the state and launches nothing.
 
 Precision (DESIGN.md §9): the EMA factors and their eps-ridge stay fp32;
 the inverse-root chains run at ``matfn_dtype`` with fp32 accumulation,
 and the cached inverse roots are stored in ``cfg.cache_dtype``.
 
-``step(key=...)`` does what the reference's ``make_shampoo(cfg,
-axes).update`` does without the async refresh plane and without the
-adaptive-tol telemetry state, which raise here, as do inverse p-th roots
-other than p = 2 with PRISM, the methods not named above and the
-per-leaf loop (``bucketed=False``).
+Telemetry (DESIGN.md §11/§15): with an adaptive ``matfn_tol`` and the
+prism method (``cfg.matfn_telemetry``) each full-matrix side carries
+"Linv_iters"/"Rinv_iters" (int32) and "Linv_status"/"Rinv_status" (int8)
+per slice, refreshed with the inverse roots.
+
+``step(key=, refresh=)`` does what the reference's ``make_shampoo(cfg,
+axes).update`` does without the async refresh plane, which raises here,
+as do inverse p-th roots other than p = 2 with PRISM, the methods not
+named above and the per-leaf loop (``bucketed=False``).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -45,17 +50,14 @@ BETA2 = 0.999   # EMA decay of the Kronecker factors (the reference's)
 
 def _check_supported(cfg: OptimizerConfig, p_root: int) -> None:
     unported = {
-        "precond_async (refresh plane, ROADMAP.md Queue 1 item 8)":
+        "precond_async (refresh plane, ROADMAP.md Queue 1 item 8b)":
             cfg.precond_async,
-        "matfn_tol (the optimizers' adaptive-stopping telemetry state, "
-        "ROADMAP.md Queue 1 item 3)":
-            cfg.matfn_tol is not None,
         f"p_root={p_root} with PRISM (inverse p-th roots through "
         "core/inverse_newton.py, ROADMAP.md Queue 1 item 6)":
             p_root != 2 and cfg.matfn_method != "eigh",
-        f"matfn_method={cfg.matfn_method!r} (polar_express: ROADMAP.md "
-        "Queue 1 item 3; newton: item 6)":
-            cfg.matfn_method not in ("prism", "eigh"),
+        f"matfn_method={cfg.matfn_method!r} (newton: ROADMAP.md Queue 1 "
+        "item 6)":
+            cfg.matfn_method not in ("prism", "eigh", "polar_express"),
         "bucketed=False (the per-leaf loop, ROADMAP.md Queue 1 item 6; "
         "its sketch keys fold in optim/muon.py::leaf_order's index)":
             not cfg.bucketed,
@@ -66,10 +68,12 @@ def _check_supported(cfg: OptimizerConfig, p_root: int) -> None:
                                   + "; ".join(missing))
 
 
-def inv_root(A: torch.Tensor, p: int, cfg: OptimizerConfig, key
-             ) -> torch.Tensor:
+def inv_root(A: torch.Tensor, p: int, cfg: OptimizerConfig, key,
+             with_iters: bool = False):
     """A^{-1/p} per ``cfg.matfn_method`` for fp32 EMA factors A [..., n, n]
-    (p = 2 for ``prism``).
+    (p = 2 for ``prism`` and ``polar_express``); ``with_iters`` (the
+    prism method: ``cfg.matfn_telemetry``) appends the §11 ``iters_used``
+    and the §15 int8 status.
 
     The eps-ridge is applied to the fp32 factor BEFORE any cast: a bf16
     ridge would round eps away against trace-scale entries (§9)."""
@@ -78,9 +82,17 @@ def inv_root(A: torch.Tensor, p: int, cfg: OptimizerConfig, key
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
     tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
     Ad = A + eps * tr[..., None, None] * eye / n + eps * eye
+    pc = cfg.resolved_prism
     if cfg.matfn_method == "eigh":
         return matfn.inv_proot(Ad, p=p, method="eigh")
-    pc = cfg.resolved_prism
+    if cfg.matfn_method == "polar_express":
+        return matfn.sqrtm(Ad, method="polar_express", iters=pc.iterations,
+                           dtype=pc.dtype)[1]
+    if with_iters:
+        (_, isq), it, st = matfn.sqrtm(Ad, method="prism", cfg=pc, key=key,
+                                       iters=pc.iterations,
+                                       return_iters=True, return_status=True)
+        return isq, it, st
     return matfn.sqrtm(Ad, method="prism", cfg=pc, key=key,
                        iters=pc.iterations)[1]
 
@@ -92,8 +104,9 @@ class Shampoo(torch.optim.Optimizer):
     ``axes``: name -> logical-axis tuple (``Model.logical_axes()``), which
     decides the matrix view of every parameter.  Hyperparameters live in
     ``cfg``; gradients are read from ``.grad`` as fp32.  The per-parameter
-    state carries the reference's keys: "mom", "L"/"Linv" or "diagL",
-    "R"/"Rinv" or "diagR" for matrix leaves, "mom"/"nu" for the others.
+    state, created here, carries the reference's keys: "mom", "L"/"Linv"
+    or "diagL", "R"/"Rinv" or "diagR" (+ the telemetry keys) for matrix
+    leaves, "mom"/"nu" for the others.
     """
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
@@ -106,6 +119,8 @@ class Shampoo(torch.optim.Optimizer):
         self.p_root = p_root
         self.axes = [tuple(axes[n]) for n, _ in named]
         self.count = 0
+        for (_, p), a in zip(named, self.axes):
+            self.state[p] = self._init_state(p, a)
 
     def _init_state(self, p: torch.Tensor, a: tuple) -> Dict:
         cfg = self.cfg
@@ -122,37 +137,53 @@ class Shampoo(torch.optim.Optimizer):
                                        device=p.device)
                 st[side + "inv"] = torch.zeros(lead + (k, k), dtype=cache,
                                                device=p.device)
+                if cfg.matfn_telemetry:
+                    st[side + "inv_iters"] = torch.zeros(
+                        lead, dtype=torch.int32, device=p.device)
+                    st[side + "inv_status"] = torch.zeros(
+                        lead, dtype=torch.int8, device=p.device)
             else:
                 st["diag" + side] = torch.zeros(lead + (k,),
                                                 dtype=torch.float32,
                                                 device=p.device)
         return st
 
-    def _fresh_invs(self, jobs, key) -> List[torch.Tensor]:
-        """Inverse roots of the jobs' factors: one batched call per shape
-        bucket, keys folded by bucket index."""
+    def _fresh_invs(self, jobs, key):
+        """(invs, iters, statuses) of the jobs' factors, the last two None
+        unless ``cfg.matfn_telemetry``: one batched call per shape bucket,
+        keys folded by bucket index."""
         cfg = self.cfg
         cache = torch_dtype(cfg.cache_dtype)
+        tele = cfg.matfn_telemetry
 
         def one_bucket(stacked, b, bi):
             kk = key.fold_in(bi) if key is not None else None
+            if tele:
+                inv, it, st = inv_root(stacked, self.p_root, cfg, kk,
+                                       with_iters=True)
+                return inv.to(cache), it, st
             return inv_root(stacked, self.p_root, cfg, kk).to(cache)
 
-        return bucketing.transform_bucketed([A for (_, _, A) in jobs],
-                                            one_bucket)
+        mats = [A for (_, _, A) in jobs]
+        if tele:
+            return bucketing.transform_bucketed(mats, one_bucket,
+                                                with_aux=2)
+        return bucketing.transform_bucketed(mats, one_bucket), None, None
 
     @torch.no_grad()
-    def step(self, closure=None, key=None):
+    def step(self, closure=None, key=None, refresh=None):
         """One Shampoo update from the parameters' ``.grad``.  ``key`` is
         the step's sketch key; None fits alpha from exact traces (only the
-        fitted PRISM iterations read it)."""
+        fitted PRISM iterations read it).  ``refresh`` (a bool) overrides
+        the refresh schedule."""
         if closure is not None:
             raise ValueError("Shampoo.step takes no closure")
         cfg = self.cfg
         lr = cfg.learning_rate
         params = self.param_groups[0]["params"]
-        refresh = self.count % base.resolve_refresh_period(cfg,
-                                                           "shampoo") == 0
+        if refresh is None:
+            every = base.resolve_refresh_period(cfg, "shampoo")
+            refresh = every == 1 or self.count % every == 0
         # pass 1: Adam leaves finish; matrix leaves update their EMA
         # factors and queue their inverse-root jobs, L before R
         matrix, jobs = [], []
@@ -161,16 +192,13 @@ class Shampoo(torch.optim.Optimizer):
                  else torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device))
             st = self.state[p]
-            if "mom" not in st:
-                st.update(self._init_state(p, a))
             if "nu" in st:
                 b1, b2 = cfg.beta1, cfg.beta2
                 mom = b1 * st["mom"] + (1 - b1) * g
                 nu = b2 * st["nu"] + (1 - b2) * torch.square(g)
-                t = float(self.count + 1)
+                c1, c2 = base.adam_bias_corrections(b1, b2, self.count)
                 p32 = p.float() * (1.0 - lr * cfg.weight_decay) \
-                    - lr * (mom / (1 - b1 ** t)) / (
-                        torch.sqrt(nu / (1 - b2 ** t)) + cfg.eps)
+                    - lr * (mom / c1) / (torch.sqrt(nu / c2) + cfg.eps)
                 st["mom"], st["nu"] = mom, nu
                 p.copy_(p32.to(p.dtype))
                 continue
@@ -188,8 +216,12 @@ class Shampoo(torch.optim.Optimizer):
                 st["diagR"] = BETA2 * st["diagR"] + torch.sum(G * G, dim=-2)
             matrix.append((i, G, meta))
         if refresh and jobs:
-            for (i, name, _), inv in zip(jobs, self._fresh_invs(jobs, key)):
-                self.state[params[i]][name] = inv
+            invs, its, sts = self._fresh_invs(jobs, key)
+            for j, (i, name, _) in enumerate(jobs):
+                st = self.state[params[i]]
+                st[name] = invs[j]
+                if its is not None:
+                    st[name + "_iters"], st[name + "_status"] = its[j], sts[j]
         # pass 2: precondition, graft, momentum, apply
         root = 1.0 / (2 * self.p_root)
         for i, G, meta in matrix:

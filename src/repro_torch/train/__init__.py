@@ -1,3 +1,4 @@
 from repro_torch.train.state import make_train_step
+from repro_torch.train.trainer import Trainer
 
-__all__ = ["make_train_step"]
+__all__ = ["Trainer", "make_train_step"]

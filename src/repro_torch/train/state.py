@@ -5,9 +5,9 @@ Master parameters live in fp32 (the model's own parameters); the forward
 and backward run in each parameter's compute dtype (bf16 matrices, fp32
 norms) through ``Model.cast_params``, so the gradients that reach the
 masters are fp32.  They are clipped by global norm, then the optimizer
-steps.  As in the reference, the PRISM sketch key of step s is the root
-key folded with s (``key.fold_in(s)``); the fitted PRISM iterations draw
-their sketches from it.
+steps.  As in the reference, the PRISM sketch key of global step s is the
+root key folded with s (``key.fold_in(s)``), whatever step a run starts or
+resumes at; the fitted PRISM iterations draw their sketches from it.
 """
 from __future__ import annotations
 
@@ -23,12 +23,14 @@ from repro_torch.optim import base
 
 def make_train_step(model: Model, opt: torch.optim.Optimizer,
                     ocfg: OptimizerConfig, key=None) -> Callable:
-    """Build train_step(batch) -> metrics dict (loss, grad_norm, ce, ...).
+    """Build train_step(batch, step, refresh=None) -> metrics dict (loss,
+    grad_norm, ce, ...).
 
-    Updates the model's parameters and the optimizer state in place.  The
-    step counter starts at 0 and advances once per call; ``key`` is the
-    root sketch key (default ``Key(0)``, the reference's
-    ``PRNGKey(0)``).
+    Updates the model's parameters and the optimizer state in place.
+    ``step`` is the global step (the sketch key is ``key.fold_in(step)``;
+    ``key`` is the root sketch key, default ``Key(0)``, the reference's
+    ``PRNGKey(0)``); ``refresh`` is the optimizer's staleness override (a
+    bool, or None for its own schedule).
     """
     if ocfg.grads_dtype != "float32" or ocfg.gradient_compression != "none":
         raise NotImplementedError(
@@ -36,9 +38,8 @@ def make_train_step(model: Model, opt: torch.optim.Optimizer,
             "sharded training slice (ROADMAP.md Queue 1 item 11)")
     params = list(model.parameters())
     root = Key(0) if key is None else key
-    counter = {"step": 0}
 
-    def train_step(batch):
+    def train_step(batch, step: int, refresh=None):
         for p in params:
             p.grad = None
         loss, metrics = model.loss(batch)
@@ -48,8 +49,7 @@ def make_train_step(model: Model, opt: torch.optim.Optimizer,
         clipped, gnorm = base.clip_by_global_norm(grads, ocfg.grad_clip_norm)
         for p, g in zip(params, clipped):
             p.grad = g
-        opt.step(key=root.fold_in(counter["step"]))
-        counter["step"] += 1
+        opt.step(key=root.fold_in(step), refresh=refresh)
         return dict(metrics, loss=loss.detach(), grad_norm=gnorm)
 
     return train_step

@@ -1,0 +1,178 @@
+"""Fault-tolerant training loop (counterpart of ``repro/train/trainer.py``).
+
+  * checkpoint/restart: crc-verified checkpoints every
+    ``checkpoint_every`` steps (optionally through a background writer,
+    joined before the next write and at the end); on start the run
+    resumes from the newest checkpoint that verifies, with the model's
+    parameters, the optimizer's state, its ``count`` (and the guard's
+    ``bad_steps``) and the step restored;
+  * deterministic stateless data: ``batch_fn(step)`` is pure, so a resumed
+    run replays the same token stream, and the sketch key of step t is
+    the root key folded with t whatever step the run started at
+    (``train_step(batch, t, refresh)``);
+  * the staleness schedule: with a refresh period K > 1 step t refreshes
+    the preconditioners when t % K == 0 and serves them from the state
+    otherwise (``refresh`` passed to the optimizer as a Python bool);
+  * straggler detection: each step's wall time against the running
+    median of the steps before it (the run's first step excluded), and a
+    HEARTBEAT file ``"<step> <time>"`` written every step for external
+    watchdogs.
+
+The checkpoint tree is ``{"params": {name: tensor}, "opt": {name:
+{state key: tensor}, "count": ..., ["bad_steps": ...]}}``, flattened by
+``checkpoint`` with the reference's ``|`` separator.  Meshes, shardings
+and pipeline stages (ROADMAP.md Queue 1 item 11) and the async refresh
+plane (item 8b) raise here.
+"""
+from __future__ import annotations
+
+import os
+import statistics
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import checkpoint as ckpt
+from repro_torch.config import OptimizerConfig, TrainConfig
+from repro_torch.data import DataConfig, make_batch_fn
+from repro_torch.models.transformer import Model
+from repro_torch.optim import base, make_optimizer
+from repro_torch.train.state import make_train_step
+
+
+class Trainer:
+    """Train ``model`` with the optimizer ``ocfg`` names, on the synthetic
+    stream ``dcfg`` (or on ``batch_fn(step)`` when given), on the
+    model's device."""
+
+    def __init__(self, model: Model, ocfg: OptimizerConfig,
+                 tcfg: TrainConfig, dcfg: DataConfig, mesh=None,
+                 shardings=None, batch_fn: Optional[Callable] = None):
+        if mesh is not None or shardings is not None \
+                or tcfg.pipeline_stages > 1:
+            raise NotImplementedError(
+                "meshes, shardings and pipeline stages are ported with "
+                "ROADMAP.md Queue 1 item 11")
+        if ocfg.precond_async:
+            raise NotImplementedError(
+                "precond_async (the async refresh plane) is ported with "
+                "ROADMAP.md Queue 1 item 8b")
+        self.model = model
+        self.ocfg, self.tcfg, self.dcfg = ocfg, tcfg, dcfg
+        self.device = next(model.parameters()).device
+        self.batch_fn = batch_fn or make_batch_fn(model.cfg, dcfg,
+                                                  self.device)
+        self._new_optimizer()
+        self._ckpt_thread = None
+        self.step_times: list = []
+        self.straggler_events = 0
+
+    def _new_optimizer(self) -> None:
+        self.opt = make_optimizer(self.ocfg, self.model.named_parameters(),
+                                  self.model.logical_axes())
+        self.step_fn = make_train_step(self.model, self.opt, self.ocfg)
+
+    # ------------------------------------------------------------- state
+
+    def state_tree(self) -> Dict:
+        """The checkpoint tree of the current state (live tensors)."""
+        named = dict(self.model.named_parameters())
+        opt = {k: dict(self.opt.state[p]) for k, p in named.items()}
+        opt["count"] = (self.opt.count
+                        if isinstance(self.opt.count, torch.Tensor)
+                        else np.int32(self.opt.count))
+        if isinstance(self.opt, base.SkipNonfinite):
+            opt["bad_steps"] = self.opt.bad_steps
+        return {"params": named, "opt": opt}
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: Dict) -> None:
+        """Install a tree shaped like ``state_tree()``'s."""
+        self.model.load_params(tree["params"])
+        named = dict(self.model.named_parameters())
+        for k, p in named.items():
+            self.opt.state[p].update(tree["opt"][k])
+        self.opt.count = int(tree["opt"]["count"])
+        if isinstance(self.opt, base.SkipNonfinite):
+            self.opt.bad_steps = tree["opt"]["bad_steps"]
+
+    def init_state(self, seed: Optional[int] = None) -> int:
+        """A fresh optimizer over the model's parameters, drawn anew from
+        ``seed`` when one is given (kept as they are otherwise); returns
+        the start step, 0."""
+        if seed is not None:
+            self.model.reinit(seed)
+        self._new_optimizer()
+        return 0
+
+    def restore_or_init(self, seed: Optional[int] = None) -> int:
+        """Resume from the newest checkpoint that verifies, else
+        ``init_state``; returns the step to run next."""
+        cdir = self.tcfg.checkpoint_dir
+        if cdir is None or ckpt.latest_step(cdir) is None:
+            return self.init_state(seed)
+        self.init_state(seed)
+        step, tree = ckpt.restore(cdir, self.state_tree(),
+                                  allow_missing=base.PENDING_STATE_KEYS)
+        self.load_state_tree(tree)
+        print(f"[trainer] resumed from step {step}", flush=True)
+        return step
+
+    def _checkpoint(self, step: int) -> None:
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join()  # one in-flight write at a time
+            self._ckpt_thread = None
+        self._ckpt_thread = ckpt.save(
+            self.tcfg.checkpoint_dir, step, self.state_tree(),
+            keep=self.tcfg.keep_checkpoints,
+            async_write=self.tcfg.async_checkpoint,
+            drop=base.PENDING_STATE_KEYS)
+
+    # ------------------------------------------------------------- loop
+
+    def run(self, steps: Optional[int] = None, seed: Optional[int] = None,
+            on_metrics: Optional[Callable] = None):
+        """Train up to step ``steps`` (``tcfg.steps``), resuming where a
+        checkpoint left off; ``on_metrics(t, metrics)`` after every step.
+        Returns (params, optimizer state, losses of the steps run)."""
+        steps = steps or self.tcfg.steps
+        start = self.restore_or_init(seed)
+        cdir = self.tcfg.checkpoint_dir
+        if cdir is not None:
+            os.makedirs(cdir, exist_ok=True)
+        K = base.resolve_refresh_period(self.ocfg)
+        losses = []
+        for t in range(start, steps):
+            t0 = time.perf_counter()
+            refresh = (t % K == 0) if K > 1 else None
+            metrics = self.step_fn(self.batch_fn(t), t, refresh)
+            loss = float(metrics["loss"])  # waits for the whole step
+            dt = time.perf_counter() - t0
+            if t > start:  # the first step of a run builds and warms up
+                self.step_times.append(dt)
+                med = statistics.median(self.step_times)
+                if dt > self.tcfg.straggler_slack * med and \
+                        len(self.step_times) > 5:
+                    self.straggler_events += 1
+                    print(f"[trainer] straggler: step {t} took {dt:.2f}s "
+                          f"(median {med:.2f}s)", flush=True)
+            if cdir is not None:
+                with open(os.path.join(cdir, "HEARTBEAT"), "w") as f:
+                    f.write(f"{t} {time.time()}")
+            losses.append(loss)
+            if t % self.tcfg.log_every == 0:
+                print(f"[trainer] step {t}: loss {loss:.4f} grad_norm "
+                      f"{float(metrics['grad_norm']):.4f} "
+                      f"({dt * 1e3:.1f} ms)", flush=True)
+            if on_metrics is not None:
+                on_metrics(t, metrics)
+            if cdir is not None and self.tcfg.checkpoint_every and \
+                    (t + 1) % self.tcfg.checkpoint_every == 0:
+                self._checkpoint(t + 1)
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join()
+            self._ckpt_thread = None
+        tree = self.state_tree()
+        return tree["params"], tree["opt"], losses

@@ -218,7 +218,9 @@ def _hold(named, topt, jp, js, which, p0):
         for name, v in topt.state[p].items():
             want = jstate[f"{k}.{name}"]
             v = v.float().numpy()
-            if name in ("Linv", "Rinv"):
+            if name.endswith(("_iters", "_status")):
+                np.testing.assert_array_equal(v, want, err_msg=f"{k}.{name}")
+            elif name in ("Linv", "Rinv"):
                 scale = np.abs(want).max(axis=(-2, -1), keepdims=True)
                 np.testing.assert_allclose(v / scale, want / scale, rtol=0,
                                            atol=tol, err_msg=f"{k}.{name}")
@@ -264,20 +266,22 @@ def test_diagonal_fallback_matches_reference(which):
 
 
 def test_carrying_an_unported_state_key_raises():
+    """The async refresh plane's pending twins are not carried (ROADMAP.md
+    Queue 1 item 8b); the telemetry keys now are."""
     jmodel, params = _smoke()
     jcfg, tcfg = _ocfgs("warm")
-    js = jmake_optimizer(dataclasses.replace(jcfg, matfn_tol=0.1),
+    js = jmake_optimizer(dataclasses.replace(jcfg, precond_async=True,
+                                             precond_every=2),
                          jmodel.logical_axes()).init(
         jax.tree.map(jnp.asarray, params))
     named, topt = _port_opt(tcfg, params)
-    with pytest.raises(KeyError, match="Linv_iters"):
+    with pytest.raises(KeyError, match="Linv_p"):
         convert.shampoo_state_from_jax(topt, named,
                                        jax.tree.map(np.asarray, js))
 
 
 def test_unported_options_raise():
-    for kw in (dict(matfn_tol=0.1), dict(matfn_method="polar_express"),
-               dict(matfn_method="newton"), dict(bucketed=False),
+    for kw in (dict(matfn_method="newton"), dict(bucketed=False),
                dict(precond_async=True, precond_every=2)):
         _, tcfg = _ocfgs("warm", **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -289,3 +293,39 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="p_root=4"):
         Shampoo([("w", torch.nn.Parameter(torch.zeros(2)))], tcfg,
                 {"w": ("embed",)}, p_root=4)
+
+
+def test_polar_express_matches_reference():
+    """matfn_method="polar_express": the coupled fixed schedule on full-rank
+    factors, two steps, held like the warm chain."""
+    jmodel, params = _smoke()
+    grads = _grads(params, 2, seed=4, conditioned=True)
+    jcfg, tcfg = _ocfgs("warm", matfn_method="polar_express",
+                        max_precond_dim=64)
+    jp, js = _jax_run(jcfg, jmodel, params, grads)
+    named, topt = _port_opt(tcfg, params)
+    _port_run(named, topt, grads)
+    _hold(named, topt, jp, js, "warm", params)
+
+
+def test_matfn_tol_telemetry_matches_reference():
+    """An adaptive tol on the fitted chain, precondition_every=2: every
+    full-matrix side carries "Linv_iters"/"Rinv_iters" (int32) and
+    "Linv_status"/"Rinv_status" (int8), equal to the reference's after
+    the refresh steps 0 and 2 and carried untouched through step 1."""
+    jmodel, params = _smoke()
+    grads = _grads(params, 3, seed=5, conditioned=True)
+    jcfg, tcfg = _ocfgs("fig5", matfn_tol=0.05, precondition_every=2,
+                        **FULL_RANK["fig5"])
+    assert tcfg.matfn_telemetry
+    named, topt = _port_opt(tcfg, params)
+    jp, js, seen = params, None, []
+    for s in range(3):
+        jp, js = _jax_run(jcfg, jmodel, jax.tree.map(np.asarray, jp),
+                          grads[s:s + 1], js=js, s0=s)
+        _port_run(named, topt, grads[s:s + 1], s0=s)
+        _hold(named, topt, jp, js, "fig5", params)
+        seen.append({k: topt.state[p]["Linv_iters"].clone()
+                     for k, p in named if "Linv_iters" in topt.state[p]})
+    assert seen[0] and all(int(v.min()) >= 1 for v in seen[0].values())
+    assert all(torch.equal(seen[0][k], seen[1][k]) for k in seen[0])

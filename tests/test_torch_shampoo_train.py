@@ -98,8 +98,8 @@ def test_three_steps_match_reference(which):
                          model.logical_axes())
     step = make_train_step(model, opt, ocfg,
                            key=JaxKey(jax.random.PRNGKey(0)))
-    losses = [float(step({"tokens": torch.from_numpy(b)})["loss"])
-              for b in batches]
+    losses = [float(step({"tokens": torch.from_numpy(b)}, s)["loss"])
+              for s, b in enumerate(batches)]
 
     np.testing.assert_allclose(losses, jlosses, rtol=1e-4, atol=1e-4)
     jflat = convert._flatten(jax.tree.map(np.asarray, jp))

@@ -68,8 +68,8 @@ def _three_steps(prism_kw, key=None):
     opt = make_optimizer(ocfg, model.named_parameters(),
                          model.logical_axes())
     step = make_train_step(model, opt, ocfg, key=key)
-    losses = [float(step({"tokens": torch.from_numpy(b)})["loss"])
-              for b in batches]
+    losses = [float(step({"tokens": torch.from_numpy(b)}, s)["loss"])
+              for s, b in enumerate(batches)]
 
     np.testing.assert_allclose(losses, jlosses, rtol=1e-4, atol=1e-4)
     jflat = convert._flatten(jax.tree.map(np.asarray, jp))
