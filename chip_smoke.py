@@ -31,15 +31,19 @@ Phases (any failure exits non-zero and prints no result):
      CUDA events (median of 20 launches; K3, K6 and K7, shorter than the
      host's time to launch them, also as the median of 20 runs of 10
      launches back to back and as the mean device time of 20 launches in
-     a profiler trace; K4 too, with R's streamed rate);
+     a profiler trace; K4 too, with R's streamed rate); K1 and K2 also
+     at the lowrank tier's shapes (``LOWRANK_SHAPES``: the vocab bucket
+     through l = 136, contractions up to K = 50272) in fp32 and bf16,
+     checked, timed beside ``torch.bmm``/``baddbmm`` and their bound, and
+     at one ragged l = 21 case on the element-by-element instantiation;
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
      width (seq 512, batch 4, random weights from seed 0), STEPS steps
-     through ``repro_torch.launch.train_lm.build``; the launch counts are
-     zeroed just before and read just after (no K1/K2 launch may take
-     the unaligned instantiation on any path), and must be 19 a step
-     (matmul_add 12, gram_upper 6, warm_tail 1); the losses must be finite
-     and start near ln(50257); one Muon update through the kernels must
-     agree with the same update through the plain versions
+     through the launcher's configuration (``build_path``); the launch
+     counts are zeroed just before and read just after (no K1/K2 launch
+     may take the unaligned instantiation on any path), and must be 19 a
+     step (matmul_add 12, gram_upper 6, warm_tail 1); the losses must be
+     finite and start near ln(50257); one Muon update through the kernels
+     must agree with the same update through the plain versions
      (``use_kernels=False``); the Muon step and the forward+backward pass
      are timed on their own;
   5. the PRISM-3 path: the same step with PRISM-3 (degree 1, 3 warm then 2
@@ -91,7 +95,23 @@ Phases (any failure exits non-zero and prints no result):
      ``skip_nonfinite`` guard on a NaN gradient: parameters, state and
      count bitwise unchanged, ``bad_steps`` 1, the launches of a good
      step, no more synchronizing calls than phase 4's step;
-  9. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+  9. Shampoo's other inverse roots and Muon's lowrank tier, PHASE9_STEPS
+     full-width steps each with phase 4's gates (launches, losses,
+     kernels-vs-plain update, unaligned instantiation, synchronizing
+     calls): (a) Shampoo with ``p_root=4`` (PRISM coupled inverse Newton,
+     plain PyTorch products as in the reference: 0 port kernels), its step
+     beside phase 6's, a profile with the whole alpha fit's host time, and
+     ``matfn.inv_proot(p=4)`` / ``matfn.inv("prism_chebyshev")`` on a
+     full-rank [16, 1024, 1024] bucket against ``eigh`` / ``solve``; (b)
+     ``matfn_method="newton"`` (DB-Newton, cuSOLVER's Cholesky; 0 port
+     kernels); (c) ``bucketed=False`` (the per-leaf loop: K1/K3 launches
+     derived from the leaves; one step's inverse roots within
+     PER_LEAF_REL_TOL of the bucketed engine's and its parameter change
+     within UPDATE_REL_TOL, each said bitwise or not); (d) Muon with the
+     lowrank tier (``LOWRANK``): each bucket's tier (and the default
+     aspect's, not run), 42 launches a step (K1 29, K2 12, K3 1), a
+     profile listing each K1/K2 launch by shape with its device time;
+ 10. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -125,6 +145,15 @@ PER_STEP = {
     "shampoo_prism5": dict(matmul_add=15, warm_tail=2),
     "shampoo_fig5": dict(matmul_add=25, sketch_chain=5, residual_chain=10,
                          apply_g=10),
+    # phase 9: inverse Newton and DB-Newton run outside the kernels, as in
+    # the reference; the lowrank vocab bucket [2, 1024, 50272] adds K1 17
+    # and K2 6 to PRISM-5's 19 (1 + 2 + 3 x 2 + 1 + 3 x 2 + 1 K1: sketch,
+    # power iteration, the rangefinder's warm polar, B = Q^T X, B's polar,
+    # lift; one K2 an iteration of each polar).  The per-leaf loop's
+    # launches come from its leaves (``per_leaf_launches``).
+    "shampoo_p4": {},
+    "shampoo_newton": {},
+    "muon_lowrank": dict(matmul_add=29, gram_upper=12, warm_tail=1),
 }
 # Paths whose update gate replays the kernel run's fitted alphas into the
 # run through torch.matmul.  Shampoo's factors are rank-deficient (a bias
@@ -135,10 +164,22 @@ PER_STEP = {
 # holds the update with the kernel run's alphas; the unpinned gap and the
 # alpha gap are printed beside it (PERF.md).
 PINNED_ALPHA = {"shampoo_fig5"}
-# (optimizer, PRISM configuration of launch/train_lm.py) of each path
+# Muon's lowrank tier (DESIGN.md §14) at gpt2-paper width: l = 128 + 8.
+# Aspect 8: only the vocab tables [1024, 50272] take the tier; at the
+# default 4.0 the [4096, 1024] MLP views sit on the threshold and would be
+# approximated at rank 136 too.
+LOWRANK = dict(lowrank_rank=128, lowrank_oversample=8, lowrank_max_dim=4096,
+               lowrank_aspect=8.0)
+# (optimizer, PRISM configuration of launch/train_lm.py[, OptimizerConfig
+# changes, Shampoo's inverse-root power]) of each path
 PATHS = {"prism5": ("muon", "prism5"), "prism3": ("muon", "prism3"),
          "shampoo_prism5": ("shampoo", "prism5"),
-         "shampoo_fig5": ("shampoo", "fig5")}
+         "shampoo_fig5": ("shampoo", "fig5"),
+         "shampoo_p4": ("shampoo", "prism5", {}, 4),
+         "shampoo_newton": ("shampoo", "prism5",
+                            {"matfn_method": "newton"}),
+         "shampoo_per_leaf": ("shampoo", "prism5", {"bucketed": False}),
+         "muon_lowrank": ("muon", "prism5", LOWRANK)}
 # synchronizing calls of one Muon step while K3 copied its alpha vector
 # from the host (PERF.md); no optimizer step may make more
 SYNCS_BOUND = 1
@@ -1050,11 +1091,21 @@ def _clone_state(opt):
              for p, st in opt.state.items()}, opt.count)
 
 
-def _opt_from(torch, model, cfg, state):
-    """The optimizer ``cfg.name`` names, with a copy of ``state``."""
-    from repro_torch.optim import make_optimizer
+def _make_opt(model, cfg, p_root=2):
+    """The optimizer ``cfg.name`` names over the model's parameters; a
+    Shampoo of inverse ``p_root``-th roots when ``p_root`` is not 2."""
+    from repro_torch.optim import Shampoo, make_optimizer
 
-    opt = make_optimizer(cfg, model.named_parameters(), model.logical_axes())
+    if p_root != 2:
+        return Shampoo(model.named_parameters(), cfg, model.logical_axes(),
+                       p_root=p_root)
+    return make_optimizer(cfg, model.named_parameters(),
+                          model.logical_axes())
+
+
+def _opt_from(torch, model, cfg, state, p_root=2):
+    """``_make_opt``'s optimizer with a copy of ``state``."""
+    opt = _make_opt(model, cfg, p_root)
     per_param, count = state
     for p, st in per_param.items():
         opt.state[p] = {k: v.clone() for k, v in st.items()}
@@ -1087,7 +1138,7 @@ def _restore(torch, model, run):
 def _opt_step(torch, model, cfg, run, key):
     """One optimizer update from the saved state, parameters and gradients;
     returns (milliseconds, parameter deltas)."""
-    o = _opt_from(torch, model, cfg, run["state"])
+    o = _opt_from(torch, model, cfg, run["state"], run["p_root"])
     _restore(torch, model, run)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1162,28 +1213,58 @@ def count_syncs(torch, fn):
             if "called a synchronizing CUDA operation" in str(w.message)]
 
 
-def train_path(torch, path):
+def path_spec(path):
+    """(optimizer, PRISM configuration, OptimizerConfig changes, p_root)
+    of a key of PATHS."""
+    spec = PATHS[path]
+    return spec + ({}, 2)[len(spec) - 2:]
+
+
+def build_path(path):
+    """(model, optimizer, train_step, batch_for_step, (seq, batch)) of
+    ``path`` at full width: the launcher's ``build``, with the path's
+    OptimizerConfig changes and inverse-root power (``PATHS``)."""
+    import dataclasses
+
+    from repro_torch.data import make_batch_fn
+    from repro_torch.launch import train_lm
+    from repro_torch.models import Model
+    from repro_torch.train import make_train_step
+
+    optimizer, prism, changes, p_root = path_spec(path)
+    cfg, ocfg, dcfg = train_lm.configs("full", "prism", "float32", 0, prism,
+                                       optimizer, precondition_every=1)
+    ocfg = dataclasses.replace(ocfg, **changes)
+    model = Model(cfg, device="cuda", seed=0)
+    opt = _make_opt(model, ocfg, p_root)
+    return (model, opt, make_train_step(model, opt, ocfg),
+            make_batch_fn(cfg, dcfg, "cuda"), (dcfg.seq_len,
+                                               dcfg.global_batch))
+
+
+def train_path(torch, path, steps=STEPS, per_step=None):
     """The gpt2-paper training step at full width on ``path`` (a key of
-    PATHS: the optimizer and its PRISM configuration): STEPS steps through
-    the launcher's ``build``, the launch, loss and update gates, and the
-    timings."""
+    PATHS: the optimizer, its PRISM configuration and any change of its
+    OptimizerConfig): ``steps`` steps through ``build_path``, the launch
+    gate (``per_step`` launches a step, else ``PER_STEP[path]``), the loss
+    and update gates, and the timings."""
     from repro_torch.core.rng import Key
     from repro_torch.kernels import ops
-    from repro_torch.launch import train_lm
 
-    optimizer, prism = PATHS[path]
+    optimizer, prism, changes, p_root = path_spec(path)
     unaligned = unaligned_launches()
-    model, opt, step, batch_fn, (seq, batch) = train_lm.build(
-        "full", "prism", "float32", device="cuda", seed=0, prism=prism,
-        optimizer=optimizer, precondition_every=1)
+    model, opt, step, batch_fn, (seq, batch) = build_path(path)
+    per_step = PER_STEP[path] if per_step is None else per_step(opt)
     pc = opt.cfg.prism
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  model {model.cfg.name}: {n_params} params, seq {seq}, batch "
         f"{batch}, {optimizer} {prism} (degree {pc.degree}, "
         f"{pc.warm_alpha_iters} warm of {pc.iterations} iterations, sketch "
         f"{pc.sketch_dim}, lr {opt.cfg.learning_rate}), use_kernels=True, "
-        f"matfn_dtype float32")
-    batches = [batch_fn(s) for s in range(STEPS)]
+        f"matfn_dtype float32"
+        + "".join(f", {k}={v!r}" for k, v in changes.items())
+        + (f", p_root={p_root}" if p_root != 2 else ""))
+    batches = [batch_fn(s) for s in range(steps)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1205,12 +1286,11 @@ def train_path(torch, path):
     for i, (loss, t) in enumerate(zip(losses, times)):
         log(f"  step {i}: loss {loss:.4f}  {t:.1f} ms")
     step_ms = statistics.median(times[1:])
-    log(f"  step time (median of steps 1..{STEPS - 1}): {step_ms:.1f} ms, "
+    log(f"  step time (median of steps 1..{steps - 1}): {step_ms:.1f} ms, "
         f"{seq * batch / (step_ms / 1e3):.0f} tokens/s, "
         f"max_memory_allocated {peak_mem / 2**30:.2f} GiB")
-    log(f"  launches over {STEPS} steps: {counts}")
-    per_step = PER_STEP[path]
-    _expect_launches(counts, {k: v * STEPS for k, v in per_step.items()},
+    log(f"  launches over {steps} steps: {counts}")
+    _expect_launches(counts, {k: v * steps for k, v in per_step.items()},
                      f"{path} ({sum(per_step.values())} a step: "
                      f"{per_step})")
     if not all(math.isfinite(v) for v in losses):
@@ -1223,7 +1303,8 @@ def train_path(torch, path):
     # one update through the kernels vs through the plain versions, on the
     # clipped gradients the last step left in .grad, with the key the next
     # step would use
-    run = dict(model=model, opt=opt, key=Key(0).fold_in(STEPS),
+    run = dict(model=model, opt=opt, key=Key(0).fold_in(steps),
+               p_root=p_root,
                before={k: p.detach().clone()
                        for k, p in model.named_parameters()},
                grads={k: p.grad.clone()
@@ -1282,7 +1363,7 @@ def train_path(torch, path):
         + " ms; through torch.matmul (use_kernels=False) "
         + ", ".join(f"{t:.1f}" for t in opt_ms["plain"]) + " ms")
     # the synchronizing calls of one optimizer step through the kernels
-    o = _opt_from(torch, model, opt.cfg, run["state"])
+    o = _opt_from(torch, model, opt.cfg, run["state"], p_root)
     _restore(torch, model, run)
     run["syncs"] = count_syncs(torch, lambda: o.step(key=run["key"]))
     log(f"  synchronizing calls in one {optimizer} step: "
@@ -1353,43 +1434,76 @@ def route_report(torch, p, forced_budget):
         del r, st
 
 
-def profile_step(torch, run, what, fit_buckets=()):
+def profile_step(torch, run, what, fit_buckets=(), whole_fit=False,
+                 by_shape=False):
     """A torch.profiler trace of one optimizer step through the kernels
     (``what`` names it): the device time of each of the port's kernels and
     of all other device work (memory copies and PyTorch's own kernels),
     against the step's wall time; and the alpha fit (the sketch draws and
-    the closed-form fits, marked with record_function here): its host time
-    (a clock around each call) and the device time of the kernels it
-    launched.  ``fit_buckets``: (batch, fits a step) of each bucket whose
-    closed-form fit is then timed alone."""
+    the closed-form fits, marked with record_function here; with
+    ``whole_fit`` all of ``prism.fit_alpha``, the sketched chain included):
+    its host time (a clock around each outermost call) and the device time
+    of the kernels it launched.  ``fit_buckets``: (batch, fits a step) of
+    each bucket whose closed-form fit is then timed alone.  ``by_shape``:
+    each K1/K2 launch's device time, summed by operand shapes, and the
+    device time of the copy kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.core import newton_schulz, prism, sketch
+    from repro_torch.core import prism, sketch
+    from repro_torch.kernels import ops
 
     fit_host = [0.0]
+    depth = [0]
+    shapes = []
 
     def marked(fn):
         def wrapper(*a, **k):
+            if depth[0]:
+                return fn(*a, **k)
+            depth[0] += 1
             t0 = time.perf_counter()
-            with record_function("alpha_fit"):
-                out = fn(*a, **k)
-            fit_host[0] += time.perf_counter() - t0
-            return out
+            try:
+                with record_function("alpha_fit"):
+                    return fn(*a, **k)
+            finally:
+                fit_host[0] += time.perf_counter() - t0
+                depth[0] -= 1
         return wrapper
 
-    saved = (prism.fit_alpha_from_traces, sketch.gaussian_sketch)
-    prism.fit_alpha_from_traces = marked(saved[0])
-    sketch.gaussian_sketch = newton_schulz.sk.gaussian_sketch = \
-        marked(saved[1])
+    def shaped(name, fn):
+        def wrapper(*a, **k):
+            desc = "@".join(str(list(t.shape)) for t in a[:2]
+                            if t is not None)
+            if len(a) > 2 and a[2] is not None or k.get("C") is not None:
+                desc += " + C"
+            shapes.append((name, desc))
+            return fn(*a, **k)
+        return wrapper
+
+    saved = {(prism, "fit_alpha_from_traces"): prism.fit_alpha_from_traces,
+             (sketch, "gaussian_sketch"): sketch.gaussian_sketch}
+    if whole_fit:
+        saved[(prism, "fit_alpha")] = prism.fit_alpha
+    patched = {k: marked(f) for k, f in saved.items()}
+    if by_shape:
+        for name, attr in (("matmul_add", "matmul_add"),
+                           ("gram_upper", "gram")):
+            saved[(ops, attr)] = getattr(ops, attr)
+            patched[(ops, attr)] = shaped(name, getattr(ops, attr))
+    for (mod, attr), f in patched.items():
+        setattr(mod, attr, f)
     try:
-        o = _opt_from(torch, run["model"], run["opt"].cfg, run["state"])
+        o = _opt_from(torch, run["model"], run["opt"].cfg, run["state"],
+                      run["p_root"])
         _restore(torch, run["model"], run)
         o.step(key=run["key"])  # warm
-        o = _opt_from(torch, run["model"], run["opt"].cfg, run["state"])
+        o = _opt_from(torch, run["model"], run["opt"].cfg, run["state"],
+                      run["p_root"])
         _restore(torch, run["model"], run)
         torch.cuda.synchronize()
         fit_host[0] = 0.0
+        shapes.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1397,8 +1511,8 @@ def profile_step(torch, run, what, fit_buckets=()):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        prism.fit_alpha_from_traces = saved[0]
-        sketch.gaussian_sketch = newton_schulz.sk.gaussian_sketch = saved[1]
+        for (mod, attr), f in saved.items():
+            setattr(mod, attr, f)
 
     kernel_us, other_us, fit_dev_us, fit_calls = 0.0, 0.0, 0.0, 0
     per_kernel = dict.fromkeys(KERNEL_NAMES, 0.0)
@@ -1425,9 +1539,12 @@ def profile_step(torch, run, what, fit_buckets=()):
         f"device work {other_us / 1e3:.2f} ms); idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; port kernels: "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in per_kernel.items() if v))
-    log(f"  alpha fit ({fit_calls} marked calls): host {fit_ms:.2f} ms "
-        f"({fit_ms / wall_ms:.3f} of the step's wall time), device "
-        f"{fit_dev_us / 1e3:.3f} ms")
+    log(f"  alpha fit ({fit_calls} marked calls"
+        f"{', all of prism.fit_alpha' if whole_fit else ''}): host "
+        f"{fit_ms:.2f} ms ({fit_ms / wall_ms:.3f} of the step's wall time), "
+        f"device {fit_dev_us / 1e3:.3f} ms")
+    if by_shape:
+        _launches_by_shape(prof, shapes)
     # the fit alone, unprofiled: one closed-form fit from fp32 traces of
     # each bucket, times its fitted iterations a step
     from repro_torch.core import polynomials as poly
@@ -1447,6 +1564,36 @@ def profile_step(torch, run, what, fit_buckets=()):
             + f"{sum(v * k for v, (_, k) in zip(per_fit, fit_buckets)):.2f}"
             + " ms a step")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms)
+
+
+def _launches_by_shape(prof, shapes):
+    """Device time of each K1/K2 launch of a profiled step, summed by the
+    operand shapes its wrapper was called with (``shapes``, in launch
+    order: one stream), and the device time of the copy kernels (the
+    transposes K1's row-major operands need)."""
+    from torch.autograd import DeviceType
+
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and ("matmul_add_kernel" in e.name
+                          or "gram_upper_kernel" in e.name)),
+                    key=lambda e: e.time_range.start)
+    if len(events) != len(shapes) or any(
+            f"{n}_kernel" not in e.name for (n, _), e in zip(shapes, events)):
+        log(f"  by shape: the trace holds {len(events)} K1/K2 launches, the "
+            f"wrappers made {len(shapes)}: not matched")
+        return
+    agg = {}
+    for key, e in zip(shapes, events):
+        n, us = agg.get(key, (0, 0.0))
+        agg[key] = (n + 1, us + e.time_range.elapsed_us())
+    for (name, desc), (n, us) in sorted(agg.items(), key=lambda t: -t[1][1]):
+        log(f"    {name:10s} {desc:42s} {n:3d} launches, device "
+            f"{us / 1e3:8.3f} ms ({us / 1e3 / n:.3f} each)")
+    copy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and ("copy" in e.name.lower() or "memcpy" in e.name.lower()))
+    log(f"    copy kernels (other device work): {copy_us / 1e3:.3f} ms")
 
 
 def adaptive_runs(torch):
@@ -1898,6 +2045,362 @@ def guard_check(torch, syncs_bound, preset="full"):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 9
+
+LOWRANK_TIERS = {(1024, 50272): "lowrank", (1024, 1024): "grid",
+                 (1024, 4096): "grid", (16, 64): "fused"}
+PHASE9_STEPS = 2
+# full-rank SPD bucket of the card's inverse-root checks: eigenvalues in
+# [0.1, 1], 40 iterations; the reference's bounds (tests/test_matfn.py)
+ROOT_BUCKET = (16, 1024, 1024)
+ROOT_ITERS = 40
+PROOT_REL_TOL = 2e-3
+INV_REL_TOL = 1e-3
+# one update through Shampoo's per-leaf loop against the bucketed one:
+# PRISM-5 draws no sketch and each slice runs the same kernels, but two
+# torch reductions of the chain (the ridge's trace and sqrtm's Frobenius
+# norm) sum in an order that depends on the batch they run in, so the
+# inverse roots may differ in their last bits: each within 1e-6 of its
+# largest entry; the parameter change, rounded into parameters whose ulp
+# is ~1e-4 of it, within UPDATE_REL_TOL
+PER_LEAF_REL_TOL = 1e-6
+# K1/K2 at the lowrank tier's shapes on gpt2-paper's vocab bucket
+# [2, 1024, 50272] (X = its transpose [2, 50272, 1024], l = 136):
+# (kernel, A, B, with C, what it computes)
+LOWRANK_SHAPES = [
+    ("gram_upper", (2, 50272, 136), None, False, "rangefinder polar R"),
+    ("matmul_add", (2, 50272, 1024), (2, 1024, 136), False,
+     "Y = X Omega, X (X^T Y)"),
+    ("matmul_add", (2, 1024, 50272), (2, 50272, 136), False, "X^T Y"),
+    ("matmul_add", (2, 136, 50272), (2, 50272, 1024), False, "B = Q^T X"),
+    ("matmul_add", (2, 50272, 136), (2, 136, 136), True,
+     "rangefinder Horner"),
+    ("matmul_add", (2, 50272, 136), (2, 136, 1024), False, "lift Q P"),
+]
+
+
+def _lowrank_key(name, a, b, dtype):
+    shape = a if b is None else a + (b[-1],)
+    return (name, shape) if dtype == "float32" else (name, shape, dtype)
+
+
+def _lowrank_operands(torch, a, b, with_c, dt, gen):
+    """Operands whose products are of unit size: A, B ~ N(0, k^-1/2) make
+    A @ B ~ N(0, 1); X ~ N(0, m^-1/2) makes X^T X's off-diagonal N(0, 1)
+    (its diagonal ~sqrt(m)); C ~ N(0, 1)."""
+    k = a[-1] if b is not None else a[-2]
+    A = randn(torch, a, gen, k ** -0.25).to(dt)
+    B = None if b is None else randn(torch, b, gen, k ** -0.25).to(dt)
+    C = randn(torch, a[:-1] + (b[-1],), gen).to(dt) if with_c else None
+    return A, B, C
+
+
+def lowrank_kernel_checks(torch, rows):
+    """K1 and K2 at the lowrank tier's shapes (``LOWRANK_SHAPES``, the long
+    contraction K = 50272 included) against their plain versions in fp32
+    and bf16 with KERNEL_TOL, each on the aligned instantiation; and one
+    ragged case (l = 21: 84- and 42-byte rows) on the element-by-element
+    one, which no main path takes."""
+    from repro_torch.kernels import gram, matmul_add
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    cases = [(n, a, b, c, DTYPES, True) for n, a, b, c, _ in LOWRANK_SHAPES]
+    cases += [("gram_upper", (1, 300, 21), None, False, DTYPES, False),
+              ("matmul_add", (1, 300, 21), (1, 21, 21), True, DTYPES,
+               False)]
+    for name, a, b, with_c, dtypes, main in cases:
+        for dtype in dtypes:
+            dt = getattr(torch, dtype)
+            A, B, C = _lowrank_operands(torch, a, b, with_c, dt, gen)
+            before = unaligned_launches()
+            if name == "gram_upper":
+                want = gram.plain(A, alpha=1.0, beta=-1.0)
+                poison(torch, (a[0], a[-1], a[-1]), dt)
+                got = gram.gram_upper(A, alpha=1.0, beta=-1.0)
+                fast = matmul_add.aligned(A)
+            else:
+                want = matmul_add.plain(A, B, C, alpha=1.0, beta=0.5)
+                poison(torch, a[:-1] + (b[-1],), dt)
+                got = matmul_add.matmul_add(A, B, C, alpha=1.0, beta=0.5)
+                fast = matmul_add.aligned(A, B, C)
+            err = check(torch, name, a if b is None else (a, b), dtype, got,
+                        want, KERNEL_TOL[dtype])
+            took = unaligned_launches() - before
+            if took != (0 if fast else 1) or fast != main:
+                fail(f"{name} {a} {dtype}: {took} unaligned launches, "
+                     f"aligned predicate {fast}, main path {main}")
+            log(f"    {'aligned' if fast else 'unaligned'} instantiation")
+            if main:
+                shape = [list(a)] + ([] if b is None else [list(b)])
+                rows[_lowrank_key(name, a, b, dtype)] = dict(
+                    shape=shape, max_abs_err=err)
+            del A, B, C, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lowrank_timings(torch):
+    """Kernel, plain, library (``torch.bmm`` / ``baddbmm``) and bound ms of
+    one launch at each lowrank shape, fp32 and bf16."""
+    from repro_torch.kernels import gram, matmul_add
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    out = {}
+    for name, a, b, with_c, what in LOWRANK_SHAPES:
+        for dtype in DTYPES:
+            dt = getattr(torch, dtype)
+            item = 2 if dtype == "bfloat16" else 4
+            A, B, C = _lowrank_operands(torch, a, b, with_c, dt, gen)
+            if name == "gram_upper":
+                nb, m, n = a
+                eye = torch.eye(n, device="cuda", dtype=dt)
+                At = A.transpose(-1, -2)
+                t = dict(
+                    ms=time_ms(torch, lambda: gram.gram_upper(A)),
+                    plain_ms=time_ms(torch, lambda: gram.plain(A)),
+                    library_ms=time_ms(torch, lambda: torch.baddbmm(
+                        eye, At, A, alpha=-1.0)),
+                    bound=bound_ms(1.0 * nb * m * n * (n + 1),
+                                   item * (nb * m * n + nb * n * n), dtype))
+            else:
+                nb, m, k = a
+                n = b[-1]
+                beta = 0.5 if with_c else 0.0
+                lib = ((lambda: torch.baddbmm(C, A, B, beta=0.5)) if with_c
+                       else (lambda: torch.bmm(A, B)))
+                t = dict(
+                    ms=time_ms(torch, lambda: matmul_add.matmul_add(
+                        A, B, C, beta=beta)),
+                    plain_ms=time_ms(torch, lambda: matmul_add.plain(
+                        A, B, C, beta=beta)),
+                    library_ms=time_ms(torch, lib),
+                    bound=bound_ms(
+                        2.0 * nb * m * k * n + (3.0 if with_c else 0) * nb
+                        * m * n,
+                        item * (nb * m * k + nb * k * n
+                                + (2 if with_c else 1) * nb * m * n),
+                        dtype))
+            log(f"  {name:10s} {str(a if b is None else (a, b)):42s} "
+                f"{dtype:8s} ({what}) kernel {t['ms']:.4f} ms  plain "
+                f"{t['plain_ms']:.4f} ms  library {t['library_ms']:.4f} ms"
+                f"  bound {t['bound'][0]:.4f} ms ({t['bound'][1]})")
+            out[_lowrank_key(name, a, b, dtype)] = t
+            del A, B, C
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spd_eigs(torch, shape, lo, hi, gen):
+    """Symmetric positive definite [B, n, n] with eigenvalues uniform in
+    [lo, hi] (Q diag Q^T, Q from a QR of a Gaussian)."""
+    B, n, _ = shape
+    q, _ = torch.linalg.qr(randn(torch, shape, gen))
+    lam = lo + (hi - lo) * torch.rand((B, 1, n), generator=gen,
+                                      device="cuda")
+    return (q * lam) @ q.transpose(-1, -2)
+
+
+def root_checks(torch):
+    """matfn.inv_proot(p = 4) and matfn.inv(method="prism_chebyshev") on a
+    full-rank SPD bucket (``ROOT_BUCKET``, eigenvalues in [0.1, 1],
+    ``ROOT_ITERS`` iterations) against the LAPACK baselines on the card
+    (``eigh``, ``solve``), at the reference's relative bounds; neither
+    chain launches a port kernel (the reference computes them outside
+    its kernels)."""
+    from repro_torch.core import matfn
+    from repro_torch.core.rng import Key
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    a = _spd_eigs(torch, ROOT_BUCKET, 0.1, 1.0, gen)
+    for what, run, base, bound in (
+            ("inv_proot p=4 (PRISM inverse Newton)",
+             lambda: matfn.inv_proot(a, p=4, iters=ROOT_ITERS, key=Key(0)),
+             lambda: matfn.inv_proot(a, p=4, method="eigh"), PROOT_REL_TOL),
+            ("inv prism_chebyshev",
+             lambda: matfn.inv(a, method="prism_chebyshev",
+                               iters=ROOT_ITERS, key=Key(0)),
+             lambda: matfn.inv(a, method="solve"), INV_REL_TOL)):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        t0 = time.perf_counter()
+        want = base()
+        torch.cuda.synchronize()
+        base_ms = (time.perf_counter() - t0) * 1e3
+        rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        log(f"  {what} on {ROOT_BUCKET}, {ROOT_ITERS} iterations: "
+            f"{ms:.1f} ms, relative gap to its baseline {rel:.3e} (bound "
+            f"{bound:g}; baseline {base_ms:.1f} ms); port kernels "
+            f"{sum(counts.values())}")
+        _expect_launches(counts, {}, what)
+        if not rel < bound:
+            fail(f"{what}: relative gap {rel:.3e} to its baseline, bound "
+                 f"{bound:g}")
+        del got, want
+    del a
+    torch.cuda.empty_cache()
+
+
+def per_leaf_launches(opt):
+    """K1/K3 launches a step of Shampoo's per-leaf loop, from its leaves:
+    each full factor (L or R) of each matrix leaf is one coupled chain of
+    the PRISM configuration — one K3 launch where its [n, n] slice pair
+    fits the fused tier, else per warm iteration one K1 for Y X and
+    ``degree`` for each side's Horner update."""
+    from repro_torch.core import newton_schulz
+
+    pc = opt.cfg.resolved_prism
+    k1 = k3 = 0
+    for st in opt.state.values():
+        for side in ("L", "R"):
+            if side in st:
+                n = st[side].shape[-1]
+                if newton_schulz._fused_tier(pc, (n, n), coupled=True):
+                    k3 += 1
+                else:
+                    k1 += pc.iterations * (1 + 2 * pc.degree)
+    return dict(matmul_add=k1, warm_tail=k3)
+
+
+def per_leaf_check(torch, run):
+    """One Shampoo step through the per-leaf loop and one through the
+    bucketed engine from the same state: every inverse root (Linv, Rinv)
+    within PER_LEAF_REL_TOL of its largest entry, the parameter change
+    within UPDATE_REL_TOL; prints whether each is bitwise equal, the
+    momentum's gap, and why they may not be: a factor's Frobenius norm
+    computed alone and inside the bucket."""
+    import dataclasses
+
+    from repro_torch.core.newton_schulz import _safe_fro
+
+    model = run["model"]
+    out = {}
+    for tag, bucketed in (("per-leaf", False), ("bucketed", True)):
+        cfg = dataclasses.replace(run["opt"].cfg, bucketed=bucketed)
+        o = _opt_from(torch, model, cfg, run["state"])
+        _restore(torch, model, run)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o.step(key=run["key"])
+        torch.cuda.synchronize()
+        out[tag] = (o, (time.perf_counter() - t0) * 1e3,
+                    {k: p.detach() - run["before"][k]
+                     for k, p in model.named_parameters()})
+    (o_l, ms_l, d_l), (o_b, ms_b, d_b) = out["per-leaf"], out["bucketed"]
+    gaps = {"Linv/Rinv": [0.0, True], "mom": [0.0, True]}
+    for p in model.parameters():
+        for name, v in o_l.state[p].items():
+            kind = "mom" if name == "mom" else (
+                "Linv/Rinv" if name in ("Linv", "Rinv") else None)
+            if kind is None:
+                continue
+            w = o_b.state[p][name].float()
+            gap = float((v.float() - w).abs().max()
+                        / w.abs().max().clamp(min=1e-30))
+            gaps[kind][0] = max(gaps[kind][0], gap)
+            gaps[kind][1] &= torch.equal(v, o_b.state[p][name])
+    worst = _worst_gap(torch, d_l, d_b, "per-leaf vs bucketed")
+    bitwise = all(torch.equal(d_l[k], d_b[k]) for k in d_l)
+    factors = [st["L"] for st in o_l.state.values()
+               if "L" in st and st["L"].shape[-1] > 64]
+    alone = _safe_fro(factors[0])
+    inside = _safe_fro(torch.cat(factors))[:factors[0].shape[0]]
+    log(f"  per-leaf vs bucketed, one step from the same state: inverse "
+        f"roots worst gap {gaps['Linv/Rinv'][0]:.3e} of their largest entry "
+        f"(bound {PER_LEAF_REL_TOL:g}, bitwise {gaps['Linv/Rinv'][1]}); "
+        f"momentum {gaps['mom'][0]:.3e} (bitwise {gaps['mom'][1]}); "
+        f"parameter change {worst:.3e} (bound {UPDATE_REL_TOL}, bitwise "
+        f"{bitwise}); optimizer step per-leaf {ms_l:.1f} ms, bucketed "
+        f"{ms_b:.1f} ms")
+    log(f"  the Frobenius norm of a {list(factors[0].shape)} factor alone "
+        f"and inside the {len(factors) * factors[0].shape[0]}-slice bucket: "
+        f"bitwise {torch.equal(alone, inside)}, gap "
+        f"{float((alone - inside).abs().max()):.3e} of "
+        f"{float(inside.abs().max()):.3e}")
+    if not gaps["Linv/Rinv"][0] <= PER_LEAF_REL_TOL:
+        fail(f"per-leaf Shampoo inverse roots differ from the bucketed ones "
+             f"by {gaps['Linv/Rinv'][0]:.3e} of their largest entry")
+
+
+def lowrank_tiers(torch, opt):
+    """The tier of each Muon bucket of gpt2-paper with LOWRANK (gated on
+    ``LOWRANK_TIERS``, and on each leaf's int32 "tier" state), and the
+    routing the default aspect 4.0 would give, not run."""
+    import dataclasses
+
+    from repro_torch.optim import base, bucketing
+
+    cfg = opt.cfg
+    params = opt.param_groups[0]["params"]
+    views = [tuple(base.to_matrix_view(torch.empty(p.shape, device="meta"),
+                                       a)[0].shape)
+             for p, a in zip(params, opt.axes) if opt._matrix(a, p)]
+    for c, gate in ((cfg, True), (dataclasses.replace(
+            cfg, lowrank_aspect=4.0), False)):
+        got = {}
+        for b in bucketing.plan_buckets(views):
+            tier = bucketing.resolve_tier(c, b.shape)
+            got[b.shape] = tier
+            log(f"  aspect {c.lowrank_aspect}: bucket {[b.size, *b.shape]} "
+                f"-> {tier} (code {bucketing.TIER_CODES[tier]}, l "
+                f"{bucketing.resolve_lowrank_tier(c, b.shape)})"
+                + ("" if gate else " [not run]"))
+        if gate and got != LOWRANK_TIERS:
+            fail(f"lowrank tiers {got}, want {LOWRANK_TIERS}")
+    codes = {int(opt.state[p]["tier"]) for p, a in zip(params, opt.axes)
+             if opt._matrix(a, p)}
+    want = {bucketing.TIER_CODES[t] for t in LOWRANK_TIERS.values()}
+    if codes != want:
+        fail(f"the leaves' tier states {codes}, want {want}")
+
+
+def phase9(torch, runs):
+    """Shampoo's inverse fourth roots, DB-Newton and per-leaf loop, and
+    Muon's lowrank tier, each PHASE9_STEPS full-width gpt2-paper steps
+    (see the module docstring)."""
+    log("  (a) Shampoo p_root=4 (PRISM coupled inverse Newton)")
+    run = train_path(torch, "shampoo_p4", steps=PHASE9_STEPS)
+    log(f"  step {run['step_ms']:.1f} ms against Shampoo PRISM-5 (p = 2, "
+        f"phase 6) {runs['shampoo_prism5']['step_ms']:.1f} ms")
+    profile_step(torch, run, "Shampoo p_root=4", whole_fit=True)
+    _drop(torch, run)
+    root_checks(torch)
+    runs["shampoo_p4"] = run
+
+    log("  (b) Shampoo matfn_method='newton' (DB-Newton, Cholesky)")
+    run = train_path(torch, "shampoo_newton", steps=PHASE9_STEPS)
+    log(f"  step {run['step_ms']:.1f} ms against Shampoo PRISM-5 (phase 6) "
+        f"{runs['shampoo_prism5']['step_ms']:.1f} ms")
+    profile_step(torch, run, "Shampoo DB-Newton")
+    _drop(torch, run)
+    runs["shampoo_newton"] = run
+
+    log("  (c) Shampoo PRISM-5, bucketed=False (the per-leaf loop)")
+    run = train_path(torch, "shampoo_per_leaf", steps=PHASE9_STEPS,
+                     per_step=per_leaf_launches)
+    per_leaf_check(torch, run)
+    _drop(torch, run)
+    runs["shampoo_per_leaf"] = run
+
+    log("  (d) Muon PRISM-5 with the lowrank tier "
+        + ", ".join(f"{k}={v}" for k, v in LOWRANK.items()))
+    run = train_path(torch, "muon_lowrank", steps=PHASE9_STEPS)
+    lowrank_tiers(torch, run["opt"])
+    log(f"  step {run['step_ms']:.1f} ms against Muon PRISM-5 (phase 4) "
+        f"{runs['prism5']['step_ms']:.1f} ms")
+    profile_step(torch, run, "Muon lowrank", by_shape=True)
+    _drop(torch, run)
+    runs["muon_lowrank"] = run
+
+
 # --------------------------------------------------------------- main
 
 def main() -> None:
@@ -1938,9 +2441,12 @@ def main() -> None:
     rows = kernel_checks(torch)
     rows = fit_kernel_checks(torch, rows)
     rows = family_checks(torch, rows)
+    log("  K1/K2 at the lowrank tier's shapes (phase 9 (d))")
+    rows = lowrank_kernel_checks(torch, rows)
     timings = kernel_timings(torch, rows)
     timings.update(fit_kernel_timings(torch, rows))
     timings.update(family_timings(torch))
+    timings.update(lowrank_timings(torch))
 
     runs = {}
     log("phase 4: PRISM-5 path, gpt2-paper Muon step at full width")
@@ -1982,6 +2488,10 @@ def main() -> None:
     trainer_counts = trainer_path(torch)
     baseline_steps(torch, runs["prism5"]["opt_ms"]["kernels"])
     guard_check(torch, len(runs["prism5"]["syncs"]))
+
+    log("phase 9: Shampoo's other inverse roots and Muon's lowrank tier at "
+        "full width")
+    phase9(torch, runs)
 
     by_path = {k: r["counts"] for k, r in runs.items()}
     by_path["fallback"] = fallback
@@ -2077,12 +2587,20 @@ VARIANTS = {
         ("-", ("matmul_add", (100, 1024, 1024)), "shampoo_prism5"),
         ("-", ("matmul_add", (100, 1024, 1024), "bfloat16"), None),
         ("-", ("matmul_add", (20, 4096, 1024), "bfloat16"), None),
-        ("-", ("matmul_add", (40, 1024, 1024), "bfloat16"), None)],
+        ("-", ("matmul_add", (40, 1024, 1024), "bfloat16"), None)]
+    + [("-", _lowrank_key(n, a, b, dt), "muon_lowrank" if dt == "float32"
+        else None)
+       for n, a, b, _, _ in LOWRANK_SHAPES if n == "matmul_add"
+       for dt in DTYPES],
     "gram_upper": [
         ("polar", ("gram_upper", (20, 4096, 1024)), "trainer"),
         ("polar", ("gram_upper", (40, 1024, 1024)), "trainer"),
         ("polar", ("gram_upper", (20, 4096, 1024), "bfloat16"), None),
-        ("polar", ("gram_upper", (40, 1024, 1024), "bfloat16"), None)],
+        ("polar", ("gram_upper", (40, 1024, 1024), "bfloat16"), None)]
+    + [("polar", _lowrank_key(n, a, b, dt), "muon_lowrank"
+        if dt == "float32" else None)
+       for n, a, b, _, _ in LOWRANK_SHAPES if n == "gram_upper"
+       for dt in DTYPES],
     "warm_tail": [
         ("polar", ("warm_tail", (30, 64, 16)), "trainer"),
         ("sqrt", ("warm_tail/sqrt", (30, 64, 64)), "shampoo_prism5"),

@@ -1,21 +1,27 @@
 """Public matrix-function API (counterpart of ``repro/core/matfn.py``).
 
-Ported so far, ``method`` per function:
+``method`` per function:
 
   polar:     prism | newton_schulz | polar_express | svd
-  sqrtm:     prism | newton_schulz | polar_express | eigh
-  inv_sqrtm: same as sqrtm (the coupled iteration's Y output)
+  sqrtm:     prism | newton_schulz | polar_express | newton (DB) |
+             newton_classical | eigh
+  inv_sqrtm: same as sqrtm (the coupled Y output) + inverse_newton
   signm:     prism | newton_schulz | eigh
-  inv_proot: eigh
+  inv:       prism_chebyshev | chebyshev | inverse_newton | solve
+  inv_proot: prism | inverse_newton (any other non-eigh method runs
+             classical inverse Newton) | eigh
 
 "prism" adapts alpha per iteration from the sketched spectrum (warm and
-fitted iterations, adaptive ``cfg.tol``); "newton_schulz" uses the
-classical Taylor alpha; "polar_express" is the fixed minimax schedule of
-Amsel et al. (``core/polar_express.py``), run at ``cfg.dtype``; "svd" and
-"eigh" are the LAPACK baselines, pinned fp32 (``torch.linalg.svd`` /
-``eigh``).  The other methods raise ``NotImplementedError`` naming their
-ROADMAP.md item.  Entry points construct a fresh
-``PrismConfig()`` per call when none is given.
+fitted iterations, adaptive ``cfg.tol`` or ``tol=``); "newton_schulz" uses
+the classical Taylor alpha; "polar_express" is the fixed minimax schedule
+of Amsel et al. (``core/polar_express.py``), run at ``cfg.dtype``; "svd",
+"eigh" and "solve" are the LAPACK baselines, pinned fp32, as is
+DB-Newton's Cholesky by default.  The Newton-Schulz family (polar, sqrtm,
+signm) runs through the kernels with ``cfg.use_kernels``; inverse Newton,
+Chebyshev and DB-Newton run plain PyTorch products, as the reference runs
+them outside its kernels.  A method the reference does not have raises
+``ValueError`` in the Newton-Schulz family.  Entry points construct a
+fresh ``PrismConfig()`` per call when none is given.
 """
 from __future__ import annotations
 
@@ -24,28 +30,11 @@ from typing import Optional
 import torch
 
 from repro_torch.config import PrismConfig
+from repro_torch.core import chebyshev as _cheb
+from repro_torch.core import inverse_newton as _invnewton
+from repro_torch.core import newton as _newton
 from repro_torch.core import newton_schulz as _ns
 from repro_torch.core import polar_express as _pe
-
-_UNPORTED = {
-    "newton": "DB-Newton (core/newton.py) is ported with ROADMAP.md "
-              "Queue 1 item 6",
-    "newton_classical": "DB-Newton (core/newton.py) is ported with "
-                        "ROADMAP.md Queue 1 item 6",
-    "inverse_newton": "core/inverse_newton.py is ported with ROADMAP.md "
-                      "Queue 1 item 6",
-    "prism_chebyshev": "core/chebyshev.py is ported with ROADMAP.md Queue 1 "
-                       "item 6",
-    "chebyshev": "core/chebyshev.py is ported with ROADMAP.md Queue 1 "
-                 "item 6",
-}
-
-
-def _unported(fn: str, method: str):
-    msg = _UNPORTED.get(method)
-    if msg is None:
-        msg = f"method {method!r} of {fn} is not ported (ROADMAP.md Queue 1)"
-    raise NotImplementedError(f"{fn}: {msg}")
 
 
 def _telemetry_shim(out, A, kw, method: str):
@@ -71,9 +60,9 @@ def _telemetry_shim(out, A, kw, method: str):
 def _run_fixed_schedule(fn, A, kw):
     """Run a fixed-schedule (fit-free) family that supports
     ``return_info`` but not ``return_iters``/``return_status``
-    (polar_express): pops those keys and appends int32 / int8 zeros flat
-    after the family's (out[, info]) result, keeping the documented
-    (out[, info][, iters][, status]) shape."""
+    (polar_express, DB-Newton): pops those keys and appends int32 / int8
+    zeros flat after the family's (out[, info]) result, keeping the
+    documented (out[, info][, iters][, status]) shape."""
     ri = kw.pop("return_iters", False)
     rs = kw.pop("return_status", False)
     res = fn(**kw)
@@ -112,10 +101,7 @@ def polar(A: torch.Tensor, method: str = "prism",
         kw.setdefault("dtype", (PrismConfig() if cfg is None else cfg).dtype)
         return _run_fixed_schedule(
             lambda **k: _pe.polar(A, iters=iters or 8, **k), A, kw)
-    if method in ("prism", "newton_schulz"):
-        return _ns.polar(A, cfg=cfg, method=method, iters=iters, key=key,
-                         **kw)
-    _unported("polar", method)
+    return _ns.polar(A, cfg=cfg, method=method, iters=iters, key=key, **kw)
 
 
 def sqrtm(A: torch.Tensor, method: str = "prism",
@@ -139,10 +125,13 @@ def sqrtm(A: torch.Tensor, method: str = "prism",
         kw.setdefault("dtype", (PrismConfig() if cfg is None else cfg).dtype)
         return _run_fixed_schedule(
             lambda **k: _pe.sqrtm(A, iters=iters or 8, **k), A, kw)
-    if method in ("prism", "newton_schulz"):
-        return _ns.sqrtm(A, cfg=cfg, method=method, iters=iters, key=key,
-                         **kw)
-    _unported("sqrtm", method)
+    if method in ("newton", "newton_classical"):
+        return _run_fixed_schedule(
+            lambda **k: _newton.sqrtm(
+                A, iters=iters or 12,
+                method="prism" if method == "newton" else "newton", **k),
+            A, kw)
+    return _ns.sqrtm(A, cfg=cfg, method=method, iters=iters, key=key, **kw)
 
 
 def inv_sqrtm(A: torch.Tensor, method: str = "prism", **kw):
@@ -150,7 +139,7 @@ def inv_sqrtm(A: torch.Tensor, method: str = "prism", **kw):
     With ``return_info``/``return_iters``/``return_status`` the telemetry
     rides along: (A^{-1/2}[, info][, iters_used][, status])."""
     if method == "inverse_newton":
-        _unported("inv_sqrtm", method)
+        return _invnewton.inv_proot(A, p=2, **kw)
     res = sqrtm(A, method=method, **kw)
     if kw.get("return_info") or kw.get("return_iters") \
             or kw.get("return_status"):
@@ -171,23 +160,46 @@ def signm(A: torch.Tensor, method: str = "prism",
         w, V, Vt = _eigh(A)
         out = ((V * torch.sign(w)[..., None, :]) @ Vt).to(A.dtype)
         return _telemetry_shim(out, A, kw, method)
-    if method in ("prism", "newton_schulz"):
-        return _ns.signm(A, cfg=cfg, method=method, iters=iters, key=key,
-                         **kw)
-    _unported("signm", method)
+    return _ns.signm(A, cfg=cfg, method=method, iters=iters, key=key, **kw)
+
+
+def inv(A: torch.Tensor, method: str = "prism_chebyshev",
+        iters: Optional[int] = None, key=None, **kw):
+    """A^{-1} for full-rank square A [..., n, n].
+
+    kw passes through to the Chebyshev / inverse-Newton family: ``tol``
+    (adaptive early stopping of the prism methods), ``return_info``,
+    ``return_iters``, ``return_status``, ``dtype``, ``sketch_dim``,
+    ``alpha_bounds``, ``divergence_factor``.
+    """
+    if method == "solve":
+        kw.pop("tol", None)  # no iterations to stop early
+        A32 = A.float()
+        eye = torch.eye(A.shape[-1], dtype=torch.float32,
+                        device=A.device).expand(A32.shape)
+        return _telemetry_shim(torch.linalg.solve(A32, eye).to(A.dtype),
+                               A, kw, method)
+    if method == "inverse_newton":
+        return _invnewton.inv_proot(A, p=1, iters=iters or 20, key=key, **kw)
+    return _cheb.inv(A, iters=iters or 20,
+                     method="prism" if method == "prism_chebyshev"
+                     else "classical", key=key, **kw)
 
 
 def inv_proot(A: torch.Tensor, p: int, method: str = "prism",
               iters: Optional[int] = None, key=None, **kw):
-    """A^{-1/p} for SPD A (Shampoo's eigh baseline).  The iterative
-    methods (prism and classical inverse Newton) are ported with
-    ROADMAP.md Queue 1 item 6."""
+    """A^{-1/p} for SPD A [..., n, n].
+
+    kw passes through to ``inverse_newton.inv_proot``: ``tol``,
+    ``return_info``, ``return_iters``, ``return_status``, ``dtype``,
+    ``sketch_dim``, ``alpha_bounds``, ``divergence_factor``.
+    """
     if method == "eigh":
         kw.pop("tol", None)  # no iterations to stop early
         w, V, Vt = _eigh(A)
         w = torch.clamp(w, min=1e-30)
         out = ((V * (w ** (-1.0 / p))[..., None, :]) @ Vt).to(A.dtype)
         return _telemetry_shim(out, A, kw, method)
-    raise NotImplementedError(
-        f"inv_proot: method {method!r} (core/inverse_newton.py) is ported "
-        f"with ROADMAP.md Queue 1 item 6")
+    return _invnewton.inv_proot(
+        A, p=p, iters=iters or 20,
+        method="prism" if method == "prism" else "classical", key=key, **kw)

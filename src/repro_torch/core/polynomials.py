@@ -15,8 +15,8 @@ minimizers are batched torch ops in fp32 that never read a value back to
 the host (no ``.item()``, no branch on a tensor), so the fit runs between
 kernel launches without a synchronization.
 
-Ported so far: the Newton-Schulz residual (polar).  The inverse-Newton and
-Chebyshev residuals come with Shampoo (ROADMAP.md Queue 1 item 6).
+The residual polynomials of the three fitted families are here: Newton-
+Schulz (polar, sign, coupled sqrt), coupled inverse Newton and Chebyshev.
 """
 from __future__ import annotations
 
@@ -116,6 +116,31 @@ def newton_schulz_residual(d: int) -> AlphaPoly:
     p1 = poly_scale(poly_mul(one_minus_x, poly_mul(monomial(d), f)), -2.0)
     p2 = poly_scale(poly_mul(one_minus_x, monomial(2 * d)), -1.0)
     return AlphaPoly.make([p0, p1, p2])
+
+
+@functools.lru_cache(maxsize=None)
+def inverse_newton_residual(p: int) -> AlphaPoly:
+    """Residual poly of PRISM coupled inverse Newton for A^{-1/p} (App. A.3).
+
+    h(x; alpha) = x + sum_{i=1}^{p} binom(p, i) alpha^i (x^{i+1} - x^i).
+    """
+    polys = [monomial(1)]
+    for i in range(1, p + 1):
+        polys.append(poly_scale(poly_add(monomial(i + 1),
+                                         poly_scale(monomial(i), -1.0)),
+                                math.comb(p, i)))
+    return AlphaPoly.make(polys)
+
+
+@functools.lru_cache(maxsize=None)
+def chebyshev_residual() -> AlphaPoly:
+    """Residual poly of PRISM Chebyshev inverse iteration (App. A.4).
+
+    h(x; alpha) = x^2 - alpha (x^2 - x^3).
+    """
+    p0 = monomial(2)
+    p1 = poly_add(monomial(3), poly_scale(monomial(2), -1.0))
+    return AlphaPoly.make([p0, p1])
 
 
 # ---------------------------------------------------------------------------

@@ -118,6 +118,54 @@ def chain_route(n: int, p: int, dtype, *, budget: int = 0,
     return "sketch_step"
 
 
+def polar_flops(mshape, *, iters: int, degree: int = 2) -> int:
+    """Modeled GEMM FLOPs of the cubic polar path on one [m, n] view.
+
+    Per NS iteration (polar transposes to m >= n, Gram side n): the Gram
+    residual X^T X (2 m n^2), the (degree-1) [n, n] Horner GEMMs
+    (2 n^3 each) and the [m, n] x [n, n] apply (2 m n^2).  The sketch
+    chain's O(n^2 p) is omitted — negligible by construction (§6).
+    """
+    m, n = int(mshape[-2]), int(mshape[-1])
+    m, n = max(m, n), min(m, n)
+    return iters * (4 * m * n * n + 2 * (degree - 1) * n ** 3)
+
+
+def lowrank_polar_flops(mshape, l: int, *, iters: int, degree: int = 2,
+                        power_iters: int = 1) -> int:
+    """Modeled GEMM FLOPs of the §14 lowrank tier on one [m, n] view:
+    sketch product + power iterations + project + lift (O(mnl) each),
+    plus the two l-Gram-side NS chains (rangefinder polar on [m, l], the
+    fitted subspace polar on [l, n])."""
+    m, n = int(mshape[-2]), int(mshape[-1])
+    m, n = max(m, n), min(m, n)
+    l = int(l)
+    products = (2 + 2 * power_iters) * 2 * m * n * l  # sketch+power+B+lift
+    q_chain = polar_flops((m, l), iters=iters, degree=degree)
+    sub_chain = polar_flops((n, l), iters=iters, degree=degree)
+    return products + q_chain + sub_chain
+
+
+def polar_hbm_bytes(mshape, dtype, *, iters: int) -> int:
+    """Modeled device-memory traffic of the cubic path: each iteration
+    streams X twice (Gram + apply) and R twice (write + Horner read)."""
+    m, n = int(mshape[-2]), int(mshape[-1])
+    m, n = max(m, n), min(m, n)
+    return iters * (2 * m * n + 2 * n * n) * _itemsize(dtype)
+
+
+def lowrank_polar_hbm_bytes(mshape, l: int, dtype, *, iters: int,
+                            power_iters: int = 1) -> int:
+    """Modeled device-memory traffic of the §14 tier: M streams once per
+    O(mnl) product; the chains stream their [m, l] / [l, n] iterates."""
+    m, n = int(mshape[-2]), int(mshape[-1])
+    m, n = max(m, n), min(m, n)
+    item = _itemsize(dtype)
+    products = (2 + 2 * power_iters) * (m * n + m * l + n * l) * item
+    chains = iters * (2 * (m * l + l * l) + 2 * (n * l + l * l)) * item
+    return products + chains
+
+
 def _gd_coeffs(degree: int):
     """Ascending Taylor coefficients f_0..f_{d-1} of g_d (floats)."""
     from repro_torch.core import polynomials as poly

@@ -20,11 +20,15 @@ pad-blind by the ``n_real`` trace correction (``prism.fit_alpha``).  Each
 bucket draws its sketches from the step's key folded with the bucket's
 index, as in the reference.  The plan is pure Python over static shapes.
 
+A bucket too large or too rectangular for the cubic path (the vocab
+tables) routes through the §14 lowrank tier (``resolve_lowrank_tier``,
+``core/lowrank.py``) when ``lowrank_rank > 0``.
+
 ``transform_bucketed`` is the same engine for matrix functions without a
 pad-exactness story (Shampoo's inverse roots): exact-shape buckets only.
 
-Not ported yet: mesh sharding over the batch dim (``shard_over_batch``)
-and the lowrank tier (ROADMAP.md Queue 1 items 7, 11).
+Not ported yet: mesh sharding over the batch dim (``shard_over_batch``,
+ROADMAP.md Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -171,13 +175,53 @@ def resolve_fused_tier(pcfg: PrismConfig, bucket: Bucket) -> PrismConfig:
     return dataclasses.replace(pcfg, fuse="on" if fits else "off")
 
 
+def resolve_lowrank_tier(cfg: OptimizerConfig,
+                         mshape: Tuple[int, int]) -> Optional[int]:
+    """Sketch width l when a bucket routes the §14 lowrank tier, None for
+    the cubic (§7/§10) tiers.
+
+    A static, batch-size-blind choice from the bucket's matrix shape.
+    The tier engages when (a) it is enabled (``cfg.lowrank_rank > 0``)
+    and the view crosses the size threshold — max dim above
+    ``lowrank_max_dim`` or aspect ratio at least ``lowrank_aspect`` — and
+    (b) projection wins: l = rank + oversample leaves a strict subspace
+    (l < min(m, n)) and the modeled projected-chain FLOPs beat the cubic
+    path (``kernels/ops.py``), so odd knob choices fall back to the exact
+    tiers.
+    """
+    if not cfg.lowrank_rank:
+        return None
+    if cfg.matfn_method not in ("prism", "newton_schulz"):
+        return None
+    m, n = int(mshape[-2]), int(mshape[-1])
+    hi, lo = max(m, n), min(m, n)
+    if hi <= cfg.lowrank_max_dim and hi < cfg.lowrank_aspect * lo:
+        return None
+    l = cfg.lowrank_rank + cfg.lowrank_oversample
+    if l >= lo:
+        return None
+    from repro_torch.kernels import ops as kops
+
+    pcfg = cfg.resolved_prism
+    it = pcfg.iterations + pcfg.warm_alpha_iters
+    if kops.lowrank_polar_flops((hi, lo), l, iters=it,
+                                degree=pcfg.degree) >= \
+            kops.polar_flops((hi, lo), iters=it, degree=pcfg.degree):
+        return None
+    return l
+
+
+#: telemetry encoding of the per-bucket kernel tier (the int32 "tier"
+#: entry Muon carries per matrix leaf when the §14 tier is enabled)
+TIER_CODES = {"grid": 0, "fused": 1, "lowrank": 2}
+
+
 def resolve_tier(cfg: OptimizerConfig, mshape: Tuple[int, int]) -> str:
     """Name of the kernel tier the planner picks for a view shape:
-    "fused" (§10) | "grid" (§7).  Pure static-shape logic."""
-    if cfg.lowrank_rank:
-        raise NotImplementedError(
-            "the lowrank tier (OptimizerConfig.lowrank_rank) is ported "
-            "with ROADMAP.md Queue 1 item 7")
+    "lowrank" (§14) | "fused" (§10) | "grid" (§7).  Pure static-shape
+    logic."""
+    if resolve_lowrank_tier(cfg, mshape) is not None:
+        return "lowrank"
     pcfg = resolve_fused_tier(
         cfg.resolved_prism,
         Bucket((int(mshape[-2]), int(mshape[-1])), (), 0))
@@ -192,16 +236,15 @@ def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
     gather as they come (fp32 momentum) and are never padded.
 
     ``key`` is the step's sketch key; bucket ``bi`` draws from
-    ``key.fold_in(bi)``.  ``with_iters`` (the NS family only: methods
-    prism and newton_schulz) also returns per-view ``iters_used`` and
-    guardian ``status`` (DESIGN.md §11/§15), scattered back to each
-    view's lead shape: (outs, iters, statuses).
+    ``key.fold_in(bi)``.  A bucket that ``resolve_lowrank_tier`` routes
+    runs ``lowrank.polar_lowrank`` (no ``n_real``: its chains live on the
+    never-padded l side; the fused-tier choice resolves inside its inner
+    polars from their [m, l] / [l, n] shapes).  ``with_iters`` (the NS
+    family only: methods prism and newton_schulz) also returns per-view
+    ``iters_used`` and guardian ``status`` (DESIGN.md §11/§15), scattered
+    back to each view's lead shape: (outs, iters, statuses).
     """
     method = cfg.matfn_method
-    if cfg.lowrank_rank:
-        raise NotImplementedError(
-            "the lowrank tier (OptimizerConfig.lowrank_rank) is ported "
-            "with ROADMAP.md Queue 1 item 7")
     if with_iters and method not in ("prism", "newton_schulz"):
         raise ValueError(f"with_iters needs an NS-family method, not "
                          f"{method!r}")
@@ -216,15 +259,21 @@ def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
     statuses: List[Optional[torch.Tensor]] = [None] * len(views)
     for bi, b in enumerate(buckets):
         stacked = gather_bucket(b, views, dtype=compute)
+        kk = key.fold_in(bi) if key is not None else None
         kw = {}
-        if b.padded and method == "prism":
-            kw["n_real"] = _gram_real_dims(b, stacked.device)
         if with_iters:
             kw.update(return_iters=True, return_status=True)
-        O = matfn.polar(stacked, method=method,
-                        cfg=resolve_fused_tier(pcfg, b),
-                        key=key.fold_in(bi) if key is not None else None,
-                        **kw)
+        if resolve_lowrank_tier(cfg, b.shape) is not None:
+            from repro_torch.core import lowrank
+
+            O = lowrank.polar_lowrank(stacked, cfg.lowrank_rank,
+                                      cfg.lowrank_oversample, cfg=pcfg,
+                                      key=kk, method=method, **kw)
+        else:
+            if b.padded and method == "prism":
+                kw["n_real"] = _gram_real_dims(b, stacked.device)
+            O = matfn.polar(stacked, method=method,
+                            cfg=resolve_fused_tier(pcfg, b), key=kk, **kw)
         if with_iters:
             O, it, st = O
             scatter_bucket_aux(b, it, iters)

@@ -4,7 +4,12 @@
 Matrix-shaped hidden weights: nesterov momentum -> polar factor of the
 momentum (``matfn_method``: prism | newton_schulz | polar_express | svd)
 -> aspect-ratio-scaled update.  Everything else (embeddings, the LM head,
-norms) takes AdamW with a scaled lr, as in standard Muon practice.
+norms) takes AdamW with a scaled lr, as in standard Muon practice —
+unless the lowrank tier is on (``lowrank_rank > 0``, DESIGN.md §14): Muon
+then claims the vocab tables too, and ``bucketing.polar_bucketed``
+routes each view too large or too rectangular for the cubic path through
+``core/lowrank.py``; every matrix leaf then carries the int32 "tier" its
+view shape resolves to (``bucketing.TIER_CODES``).
 Orthogonalization is shape-bucketed (``bucketing``): same-shape momentum
 matrices stack into one [B, m, n] polar call per bucket.
 
@@ -30,8 +35,8 @@ realized iteration counts "iters" (int32) and the guardian codes "status"
 (int8) of its view's slices, refreshed with the polars and carried
 through stale steps untouched.
 
-The async refresh plane, the lowrank tier and ``muon_local_reshard``
-raise here (ROADMAP.md Queue 1 items 8b, 7, 11).
+The async refresh plane and ``muon_local_reshard`` raise here (ROADMAP.md
+Queue 1 items 8b, 11).
 """
 from __future__ import annotations
 
@@ -49,8 +54,6 @@ def _check_supported(cfg: OptimizerConfig) -> None:
     unported = {
         "precond_async (refresh plane, ROADMAP.md Queue 1 item 8b)":
             cfg.precond_async,
-        "lowrank_rank (lowrank tier, ROADMAP.md Queue 1 item 7)":
-            cfg.lowrank_rank > 0,
         "muon_local_reshard (sharding, ROADMAP.md Queue 1 item 11)":
             cfg.muon_local_reshard,
     }
@@ -82,8 +85,8 @@ class Muon(torch.optim.Optimizer):
     decides the matrix view of every parameter.  Hyperparameters live in
     ``cfg``; gradients are read from ``.grad`` as fp32.  The state of
     every parameter is created here, with the reference's keys: "mom"
-    (+ "ortho", "iters", "status") for matrix leaves, "mom"/"nu" for the
-    others.
+    (+ "tier", "ortho", "iters", "status") for matrix leaves, "mom"/"nu"
+    for the others.
     """
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
@@ -99,7 +102,8 @@ class Muon(torch.optim.Optimizer):
             self.state[p] = self._init_state(p, a)
 
     def _matrix(self, a: tuple, p: torch.Tensor) -> bool:
-        return base.is_matrix_param(a, tuple(p.shape))
+        return base.is_matrix_param(a, tuple(p.shape),
+                                    allow_embed=self.cfg.lowrank_rank > 0)
 
     def _init_state(self, p: torch.Tensor, a: tuple) -> Dict:
         cfg = self.cfg
@@ -114,6 +118,10 @@ class Muon(torch.optim.Optimizer):
                                       device=p.device)
             st["status"] = torch.zeros(vshape[:-2], dtype=torch.int8,
                                        device=p.device)
+        if cfg.lowrank_rank > 0:
+            st["tier"] = torch.full((), bucketing.TIER_CODES[
+                bucketing.resolve_tier(cfg, vshape[-2:])],
+                dtype=torch.int32, device=p.device)
         if cfg.precond_every > 1:
             st["ortho"] = torch.zeros(vshape,
                                       dtype=torch_dtype(cfg.cache_dtype),

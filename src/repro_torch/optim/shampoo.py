@@ -1,13 +1,17 @@
-"""Shampoo with PRISM inverse square roots (paper Sec. 6.2; counterpart of
+"""Shampoo with PRISM inverse p-th roots (paper Sec. 6.2; counterpart of
 ``repro/optim/shampoo.py``).
 
-    W <- W - lr * L^{-1/p} G R^{-1/p}     (p = 2)
+    W <- W - lr * L^{-1/p} G R^{-1/p}     (p = 2 by default)
 
 with L/R the EMA Kronecker factors G G^T / G^T G of each matrix view.
-``matfn_method`` selects how the inverse roots are computed: ``prism``
-(the coupled PRISM Newton-Schulz iteration, ``matfn.sqrtm``'s Y output),
-``polar_express`` (its fixed schedule in the same coupled form) or
-``eigh`` (the classical baseline).  A side longer than
+``matfn_method`` selects how the inverse roots are computed, as in the
+reference's ``_inv_root``: ``eigh`` (the classical baseline) at any p;
+at p = 2 ``polar_express`` (its fixed schedule in coupled form),
+``newton`` (PRISM DB-Newton, Cholesky-based, fp32) and otherwise the
+coupled PRISM Newton-Schulz iteration (``matfn.sqrtm``'s Y output;
+``newton_schulz`` falls through to it); at p != 2 every method but
+``eigh`` runs PRISM coupled inverse Newton (``matfn.inv_proot``, plain
+PyTorch products as in the reference).  A side longer than
 ``max_precond_dim`` falls back to a diagonal (AdaGrad) preconditioner.
 Preconditioned updates are norm-grafted to the raw gradient norm, then
 go through heavy-ball momentum and decoupled weight decay; leaves that
@@ -16,10 +20,13 @@ are not matrices take Adam.
 The inverse roots of every matrix leaf's L and R factors — across leaves,
 L before R in the reference's leaf order — stack into one [B, n, n] call
 per distinct n (``bucketing.transform_bucketed``), bucket ``bi`` drawing
-its sketches from the step's key folded with ``bi``.  They are recomputed
-every ``base.resolve_refresh_period`` steps, a count kept on the host (a
-Python-bool ``refresh`` forces the choice): a step that does not refresh
-serves "Linv"/"Rinv" from the state and launches nothing.
+its sketches from the step's key folded with ``bi``; with
+``bucketed=False`` each factor runs on its own, keyed by
+``key.fold_in(i)`` (then ``.fold_in(1)`` for R) with ``i`` the leaf's
+index in the reference's leaf order (``muon.leaf_order``).  They are
+recomputed every ``base.resolve_refresh_period`` steps, a count kept on
+the host (a Python-bool ``refresh`` forces the choice): a step that does
+not refresh serves "Linv"/"Rinv" from the state and launches nothing.
 
 Precision (DESIGN.md §9): the EMA factors and their eps-ridge stay fp32;
 the inverse-root chains run at ``matfn_dtype`` with fp32 accumulation,
@@ -31,9 +38,8 @@ prism method (``cfg.matfn_telemetry``) each full-matrix side carries
 per slice, refreshed with the inverse roots.
 
 ``step(key=, refresh=)`` does what the reference's ``make_shampoo(cfg,
-axes).update`` does without the async refresh plane, which raises here,
-as do inverse p-th roots other than p = 2 with PRISM, the methods not
-named above and the per-leaf loop (``bucketed=False``).
+axes).update`` does without the async refresh plane, which raises here
+(ROADMAP.md Queue 1 item 8b).
 """
 from __future__ import annotations
 
@@ -44,36 +50,24 @@ import torch
 from repro_torch.config import OptimizerConfig, torch_dtype
 from repro_torch.core import matfn
 from repro_torch.optim import base, bucketing
+from repro_torch.optim.muon import leaf_order
 
 BETA2 = 0.999   # EMA decay of the Kronecker factors (the reference's)
 
 
-def _check_supported(cfg: OptimizerConfig, p_root: int) -> None:
-    unported = {
-        "precond_async (refresh plane, ROADMAP.md Queue 1 item 8b)":
-            cfg.precond_async,
-        f"p_root={p_root} with PRISM (inverse p-th roots through "
-        "core/inverse_newton.py, ROADMAP.md Queue 1 item 6)":
-            p_root != 2 and cfg.matfn_method != "eigh",
-        f"matfn_method={cfg.matfn_method!r} (newton: ROADMAP.md Queue 1 "
-        "item 6)":
-            cfg.matfn_method not in ("prism", "eigh", "polar_express"),
-        "bucketed=False (the per-leaf loop, ROADMAP.md Queue 1 item 6; "
-        "its sketch keys fold in optim/muon.py::leaf_order's index)":
-            not cfg.bucketed,
-    }
-    missing = [k for k, v in unported.items() if v]
-    if missing:
-        raise NotImplementedError("Shampoo options not ported yet: "
-                                  + "; ".join(missing))
+def _check_supported(cfg: OptimizerConfig) -> None:
+    if cfg.precond_async:
+        raise NotImplementedError(
+            "Shampoo options not ported yet: precond_async (refresh plane, "
+            "ROADMAP.md Queue 1 item 8b)")
 
 
 def inv_root(A: torch.Tensor, p: int, cfg: OptimizerConfig, key,
              with_iters: bool = False):
-    """A^{-1/p} per ``cfg.matfn_method`` for fp32 EMA factors A [..., n, n]
-    (p = 2 for ``prism`` and ``polar_express``); ``with_iters`` (the
-    prism method: ``cfg.matfn_telemetry``) appends the §11 ``iters_used``
-    and the §15 int8 status.
+    """A^{-1/p} per ``cfg.matfn_method`` for fp32 EMA factors A [..., n, n];
+    ``with_iters`` appends the §11 ``iters_used`` and the §15 int8 status
+    (data-dependent under an adaptive ``matfn_tol``; the fit-free
+    baselines report zeros).
 
     The eps-ridge is applied to the fp32 factor BEFORE any cast: a bf16
     ridge would round eps away against trace-scale entries (§9)."""
@@ -83,18 +77,37 @@ def inv_root(A: torch.Tensor, p: int, cfg: OptimizerConfig, key,
     tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
     Ad = A + eps * tr[..., None, None] * eye / n + eps * eye
     pc = cfg.resolved_prism
-    if cfg.matfn_method == "eigh":
-        return matfn.inv_proot(Ad, p=p, method="eigh")
-    if cfg.matfn_method == "polar_express":
-        return matfn.sqrtm(Ad, method="polar_express", iters=pc.iterations,
-                           dtype=pc.dtype)[1]
-    if with_iters:
-        (_, isq), it, st = matfn.sqrtm(Ad, method="prism", cfg=pc, key=key,
-                                       iters=pc.iterations,
-                                       return_iters=True, return_status=True)
-        return isq, it, st
-    return matfn.sqrtm(Ad, method="prism", cfg=pc, key=key,
-                       iters=pc.iterations)[1]
+    m = cfg.matfn_method
+
+    def plain(out):
+        if not with_iters:
+            return out
+        lead = tuple(A.shape[:-2])
+        return (out, torch.zeros(lead, dtype=torch.int32, device=A.device),
+                torch.zeros(lead, dtype=torch.int8, device=A.device))
+
+    if m == "eigh":
+        return plain(matfn.inv_proot(Ad, p=p, method="eigh"))
+    if m == "polar_express" and p == 2:
+        return plain(matfn.sqrtm(Ad, method="polar_express",
+                                 iters=pc.iterations, dtype=pc.dtype)[1])
+    if m == "newton" and p == 2:
+        # DB-Newton is Cholesky-based: pinned fp32 (DESIGN.md §9)
+        return plain(matfn.sqrtm(Ad, method="newton",
+                                 iters=pc.iterations)[1])
+    if p == 2:
+        if with_iters:
+            (_, isq), it, st = matfn.sqrtm(Ad, method="prism", cfg=pc,
+                                           key=key, iters=pc.iterations,
+                                           return_iters=True,
+                                           return_status=True)
+            return isq, it, st
+        return matfn.sqrtm(Ad, method="prism", cfg=pc, key=key,
+                           iters=pc.iterations)[1]
+    return matfn.inv_proot(Ad, p=p, method="prism", key=key,
+                           iters=pc.iterations, dtype=pc.dtype, tol=pc.tol,
+                           return_iters=with_iters, return_status=with_iters,
+                           divergence_factor=pc.divergence_factor)
 
 
 class Shampoo(torch.optim.Optimizer):
@@ -112,12 +125,13 @@ class Shampoo(torch.optim.Optimizer):
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  cfg: OptimizerConfig, axes: Dict[str, tuple],
                  p_root: int = 2):
-        _check_supported(cfg, p_root)
+        _check_supported(cfg)
         named = list(named_params)
         super().__init__([p for _, p in named], defaults={})
         self.cfg = cfg
         self.p_root = p_root
         self.axes = [tuple(axes[n]) for n, _ in named]
+        self.leaf_idx = leaf_order([n for n, _ in named])
         self.count = 0
         for (_, p), a in zip(named, self.axes):
             self.state[p] = self._init_state(p, a)
@@ -150,25 +164,38 @@ class Shampoo(torch.optim.Optimizer):
 
     def _fresh_invs(self, jobs, key):
         """(invs, iters, statuses) of the jobs' factors, the last two None
-        unless ``cfg.matfn_telemetry``: one batched call per shape bucket,
-        keys folded by bucket index."""
+        unless ``cfg.matfn_telemetry``.  Bucketed: one batched call per
+        shape bucket, keys folded by bucket index; per-leaf: one call a
+        factor, keys folded by the leaf's reference index (and 1 for
+        R)."""
         cfg = self.cfg
         cache = torch_dtype(cfg.cache_dtype)
         tele = cfg.matfn_telemetry
 
-        def one_bucket(stacked, b, bi):
-            kk = key.fold_in(bi) if key is not None else None
+        def one(A, kk):
             if tele:
-                inv, it, st = inv_root(stacked, self.p_root, cfg, kk,
+                inv, it, st = inv_root(A, self.p_root, cfg, kk,
                                        with_iters=True)
                 return inv.to(cache), it, st
-            return inv_root(stacked, self.p_root, cfg, kk).to(cache)
+            return inv_root(A, self.p_root, cfg, kk).to(cache)
 
-        mats = [A for (_, _, A) in jobs]
-        if tele:
-            return bucketing.transform_bucketed(mats, one_bucket,
-                                                with_aux=2)
-        return bucketing.transform_bucketed(mats, one_bucket), None, None
+        if not cfg.bucketed:
+            outs = []
+            for i, name, A in jobs:
+                kk = (key.fold_in(self.leaf_idx[i]) if key is not None
+                      else None)
+                if kk is not None and name == "Rinv":
+                    kk = kk.fold_in(1)
+                outs.append(one(A, kk))
+            if tele:
+                return tuple(list(t) for t in zip(*outs))
+            return outs, None, None
+        out = bucketing.transform_bucketed(
+            [A for (_, _, A) in jobs],
+            lambda st, b, bi: one(st, key.fold_in(bi)
+                                  if key is not None else None),
+            with_aux=2 if tele else 0)
+        return out if tele else (out, None, None)
 
     @torch.no_grad()
     def step(self, closure=None, key=None, refresh=None):

@@ -293,16 +293,18 @@ def test_clip_by_global_norm_matches_reference(case):
 
 
 def test_unported_options_raise():
-    """precond_every > 1 and adamw now build; the options of later items
-    still raise, each naming its ROADMAP.md item."""
+    """precond_every > 1, adamw and the lowrank tier now build; the
+    options of later items still raise, each naming its ROADMAP.md
+    item."""
     named = [("w", torch.nn.Parameter(torch.zeros(32, 16)))]
     axes = {"w": ("embed", "mlp")}
     _, tcfg = _ocfgs(precond_every=2)
     assert isinstance(make_optimizer(tcfg, named, axes), muon.Muon)
     assert isinstance(make_optimizer(OptimizerConfig(name="adamw"), named,
                                      axes), AdamW)
+    _, tcfg = _ocfgs(lowrank_rank=4)
+    assert isinstance(make_optimizer(tcfg, named, axes), muon.Muon)
     for kw, item in ((dict(precond_async=True, precond_every=2), "8b"),
-                     (dict(lowrank_rank=4), "7"),
                      (dict(muon_local_reshard=True), "11")):
         _, tcfg = _ocfgs(**kw)
         with pytest.raises(NotImplementedError, match=f"item {item}"):

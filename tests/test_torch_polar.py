@@ -210,12 +210,13 @@ def test_return_info_matches_reference():
 
 def test_unported_methods_raise():
     """svd and polar_express now run (tests/test_torch_polar_express.py
-    holds them against the reference); a method the reference's polar
-    does not have still raises."""
+    holds them against the reference); every method of the reference is
+    ported, and one its polar does not have raises ValueError from the
+    Newton-Schulz family, as in the reference."""
     a = torch.eye(8) + 0.1 * torch.ones(8, 8)
     for method in ("svd", "polar_express"):
         U = matfn.polar(a, method=method)
         torch.testing.assert_close(U.T @ U, torch.eye(8), rtol=0,
                                    atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="chebyshev"):
         matfn.polar(a, method="chebyshev")

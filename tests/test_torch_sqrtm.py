@@ -188,13 +188,17 @@ def test_inv_proot_eigh_matches_reference(p):
 
 
 def test_unported_methods_raise():
+    """DB-Newton, inverse Newton and the iterative inv_proot now run
+    (tests/test_torch_newton.py, test_torch_inverse_newton.py hold them
+    against the reference); a method the reference's signm does not have
+    raises ValueError from the Newton-Schulz family, as there."""
     a = torch.eye(8)
-    for fn, method in (("sqrtm", "newton"), ("signm", "polar_express"),
-                       ("inv_sqrtm", "inverse_newton")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(matfn, fn)(a, method=method)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        matfn.inv_proot(a, p=2, method="prism")
+    for got in (*matfn.sqrtm(a, method="newton"),
+                matfn.inv_sqrtm(a, method="inverse_newton"),
+                matfn.inv_proot(a, p=2, method="prism")):
+        torch.testing.assert_close(got, a, rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="polar_express"):
+        matfn.signm(a, method="polar_express")
 
 
 def test_two_tiers_of_the_sqrt_family_in_bf16():
