@@ -111,14 +111,40 @@ Phases (any failure exits non-zero and prints no result):
      lowrank tier (``LOWRANK``): each bucket's tier (and the default
      aspect's, not run), 42 launches a step (K1 29, K2 12, K3 1), a
      profile listing each K1/K2 launch by shape with its device time;
- 10. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+ 10. the §12 async refresh plane at full width, through the ``Trainer``
+     (``precond_async``, swap delay 1), with deterministic algorithms on
+     for the phase (the embedding gradient's atomic adds would otherwise
+     make any two runs differ): (a) Muon PRISM-5, ``precond_every`` 5, 7
+     steps: the launches of each ``step_begin`` (the refresh, on a side
+     CUDA stream) and of each step apart: 19 (K1 12, K2 6, K3 1) at the
+     bootstrap (step 0) and the clock (step 5), none at the others, and no
+     step launches one of its own; telemetry refreshes 2, bootstrap 1,
+     clock 1, discarded 0; finite losses starting near ln(50257); the
+     dispatch, swap and steady step times beside phase 8's; the
+     synchronizing calls a step (a steady step no more than phase 8's
+     steady step, the swap step one more at most: the verdict read); a
+     profiler trace of a dispatch step (the streams of the refresh's and
+     the step's kernels and their overlap, logged); the same run with
+     ``torch.cuda.synchronize()`` after each ``step_begin`` must end in a
+     state bitwise the async run's; (b) fitted Shampoo (phase 7's
+     PrismConfig), ``precond_every`` 3, 5 steps: 50 launches (K1 25, K5 5,
+     K6 10, K7 10) at each refresh, none a step, async and blocking runs
+     bitwise equal; (c) a refresh that writes a NaN into a pending twin
+     before its verdict: discarded at once (pending_at cleared, every
+     active buffer finite) and retried past the swap window; (d) a
+     checkpoint written while a refresh is in flight holds ``pending_at``
+     and no pending twin, and a fresh Trainer restoring it bootstraps (19
+     refresh launches at its first step, finite losses);
+ 11. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1198,19 +1224,46 @@ class AlphaTape:
 def count_syncs(torch, fn):
     """The synchronizing CUDA calls ``fn()`` makes, as
     ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
-    import warnings
+    torch.cuda.synchronize()
+    with SyncLog(torch) as syncs:
+        fn()
+    torch.cuda.synchronize()
+    return syncs.messages()
 
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+
+class SyncLog:
+    """The synchronizing CUDA calls made inside a ``with`` block, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them, read whole
+    (``messages()``) or in parts: ``mark()`` returns how many were made
+    since the last mark."""
+
+    def __init__(self, torch):
+        import warnings
+
+        self._torch = torch
+        self._catch = warnings.catch_warnings(record=True)
+        self._caught, self._seen = [], 0
+
+    def __enter__(self):
+        import warnings
+
+        self._caught = self._catch.__enter__()
         warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    return [str(w.message).splitlines()[0] for w in caught
-            if "called a synchronizing CUDA operation" in str(w.message)]
+        self._torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self._torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+
+    def messages(self):
+        return [str(w.message).splitlines()[0] for w in self._caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+
+    def mark(self) -> int:
+        n = len(self.messages())
+        new, self._seen = n - self._seen, n
+        return new
 
 
 def path_spec(path):
@@ -1782,7 +1835,8 @@ def _trainer_for(cfgs, ckpt_dir, seed, **tkw):
 def trainer_path(torch, preset="full"):
     """Phase 8's runs A and B (see the module docstring) in a temporary
     directory under build/, removed at the end; returns run A's launch
-    counts."""
+    counts, its refresh and skip step times (ms) and the synchronizing
+    calls of each of its skip steps."""
     import shutil
     import tempfile
 
@@ -1800,7 +1854,6 @@ def trainer_path(torch, preset="full"):
 
 
 def _trainer_runs(torch, cfgs, work):
-    import os
     import shutil
 
     from repro_torch import checkpoint as ckpt
@@ -1811,14 +1864,16 @@ def _trainer_runs(torch, cfgs, work):
     tr = _trainer_for(cfgs, a_dir, 0, steps=TRAINER_STEPS,
                       checkpoint_every=TRAINER_EVERY, keep_checkpoints=2,
                       async_checkpoint=False)
-    writes, held, run_a = [], {}, {}
+    writes, held, run_a, syncs_a = [], {}, {}, {}
     write = tr._checkpoint
+    sync_log = SyncLog(torch)
 
     def timed_write(step):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         write(step)
         writes.append((step, time.perf_counter() - t0))
+        sync_log.mark()  # the write's host copies are not a step's
     tr._checkpoint = timed_write
     log(f"  run A: {TRAINER_STEPS} steps, Muon PRISM-5, precond_every "
         f"{TRAINER_K}, a checkpoint every {TRAINER_EVERY} steps (2 kept), "
@@ -1826,10 +1881,13 @@ def _trainer_runs(torch, cfgs, work):
     filed = _per_step_launches(run_a)
 
     def on_a(t, m):
+        syncs_a[t] = sync_log.mark()
         filed(t, m)
         if t == TRAINER_EVERY - 1:  # the state step_00000003 holds
             held.update(_host_state(torch, tr))
-    tr.run(on_metrics=on_a)
+        sync_log.mark()  # the reads above are this script's, not a step's
+    with sync_log:
+        tr.run(on_metrics=on_a)
     counts_a = ops.launch_counts()
     for t, (c, _) in sorted(run_a.items()):
         _expect_launches(c, PER_STEP["prism5"] if t in refresh_steps else {},
@@ -1848,6 +1906,10 @@ def _trainer_runs(torch, cfgs, work):
     log(f"  refresh step {', '.join(f'{v:.1f}' for v in refresh_ms)} ms; "
         f"skip steps median {statistics.median(skip_ms):.1f} ms ("
         + ", ".join(f"{v:.1f}" for v in skip_ms) + ")")
+    skip_syncs = {t: n for t, n in syncs_a.items()
+                  if t and t not in refresh_steps}
+    log("  synchronizing calls a step (run A, checkpoint writes left out): "
+        + ", ".join(f"{t} {n}" for t, n in sorted(syncs_a.items())))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     syncs = count_syncs(torch, lambda: tr.batch_fn(TRAINER_STEPS))
@@ -1921,7 +1983,8 @@ def _trainer_runs(torch, cfgs, work):
              f"{RESUME_LOSS_TOL}")
     del tr
     torch.cuda.empty_cache()
-    return counts_a
+    return dict(counts=counts_a, refresh_ms=refresh_ms, skip_ms=skip_ms,
+                skip_syncs=skip_syncs)
 
 
 def baseline_steps(torch, prism5_ms, preset="full"):
@@ -2403,11 +2466,390 @@ def phase9(torch, runs):
 
 # --------------------------------------------------------------- main
 
+# --------------------------------------------------------------- phase 10
+
+ASYNC_K = 5        # (a): Muon PRISM-5's refresh period, as phase 8's
+ASYNC_STEPS = 7    # bootstrap at 0, the clock at 5; swaps at 0 and 6
+SHAMPOO_ASYNC_K = 3
+SHAMPOO_ASYNC_STEPS = 5  # bootstrap at 0, the clock at 3; swaps at 0, 4
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms inside the block: without them the
+    embedding gradient's atomic adds make two runs of one step differ in
+    their last bits, whatever the refresh plane does.  cuBLAS runs
+    deterministically on one stream with ``main``'s workspace setting;
+    the fill of uninitialized memory that the mode adds is left off."""
+    import torch.utils.deterministic as det
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        det.fill_uninitialized_memory = prev[2]
+
+
+def async_run(torch, cfgs, work, steps, blocking=False, sync_log=None,
+              seed=0, check=None, **tkw):
+    """A Trainer run of ``steps`` steps with the async refresh plane in
+    ``work``: the launches of each ``step_begin`` (the refresh) and of
+    each step apart, the synchronizing calls of each step (with a
+    ``sync_log``), the losses, step times, telemetry and the final state
+    copied to the host.  ``blocking`` synchronizes the card after every
+    ``step_begin``: the refresh then ends before the step starts;
+    ``check(t, trainer)`` runs after each step."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import base
+
+    tkw.setdefault("checkpoint_every", 0)
+    tr = _trainer_for(cfgs, work, seed, steps=steps, **tkw)
+    refresh, own, syncs = {}, {}, {}
+    real = base.AsyncPrecondService.step_begin
+    mark = [None]
+
+    def step_begin(self, t, key, drift=0.0):
+        before = ops.launch_counts()
+        real(self, t, key, drift)
+        if blocking:
+            torch.cuda.synchronize()
+        mark[0] = ops.launch_counts()
+        refresh[t] = {k: mark[0][k] - before[k] for k in before}
+
+    def on_metrics(t, m):
+        now = ops.launch_counts()
+        own[t] = {k: now[k] - mark[0][k] for k in now}
+        if sync_log is not None:
+            syncs[t] = sync_log.mark()
+        if check is not None:
+            check(t, tr)
+
+    ops.reset_launches()
+    base.AsyncPrecondService.step_begin = step_begin
+    try:
+        with contextlib.ExitStack() as stack:
+            if sync_log is not None:
+                stack.enter_context(sync_log)
+            _, _, losses = tr.run(on_metrics=on_metrics)
+    finally:
+        base.AsyncPrecondService.step_begin = real
+    start = min(refresh)
+    return dict(tr=tr, refresh=refresh, own=own, syncs=syncs,
+                losses=dict(zip(range(start, steps), losses)),
+                total=ops.launch_counts(), telemetry=tr.matfn_telemetry,
+                times=dict(zip(range(start + 1, steps), tr.step_times)))
+
+
+def _expect_async(run, what, per_refresh, dispatch_steps, telemetry):
+    """The gates every async run holds: ``per_refresh`` launches at each
+    dispatch step's ``step_begin`` and none at any other, none in any step
+    of its own, finite losses, and the service's counters."""
+    for t, c in sorted(run["refresh"].items()):
+        _expect_launches(c, per_refresh if t in dispatch_steps else {},
+                         f"{what}: step_begin at step {t}")
+    for t, c in sorted(run["own"].items()):
+        _expect_launches(c, {}, f"{what}: step {t}'s own launches")
+    if not all(math.isfinite(v) for v in run["losses"].values()):
+        fail(f"{what}: non-finite losses {run['losses']}")
+    tele = run["telemetry"]
+    if any(tele[k] != v for k, v in telemetry.items()):
+        fail(f"{what}: telemetry {tele}, want {telemetry}")
+
+
+def _bitwise(torch, a, b, what):
+    """Fail unless two host states (``_host_state``) are bitwise equal."""
+    if set(a) != set(b):
+        fail(f"{what}: states hold other leaves, e.g. "
+             f"{sorted(set(a) ^ set(b))[:3]}")
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ:
+        fail(f"{what}: {len(differ)} of {len(a)} leaves differ, e.g. "
+             f"{differ[:3]}")
+    return len(a)
+
+
+def async_profile(torch, tr, t):
+    """A torch.profiler trace of one dispatch step of ``tr`` at step ``t``
+    (``step_begin``, then ``batch_fn`` and the step, as ``Trainer.run``
+    does): the streams the port's kernels and the step's kernels ran on,
+    the refresh's device time on its stream and how much of it overlaps
+    the step stream's kernels.  Logged only."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.rng import Key
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.precond.step_begin(t, Key(1).fold_in(t), drift=0.0)
+        m = tr.step_fn(tr.batch_fn(t), t, False)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "stream" in e.get("args", {})]
+    if tr.precond.last_dispatch != t:
+        fail(f"profiled step {t} dispatched no refresh")
+    if not kernels:
+        log("  profiled dispatch step: the trace holds no kernel events; "
+            "stream ids and overlap not measured")
+        return
+    ours = [e for e in kernels
+            if any(f"{n}_kernel" in e["name"] for n in KERNEL_NAMES)]
+    side = {e["args"]["stream"] for e in ours}
+    main = {e["args"]["stream"] for e in kernels} - side
+    on_side = [e for e in kernels if e["args"]["stream"] in side]
+    on_main = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels
+                     if e["args"]["stream"] in main)
+    union = []
+    for a, b in on_main:
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    side_us = sum(e["dur"] for e in on_side)
+    overlap_us = sum(max(0.0, min(e["ts"] + e["dur"], b) - max(e["ts"], a))
+                     for e in on_side for a, b in union)
+    main_us = sum(b - a for a, b in union)
+    busy_us = main_us + side_us - overlap_us  # the card busy on either
+    span = (min(e["ts"] for e in on_side),
+            max(e["ts"] + e["dur"] for e in on_side))
+    log(f"  profiled dispatch step {t}: wall {wall_ms:.1f} ms; the port's "
+        f"{len(ours)} kernels on stream(s) {sorted(side)}, the step's "
+        f"{sum(1 for e in kernels if e['args']['stream'] in main)} kernels "
+        f"on stream(s) {sorted(main)}; the refresh stream's "
+        f"{len(on_side)} kernels: device {side_us / 1e3:.2f} ms from "
+        f"{(span[0] - union[0][0]) / 1e3 if union else 0.0:.2f} to "
+        f"{(span[1] - union[0][0]) / 1e3 if union else 0.0:.2f} ms after "
+        f"the step stream's first kernel, {overlap_us / 1e3:.2f} ms "
+        f"({overlap_us / max(side_us, 1e-9):.3f}) of it while the step "
+        f"stream ran a kernel; step stream busy {main_us / 1e3:.2f} ms; "
+        f"the card busy {busy_us / 1e3:.2f} ms, idle share "
+        f"{max(0.0, 1 - busy_us / 1e3 / wall_ms):.3f}")
+
+
+def phase10(torch, phase8):
+    """The §12 async refresh plane at full width (see the module
+    docstring), in a temporary directory under build/, removed at the
+    end; returns the launch counts of (a) and (b)'s async runs."""
+    import shutil
+    import tempfile
+
+    base_dir = ROOT / "build"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase10_", dir=base_dir))
+    try:
+        with deterministic(torch):
+            return _phase10(torch, phase8, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase10(torch, phase8, work):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import train_lm
+    from repro_torch.optim import Muon, base
+
+    muon = train_lm.configs("full", "prism", "float32", precond_every=ASYNC_K,
+                            precond_async=True)  # swap delay 1, the default
+    ln_v = math.log(muon[0].vocab_size)
+
+    log(f"  (a) Muon PRISM-5 through the Trainer, precond_every {ASYNC_K}, "
+        f"precond_async, swap delay 1, {ASYNC_STEPS} steps "
+        f"(deterministic algorithms on in this phase)")
+    a = async_run(torch, muon, work / "a", ASYNC_STEPS,
+                  sync_log=SyncLog(torch))
+    dispatch = {0, ASYNC_K}
+    _expect_async(a, "(a) async Muon", PER_STEP["prism5"], dispatch,
+                  dict(refreshes=2, bootstrap=1, clock_triggered=1,
+                       discarded=0))
+    if abs(a["losses"][0] - ln_v) > 1.5:
+        fail(f"(a): first loss {a['losses'][0]:.4f} not within 1.5 of "
+             f"ln(V) = {ln_v:.4f}")
+    log("  (a) per step: " + "; ".join(
+        f"{t} loss {a['losses'][t]:.4f} refresh launches "
+        f"{sum(a['refresh'][t].values())} step launches "
+        f"{sum(a['own'][t].values())} syncs {a['syncs'][t]}"
+        + (f" {a['times'][t] * 1e3:.1f} ms" if t in a["times"] else "")
+        for t in sorted(a["losses"])))
+    steady = [t for t in range(1, ASYNC_STEPS) if t not in dispatch
+              and t != ASYNC_K + 1]
+    steady_ms = [a["times"][t] * 1e3 for t in steady]
+    log(f"  (a) dispatch step {ASYNC_K} {a['times'][ASYNC_K] * 1e3:.1f} ms, "
+        f"swap step {ASYNC_K + 1} {a['times'][ASYNC_K + 1] * 1e3:.1f} ms, "
+        f"steady steps median {statistics.median(steady_ms):.1f} ms ("
+        + ", ".join(f"{v:.1f}" for v in steady_ms) + "); phase 8's "
+        f"synchronous refresh step "
+        + ", ".join(f"{v:.1f}" for v in phase8["refresh_ms"])
+        + f" ms, its skip steps median "
+        f"{statistics.median(phase8['skip_ms']):.1f} ms")
+    bound = max(phase8["skip_syncs"].values())
+    worst = max(a["syncs"][t] for t in steady)
+    swap_syncs = a["syncs"][ASYNC_K + 1]
+    log(f"  (a) synchronizing calls: steady steps at most {worst}, dispatch "
+        f"step {a['syncs'][ASYNC_K]}, swap step {swap_syncs}, bootstrap "
+        f"step {a['syncs'][0]} (phase 8's skip steps at most {bound})")
+    if worst > bound:
+        fail(f"(a): a steady async step makes {worst} synchronizing calls, "
+             f"phase 8's steady Trainer step {bound}")
+    if swap_syncs > worst + 1:
+        fail(f"(a): the swap step makes {swap_syncs} synchronizing calls, "
+             f"more than a steady step's {worst} and the verdict's one")
+    async_muon = a["total"]
+    held = _host_state(torch, a["tr"])
+    async_profile(torch, a["tr"], ASYNC_STEPS - 1 + ASYNC_K)
+    del a
+    torch.cuda.empty_cache()
+    b = async_run(torch, muon, work / "a_blocking", ASYNC_STEPS,
+                  blocking=True)
+    n = _bitwise(torch, held, _host_state(torch, b["tr"]),
+                 "(a) async vs blocking")
+    log(f"  (a) the run with torch.cuda.synchronize() after each step_begin:"
+        f" its {n} state leaves bitwise the async run's; its step times "
+        + ", ".join(f"{t} {v * 1e3:.1f} ms" for t, v in b["times"].items()))
+    del b, held
+    torch.cuda.empty_cache()
+
+    sham = train_lm.configs("full", "prism", "float32", prism="fig5",
+                            optimizer="shampoo",
+                            precond_every=SHAMPOO_ASYNC_K,
+                            precond_async=True)
+    log(f"  (b) fitted Shampoo (Fig. 5 PRISM) through the Trainer, "
+        f"precond_every {SHAMPOO_ASYNC_K}, precond_async, "
+        f"{SHAMPOO_ASYNC_STEPS} steps")
+    runs = []
+    for blocking in (False, True):
+        r = async_run(torch, sham, work / f"b{int(blocking)}",
+                      SHAMPOO_ASYNC_STEPS, blocking=blocking)
+        _expect_async(r, f"(b) {'blocking' if blocking else 'async'} "
+                      f"Shampoo", PER_STEP["shampoo_fig5"],
+                      {0, SHAMPOO_ASYNC_K},
+                      dict(refreshes=2, bootstrap=1, clock_triggered=1,
+                           discarded=0))
+        runs.append((r["total"], r["losses"], _host_state(torch, r["tr"]),
+                     r["times"]))
+        del r
+        torch.cuda.empty_cache()
+    n = _bitwise(torch, runs[0][2], runs[1][2], "(b) async vs blocking")
+    log(f"  (b) losses " + ", ".join(f"{v:.4f}" for v in
+                                     runs[0][1].values())
+        + "; step times " + ", ".join(f"{t} {v * 1e3:.1f} ms" for t, v in
+                                      runs[0][3].items())
+        + f"; {n} state leaves bitwise the blocking run's")
+    async_shampoo = runs[0][0]
+    del runs
+    torch.cuda.empty_cache()
+
+    log("  (c) a poisoned refresh: the bootstrap's pending polars get a NaN "
+        "before the verdict")
+    real = Muon.pending_twins
+    calls = [0]
+
+    def poisoned(self, key):
+        parts = real(self, key)
+        calls[0] += 1
+        if calls[0] == 1:
+            twin = next(p for p in parts if p)["ortho_p"]
+            twin[(0,) * twin.dim()] = math.nan
+        return parts
+
+    def active_finite(tr):
+        return bool(torch.stack([
+            torch.isfinite(v).all() for st in tr.opt.state.values()
+            for k, v in st.items()
+            if k not in base.PENDING_STATE_KEYS]).all())
+
+    def after_bootstrap(t, tr):
+        if t != 0:
+            return
+        tele = tr.matfn_telemetry
+        log(f"  (c) after step 0: telemetry {tele}, pending_at "
+            f"{tr.opt.pending_at}")
+        if tele["discarded"] != 1 or tr.opt.pending_at != base.NO_PENDING \
+                or not active_finite(tr):
+            fail(f"(c): the poisoned bootstrap was not discarded cleanly: "
+                 f"telemetry {tele}, pending_at {tr.opt.pending_at}, "
+                 f"active buffers finite {active_finite(tr)}")
+
+    Muon.pending_twins = poisoned
+    try:
+        c = async_run(torch, muon, work / "c", 4, check=after_bootstrap)
+    finally:
+        Muon.pending_twins = real
+    tele = c["telemetry"]
+    dispatched = sorted(t for t, v in c["refresh"].items() if any(v.values()))
+    log(f"  (c) telemetry {tele}; refreshes dispatched at steps {dispatched}"
+        f" (the backoff step 1 falls inside the bootstrap's swap window, so "
+        f"the retry goes at 2); losses "
+        + ", ".join(f"{v:.4f}" for v in c["losses"].values()))
+    _expect_async(c, "(c) poisoned", PER_STEP["prism5"], {0, 2},
+                  dict(refreshes=2, bootstrap=1, retries=1, discarded=1,
+                       degraded=0))
+    if not active_finite(c["tr"]) or \
+            c["tr"].opt.pending_at != base.NO_PENDING:
+        fail(f"(c): after the retry swapped: pending_at "
+             f"{c['tr'].opt.pending_at}, active buffers finite "
+             f"{active_finite(c['tr'])}")
+    del c
+    torch.cuda.empty_cache()
+
+    log("  (d) a checkpoint while a refresh is in flight (precond_every 2: "
+        "dispatched at step 2, saved after it, swap due at 3), restored by a "
+        "fresh Trainer")
+    mid = (muon[0], dataclasses.replace(muon[1], precond_every=2), muon[2])
+    d_dir = work / "d"
+    d = async_run(torch, mid, d_dir, 3, checkpoint_every=3,
+                  keep_checkpoints=1, async_checkpoint=False)
+    with np.load(d_dir / "step_00000003" / "tree.npz") as data:
+        files = data.files
+        pending_at = int(data["opt|pending_at"]) \
+            if "opt|pending_at" in files else None
+    dropped = [k for k in files
+               if base.PENDING_STATE_KEYS.intersection(k.split("|"))]
+    if pending_at != 2 or dropped:
+        fail(f"(d): the checkpoint holds pending_at {pending_at} (want 2) "
+             f"and pending keys {dropped[:3]}")
+    del d
+    torch.cuda.empty_cache()
+    r = async_run(torch, mid, d_dir, 5, seed=1)
+    _expect_async(r, "(d) restored", PER_STEP["prism5"], {3},
+                  dict(refreshes=1, bootstrap=1, discarded=0))
+    if sorted(r["losses"]) != [3, 4]:
+        fail(f"(d): the restored run ran steps {sorted(r['losses'])}")
+    log(f"  (d) checkpoint: pending_at 2, no pending key among "
+        f"{len(files)} leaves; the restored run bootstraps at step 3 "
+        f"({sum(r['refresh'][3].values())} refresh launches), steps 3, 4 "
+        f"launch 0, losses " + ", ".join(f"{v:.4f}" for v in
+                                         r["losses"].values()))
+    del r
+    torch.cuda.empty_cache()
+    return dict(async_muon=async_muon, async_shampoo=async_shampoo)
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"the root of a checkout")
     sys.path.insert(0, str(SRC))
+    # cuBLAS's workspace as PyTorch sizes it on Hopper by default, named so
+    # that the deterministic mode of phase 10 takes cuBLAS as it is
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2485,7 +2927,7 @@ def main() -> None:
 
     log("phase 8: the main example through the Trainer, gpt2-paper Muon "
         f"PRISM-5, precond_every {TRAINER_K}, at full width")
-    trainer_counts = trainer_path(torch)
+    phase8 = trainer_path(torch)
     baseline_steps(torch, runs["prism5"]["opt_ms"]["kernels"])
     guard_check(torch, len(runs["prism5"]["syncs"]))
 
@@ -2493,9 +2935,13 @@ def main() -> None:
         "full width")
     phase9(torch, runs)
 
+    log("phase 10: the async refresh plane at full width")
+    async_counts = phase10(torch, phase8)
+
     by_path = {k: r["counts"] for k, r in runs.items()}
     by_path["fallback"] = fallback
-    by_path["trainer"] = trainer_counts
+    by_path["trainer"] = phase8["counts"]
+    by_path.update(async_counts)
     print(json.dumps({"kernels": kernel_rows(rows, timings, by_path)}),
           flush=True)
     log(f"card: {card}")

@@ -16,22 +16,30 @@ import torch
 
 from repro_torch.config import ModelConfig, torch_dtype
 from repro_torch.models.transformer import param_specs
+from repro_torch.optim import base
 
-#: the per-parameter state keys of the reference's Shampoo that the port
-#: carries (optim/shampoo.py): momentum, the EMA Kronecker factors, their
-#: cached inverse roots, the diagonal fallback, Adam's second moment and
-#: the adaptive-tol telemetry of the inverse roots
+#: the per-parameter state keys of the reference's Muon and Shampoo that
+#: the port carries (optim/muon.py, optim/shampoo.py): momentum, Adam's
+#: second moment, Muon's cached polar and tier, Shampoo's EMA Kronecker
+#: factors, their cached inverse roots and the diagonal fallback, the
+#: adaptive-tol telemetry, and the §12 refresh plane's pending twins and
+#: drift proxy
+MUON_STATE_KEYS = ("mom", "nu", "ortho", "tier", "iters", "status",
+                   "ortho_p", "iters_p", "status_p", "dnorm", "rnorm")
 SHAMPOO_STATE_KEYS = ("mom", "L", "R", "Linv", "Rinv", "diagL", "diagR",
                       "nu", "Linv_iters", "Rinv_iters", "Linv_status",
-                      "Rinv_status")
+                      "Rinv_status", "Linv_p", "Rinv_p", "Linv_iters_p",
+                      "Rinv_iters_p", "Linv_status_p", "Rinv_status_p",
+                      "dnorm", "rnorm")
 
 
 def _state_dtype(key: str, cache: torch.dtype) -> torch.dtype:
-    if key in ("Linv", "Rinv"):
+    stem = key[:-2] if key.endswith("_p") else key
+    if stem in ("ortho", "Linv", "Rinv"):
         return cache
-    if key.endswith("_iters"):
+    if stem.endswith("iters") or stem == "tier":
         return torch.int32
-    if key.endswith("_status"):
+    if stem.endswith("status"):
         return torch.int8
     return torch.float32
 
@@ -80,27 +88,40 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return tree
 
 
-def shampoo_state_from_jax(opt, named_params, state: Dict[str, Any]) -> None:
-    """Install the reference's Shampoo state into the port's ``Shampoo``
-    ``opt`` (built over ``named_params``): ``state`` is what
-    ``make_shampoo(...).init``/``update`` return, {"leaves": a tree of
-    per-parameter dicts shaped like the parameters, "count": int}, arrays
-    as numpy (bf16 allowed).  The cached inverse roots take the port's
-    ``cache_dtype``, the telemetry int32/int8, everything else fp32; a
-    key the port does not carry (the async refresh plane's twins)
-    raises."""
+def _state_from_jax(opt, named_params, state: Dict[str, Any],
+                    keys) -> None:
     cache = torch_dtype(opt.cfg.cache_dtype)
     leaves = state["leaves"]
     for name, p in named_params:
         node = leaves
         for part in name.split("."):
             node = node[part]
-        unknown = sorted(set(node) - set(SHAMPOO_STATE_KEYS))
+        unknown = sorted(set(node) - set(keys))
         if unknown:
             raise KeyError(f"{name}: state keys {unknown} are not carried "
-                           f"by the port's Shampoo")
+                           f"by the port's {type(opt).__name__}")
         opt.state[p] = {
             k: torch.from_numpy(np.asarray(v, dtype=np.float32).copy()).to(
                 device=p.device, dtype=_state_dtype(k, cache))
             for k, v in node.items()}
     opt.count = int(np.asarray(state["count"]))
+    if "pending_at" in state:
+        base.set_pending_at(opt, int(np.asarray(state["pending_at"])))
+
+
+def muon_state_from_jax(opt, named_params, state: Dict[str, Any]) -> None:
+    """Install the reference's Muon state into the port's ``Muon`` ``opt``
+    (built over ``named_params``), as ``shampoo_state_from_jax`` does."""
+    _state_from_jax(opt, named_params, state, MUON_STATE_KEYS)
+
+
+def shampoo_state_from_jax(opt, named_params, state: Dict[str, Any]) -> None:
+    """Install the reference's Shampoo state into the port's ``Shampoo``
+    ``opt`` (built over ``named_params``): ``state`` is what
+    ``make_shampoo(...).init``/``update`` return, {"leaves": a tree of
+    per-parameter dicts shaped like the parameters, "count": int[,
+    "pending_at": int]}, arrays as numpy (bf16 allowed).  The cached
+    inverse roots and their pending twins take the port's
+    ``cache_dtype``, the telemetry int32/int8, everything else fp32; a
+    key the port does not carry raises."""
+    _state_from_jax(opt, named_params, state, SHAMPOO_STATE_KEYS)

@@ -21,7 +21,10 @@ configuration from ``PRISM``:
 ``--precond_every K`` refreshes the preconditioners (Muon's polar factors,
 Shampoo's inverse roots) every K steps and serves them from the state in
 between; ``--precondition_every`` is Shampoo's legacy period (Fig. 5 uses
-5).  With ``--ckpt_dir`` the run writes crc-verified checkpoints every
+5).  ``--precond_async`` (with K > 1) moves that refresh off the step: the
+Trainer dispatches it between steps (on a side CUDA stream on the card)
+and swaps its result in a step later (DESIGN.md §12).  With
+``--ckpt_dir`` the run writes crc-verified checkpoints every
 ``--ckpt_every`` steps and a HEARTBEAT file; killed and run again with the
 same arguments, it resumes from the newest checkpoint that verifies.
 
@@ -58,10 +61,11 @@ LEARNING_RATE = {"fig5": 3e-3}
 
 def configs(preset: str, method: str, matfn_dtype: str, seed: int = 0,
             prism: str = "prism5", optimizer: str = "muon",
-            precondition_every: int = 1, precond_every: int = 1):
+            precondition_every: int = 1, precond_every: int = 1,
+            precond_async: bool = False):
     """(model config, optimizer config, data config) of the ``optimizer``
     experiment at ``preset`` with the PRISM configuration ``prism`` (a key
-    of ``PRISM``) and the refresh periods."""
+    of ``PRISM``), the refresh periods and the async refresh plane."""
     cfg = gpt2_paper.CONFIG
     if preset == "cpu-small":
         cfg = cfg.replace(num_layers=4, d_model=256, num_heads=8,
@@ -74,7 +78,8 @@ def configs(preset: str, method: str, matfn_dtype: str, seed: int = 0,
         name=optimizer, learning_rate=LEARNING_RATE.get(prism, 6e-3),
         momentum=0.95, weight_decay=0.01, matfn_method=method,
         matfn_dtype=matfn_dtype, precondition_every=precondition_every,
-        precond_every=precond_every, max_precond_dim=2048,
+        precond_every=precond_every, precond_async=precond_async,
+        max_precond_dim=2048,
         prism=PrismConfig(use_kernels=True, **PRISM[prism]))
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                       global_batch=batch, markov_rank=64, seed=1234 + seed)
@@ -112,6 +117,9 @@ def main(argv=None):
     ap.add_argument("--precond_every", type=int, default=1,
                     help="refresh the preconditioners every K steps, "
                          "serving them from the state in between")
+    ap.add_argument("--precond_async", action="store_true",
+                    help="dispatch the refresh between steps and swap it "
+                         "in a step later (needs --precond_every > 1)")
     ap.add_argument("--precondition_every", type=int, default=1,
                     help="Shampoo's legacy inverse-root refresh period")
     ap.add_argument("--matfn_dtype", default="float32",
@@ -128,7 +136,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg, ocfg, dcfg = configs(args.preset, args.method, args.matfn_dtype,
                               args.seed, args.prism, args.optimizer,
-                              args.precondition_every, args.precond_every)
+                              args.precondition_every, args.precond_every,
+                              args.precond_async)
     model = Model(cfg, device=dev, seed=args.seed)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model {cfg.name}: {n_params / 1e6:.1f}M params, seq "

@@ -9,8 +9,17 @@ becomes ``torch.optim.Optimizer`` subclasses (``muon.Muon``,
 ``state`` each creates in its constructor, ``update`` is
 ``step(key=, refresh=)``, and the reference's ``state["count"]`` is the
 optimizer's ``count``, a host int (a device tensor under
-``skip_nonfinite``).  The async refresh plane and the pending-buffer
-helpers come with a later slice (ROADMAP.md Queue 1 item 8b).
+``skip_nonfinite``).
+
+The §12 async refresh plane (DESIGN.md §12, §15) lives here too: the
+pending-buffer helpers (``install_pending``, ``discard_pending``,
+``precond_drift``, ...) and the ``AsyncPrecondService`` that dispatches
+an optimizer's refresh between steps, on a side CUDA stream on the card.
+The reference's ``refresh(state, key)`` becomes the optimizer's
+``refresh(key)``: one partial dict per parameter, in
+``param_groups[0]["params"]`` order, and its root ``state["pending_at"]``
+the optimizer's ``pending_at`` (a host int; a device int32 under
+``skip_nonfinite``).
 """
 from __future__ import annotations
 
@@ -20,13 +29,18 @@ import torch
 
 #: the per-parameter state keys of the §12 async refresh plane's pending
 #: twins: checkpoints drop them (``checkpoint.save(drop=)``) and a
-#: restore keeps the target's own value.  Nothing in the port sets them
-#: until the refresh plane is ported (ROADMAP.md Queue 1 item 8b).
+#: restore keeps the target's own value (then ``discard_pending``)
 PENDING_STATE_KEYS = frozenset({
     "ortho_p", "Linv_p", "Rinv_p",
     "iters_p", "Linv_iters_p", "Rinv_iters_p",
     "status_p", "Linv_status_p", "Rinv_status_p",
 })
+
+#: ``pending_at`` meaning "no refresh in flight".  A large negative
+#: sentinel rather than -1: the bootstrap dispatch BACK-DATES
+#: ``pending_at = step - precond_swap_delay`` (possibly negative) so that
+#: its swap fires on the dispatching step itself.
+NO_PENDING = -(1 << 30)
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -102,6 +116,13 @@ class SkipNonfinite:
     after a skipped step it runs one step ahead of ``count``.  The
     Trainer always passes ``refresh``.  Everything else (``state``,
     ``param_groups``, ``cfg``) is the inner optimizer's.
+
+    Under the §12 refresh plane the root ``pending_at`` is a device int32
+    too, rolled back with the rest; the swap is then decided on the
+    device (``swap_pending``), from the step the clock allows on.  The
+    pending twins are left out of the snapshot: a step never writes
+    them, and the refresh that made them may still be running on its
+    side stream.
     """
 
     def __init__(self, opt):
@@ -110,6 +131,9 @@ class SkipNonfinite:
         self.bad_steps = torch.zeros((), dtype=torch.int32, device=dev)
         self.clock = 0
         self.count = opt.count
+        if hasattr(opt, "pending_at"):
+            opt.pending_at = torch.full((), int(opt.pending_at),
+                                        dtype=torch.int32, device=dev)
 
     def __getattr__(self, name):
         if name == "opt":  # not set yet: no recursion
@@ -138,9 +162,11 @@ class SkipNonfinite:
         if refresh is None and period > 1:
             refresh = self.clock % period == 0
         old_p = [p.detach().clone() for p in params]
-        old_s = [{k: v.clone() for k, v in opt.state[p].items()}
-                 for p in params]
+        old_s = [{k: v.clone() for k, v in opt.state[p].items()
+                  if k not in PENDING_STATE_KEYS} for p in params]
         old_count = opt.count.clone()
+        old_pending = getattr(opt, "pending_at", None)
+        opt.host_count = self.clock
         opt.step(key=key, refresh=refresh)
         checks = [p.grad for p in params if p.grad is not None] + params
         ok = torch.stack([torch.isfinite(t).all() for t in checks]).all()
@@ -151,6 +177,8 @@ class SkipNonfinite:
             for k, v in old.items():
                 st[k] = torch.where(ok, st[k], v)
         opt.count = torch.where(ok, opt.count, old_count)
+        if old_pending is not None:
+            opt.pending_at = torch.where(ok, opt.pending_at, old_pending)
         self.bad_steps = self.bad_steps + (~ok).to(torch.int32)
         self.clock += 1
 
@@ -159,6 +187,310 @@ def skip_nonfinite(opt) -> SkipNonfinite:
     """Wrap ``opt`` in the §15 skip-step guard (``SkipNonfinite``);
     ``make_optimizer`` does so when ``cfg.skip_nonfinite``."""
     return SkipNonfinite(opt)
+
+
+# ----------------------------------------------------------- refresh plane
+
+def _inner(opt):
+    """The optimizer under the skip-step guard, or ``opt`` itself."""
+    return opt.opt if isinstance(opt, SkipNonfinite) else opt
+
+
+def _params(opt) -> List[torch.Tensor]:
+    return _inner(opt).param_groups[0]["params"]
+
+
+def init_pending(opt) -> None:
+    """Give an optimizer with a refresh plane its root refresh state:
+    ``pending_at`` (the reference's root value: NO_PENDING, or the step
+    the in-flight refresh was dispatched at), ``pending_host`` (what
+    ``install_pending``/``discard_pending`` last wrote there, kept on the
+    host when ``pending_at`` lives on the device) and ``pending_ready``
+    (the CUDA event that marks the pending twins written, None when they
+    were made on the caller's stream)."""
+    opt.pending_at = opt.pending_host = NO_PENDING
+    opt.pending_ready = None
+
+
+def set_pending_at(opt, at: int, ready=None) -> None:
+    """Write the root ``pending_at`` (a device int32 under the guard, no
+    host-to-device copy) with its host mirror and ready event."""
+    inner = _inner(opt)
+    inner.pending_host = int(at)
+    inner.pending_ready = ready
+    if isinstance(inner.count, torch.Tensor):
+        inner.pending_at = torch.full((), int(at), dtype=torch.int32,
+                                      device=_params(inner)[0].device)
+    else:
+        inner.pending_at = int(at)
+
+
+def install_pending(opt, partials, at_step: int, ready=None) -> None:
+    """Merge a refresh result (one partial dict per parameter, in
+    ``param_groups[0]["params"]`` order; empty or None leaves a slot as
+    it is) into the state and stamp ``pending_at = at_step``: the step
+    swaps pending -> active once ``count >= pending_at +
+    precond_swap_delay``.  Reference swaps only: no device compute.
+    ``ready`` is the event after which the twins are written (a refresh
+    on a side stream), waited on by the step that swaps them in."""
+    inner = _inner(opt)
+    for p, part in zip(_params(inner), partials):
+        if part:
+            inner.state[p].update(part)
+    set_pending_at(inner, at_step, ready)
+
+
+def snapshot_overwritten_active(opt, partials):
+    """Per-parameter snapshot of the ACTIVE (non-pending) keys a refresh
+    result is about to overwrite (§15): the drift trackers ``rnorm`` and
+    ``dnorm`` land at install, and a discarded refresh must leave no
+    residue in the active plane (a NaN ``rnorm`` would disarm the drift
+    trigger).  Reference capture only."""
+    inner = _inner(opt)
+    return [{k: inner.state[p][k] for k in part
+             if k not in PENDING_STATE_KEYS and k in inner.state[p]}
+            if part else None for p, part in zip(_params(inner), partials)]
+
+
+def discard_pending(opt) -> None:
+    """Mark any in-flight pending preconditioner stale (§12): a state
+    restored mid-interval must never swap in a buffer whose payload the
+    checkpoint dropped.  No-op for optimizers without a refresh plane."""
+    if hasattr(_inner(opt), "pending_at"):
+        set_pending_at(opt, NO_PENDING)
+
+
+def wait_pending(opt) -> None:
+    """Order the caller's stream after the in-flight refresh (a device-side
+    wait, no host synchronization); no-op when none ran on a side
+    stream."""
+    ready = getattr(_inner(opt), "pending_ready", None)
+    if ready is not None:
+        torch.cuda.current_stream(_params(opt)[0].device).wait_event(ready)
+
+
+def swap_pending(opt, pairs) -> None:
+    """The §12 swap inside an async step.  ``pairs``: (state dict, active
+    key) of every double-buffered entry; each key's pending twin is
+    ``key + "_p"``.  Once ``count >= pending_at + precond_swap_delay``
+    the twins become active and ``pending_at`` clears.  A host ``count``
+    decides on the host, with no synchronization; a device ``count``
+    (the guard's) decides on the device with ``torch.where``, from the
+    step the guard's host clock (``host_count``, never below ``count``)
+    allows on.  Only a step that may swap reads the twins, and it first
+    waits for the refresh that wrote them (``wait_pending``)."""
+    inner = _inner(opt)
+    if inner.pending_host == NO_PENDING:
+        return
+    delay = inner.cfg.precond_swap_delay
+    count = inner.count
+    guarded = isinstance(count, torch.Tensor)
+    if (inner.host_count if guarded else count) < inner.pending_host + delay:
+        return
+    wait_pending(inner)
+    if not guarded:
+        for st, k in pairs:
+            st[k] = st[k + "_p"]
+        inner.pending_at = inner.pending_host = NO_PENDING
+        return
+    at = inner.pending_at
+    do = (at > NO_PENDING) & (count >= at + delay)
+    for st, k in pairs:
+        st[k] = torch.where(do, st[k + "_p"], st[k])
+    inner.pending_at = torch.where(do, torch.full_like(at, NO_PENDING), at)
+
+
+def merge_partials(*results):
+    """One partial dict per parameter from several refresh results."""
+    return [dict(kv for part in parts if part for kv in part.items())
+            for parts in zip(*results)]
+
+
+def precond_drift(opt) -> torch.Tensor:
+    """Relative drift of the cached preconditioners since the last refresh
+    dispatch (§12): the maximum over parameters of ``dnorm / max(rnorm,
+    1e-12)``, a device scalar (0 without drift tracking)."""
+    inner = _inner(opt)
+    ds = [st["dnorm"] / torch.clamp(st["rnorm"], min=1e-12)
+          for st in (inner.state[p] for p in _params(inner))
+          if "dnorm" in st]
+    if not ds:
+        return torch.zeros((), dtype=torch.float32,
+                           device=_params(inner)[0].device)
+    return torch.max(torch.stack(ds))
+
+
+def _partials_finite(partials) -> torch.Tensor:
+    """0-d bool on the device: every float entry of a refresh result is
+    finite.  A few reductions enqueued with the refresh (§15), read once,
+    at swap time."""
+    checks = [torch.isfinite(t).all() for part in partials if part
+              for t in part.values() if t.is_floating_point()]
+    if not checks:
+        return torch.ones((), dtype=torch.bool)
+    return torch.stack(checks).all()
+
+
+class AsyncPrecondService:
+    """Host-side scheduler of the double-buffered refresh plane (§12;
+    counterpart of the reference's ``base.AsyncPrecondService``).
+
+    Decides WHEN to dispatch a refresh (the drift trigger, with the fixed
+    clock as ceiling), dispatches the optimizer's ``pending_twins(key)``
+    without blocking, installs them (``install_pending``) and keeps the
+    ``matfn_telemetry`` counters.  Validated install (§15): every
+    dispatch also enqueues ``_partials_finite`` over the twins; the
+    verdict is read just before the swap would fire, and a non-finite
+    buffer is discarded (never swapped) and re-dispatched with capped
+    exponential backoff (1, 2, 4, ... steps, capped at the refresh
+    period); after ``precond_max_retries`` consecutive failures the slot
+    degrades (the last good active buffer keeps serving) until the next
+    clock or drift trigger.
+
+    On the card the twins are computed on a side CUDA stream: it first
+    waits for everything the step's stream has queued (so it reads the
+    finished ``mom`` or ``L``/``R``), every input it reads is recorded
+    on it (the next step replaces those tensors, and their blocks must
+    not return to the step stream's pool while the refresh reads them),
+    its outputs are recorded on the step's stream (they are freed there
+    once swapped in and replaced), and the verdict is copied into pinned
+    host memory before an event closes the refresh.  The drift trackers
+    ``rnorm``/``dnorm`` that the install resets are computed on the
+    step's stream (``drift_baseline``), so that only the step that swaps
+    waits for the refresh (``swap_pending``), and the host waits only
+    for the verdict, at swap time (``ready.synchronize()``).  Given CPU
+    parameters, everything runs in order on the CPU.
+    """
+
+    def __init__(self, opt, cfg=None):
+        inner = _inner(opt)
+        if not hasattr(inner, "pending_twins") or \
+                not hasattr(inner, "pending_at"):
+            raise ValueError("the optimizer has no refresh plane: Muon or "
+                             "Shampoo with precond_async=True has one")
+        self.opt = opt
+        self.cfg = cfg = inner.cfg if cfg is None else cfg
+        self.period = resolve_refresh_period(cfg)
+        self.swap_delay = int(cfg.precond_swap_delay)
+        self.threshold = cfg.drift_threshold
+        self.max_retries = int(cfg.precond_max_retries)
+        self._refresh = inner.pending_twins
+        self._pending_check = None  # (verdict, ready event or None)
+        self._overwritten = None  # active-key snapshot for a clean discard
+        self._retry_at: Optional[int] = None
+        self._side = None  # the side stream, made at the first dispatch
+        self._verdict = None  # its pinned host flag
+        self.failures = 0  # consecutive validation failures
+        self.last_dispatch: Optional[int] = None
+        self.last_drift: float = 0.0
+        self.counters = {"refreshes": 0, "drift_triggered": 0,
+                         "clock_triggered": 0, "bootstrap": 0,
+                         "discarded": 0, "retries": 0, "degraded": 0}
+
+    def due(self, step: int, drift: float) -> Optional[str]:
+        """None, or why a refresh should dispatch at ``step``."""
+        if self.last_dispatch is None:
+            return "bootstrap"
+        if step <= self.last_dispatch + self.swap_delay:
+            # the previous refresh's swap has not run yet: dispatching now
+            # would overwrite a never-consumed pending buffer
+            return None
+        if self._retry_at is not None and step >= self._retry_at:
+            return "retries"  # backoff re-dispatch after a discard
+        if step - self.last_dispatch >= self.period:
+            return "clock_triggered"  # the fixed-schedule ceiling
+        if self.threshold is not None and drift >= self.threshold:
+            return "drift_triggered"
+        return None
+
+    def _check_pending(self, step: int, force: bool = False) -> None:
+        """Read the in-flight verdict once the swap is about to fire;
+        discard and schedule a backoff retry on failure."""
+        if self._pending_check is None or self.last_dispatch is None:
+            return
+        if not force and step < self.last_dispatch + self.swap_delay:
+            return  # the swap is not due yet: keep the check in flight
+        verdict, ready = self._pending_check
+        self._pending_check = None
+        if ready is not None:
+            ready.synchronize()  # the one host wait: the verdict's copy
+        if bool(verdict):
+            self.failures = 0
+            self._retry_at = None
+            self._overwritten = None
+            return
+        # a poisoned twin: never swap it in, and roll back the active
+        # keys (drift trackers) its install overwrote
+        if self._overwritten is not None:
+            install_pending(self.opt, self._overwritten, NO_PENDING)
+            self._overwritten = None
+        discard_pending(self.opt)
+        self.counters["discarded"] += 1
+        self.failures += 1
+        if self.failures >= self.max_retries:
+            # degrade: keep serving the last good active buffer; only the
+            # next clock/drift trigger tries again
+            self.counters["degraded"] += 1
+            self._retry_at = None
+        else:
+            self._retry_at = step + min(2 ** (self.failures - 1),
+                                        self.period)
+
+    def _dispatch(self, key):
+        """(pending twins, (verdict, ready event)): the refresh and its
+        finiteness check, on the side stream on the card."""
+        inner = _inner(self.opt)
+        dev = _params(inner)[0].device
+        if dev.type != "cuda":
+            with torch.no_grad():
+                twins = self._refresh(key)
+                return twins, (_partials_finite(twins), None)
+        main = torch.cuda.current_stream(dev)
+        if self._side is None:
+            self._side = torch.cuda.Stream(dev)
+            self._verdict = torch.empty((), dtype=torch.bool,
+                                        pin_memory=True)
+        side = self._side
+        side.wait_stream(main)
+        for t in inner.refresh_inputs():
+            t.record_stream(side)
+        with torch.cuda.stream(side), torch.no_grad():
+            twins = self._refresh(key)
+            self._verdict.copy_(_partials_finite(twins), non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        for part in twins:
+            for t in (part or {}).values():
+                t.record_stream(main)
+        return twins, (self._verdict, ready)
+
+    def step_begin(self, step: int, key, drift: float = 0.0) -> None:
+        """Phase 1 of the two-phase step loop: validate an in-flight
+        refresh whose swap is due, then maybe dispatch one.  Nothing here
+        waits on the device except the verdict at swap time.  The
+        bootstrap dispatch back-dates ``pending_at`` so that its swap
+        fires on this very step, and reads its verdict at once."""
+        self.last_drift = drift
+        self._check_pending(step)
+        reason = self.due(step, drift)
+        if reason is None:
+            return
+        twins, check = self._dispatch(key)
+        partials = merge_partials(twins, _inner(self.opt).drift_baseline())
+        at = step - self.swap_delay if reason == "bootstrap" else step
+        self._overwritten = snapshot_overwritten_active(self.opt, partials)
+        install_pending(self.opt, partials, at, ready=check[1])
+        self._pending_check = check
+        self.last_dispatch = step
+        self._retry_at = None
+        self.counters["refreshes"] += 1
+        self.counters[reason] += 1
+        if reason == "bootstrap":
+            self._check_pending(step, force=True)
+
+    @property
+    def matfn_telemetry(self) -> dict:
+        return dict(self.counters, last_drift=self.last_drift)
 
 
 def is_matrix_param(path_axes: tuple, shape: tuple,

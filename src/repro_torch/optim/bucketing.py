@@ -284,6 +284,30 @@ def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
     return outs  # type: ignore[return-value]
 
 
+def polar_refresh(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
+                  key=None):
+    """The Muon preconditioner refresh as one callable (DESIGN.md §12):
+    the polar factor of every view, as ``(outs, iters, statuses)`` with
+    the last two None unless ``cfg.matfn_telemetry``.  Bucketed, it is
+    ``polar_bucketed``; otherwise one polar a view, view ``i`` drawing
+    from ``key.fold_in(i)``, ``i`` its position among ``views`` (the
+    reference's, which is not the leaf index the in-step per-leaf loop
+    folds in)."""
+    tele = cfg.matfn_telemetry
+    if cfg.bucketed:
+        if tele:
+            return polar_bucketed(views, cfg, key, with_iters=True)
+        return polar_bucketed(views, cfg, key), None, None
+    kw = dict(return_iters=True, return_status=True) if tele else {}
+    outs = [matfn.polar(M, method=cfg.matfn_method, cfg=cfg.resolved_prism,
+                        key=key.fold_in(i) if key is not None else None,
+                        **kw)
+            for i, M in enumerate(views)]
+    if tele:
+        return tuple(list(t) for t in zip(*outs))
+    return outs, None, None
+
+
 def transform_bucketed(mats: Sequence[torch.Tensor], fn,
                        with_aux: int = 0):
     """Apply ``fn(stacked, bucket, bucket_index)`` once per exact-shape

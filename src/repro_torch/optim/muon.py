@@ -14,7 +14,7 @@ Orthogonalization is shape-bucketed (``bucketing``): same-shape momentum
 matrices stack into one [B, m, n] polar call per bucket.
 
 ``step(key=, refresh=)`` does what the reference's ``make_muon(cfg,
-axes).update`` does without the async refresh plane; the step's sketch
+axes).update`` does; the step's sketch
 key (``core.rng.Key``) seeds the fitted PRISM iterations, bucket ``bi``
 drawing from ``key.fold_in(bi)``; with ``bucketed=False`` each matrix
 leaf draws from ``key.fold_in(i)``, ``i`` its index in the reference's
@@ -35,8 +35,18 @@ realized iteration counts "iters" (int32) and the guardian codes "status"
 (int8) of its view's slices, refreshed with the polars and carried
 through stale steps untouched.
 
-The async refresh plane and ``muon_local_reshard`` raise here (ROADMAP.md
-Queue 1 items 8b, 11).
+Async refresh plane (DESIGN.md §12): with ``precond_async`` the polar
+chains never run inside ``step``.  Every matrix leaf carries an active
+"ortho" (served every step) and a pending "ortho_p" twin (with
+"iters_p"/"status_p" under telemetry), plus the drift proxy "dnorm"
+(the momentum's accumulated movement) over "rnorm" (its norm at the last
+dispatch).  ``refresh(key)`` recomputes the twins from the STORED
+momentum (``bucketing.polar_refresh``, views in the reference's slot
+order) and resets the drift proxy; ``base.AsyncPrecondService``
+dispatches it, and the step swaps the twins in once ``count >=
+pending_at + precond_swap_delay`` (``base.swap_pending``).
+
+``muon_local_reshard`` raises here (ROADMAP.md Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -51,16 +61,10 @@ from repro_torch.optim import base, bucketing
 
 
 def _check_supported(cfg: OptimizerConfig) -> None:
-    unported = {
-        "precond_async (refresh plane, ROADMAP.md Queue 1 item 8b)":
-            cfg.precond_async,
-        "muon_local_reshard (sharding, ROADMAP.md Queue 1 item 11)":
-            cfg.muon_local_reshard,
-    }
-    missing = [k for k, v in unported.items() if v]
-    if missing:
-        raise NotImplementedError("Muon options not ported yet: "
-                                  + "; ".join(missing))
+    if cfg.muon_local_reshard:
+        raise NotImplementedError(
+            "Muon options not ported yet: muon_local_reshard (sharding, "
+            "ROADMAP.md Queue 1 item 11)")
 
 
 def leaf_order(names):
@@ -85,8 +89,10 @@ class Muon(torch.optim.Optimizer):
     decides the matrix view of every parameter.  Hyperparameters live in
     ``cfg``; gradients are read from ``.grad`` as fp32.  The state of
     every parameter is created here, with the reference's keys: "mom"
-    (+ "tier", "ortho", "iters", "status") for matrix leaves, "mom"/"nu"
-    for the others.
+    (+ "tier", "ortho", "iters", "status" and the refresh plane's
+    "ortho_p", "iters_p", "status_p", "dnorm", "rnorm") for matrix
+    leaves, "mom"/"nu" for the others; under ``precond_async`` the
+    optimizer also carries the root ``pending_at`` (``base.init_pending``).
     """
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
@@ -98,6 +104,8 @@ class Muon(torch.optim.Optimizer):
         self.axes = [tuple(axes[n]) for n, _ in named]
         self.leaf_idx = leaf_order([n for n, _ in named])
         self.count = 0
+        if cfg.precond_async:
+            base.init_pending(self)
         for (_, p), a in zip(named, self.axes):
             self.state[p] = self._init_state(p, a)
 
@@ -126,6 +134,14 @@ class Muon(torch.optim.Optimizer):
             st["ortho"] = torch.zeros(vshape,
                                       dtype=torch_dtype(cfg.cache_dtype),
                                       device=p.device)
+        if cfg.precond_async:
+            st["ortho_p"] = torch.zeros_like(st["ortho"])
+            st["dnorm"] = torch.zeros((), dtype=torch.float32,
+                                      device=p.device)
+            st["rnorm"] = torch.zeros_like(st["dnorm"])
+            if cfg.matfn_telemetry:
+                st["iters_p"] = torch.zeros_like(st["iters"])
+                st["status_p"] = torch.zeros_like(st["status"])
         return st
 
     def _orthogonalize(self, views, idx, key):
@@ -169,8 +185,17 @@ class Muon(torch.optim.Optimizer):
             st = self.state[p]
             if self._matrix(a, p):
                 mom = cfg.momentum * st["mom"] + g
-                gm = g + cfg.momentum * mom  # nesterov
-                M, meta = base.to_matrix_view(gm, a)
+                if cfg.precond_async:
+                    # drift proxy (§12): the momentum's movement since
+                    # the last dispatch; the view is not needed, only
+                    # its layout
+                    st["dnorm"] = st["dnorm"] + torch.sqrt(
+                        torch.sum(torch.square(mom - st["mom"])))
+                    M, meta = base.to_matrix_view(
+                        torch.empty(p.shape, device="meta"), a)
+                else:
+                    gm = g + cfg.momentum * mom  # nesterov
+                    M, meta = base.to_matrix_view(gm, a)
                 views.append(M)
                 metas.append(meta)
                 idx.append(i)
@@ -188,7 +213,15 @@ class Muon(torch.optim.Optimizer):
         # orthogonalize (one batched call per shape bucket), behind the
         # staleness schedule when precond_every > 1
         states = [self.state[params[i]] for i in idx]
-        if cfg.precond_every > 1:
+        if cfg.precond_async:
+            # §12 steady state: never a polar here; the active cache is
+            # served, or the pending twins once their swap is due
+            keys = ("ortho", "iters", "status") if cfg.matfn_telemetry \
+                else ("ortho",)
+            base.swap_pending(self, [(st, k) for st in states for k in keys])
+            polars = [st["ortho"] for st in states]
+            its = sts = None
+        elif cfg.precond_every > 1:
             if refresh is None:
                 refresh = self.count % cfg.precond_every == 0
             if refresh:
@@ -213,3 +246,61 @@ class Muon(torch.optim.Optimizer):
             p32 = p.float() * (1.0 - lr * cfg.weight_decay) - lr * upd
             p.copy_(p32.to(p.dtype))
         self.count += 1
+
+    # ------------------------------------------------------ refresh plane
+
+    def refresh_inputs(self):
+        """The tensors ``pending_twins`` reads: each matrix leaf's stored
+        momentum."""
+        return [st["mom"] for st in (self.state[p] for p in
+                                     self.param_groups[0]["params"])
+                if "ortho_p" in st]
+
+    def pending_twins(self, key):
+        """The §12 refresh's pending buffers, one partial dict per
+        parameter: the polar of every matrix leaf's STORED momentum (not
+        the nesterov view a blocking refresh would take), in
+        ``cache_dtype``, with its telemetry twins.  The views are built
+        in the reference's slot order (``leaf_order``), so that bucket
+        entries and per-view keys (``polar_refresh``) are the
+        reference's.  A zero momentum (the bootstrap, before any update)
+        serves a zero polar, not the 0/0 of the alpha fit."""
+        cfg = self.cfg
+        params = self.param_groups[0]["params"]
+        order = sorted((i for i, p in enumerate(params)
+                        if "ortho_p" in self.state[p]),
+                       key=self.leaf_idx.__getitem__)
+        views = [base.to_matrix_view(self.state[params[i]]["mom"],
+                                     self.axes[i])[0] for i in order]
+        parts = [{} for _ in params]
+        if not views:
+            return parts
+        outs, its, sts = bucketing.polar_refresh(views, cfg, key)
+        cache = torch_dtype(cfg.cache_dtype)
+        for j, i in enumerate(order):
+            nrm = torch.sqrt(torch.sum(torch.square(views[j]), dim=(-2, -1),
+                                       keepdim=True))
+            O = torch.where(nrm > 0, outs[j], torch.zeros_like(outs[j]))
+            parts[i] = {"ortho_p": O.to(cache)}
+            if its is not None:
+                parts[i]["iters_p"], parts[i]["status_p"] = its[j], sts[j]
+        return parts
+
+    def drift_baseline(self):
+        """The drift proxy a refresh resets, one partial dict per
+        parameter: "rnorm", the norm of the momentum the twins are
+        computed from, and a zero "dnorm"."""
+        parts = []
+        for p in self.param_groups[0]["params"]:
+            st = self.state[p]
+            parts.append({} if "ortho_p" not in st else {
+                "rnorm": torch.sqrt(torch.sum(torch.square(st["mom"]))),
+                "dnorm": torch.zeros_like(st["dnorm"])})
+        return parts
+
+    def refresh(self, key):
+        """The reference's ``refresh(state, key)``: the pending twins and
+        the drift reset, one partial dict per parameter, for
+        ``base.install_pending``."""
+        return base.merge_partials(self.pending_twins(key),
+                                   self.drift_baseline())

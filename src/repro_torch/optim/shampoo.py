@@ -38,8 +38,15 @@ prism method (``cfg.matfn_telemetry``) each full-matrix side carries
 per slice, refreshed with the inverse roots.
 
 ``step(key=, refresh=)`` does what the reference's ``make_shampoo(cfg,
-axes).update`` does without the async refresh plane, which raises here
-(ROADMAP.md Queue 1 item 8b).
+axes).update`` does.
+
+Async refresh plane (DESIGN.md §12): with ``precond_async`` no inverse
+root runs inside ``step``.  Every cached side carries a pending twin
+("Linv_p"/"Rinv_p", with the telemetry twins) and every matrix leaf
+with one the joint drift proxy of its factors ("dnorm" over "rnorm");
+``refresh(key)`` recomputes the twins from the STORED factors
+(``_fresh_invs``, jobs in the reference's slot order) and
+``base.swap_pending`` swaps them in, as in ``muon``.
 """
 from __future__ import annotations
 
@@ -53,13 +60,6 @@ from repro_torch.optim import base, bucketing
 from repro_torch.optim.muon import leaf_order
 
 BETA2 = 0.999   # EMA decay of the Kronecker factors (the reference's)
-
-
-def _check_supported(cfg: OptimizerConfig) -> None:
-    if cfg.precond_async:
-        raise NotImplementedError(
-            "Shampoo options not ported yet: precond_async (refresh plane, "
-            "ROADMAP.md Queue 1 item 8b)")
 
 
 def inv_root(A: torch.Tensor, p: int, cfg: OptimizerConfig, key,
@@ -119,13 +119,14 @@ class Shampoo(torch.optim.Optimizer):
     ``cfg``; gradients are read from ``.grad`` as fp32.  The per-parameter
     state, created here, carries the reference's keys: "mom", "L"/"Linv"
     or "diagL", "R"/"Rinv" or "diagR" (+ the telemetry keys) for matrix
-    leaves, "mom"/"nu" for the others.
+    leaves, "mom"/"nu" for the others; under ``precond_async`` also the
+    refresh plane's twins ("Linv_p", "Rinv_p", their telemetry twins),
+    "dnorm", "rnorm" and the root ``pending_at``.
     """
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  cfg: OptimizerConfig, axes: Dict[str, tuple],
                  p_root: int = 2):
-        _check_supported(cfg)
         named = list(named_params)
         super().__init__([p for _, p in named], defaults={})
         self.cfg = cfg
@@ -133,6 +134,8 @@ class Shampoo(torch.optim.Optimizer):
         self.axes = [tuple(axes[n]) for n, _ in named]
         self.leaf_idx = leaf_order([n for n, _ in named])
         self.count = 0
+        if cfg.precond_async:
+            base.init_pending(self)
         for (_, p), a in zip(named, self.axes):
             self.state[p] = self._init_state(p, a)
 
@@ -160,6 +163,13 @@ class Shampoo(torch.optim.Optimizer):
                 st["diag" + side] = torch.zeros(lead + (k,),
                                                 dtype=torch.float32,
                                                 device=p.device)
+        if cfg.precond_async and ("L" in st or "R" in st):
+            for k in [k for k in st if k.endswith("inv")
+                      or k.endswith("_iters") or k.endswith("_status")]:
+                st[k + "_p"] = torch.zeros_like(st[k])
+            st["dnorm"] = torch.zeros((), dtype=torch.float32,
+                                      device=p.device)
+            st["rnorm"] = torch.zeros_like(st["dnorm"])
         return st
 
     def _fresh_invs(self, jobs, key):
@@ -231,18 +241,30 @@ class Shampoo(torch.optim.Optimizer):
                 continue
             G, meta = base.to_matrix_view(g, a)
             Gt = G.transpose(-1, -2)
-            if "L" in st:
-                st["L"] = BETA2 * st["L"] + G @ Gt
-                jobs.append((i, "Linv", st["L"]))
-            else:
+            moved = 0  # the factors' joint squared movement (§12 drift)
+            for side, x, y in (("L", G, Gt), ("R", Gt, G)):
+                if side in st:
+                    new = BETA2 * st[side] + x @ y
+                    if "dnorm" in st:
+                        moved = moved + torch.sum(
+                            torch.square(new - st[side]))
+                    st[side] = new
+                    jobs.append((i, side + "inv", new))
+            if "diagL" in st:
                 st["diagL"] = BETA2 * st["diagL"] + torch.sum(G * G, dim=-1)
-            if "R" in st:
-                st["R"] = BETA2 * st["R"] + Gt @ G
-                jobs.append((i, "Rinv", st["R"]))
-            else:
+            if "diagR" in st:
                 st["diagR"] = BETA2 * st["diagR"] + torch.sum(G * G, dim=-2)
+            if "dnorm" in st:
+                st["dnorm"] = st["dnorm"] + torch.sqrt(moved)
             matrix.append((i, G, meta))
-        if refresh and jobs:
+        if cfg.precond_async:
+            # §12 steady state: no inverse root here; the active caches
+            # are served, or the pending twins once their swap is due
+            keys = ("", "_iters", "_status") if cfg.matfn_telemetry \
+                else ("",)
+            base.swap_pending(self, [(self.state[params[i]], name + k)
+                                     for i, name, _ in jobs for k in keys])
+        elif refresh and jobs:
             invs, its, sts = self._fresh_invs(jobs, key)
             for j, (i, name, _) in enumerate(jobs):
                 st = self.state[params[i]]
@@ -271,3 +293,59 @@ class Shampoo(torch.optim.Optimizer):
             p32 = p.float() * (1.0 - lr * cfg.weight_decay) - lr * mom
             p.copy_(p32.to(p.dtype))
         self.count += 1
+
+    # ------------------------------------------------------ refresh plane
+
+    def refresh_inputs(self):
+        """The tensors ``pending_twins`` reads: the EMA factors of every
+        cached side."""
+        return [st[k] for st in (self.state[p] for p in
+                                 self.param_groups[0]["params"])
+                for k in ("L", "R") if k + "inv_p" in st]
+
+    def pending_twins(self, key):
+        """The §12 refresh's pending buffers, one partial dict per
+        parameter: the inverse roots of the STORED factors of every
+        cached side, with their telemetry twins.  The jobs are queued in
+        the reference's slot order (L before R), so that bucket indices,
+        hence sketch keys, are the reference's."""
+        params = self.param_groups[0]["params"]
+        parts = [{} for _ in params]
+        jobs = []
+        for i in sorted(range(len(params)), key=self.leaf_idx.__getitem__):
+            st = self.state[params[i]]
+            for side in ("L", "R"):
+                if side + "inv_p" in st:
+                    jobs.append((i, side + "inv", st[side]))
+        if not jobs:
+            return parts
+        invs, its, sts = self._fresh_invs(jobs, key)
+        for j, (i, name, _) in enumerate(jobs):
+            parts[i][name + "_p"] = invs[j]
+            if its is not None:
+                parts[i][name + "_iters_p"] = its[j]
+                parts[i][name + "_status_p"] = sts[j]
+        return parts
+
+    def drift_baseline(self):
+        """The drift proxy a refresh resets, one partial dict per
+        parameter: "rnorm", the joint norm of the factors the twins are
+        computed from, and a zero "dnorm"."""
+        parts = []
+        for p in self.param_groups[0]["params"]:
+            st = self.state[p]
+            if "dnorm" not in st:
+                parts.append({})
+                continue
+            rsq = sum(torch.sum(torch.square(st[k])) for k in ("L", "R")
+                      if k + "inv_p" in st)
+            parts.append({"rnorm": torch.sqrt(rsq),
+                          "dnorm": torch.zeros_like(st["dnorm"])})
+        return parts
+
+    def refresh(self, key):
+        """The reference's ``refresh(state, key)``: the pending twins and
+        the drift reset, one partial dict per parameter, for
+        ``base.install_pending``."""
+        return base.merge_partials(self.pending_twins(key),
+                                   self.drift_baseline())

@@ -24,7 +24,7 @@ from repro_torch.optim import base
 def make_train_step(model: Model, opt: torch.optim.Optimizer,
                     ocfg: OptimizerConfig, key=None) -> Callable:
     """Build train_step(batch, step, refresh=None) -> metrics dict (loss,
-    grad_norm, ce, ...).
+    grad_norm, ce, ..., and "precond_drift" under ``precond_async``).
 
     Updates the model's parameters and the optimizer state in place.
     ``step`` is the global step (the sketch key is ``key.fold_in(step)``;
@@ -50,6 +50,12 @@ def make_train_step(model: Model, opt: torch.optim.Optimizer,
         for p, g in zip(params, clipped):
             p.grad = g
         opt.step(key=root.fold_in(step), refresh=refresh)
-        return dict(metrics, loss=loss.detach(), grad_norm=gnorm)
+        metrics = dict(metrics, loss=loss.detach(), grad_norm=gnorm)
+        if ocfg.precond_async:
+            # §12: the cached preconditioners' drift proxy, a device
+            # scalar the Trainer reads with the loss and feeds back to
+            # the AsyncPrecondService's trigger
+            metrics["precond_drift"] = base.precond_drift(opt)
+        return metrics
 
     return train_step

@@ -13,16 +13,23 @@
   * the staleness schedule: with a refresh period K > 1 step t refreshes
     the preconditioners when t % K == 0 and serves them from the state
     otherwise (``refresh`` passed to the optimizer as a Python bool);
+  * the §12 async refresh plane (``precond_async``): a two-phase step.
+    ``self.precond`` (``base.AsyncPrecondService``) first maybe
+    dispatches a refresh with the key ``Key(1).fold_in(t)`` (on a side
+    CUDA stream on the card), fed the drift of the step before, read
+    with its loss; then the step runs with ``refresh=False`` and
+    launches no matrix function.  A restore marks the plane stale
+    (``fault.discard_inflight``), and the new service bootstraps;
   * straggler detection: each step's wall time against the running
     median of the steps before it (the run's first step excluded), and a
     HEARTBEAT file ``"<step> <time>"`` written every step for external
     watchdogs.
 
 The checkpoint tree is ``{"params": {name: tensor}, "opt": {name:
-{state key: tensor}, "count": ..., ["bad_steps": ...]}}``, flattened by
-``checkpoint`` with the reference's ``|`` separator.  Meshes, shardings
-and pipeline stages (ROADMAP.md Queue 1 item 11) and the async refresh
-plane (item 8b) raise here.
+{state key: tensor}, "count": ..., ["pending_at": ...,] ["bad_steps":
+...]}}``, flattened by ``checkpoint`` with the reference's ``|``
+separator; the pending twins are left out.  Meshes, shardings and
+pipeline stages raise here (ROADMAP.md Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -36,9 +43,11 @@ import torch
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.config import OptimizerConfig, TrainConfig
+from repro_torch.core.rng import Key
 from repro_torch.data import DataConfig, make_batch_fn
 from repro_torch.models.transformer import Model
 from repro_torch.optim import base, make_optimizer
+from repro_torch.train import fault
 from repro_torch.train.state import make_train_step
 
 
@@ -55,10 +64,6 @@ class Trainer:
             raise NotImplementedError(
                 "meshes, shardings and pipeline stages are ported with "
                 "ROADMAP.md Queue 1 item 11")
-        if ocfg.precond_async:
-            raise NotImplementedError(
-                "precond_async (the async refresh plane) is ported with "
-                "ROADMAP.md Queue 1 item 8b")
         self.model = model
         self.ocfg, self.tcfg, self.dcfg = ocfg, tcfg, dcfg
         self.device = next(model.parameters()).device
@@ -73,6 +78,14 @@ class Trainer:
         self.opt = make_optimizer(self.ocfg, self.model.named_parameters(),
                                   self.model.logical_axes())
         self.step_fn = make_train_step(self.model, self.opt, self.ocfg)
+        self.precond = (base.AsyncPrecondService(self.opt)
+                        if self.ocfg.precond_async else None)
+
+    @property
+    def matfn_telemetry(self) -> Dict:
+        """Refresh and drift counters of the async service ({} without
+        one)."""
+        return {} if self.precond is None else self.precond.matfn_telemetry
 
     # ------------------------------------------------------------- state
 
@@ -80,9 +93,10 @@ class Trainer:
         """The checkpoint tree of the current state (live tensors)."""
         named = dict(self.model.named_parameters())
         opt = {k: dict(self.opt.state[p]) for k, p in named.items()}
-        opt["count"] = (self.opt.count
-                        if isinstance(self.opt.count, torch.Tensor)
-                        else np.int32(self.opt.count))
+        for k in ("count", "pending_at"):
+            if hasattr(self.opt, k):
+                v = getattr(self.opt, k)
+                opt[k] = v if isinstance(v, torch.Tensor) else np.int32(v)
         if isinstance(self.opt, base.SkipNonfinite):
             opt["bad_steps"] = self.opt.bad_steps
         return {"params": named, "opt": opt}
@@ -95,6 +109,8 @@ class Trainer:
         for k, p in named.items():
             self.opt.state[p].update(tree["opt"][k])
         self.opt.count = int(tree["opt"]["count"])
+        if "pending_at" in tree["opt"]:
+            base.set_pending_at(self.opt, int(tree["opt"]["pending_at"]))
         if isinstance(self.opt, base.SkipNonfinite):
             self.opt.bad_steps = tree["opt"]["bad_steps"]
 
@@ -117,6 +133,8 @@ class Trainer:
         step, tree = ckpt.restore(cdir, self.state_tree(),
                                   allow_missing=base.PENDING_STATE_KEYS)
         self.load_state_tree(tree)
+        # a resumed run never swaps in a buffer it did not dispatch
+        fault.discard_inflight(self.opt)
         print(f"[trainer] resumed from step {step}", flush=True)
         return step
 
@@ -144,11 +162,21 @@ class Trainer:
             os.makedirs(cdir, exist_ok=True)
         K = base.resolve_refresh_period(self.ocfg)
         losses = []
+        drift = 0.0
         for t in range(start, steps):
             t0 = time.perf_counter()
-            refresh = (t % K == 0) if K > 1 else None
+            if self.precond is not None:
+                self.precond.step_begin(t, Key(1).fold_in(t), drift=drift)
+                refresh = False
+            else:
+                refresh = (t % K == 0) if K > 1 else None
             metrics = self.step_fn(self.batch_fn(t), t, refresh)
-            loss = float(metrics["loss"])  # waits for the whole step
+            if self.precond is not None:
+                # one read for both: the drift adds no synchronization
+                loss, drift = torch.stack([metrics["loss"].float(),
+                                           metrics["precond_drift"]]).tolist()
+            else:
+                loss = float(metrics["loss"])  # waits for the whole step
             dt = time.perf_counter() - t0
             if t > start:  # the first step of a run builds and warms up
                 self.step_times.append(dt)
@@ -174,5 +202,6 @@ class Trainer:
         if self._ckpt_thread is not None:
             self._ckpt_thread.join()
             self._ckpt_thread = None
+        base.wait_pending(self.opt)  # the state returned may be read
         tree = self.state_tree()
         return tree["params"], tree["opt"], losses

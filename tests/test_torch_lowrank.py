@@ -33,7 +33,7 @@ from repro_torch.core import lowrank
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import param_specs
 from repro_torch.optim import base, bucketing
-from test_torch_muon import _muon_both, count_ops
+from test_torch_muon import _hold_all, _muon_both, _ocfgs, count_ops
 from test_torch_prism import JaxKey
 
 # the reference tests' chain (tests/test_lowrank.py), cut to 2 warm and 2
@@ -224,6 +224,28 @@ def test_muon_lowrank_update_matches_reference():
     for k in ("embed", "head"):
         assert "nu" not in state[k] and int(state[k]["tier"]) == lowrank_code
     assert int(state["layers.mlp.w_up"]["tier"]) != lowrank_code
+
+
+def test_muon_lowrank_stale_cache_matches_reference():
+    """The tier under the synchronous staleness cache (precond_every=3, no
+    matfn_tol): four SMOKE steps, the vocab views' lifted "ortho" caches
+    refreshed at steps 0 and 3 and served at 1 and 2, which call no
+    kernel wrapper; parameters and state at the fp32 bound after every
+    step."""
+    kw = {k: v for k, v in ROUTES_KW.items() if k != "matfn_tol"}
+    tcfg = _ocfgs(ROUTES, precond_every=3, **kw)[1]
+    calls = []
+
+    def each(s, jp, js, named, topt, c):
+        calls.append(sum(c.values()))
+        _hold_all(tcfg, jp, js, named, topt, "float32")
+
+    # the schedule passed as the static override: the reference's eager
+    # lax.cond would trace both branches at every step
+    _muon_both(4, "float32", ROUTES, keyed=True, each=each, precond_every=3,
+               refresh=[True, False, False, True], **kw)
+    assert calls[0] > 0 and calls[3] == calls[0]
+    assert calls[1] == calls[2] == 0
 
 
 @pytest.mark.parametrize("fuse,want", [

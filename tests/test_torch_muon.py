@@ -293,9 +293,9 @@ def test_clip_by_global_norm_matches_reference(case):
 
 
 def test_unported_options_raise():
-    """precond_every > 1, adamw and the lowrank tier now build; the
-    options of later items still raise, each naming its ROADMAP.md
-    item."""
+    """precond_every > 1, adamw, the lowrank tier and the async refresh
+    plane now build; ``muon_local_reshard`` still raises, naming its
+    ROADMAP.md item."""
     named = [("w", torch.nn.Parameter(torch.zeros(32, 16)))]
     axes = {"w": ("embed", "mlp")}
     _, tcfg = _ocfgs(precond_every=2)
@@ -304,11 +304,12 @@ def test_unported_options_raise():
                                      axes), AdamW)
     _, tcfg = _ocfgs(lowrank_rank=4)
     assert isinstance(make_optimizer(tcfg, named, axes), muon.Muon)
-    for kw, item in ((dict(precond_async=True, precond_every=2), "8b"),
-                     (dict(muon_local_reshard=True), "11")):
-        _, tcfg = _ocfgs(**kw)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            make_optimizer(tcfg, named, axes)
+    _, tcfg = _ocfgs(precond_async=True, precond_every=2)
+    opt = make_optimizer(tcfg, named, axes)
+    assert isinstance(opt, muon.Muon) and opt.pending_at == base.NO_PENDING
+    _, tcfg = _ocfgs(muon_local_reshard=True)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        make_optimizer(tcfg, named, axes)
 
 
 # ------------------------------------------------- staleness cache (§8)

@@ -27,8 +27,6 @@ same relative amount, so the parameters are held to that bound times the
 largest entry of their change over the run.  Three training steps: the
 losses and parameters 1e-4 (tests/test_torch_train.py).
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -266,24 +264,37 @@ def test_diagonal_fallback_matches_reference(which):
 
 
 def test_carrying_an_unported_state_key_raises():
-    """The async refresh plane's pending twins are not carried (ROADMAP.md
-    Queue 1 item 8b); the telemetry keys now are."""
+    """The async refresh plane's pending twins, drift proxy and
+    ``pending_at`` now carry across (in the port's dtypes); a key neither
+    optimizer carries still raises."""
     jmodel, params = _smoke()
-    jcfg, tcfg = _ocfgs("warm")
-    js = jmake_optimizer(dataclasses.replace(jcfg, precond_async=True,
-                                             precond_every=2),
-                         jmodel.logical_axes()).init(
+    jcfg, tcfg = _ocfgs("warm", precond_async=True, precond_every=2)
+    js = jmake_optimizer(jcfg, jmodel.logical_axes()).init(
         jax.tree.map(jnp.asarray, params))
+    js = dict(js, pending_at=jnp.asarray(5, jnp.int32))
     named, topt = _port_opt(tcfg, params)
-    with pytest.raises(KeyError, match="Linv_p"):
+    convert.shampoo_state_from_jax(topt, named, jax.tree.map(np.asarray, js))
+    assert topt.pending_at == topt.pending_host == 5
+    jstate = convert._flatten(jax.tree.map(np.asarray, js["leaves"]))
+    carried = set()
+    for k, p in named:
+        for name, v in topt.state[p].items():
+            want = jstate[f"{k}.{name}"]
+            assert v.dtype == getattr(torch, str(want.dtype)), (k, name)
+            carried.add(name)
+    assert {"Linv_p", "Rinv_p", "dnorm", "rnorm"} <= carried
+    leaves = jax.tree.map(np.asarray, js["leaves"])
+    leaves["layers"]["attn"]["wq"]["bogus"] = np.zeros(())
+    with pytest.raises(KeyError, match="bogus"):
         convert.shampoo_state_from_jax(topt, named,
-                                       jax.tree.map(np.asarray, js))
+                                       dict(js, leaves=leaves))
 
 
 def test_unported_options_raise():
-    """matfn_method="newton", bucketed=False and p_root != 2 now build
-    (tests/test_torch_shampoo_roots.py holds them against the reference);
-    the async refresh plane still raises, naming its ROADMAP.md item."""
+    """matfn_method="newton", bucketed=False, p_root != 2 and the async
+    refresh plane now build (tests/test_torch_shampoo_roots.py and
+    tests/test_torch_async_precond.py hold them against the
+    reference)."""
     from repro_torch.optim.shampoo import Shampoo
 
     named = [("w", torch.nn.Parameter(torch.zeros(2)))]
@@ -294,8 +305,8 @@ def test_unported_options_raise():
     _, tcfg = _ocfgs("warm")
     assert Shampoo(named, tcfg, {"w": ("embed",)}, p_root=4).p_root == 4
     _, tcfg = _ocfgs("warm", precond_async=True, precond_every=2)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        make_optimizer(tcfg, named, {"w": ("embed",)})
+    opt = make_optimizer(tcfg, named, {"w": ("embed",)})
+    assert opt.pending_at == base.NO_PENDING
 
 
 def test_polar_express_matches_reference():

@@ -156,10 +156,10 @@ def test_unported_trainer_options_raise(tmp_path):
                           ({}, dict(pipeline_stages=2), "11")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             Trainer(model, ocfg, TrainConfig(**tkw), dcfg, **kw)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        Trainer(model, OptimizerConfig(name="muon", precond_async=True,
-                                       precond_every=2),
-                TrainConfig(), dcfg)
+    tr = Trainer(model, OptimizerConfig(name="muon", precond_async=True,
+                                        precond_every=2),
+                 TrainConfig(), dcfg)
+    assert tr.precond is not None and tr.matfn_telemetry["refreshes"] == 0
 
 
 def test_trainer_matches_reference(tmp_path):
@@ -196,7 +196,9 @@ def test_trainer_matches_reference(tmp_path):
 
 
 @pytest.mark.parametrize("args", [["--method", "polar_express"],
-                                  ["--optimizer", "adamw"]])
+                                  ["--optimizer", "adamw"],
+                                  ["--precond_every", "2",
+                                   "--precond_async"]])
 def test_launcher_runs_the_baselines(args, capsys):
     losses = train_lm.main(["--preset", "cpu-small", "--steps", "1",
                             "--device", "cpu"] + args)
