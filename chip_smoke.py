@@ -135,7 +135,33 @@ Phases (any failure exits non-zero and prints no result):
      checkpoint written while a refresh is in flight holds ``pending_at``
      and no pending twin, and a fresh Trainer restoring it bootstraps (19
      refresh launches at its first step, finite losses);
- 11. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+ 11. serving gpt2-paper at full width in bf16 (``launch/serve.py``,
+     ``serving/``), no PRISM kernel launched from (a) to (d): first the
+     train -> serve handoff, two Trainer steps of Muon PRISM-5 with a
+     checkpoint each, in a temporary ``build/phase11_*`` directory removed
+     at the end: a fresh Model (seed 1) through ``restore_params`` holds
+     the Trainer's parameters bitwise, and with a byte of step 2's payload
+     flipped ``restore_params`` falls back to step 1; (a) batch mode
+     (``SERVE_ARGS``: batch 4, prompt 1536, so the prefill crosses two KV
+     blocks, gen 32, cache_len 1568, greedy): tokens in the vocab, every
+     logit finite, prefill ms and prompt tokens/s, decode ms a step and
+     tokens/s, the KV cache bytes; ``prefill_cache`` at lengths 96, 61, 17
+     against a streamed active-masked decode loop (kpos bitwise, logits
+     within 5e-2 + 5e-2|x|); (b) the Engine (slots 16, cache_len 64, EOS
+     0, greedy) over the launcher's 64-request trace (seed 0): on the
+     virtual clock one decode shape, every request done, a tick with every
+     other lane inactive leaving their k, v and kpos rows bitwise, two
+     runs equal, continuous admission in fewer decode steps than static
+     with as many tokens; on the wall clock at qps 20 and 1e6, tokens/s,
+     p50/p99 latency, decode ms a tick and prefill calls; a profiler trace
+     of full-table ticks (host against device time); (c) 8 requests
+     through a batch-1 loop against their slot-table tokens: a divergence
+     only where the batch-1 top-2 logit gap is under 1e-2 of the largest
+     |logit| (the count of bitwise-equal sequences logged); (d)
+     ``top_k=1`` at temperature 0.7 gives the greedy tokens, and a sampled
+     run (temperature 0.8, top_k 50) replays bitwise; the phase's
+     ``max_memory_allocated``;
+ 12. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -2842,6 +2868,416 @@ def _phase10(torch, phase8, work):
     return dict(async_muon=async_muon, async_shampoo=async_shampoo)
 
 
+# ------------------------------------------------------- phase 11: serving
+
+# (a) batch mode, as launch/serve.py runs it: the prompt crosses two KV
+# blocks of 1024; the cache holds prompt + gen
+SERVE_ARGS = dict(batch=4, prompt_len=1536, gen_len=32, cache_len=1568,
+                  seed=0)
+PARITY_LENGTHS = (96, 61, 17)   # prefill against a streamed decode loop
+PARITY_TOL = 5e-2               # tests/test_serving.py:277
+# (b) the Engine with the reference launcher's trace palettes
+ENGINE_CFG = dict(slots=16, cache_len=64, eos_id=0)
+ENGINE_TRACE = dict(n_requests=64, qps=20.0)
+STEP_DT = 0.01                  # the virtual clock's tick
+WALL_QPS = (20.0, 1e6)          # offered loads of the wall-clock runs
+PROFILE_TICKS = 8
+# (c) a slot-table sequence may leave its batch-1 loop only at a token
+# whose top-2 logit gap is under this share of the largest |logit|
+INVARIANCE_REQUESTS = 8
+INVARIANCE_GAP = 1e-2
+SAMPLED = dict(greedy=False, temperature=0.8, top_k=50)
+
+
+def phase11(torch):
+    """Serving at full width (see the module docstring), the handoff's
+    checkpoints in a temporary directory under build/, removed at the
+    end."""
+    import shutil
+    import tempfile
+
+    base_dir = ROOT / "build"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase11_", dir=base_dir))
+    try:
+        _phase11(torch, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase11(torch, work):
+    from repro_torch.kernels import ops
+    from repro_torch.serving import make_trace
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = serve_handoff(torch, work)
+    with torch.inference_mode():
+        params = model.cast_params()
+    ops.reset_launches()
+    batch_mode(torch, model, params)
+    trace = make_trace(0, vocab_size=model.cfg.vocab_size, **ENGINE_TRACE)
+    greedy = engine_checks(torch, model, params, trace)
+    batching_invariance(torch, model, params, greedy, trace)
+    sampling_checks(torch, model, params, greedy, trace)
+    counts = ops.launch_counts()
+    if sum(counts.values()):
+        fail(f"serving launched PRISM kernels: {counts}")
+    log(f"  serving launched 0 PRISM kernels; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB for the "
+        f"phase")
+
+
+def serve_handoff(torch, work):
+    """Two Trainer steps of Muon PRISM-5 with a checkpoint every step; a
+    fresh Model (another seed) through ``restore_params`` must hold the
+    Trainer's parameters bitwise, and with a byte of the newest payload
+    flipped ``restore_params`` must fall back to step 1.  Returns the
+    restored model."""
+    from repro_torch.checkpoint import restore_params
+    from repro_torch.launch import train_lm
+    from repro_torch.models import Model
+
+    cfgs = train_lm.configs("full", "prism", "float32")
+    tr = _trainer_for(cfgs, work, 0, steps=2, checkpoint_every=1,
+                      async_checkpoint=False)
+    t0 = time.perf_counter()
+    _, _, losses = tr.run()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+        fail(f"handoff: the Trainer's losses {losses}")
+    served = Model(cfgs[0], device=DEVICE, seed=1)
+    t0 = time.perf_counter()
+    step, restored = restore_params(str(work),
+                                    dict(served.named_parameters()))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step != 2:
+        fail(f"handoff: restore_params took step {step}, not 2")
+    served.load_params(restored)
+    own = dict(tr.model.named_parameters())
+    for name, p in served.named_parameters():
+        if not torch.equal(p, own[name]):
+            fail(f"handoff: {name} is not bitwise the Trainer's")
+    n = len(own)
+    del tr, own, restored
+    torch.cuda.empty_cache()
+    npz = work / "step_00000002" / "tree.npz"
+    raw = bytearray(npz.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    npz.write_bytes(bytes(raw))
+    step, _ = restore_params(str(work), dict(served.named_parameters()))
+    if step != 1:
+        fail(f"handoff: with step 2 corrupt restore_params took step "
+             f"{step}, not 1")
+    torch.cuda.empty_cache()
+    log(f"  handoff: 2 Trainer steps (Muon PRISM-5, losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f") with checkpoints in "
+        f"{train_s:.1f} s; restore_params of step 2 ({len(raw)} bytes) "
+        f"in {restore_s:.2f} s, {n} parameters bitwise the Trainer's; "
+        f"a byte flipped in step 2 falls back to step 1")
+    return served
+
+
+def batch_mode(torch, model, params):
+    """(a): ``launch/serve.py``'s batch loop at ``SERVE_ARGS`` (tokens in
+    the vocab, every logit finite), then a prefill of ragged lanes against
+    a streamed, active-masked decode loop over the same prompts: kpos
+    bitwise, the last real position's logits within PARITY_TOL."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch import serve
+
+    V = model.cfg.vocab_size
+    a = SimpleNamespace(**SERVE_ARGS)
+    res = serve.batch_loop(model, params, a, torch.device(DEVICE))
+    toks = res["tokens"]
+    if toks.shape != (a.batch, a.gen_len + 1) or toks.min() < 0 \
+            or toks.max() >= V:
+        fail(f"(a): tokens of shape {toks.shape} in [{toks.min()}, "
+             f"{toks.max()}]")
+    if not res["finite"]:
+        fail("(a): a logit is not finite")
+    log(f"  (a) batch {a.batch}, prompt {a.prompt_len} (2 KV blocks), gen "
+        f"{a.gen_len}, cache_len {a.cache_len}: prefill "
+        f"{res['prefill_s'] * 1e3:.2f} ms ({res['prefill_tok_s']:.0f} "
+        f"prompt tok/s; first call {res['first_prefill_s'] * 1e3:.1f} ms), "
+        f"decode {res['decode_ms_step']:.3f} ms a step "
+        f"({res['decode_tok_s']:.1f} tok/s), KV cache "
+        f"{res['cache_bytes']} bytes; tokens in the vocab, logits finite")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(a.seed)
+    prompts = torch.randint(0, V, (a.batch, a.prompt_len), generator=gen,
+                            device=DEVICE, dtype=torch.int32)
+    lg, cache = model.prefill_cache({"tokens": prompts}, a.cache_len,
+                                    params=params)
+    tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    pos = torch.full((a.batch, 1), a.prompt_len, dtype=torch.int32,
+                     device=DEVICE)
+    profile_ticks(torch, lambda: model.decode_step(cache, tok, pos,
+                                                   params=params),
+                  f"(a) a decode step (batch {a.batch}, cache "
+                  f"{a.cache_len})")
+    del cache
+
+    B, S = len(PARITY_LENGTHS), max(PARITY_LENGTHS)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(11)
+    prompts = torch.randint(0, V, (B, S), generator=gen, device=DEVICE,
+                            dtype=torch.int32)
+    lengths = torch.tensor(PARITY_LENGTHS, dtype=torch.int32, device=DEVICE)
+    lp, cp = model.prefill_cache({"tokens": prompts}, S, lengths,
+                                 params=params)
+    cache = model.init_cache(B, S)
+    last = torch.zeros_like(lp)
+    for t in range(S):
+        lg, cache = model.decode_step(
+            cache, prompts[:, t:t + 1],
+            torch.full((B, 1), t, dtype=torch.int32, device=DEVICE),
+            active=t < lengths, params=params)
+        last = torch.where((t == lengths - 1).reshape(B, 1, 1), lg, last)
+    if not torch.equal(cp["kpos"], cache["kpos"]):
+        fail("(a): prefill_cache's kpos differs from the streamed loop's")
+    err = (lp - last)[..., :V].abs()
+    excess = (err - PARITY_TOL * (1 + last[..., :V].abs())).max().item()
+    kv_err = max((cp[n] - cache[n]).float().abs().max().item()
+                 for n in ("k", "v"))
+    log(f"  (a) prefill_cache of lengths {list(PARITY_LENGTHS)} against "
+        f"{S} streamed decode steps: kpos bitwise, logits max |diff| "
+        f"{err.max().item():.3e} (tolerance {PARITY_TOL} + {PARITY_TOL}"
+        f"|x|), k/v max |diff| {kv_err:.3e}")
+    if excess > 0:
+        fail(f"(a): prefill logits leave the streamed loop's by "
+             f"{excess:.3e} beyond the tolerance")
+
+
+def _engine(model, params, **kw):
+    from repro_torch.serving import Engine, EngineConfig
+
+    return Engine(model, params, EngineConfig(**dict(ENGINE_CFG, **kw)))
+
+
+def _tokens_of(res):
+    return {c.rid: c.tokens for c in res.completions}
+
+
+def engine_checks(torch, model, params, trace):
+    """(b): the Engine on the virtual clock (the shape contract, every
+    request done, frozen lanes, replay, continuous against static), then
+    on the wall clock at each of WALL_QPS, and a profile of full-table
+    ticks; returns the greedy continuous run."""
+    from repro_torch.serving import make_trace
+
+    V = model.cfg.vocab_size
+    eng = _engine(model, params)
+    t0 = time.perf_counter()
+    cont = eng.run(trace, step_dt=STEP_DT)
+    run_s = time.perf_counter() - t0
+    if cont.decode_step_shapes != 1:
+        fail(f"(b): {cont.decode_step_shapes} decode shapes, not 1")
+    if sorted(c.rid for c in cont.completions) != [r.rid for r in trace]:
+        fail("(b): not every request completed")
+    if not all(0 <= t < V for c in cont.completions for t in c.tokens):
+        fail("(b): a token outside the vocab")
+    frozen_lanes(torch, model, params, eng)
+    if _engine(model, params).run(trace, step_dt=STEP_DT) != cont:
+        fail("(b): two runs of the trace differ")
+    stat = _engine(model, params, admission="static").run(trace,
+                                                          step_dt=STEP_DT)
+    if not cont.n_decode_steps < stat.n_decode_steps:
+        fail(f"(b): continuous took {cont.n_decode_steps} decode steps, "
+             f"static {stat.n_decode_steps}")
+    if cont.generated_tokens != stat.generated_tokens:
+        fail(f"(b): continuous generated {cont.generated_tokens} tokens, "
+             f"static {stat.generated_tokens}")
+    same = sum(a == b for a, b in zip(_tokens_of(cont).values(),
+                                      _tokens_of(stat).values()))
+    log(f"  (b) virtual clock, {len(trace)} requests, slots "
+        f"{ENGINE_CFG['slots']}, cache_len {ENGINE_CFG['cache_len']}: 1 "
+        f"decode shape, all done, {cont.generated_tokens} tokens; "
+        f"continuous {cont.n_decode_steps} decode steps and "
+        f"{cont.n_prefill_launches} prefill calls against static "
+        f"{stat.n_decode_steps} and {stat.n_prefill_launches} "
+        f"({same} of {len(trace)} sequences equal); two runs equal; "
+        f"{run_s:.2f} s of wall time a run")
+    for qps in WALL_QPS:
+        wall = make_trace(0, vocab_size=V, n_requests=len(trace), qps=qps)
+        eng = _engine(model, params)
+        ticks = []
+        step = eng.step
+
+        def timed(step=step, ticks=ticks):
+            t0 = time.perf_counter()
+            out = step()
+            ticks.append(time.perf_counter() - t0)
+            return out
+        eng.step = timed
+        res = eng.run(wall)
+        if len(res.completions) != len(wall) or res.decode_step_shapes != 1:
+            fail(f"(b) qps {qps}: {len(res.completions)} done, "
+                 f"{res.decode_step_shapes} decode shapes")
+        lat = res.latency_percentiles()
+        log(f"  (b) wall clock, qps {qps:g}: {res.tokens_per_s:.1f} tok/s "
+            f"({res.generated_tokens} tokens in {res.elapsed:.3f} s), "
+            f"latency p50 {lat['p50'] * 1e3:.1f} ms p99 "
+            f"{lat['p99'] * 1e3:.1f} ms, decode "
+            f"{statistics.median(ticks) * 1e3:.3f} ms a tick (median of "
+            f"{len(ticks)}; min {min(ticks) * 1e3:.3f}), "
+            f"{res.n_prefill_launches} prefill calls")
+    tick_profile(torch, model, params, trace)
+    return cont
+
+
+def frozen_lanes(torch, model, params, eng):
+    """One decode tick over the Engine's cache with every other lane
+    inactive: those lanes' k, v and kpos rows bitwise as they were, the
+    active lanes' changed."""
+    S = ENGINE_CFG["slots"]
+    cache = eng.cache
+    before = {k: v.clone() for k, v in cache.items()}
+    active = torch.arange(S, device=DEVICE) % 2 == 0
+    tokens = (torch.arange(S, dtype=torch.int32, device=DEVICE)
+              + 100).reshape(S, 1)
+    pos = torch.full((S, 1), 50, dtype=torch.int32, device=DEVICE)
+    model.decode_step(cache, tokens, pos, active=active, params=params)
+    for name, ax in (("k", 1), ("v", 1), ("kpos", 0)):
+        old, new = before[name], cache[name]
+        idle = all(torch.equal(old.select(ax, s), new.select(ax, s))
+                   for s in range(1, S, 2))
+        wrote = all(not torch.equal(old.select(ax, s), new.select(ax, s))
+                    for s in range(0, S, 2))
+        if not (idle and wrote):
+            fail(f"(b): {name}: inactive lanes kept {idle}, active lanes "
+                 f"wrote {wrote}")
+    log(f"  (b) a tick with lanes 1, 3, .., {S - 1} inactive: their k, v "
+        f"and kpos rows bitwise unchanged, the active lanes' written")
+
+
+def profile_ticks(torch, tick, what):
+    """``tick()`` PROFILE_TICKS times on the host clock to a synchronize,
+    then PROFILE_TICKS times in a profiler trace: the wall ms a tick
+    against its device busy ms and device activities, and the host ops
+    with the most self CPU time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_TICKS):
+        tick()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_TICKS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_TICKS):
+            tick()
+        torch.cuda.synchronize()
+    busy_us, kernels, host = 0.0, 0, []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
+            busy_us += e.self_device_time_total
+            kernels += e.count
+        elif e.device_type == DeviceType.CPU:
+            host.append((e.self_cpu_time_total, e.count, e.key))
+    busy_ms = busy_us / 1e3 / PROFILE_TICKS
+    top = sorted(host, reverse=True)[:6]
+    log(f"  {what}: wall {wall_ms:.3f} ms a tick (host clock, "
+        f"{PROFILE_TICKS} ticks), device busy {busy_ms:.3f} ms in "
+        f"{kernels / PROFILE_TICKS:.0f} device activities a tick "
+        f"(profiled); idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}; "
+        f"most host self time a tick: "
+        + ", ".join(f"{k} {us / 1e3 / PROFILE_TICKS:.2f} ms "
+                    f"({n // PROFILE_TICKS} calls)" for us, n, k in top))
+
+
+def tick_profile(torch, model, params, trace):
+    """A full table's Engine ticks (16 requests admitted, no sweep)
+    through ``profile_ticks``."""
+    S = ENGINE_CFG["slots"]
+    eng = _engine(model, params)
+    eng.admit(trace[:S], list(range(S)), 0.0)
+    profile_ticks(torch, eng.step, f"(b) a full-table Engine tick ({S} "
+                  f"lanes, the token read included)")
+
+
+def batching_invariance(torch, model, params, greedy, trace):
+    """(c): each of INVARIANCE_REQUESTS requests through a batch-1 loop
+    (prefill at its pow2 length, then decode) against its tokens from the
+    slot table; where they part, the batch-1 loop's top-2 logit gap there
+    must be under INVARIANCE_GAP of its largest |logit|."""
+    import numpy as np
+
+    from repro_torch.serving import pow2_pad
+
+    V = model.cfg.vocab_size
+    eos = ENGINE_CFG["eos_id"]
+    got = _tokens_of(greedy)
+    equal, parts = 0, []
+    for r in trace[:INVARIANCE_REQUESTS]:
+        P = pow2_pad(r.prompt_len)
+        toks = torch.from_numpy(np.pad(r.prompt, (0, P - r.prompt_len))
+                                .reshape(1, P)).to(DEVICE)
+        lg, cache = model.prefill_cache(
+            {"tokens": toks}, ENGINE_CFG["cache_len"],
+            torch.tensor([r.prompt_len], dtype=torch.int32, device=DEVICE),
+            params=params)
+        out, logits = [], []
+        while True:
+            logits.append(lg[0, 0, :V])
+            out.append(int(torch.argmax(lg[0, 0])))
+            if len(out) >= r.max_new or out[-1] == eos:
+                break
+            lg, cache = model.decode_step(
+                cache, torch.tensor([[out[-1]]], dtype=torch.int32,
+                                    device=DEVICE),
+                torch.tensor([[r.prompt_len + len(out) - 1]],
+                             dtype=torch.int32, device=DEVICE),
+                active=torch.ones(1, dtype=torch.bool, device=DEVICE),
+                params=params)
+        mine = got[r.rid]
+        j = next((i for i, (a, b) in enumerate(zip(out, mine)) if a != b),
+                 None)
+        if j is None and len(out) == len(mine):
+            equal += 1
+            continue
+        j = min(len(out), len(mine)) - 1 if j is None else j
+        top = torch.topk(logits[j], 2).values
+        share = ((top[0] - top[1]) / logits[j].abs().max()).item()
+        parts.append(f"rid {r.rid} at token {j}: gap {share:.3e}")
+        if share >= INVARIANCE_GAP:
+            fail(f"(c): rid {r.rid} leaves its batch-1 loop at token {j}, "
+                 f"where the top-2 gap is {share:.3e} of the largest "
+                 f"|logit| (bound {INVARIANCE_GAP})")
+    log(f"  (c) batching invariance: {equal} of {INVARIANCE_REQUESTS} "
+        f"sequences bitwise their batch-1 loop's"
+        + (f"; divergences: {'; '.join(parts)}" if parts else ""))
+
+
+def sampling_checks(torch, model, params, greedy, trace):
+    """(d): ``top_k=1`` at temperature 0.7 gives the greedy tokens; a
+    sampled run (SAMPLED) replays bitwise."""
+    top1 = _engine(model, params, greedy=False, temperature=0.7,
+                   top_k=1).run(trace, step_dt=STEP_DT)
+    if _tokens_of(top1) != _tokens_of(greedy):
+        fail("(d): top_k=1 sampling differs from greedy decoding")
+    t0 = time.perf_counter()
+    first = _engine(model, params, **SAMPLED).run(trace, step_dt=STEP_DT)
+    run_s = time.perf_counter() - t0
+    if _engine(model, params, **SAMPLED).run(trace, step_dt=STEP_DT) \
+            != first:
+        fail("(d): two sampled runs differ")
+    moved = sum(a != b for a, b in zip(_tokens_of(first).values(),
+                                       _tokens_of(greedy).values()))
+    log(f"  (d) top_k=1 at temperature 0.7 gives the greedy tokens; "
+        f"sampled (temperature {SAMPLED['temperature']}, top_k "
+        f"{SAMPLED['top_k']}) replays bitwise, {moved} of {len(trace)} "
+        f"sequences differ from greedy, {first.generated_tokens} tokens, "
+        f"{run_s:.2f} s of wall time a run")
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2937,6 +3373,9 @@ def main() -> None:
 
     log("phase 10: the async refresh plane at full width")
     async_counts = phase10(torch, phase8)
+
+    log("phase 11: serving gpt2-paper at full width")
+    phase11(torch)
 
     by_path = {k: r["counts"] for k, r in runs.items()}
     by_path["fallback"] = fallback

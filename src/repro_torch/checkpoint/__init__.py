@@ -1,4 +1,6 @@
-from repro_torch.checkpoint.checkpoint import (latest_step, restore, save,
+from repro_torch.checkpoint.checkpoint import (latest_step, restore,
+                                               restore_params, save,
                                                verify_step)
 
-__all__ = ["latest_step", "restore", "save", "verify_step"]
+__all__ = ["latest_step", "restore", "restore_params", "save",
+           "verify_step"]

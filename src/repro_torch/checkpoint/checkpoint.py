@@ -19,9 +19,9 @@ Python numbers.  Tensors are copied to the host before ``save`` returns
 (before its writer thread starts); bf16 tensors are stored as fp32, which
 holds every bf16 value exactly, and cast back on restore.  ``restore``
 returns each leaf like the target's: a tensor on the target leaf's device
-and dtype, else a numpy array of its dtype.  The reference's elastic
-re-shard (``shardings=``) is ported with ROADMAP.md Queue 1 item 11 and
-``restore_params`` with item 9.
+and dtype, else a numpy array of its dtype.  ``restore_params`` is the
+train -> serve handoff.  The reference's elastic re-shard
+(``shardings=``) is ported with ROADMAP.md Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -236,3 +236,19 @@ def restore(ckpt_dir: str, target: Dict[str, Any],
                              f"{want}")
         out[k] = _like(arr, leaf)
     return step, _unflatten(out)
+
+
+def restore_params(ckpt_dir: str, target_params: Dict[str, Any],
+                   step: Optional[int] = None):
+    """Train -> serve handoff (DESIGN.md §16): only the model parameters
+    out of a ``{"params", "opt"}`` checkpoint written by the ``Trainer``;
+    returns (step, {name: tensor}).
+
+    ``target_params`` is name -> tensor (e.g. ``dict(
+    model.named_parameters())`` or ``model.cast_params()``): each restored
+    leaf takes its target's device and dtype, and no ``opt`` leaf is
+    returned (the step's whole payload is still read once, for its crc32
+    check).  The §15 rules of ``restore`` hold: with ``step=None`` a
+    corrupt newest step falls back to the newest step that verifies."""
+    step, tree = restore(ckpt_dir, {"params": target_params}, step=step)
+    return step, tree["params"]

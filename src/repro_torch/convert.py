@@ -75,6 +75,27 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig
     return out
 
 
+def _tensor(a) -> torch.Tensor:
+    """A torch copy of numpy array ``a``; bf16 arrays (numpy's extension
+    dtype) cross through fp32, which holds every bf16 value exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def cache_from_jax(tree: Dict[str, Any], device=None
+                   ) -> Dict[str, torch.Tensor]:
+    """The port's decode cache from the reference's (``init_cache`` /
+    ``prefill_cache`` of the dense family: ``k``, ``v`` [L, B, clen, KV,
+    Hd] and ``kpos`` [B, clen] int32, as numpy arrays), each leaf in its
+    own dtype on ``device``."""
+    if set(tree) != {"k", "v", "kpos"}:
+        raise KeyError(f"a dense decode cache has k, v and kpos; got "
+                       f"{sorted(tree)}")
+    return {name: _tensor(a).to(device) for name, a in tree.items()}
+
+
 def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of ``params_from_jax``: a nested dict of fp32 numpy arrays
     in the reference's tree layout."""

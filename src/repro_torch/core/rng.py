@@ -9,10 +9,11 @@ mixed in pure Python, and draws from a ``torch.Generator`` on the device
 the sketch is used on, so a sketch costs no host-to-device copy and no
 synchronization.
 
-Every function of the port that takes a ``key`` uses only the two
-methods below (``fold_in`` and ``normal``).  That is the injection seam:
-an object with the same two methods built on ``jax.random`` (the tests'
-``JaxKey``) makes the port draw exactly the reference's sketches.
+Every function of the port that takes a ``key`` uses only the methods
+below (``fold_in``, ``normal`` and, for sampling, ``gumbel``).  That is
+the injection seam: an object with the same methods built on
+``jax.random`` (the tests' ``JaxKey``) makes the port draw exactly the
+reference's sketches and sampling noise.
 """
 from __future__ import annotations
 
@@ -52,3 +53,16 @@ class Key:
         gen.manual_seed(self.seed)
         return torch.randn(tuple(shape), generator=gen, dtype=dtype,
                            device=device)
+
+    def gumbel(self, shape: Sequence[int], dtype: torch.dtype,
+               device: Union[str, torch.device]) -> torch.Tensor:
+        """Standard Gumbel draws of ``shape`` in ``dtype`` on ``device``
+        from this key alone (counterpart of ``jax.random.gumbel``):
+        -log(-log(U)), U uniform and kept inside [tiny, 1 - eps / 2]."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(self.seed)
+        info = torch.finfo(dtype)
+        u = torch.rand(tuple(shape), generator=gen, dtype=dtype,
+                       device=device)
+        u = torch.clamp(u, min=info.tiny, max=1.0 - info.eps / 2)
+        return -torch.log(-torch.log(u))

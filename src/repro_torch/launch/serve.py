@@ -1,0 +1,172 @@
+"""Serving launcher (counterpart of ``repro/launch/serve.py`` and
+``examples/serve_lm.py``): batched prefill and greedy KV-cache decode,
+or the continuous-batching Engine under a seeded Poisson trace.
+
+    # batch mode: one prefill_cache call, then a greedy decode loop
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --batch 4 \\
+        --prompt_len 16 --gen_len 32 --device cpu
+    # continuous batching (DESIGN.md §16) at the offered QPS
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --continuous \\
+        --qps 20 --slots 8 --requests 64 --device cpu
+    # train -> serve handoff: parameters from a Trainer checkpoint
+    PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
+        --ckpt_dir CKPT
+
+``--arch gpt2-paper`` is the one model the port has (the registry is
+ROADMAP.md Queue 1 item 10); ``--smoke`` takes its SMOKE width.  Weights
+are random from ``--seed`` unless ``--ckpt_dir`` names a checkpoint.
+Batch-mode prompts are uniform tokens from ``np.random.default_rng(
+seed)``, in place of the reference's ``models/inputs.make_train_batch``.
+The first prefill call is timed apart from the second, so the prefill
+tokens/s is a steady-state number.  ``--mesh production`` is ported with
+ROADMAP.md Queue 1 item 11.  Without ``--device`` it runs on CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import restore_params
+from repro_torch.configs import gpt2_paper
+from repro_torch.device import resolve_device
+from repro_torch.models import Model
+from repro_torch.serving import (Engine, EngineConfig, make_serve_step,
+                                 make_trace)
+
+ARCHS = {"gpt2-paper": gpt2_paper}
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def load_model(args, device):
+    """(model, compute-dtype params) of ``args``: random from
+    ``args.seed``, or the params of ``args.ckpt_dir``'s newest checkpoint
+    that verifies."""
+    mod = ARCHS[args.arch]
+    cfg = mod.SMOKE if args.smoke else mod.CONFIG
+    model = Model(cfg, device=device, seed=args.seed)
+    if args.ckpt_dir:
+        step, params = restore_params(args.ckpt_dir,
+                                      dict(model.named_parameters()))
+        model.load_params(params)
+        print(f"restored params from {args.ckpt_dir} step {step}")
+    with torch.inference_mode():
+        return model, model.cast_params()
+
+
+def batch_loop(model, params, args, device) -> dict:
+    """One prefill_cache call over ``args.batch`` prompts of
+    ``args.prompt_len`` (timed twice: the first call apart), then
+    ``args.gen_len`` greedy decode steps from its token; returns the
+    times, the tokens [B, gen_len + 1], whether every logit was finite
+    and the KV cache bytes."""
+    cfg = model.cfg
+    B = args.batch
+    cache_len = args.cache_len or (args.prompt_len + args.gen_len)
+    prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (B, args.prompt_len)).astype(np.int32)).to(device)
+    times = []
+    for _ in range(2):
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill_cache({"tokens": prompts}, cache_len,
+                                            params=params)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    step = make_serve_step(model)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    out, seen = [tok], [logits]
+    _sync(device)
+    t0 = time.perf_counter()
+    for t in range(args.prompt_len, args.prompt_len + args.gen_len):
+        pos = torch.full((B, 1), t, dtype=torch.int32, device=device)
+        lg, tok, cache = step(cache, tok, pos, params=params)
+        out.append(tok)
+        seen.append(lg)
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    steps = args.gen_len
+    res = {"first_prefill_s": times[0], "prefill_s": times[1],
+           "decode_s": decode_s, "decode_ms_step": decode_s / steps * 1e3,
+           "prefill_tok_s": B * args.prompt_len / times[1],
+           "decode_tok_s": B * steps / decode_s,
+           "tokens": torch.cat(out, dim=1).cpu().numpy(),
+           "finite": bool(torch.isfinite(torch.cat(seen, dim=1)).all()),
+           "cache_bytes": sum(v.numel() * v.element_size()
+                              for v in cache.values())}
+    print(f"arch={cfg.name} batch={B} prompt={args.prompt_len} "
+          f"gen={args.gen_len} cache_len={cache_len}")
+    print(f"prefill {res['prefill_s'] * 1e3:.1f} ms (1 call, "
+          f"{res['prefill_tok_s']:.1f} tok/s; first call "
+          f"{res['first_prefill_s']:.2f} s) | {res['decode_ms_step']:.2f} "
+          f"ms/step | {res['decode_tok_s']:.1f} tok/s | KV cache "
+          f"{res['cache_bytes']} bytes")
+    return res
+
+
+def serve_continuous(model, params, args):
+    """The Engine over a seeded trace on the wall clock (offered-load
+    mode); returns its ``RunResult``."""
+    cfg = model.cfg
+    eng = Engine(model, params, EngineConfig(
+        slots=args.slots, cache_len=args.cache_len or 64, greedy=True,
+        eos_id=0, seed=args.seed))
+    trace = make_trace(args.seed, n_requests=args.requests, qps=args.qps,
+                       vocab_size=cfg.vocab_size)
+    res = eng.run(trace)
+    lat = res.latency_percentiles()
+    print(f"arch={cfg.name} slots={args.slots} qps={args.qps} "
+          f"requests={args.requests}")
+    print(f"completed={len(res.completions)} "
+          f"tokens={res.generated_tokens} "
+          f"tok/s={res.tokens_per_s:.1f} "
+          f"p50={lat['p50'] * 1e3:.1f}ms p99={lat['p99'] * 1e3:.1f}ms "
+          f"decode_shapes={res.decode_step_shapes} "
+          f"prefill_launches={res.n_prefill_launches}")
+    return res
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gpt2-paper", choices=sorted(ARCHS))
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt_len", type=int, default=16)
+    ap.add_argument("--gen_len", type=int, default=32)
+    ap.add_argument("--cache_len", type=int, default=0)
+    ap.add_argument("--mesh", default="none", choices=["none", "production"])
+    ap.add_argument("--ckpt_dir", default="",
+                    help="restore params from a training checkpoint "
+                         "(train -> serve handoff, §15/§16 integrity rules)")
+    ap.add_argument("--continuous", action="store_true",
+                    help="slot-table continuous batching (§16)")
+    ap.add_argument("--qps", type=float, default=20.0,
+                    help="offered load for --continuous")
+    ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device; CUDA unless named")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    if args.mesh == "production":
+        raise NotImplementedError(
+            "--mesh production is ported with ROADMAP.md Queue 1 item 11")
+    device = resolve_device(args.device)
+    model, params = load_model(args, device)
+    if args.continuous:
+        return serve_continuous(model, params, args)
+    return batch_loop(model, params, args, device)
+
+
+if __name__ == "__main__":
+    main()

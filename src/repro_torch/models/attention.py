@@ -1,26 +1,29 @@
-"""Multi-head causal self-attention (counterpart of
-``repro/models/attention.py``, train path).
+"""Grouped-query attention with an online softmax over KV blocks
+(counterpart of ``repro/models/attention.py``).
 
-The reference scans over KV blocks of ``KV_BLOCK`` = 1024 with an online
-softmax; at the sequence lengths this port trains (512) that is a single
-block, so ``_attend_core`` computes it unblocked with the same casts:
-q * scale rounded to the compute dtype before Q K^T, fp32 scores and
-softmax, the unnormalized probabilities rounded before P V, fp32
-accumulation, one division by the fp32 row sum.  Sequences longer than one
-block, sliding windows and decode are ported with the serving slice
-(ROADMAP.md Queue 1 item 9).
+The train and prefill path (``attend``) walks the keys in blocks of
+``kv_block`` with the reference's running (max, denominator, accumulator)
+carries, so no [S, S] score matrix is formed, with the reference's casts:
+q * scale in fp32 rounded to the compute dtype before Q K^T, fp32 scores,
+the unnormalized probabilities rounded before P V, fp32 accumulation, one
+division by the fp32 denominator.  A sliding window masks keys more than
+``window`` positions back.  ``decode_attend`` is the one-token step
+against a KV cache, which it updates in place.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 
 KV_BLOCK = 1024
 HEAD_PAD = 16  # pad head counts to the model-axis width for clean TP
+INT32_MAX = torch.iinfo(torch.int32).max  # the k positions of pad keys
 
 
 def padded_heads(cfg: ModelConfig):
@@ -109,32 +112,98 @@ def _expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     return k if groups == 1 else torch.repeat_interleave(k, groups, dim=2)
 
 
-def _attend_core(q, k, v, q_pos, k_pos, window: int):
-    """Softmax attention in one KV block; q [B,S,H,Hd], k/v [B,Sk,KV,Hd]."""
-    H, Hd = q.shape[2], q.shape[3]
+def _flash_attend(q, k, v, q_pos, k_pos, window: int, kv_block: int):
+    """Online-softmax attention; q [B,S,H,Hd], k/v [B,Sk,KV,Hd].
+
+    Keys shorter than one block form a single block of their own length
+    (the reference pads it; the pad keys' exact zeros change no value),
+    so the train path is one unpadded block."""
+    B, S, H, Hd = q.shape
+    Sk = k.shape[1]
+    kv_block = min(kv_block, Sk)
     k = _expand_kv(k, H // k.shape[2])
     v = _expand_kv(v, H // v.shape[2])
     scale = 1.0 / math.sqrt(Hd)
-    qs = (q.float() * scale).to(q.dtype)
     # compute-dtype operands, fp32 products and sums
-    s = torch.einsum("bshk,bthk->bsht", qs.float(), k.float())
-    s = s + L.causal_mask_bias(q_pos, k_pos, window)[:, :, None, :]
-    m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    den = torch.sum(p, dim=-1)
-    acc = torch.einsum("bsht,bthk->bshk", p.to(q.dtype).float(), v.float())
+    qs = (q.float() * scale).to(q.dtype).float()
+    nb = -(-Sk // kv_block)
+    pad = nb * kv_block - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=INT32_MAX)
+    m = torch.full((B, S, H), L.NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    den = torch.zeros((B, S, H), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, H, Hd), dtype=torch.float32, device=q.device)
+    for i in range(nb):
+        blk = slice(i * kv_block, (i + 1) * kv_block)
+        s = torch.einsum("bshk,bthk->bsht", qs, k[:, blk].float())
+        s = s + L.causal_mask_bias(q_pos, k_pos[:, blk],
+                                   window)[:, :, None, :]
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        den = den * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bsht,bthk->bshk", p.to(q.dtype).float(), v[:, blk].float())
+        m = m_new
     out = acc / torch.clamp(den, min=1e-30)[..., None]
     return out.to(q.dtype)
 
 
 def attend(params, x, positions, cfg: ModelConfig, window=None,
            kv_block: int = KV_BLOCK):
-    """Self-attention over x [B, S, D] (train path) -> (out, (k, v))."""
-    w = cfg.sliding_window if window is None else window
-    if x.shape[1] > kv_block or w:
-        raise NotImplementedError(
-            "attention over more than one KV block or a sliding window is "
-            "ported with the serving slice (ROADMAP.md Queue 1 item 9)")
+    """Self-attention over x [B, S, D] (train / prefill) -> (out, (k, v))."""
     q, k, v = _project_qkv(params, x, positions, cfg)
-    out = _attend_core(q, k, v, positions, positions, w)
+    w = cfg.sliding_window if window is None else window
+    out = _flash_attend(q, k, v, positions, positions, w, kv_block)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
+
+
+def write_rows(cache, slot, new, active):
+    """cache [B, Sc, ...] <- new [B, 1, ...] at (b, slot[b]), in place;
+    lanes with active False write their old row back (bitwise frozen)."""
+    lanes = torch.arange(cache.shape[0], device=cache.device)
+    row = new[:, 0].to(cache.dtype)
+    if active is not None:
+        gate = active.reshape((-1,) + (1,) * (row.ndim - 1))
+        row = torch.where(gate, row, cache[lanes, slot])
+    cache[lanes, slot] = row
+
+
+def decode_attend(params, x, position, cache_k, cache_v, cache_pos, slot,
+                  cfg: ModelConfig, window=None, active=None):
+    """One-token decode: x [B, 1, D], cache_k/v [B, Sc, KV, Hd].
+
+    ``cache_pos`` [B, Sc] holds the absolute position of each cache slot,
+    already updated for the current token at ``slot`` [B] (rolling
+    buffers reuse slots; empty slots hold a sentinel above any position
+    and are masked by causality).  The new k/v rows are written into the
+    cache at ``slot`` in place before attending.  ``active`` [B] bool:
+    lanes with False keep their cache rows bitwise (they attend over their
+    old rows; their output is garbage the caller masks); None means every
+    lane is live.  The reference's casts: q * scale in q's dtype, fp32
+    scores and softmax, the probabilities rounded before P V, fp32
+    accumulation.
+
+    Returns (out [B, 1, D], cache_k, cache_v), the caches updated.
+    """
+    q, k, v = _project_qkv(params, x, position, cfg)
+    w = cfg.sliding_window if window is None else window
+    B, _, H, Hd = q.shape
+    KV = k.shape[2]
+    groups = H // KV
+    write_rows(cache_k, slot, k, active)
+    write_rows(cache_v, slot, v, active)
+    scale = torch.tensor(1.0 / np.sqrt(Hd), dtype=q.dtype)
+    qg = (q * scale).reshape(B, 1, KV, groups, Hd)
+    s = torch.einsum("bsghk,btgk->bsght", qg.float(), cache_k.float())
+    bias = L.causal_mask_bias(position, cache_pos, w)  # [B, 1, Sc]
+    s = s + bias[:, :, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bsght,btgk->bsghk", p.to(q.dtype).float(),
+                       cache_v.float())
+    out = out.reshape(B, 1, H, Hd).to(x.dtype)
+    return (torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache_k,
+            cache_v)

@@ -15,12 +15,19 @@ masters.
   cast_params()        name -> master cast to its compute dtype
   forward(batch)       -> (logits [B, S, V_padded] fp32, aux)
   loss(batch)          -> (scalar next-token CE, metrics)
+  prefill(batch)       -> last position's logits [B, 1, V_padded]
+  init_cache(B, len)   -> empty decode cache {k, v, kpos}
+  prefill_cache(batch, cache_len, lengths)
+                       -> (last real position's logits, filled cache)
+  decode_step(cache, tokens, pos, active)
+                       -> (logits [B, 1, V_padded], cache updated in place)
 
 The vocabulary pads to a multiple of 16; pad logits are masked out of
 the CE.  The reference remats each block (``jax.checkpoint``); at the
-sizes this port trains, activations fit without it.  The moe, ssm,
-hybrid, vlm and audio families and decode are ported with later slices
-(ROADMAP.md Queue 1 items 9-10).
+sizes this port trains, activations fit without it.  The serving methods
+run under ``torch.inference_mode()``.  The moe, ssm, hybrid, vlm and
+audio families are ported with a later slice (ROADMAP.md Queue 1 item
+10).
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 
 VOCAB_PAD_MULTIPLE = 16  # pad odd vocab tables so TP sharding divides
+INT_SENTINEL = attn.INT32_MAX  # kpos of an empty cache slot
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -176,22 +184,43 @@ class Model(nn.Module):
                                             device=logits.device))
         return logits
 
-    def _backbone(self, params, x, positions):
-        """x [B, S, D] -> (x, aux_loss); one loop over the stacked layers."""
-        cfg = self.cfg
+    def _layers(self, params):
+        """Per-layer (attention, mlp, ln1, ln2) parameter dicts."""
         lay = {k[len("layers."):]: v for k, v in params.items()
                if k.startswith("layers.")}
-        for i in range(cfg.num_layers):
+        for i in range(self.cfg.num_layers):
             p = {k: v[i] for k, v in lay.items()}
             a = {k[len("attn."):]: v for k, v in p.items()
                  if k.startswith("attn.")}
             m = {k[len("mlp."):]: v for k, v in p.items()
                  if k.startswith("mlp.")}
-            h, _ = attn.attend(a, L.rms_norm(x, p["ln1"], cfg.norm_eps),
-                               positions, cfg)
-            x = x + h
-            x = x + L.mlp(m, L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+            yield a, m, p["ln1"], p["ln2"]
+
+    def _block(self, layer, x, positions):
+        """One decoder layer -> (x, (k, v)): the (k, v) ``attend``
+        projects, which the serving prefill stacks into its cache."""
+        cfg = self.cfg
+        a, m, ln1, ln2 = layer
+        h, kv = attn.attend(a, L.rms_norm(x, ln1, cfg.norm_eps), positions,
+                            cfg)
+        x = x + h
+        return x + L.mlp(m, L.rms_norm(x, ln2, cfg.norm_eps), cfg), kv
+
+    def _backbone(self, params, x, positions):
+        """x [B, S, D] -> (x, aux_loss); one loop over the stacked layers."""
+        for layer in self._layers(params):
+            x, _ = self._block(layer, x, positions)
         return x, 0.0
+
+    def _backbone_kv(self, params, x, positions):
+        """The backbone that also returns each layer's projected k and v,
+        stacked [L, B, S, KV, Hd], for the serving prefill."""
+        ks, vs = [], []
+        for layer in self._layers(params):
+            x, (k, v) = self._block(layer, x, positions)
+            ks.append(k)
+            vs.append(v)
+        return x, torch.stack(ks), torch.stack(vs)
 
     def _positions(self, x):
         B, S = x.shape[0], x.shape[1]
@@ -219,13 +248,6 @@ class Model(nn.Module):
         return loss, {"ce": ce, "aux": aux,
                       "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
 
-    def prefill(self, *args, **kwargs):
-        raise NotImplementedError(
-            "serving prefill is ported with the serving slice "
-            "(ROADMAP.md Queue 1 item 9)")
-
-    init_cache = decode_step = prefill
-
     def _ce_from_hidden(self, params, x, tokens,
                         chunk: Optional[int] = None):
         """Chunked next-token CE given backbone output x [B, S, D]: the LM
@@ -244,3 +266,114 @@ class Model(nn.Module):
                                 tg[:, s0:s0 + chunk, None].long())[..., 0]
             total = total + torch.sum(nll)
         return total / (B * Sm1)
+
+    # ------------------------------------------------------------- decode
+
+    def cache_len(self, seq_len: int) -> int:
+        """Decode-cache length a sequence of ``seq_len`` needs (a rolling
+        buffer of the window for sliding-window attention)."""
+        if self.cfg.sliding_window:
+            return min(seq_len, self.cfg.sliding_window)
+        return seq_len
+
+    @torch.inference_mode()
+    def prefill(self, batch, params: Optional[Dict] = None):
+        """Serving prefill: the backbone over the whole prompt, fp32
+        logits [B, 1, V_padded] of the last position only."""
+        params = self.cast_params() if params is None else params
+        x = self._embed_tokens(params, batch["tokens"])
+        x, _ = self._backbone(params, x, self._positions(x))
+        return self._lm_logits(params, x[:, -1:])
+
+    @torch.inference_mode()
+    def init_cache(self, batch: int, seq_len: int):
+        """An empty decode cache for ``batch`` lanes: k/v zeros [L, B,
+        clen, KV, Hd] in the compute dtype, kpos [B, clen] int32 at
+        ``INT_SENTINEL`` (clen = ``cache_len(seq_len)``)."""
+        cfg = self.cfg
+        dev = self.embed.device
+        shape = (cfg.num_layers, batch, self.cache_len(seq_len),
+                 attn.padded_heads(cfg)[1], cfg.resolved_head_dim)
+        dt = torch_dtype(cfg.dtype)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "kpos": torch.full(shape[1:3], INT_SENTINEL,
+                                   dtype=torch.int32, device=dev)}
+
+    @torch.inference_mode()
+    def prefill_cache(self, batch, cache_len: int, lengths=None,
+                      params: Optional[Dict] = None):
+        """One-pass serving prefill of a right-padded prompt batch ->
+        (logits [B, 1, V_padded] at each lane's last real position, a cache
+        shaped as ``init_cache(B, cache_len)`` ready for ``decode_step`` at
+        pos = length).
+
+        ``lengths`` [B] gives each lane's real prompt length (None: every
+        token is real).  Slot s of lane b holds that lane's newest real
+        position p = s (mod clen), as a streamed decode loop (writing at
+        pos % clen) would have left it; pad positions never enter the
+        cache (kpos stays the sentinel, k/v zeros).  It matches a streamed
+        decode loop when the rolling cache drops no position still inside
+        the attention window (``cache_len`` >= the prompt for full
+        attention)."""
+        cfg = self.cfg
+        params = self.cast_params() if params is None else params
+        x = self._embed_tokens(params, batch["tokens"])
+        B, S = x.shape[0], x.shape[1]
+        x, ks, vs = self._backbone_kv(params, x, self._positions(x))
+
+        clen = self.cache_len(cache_len)
+        dev = x.device
+        L_real = torch.full((B,), S, dtype=torch.int32, device=dev) \
+            if lengths is None else torch.as_tensor(
+                lengths, device=dev).to(torch.int32)
+        s_idx = torch.arange(clen, dtype=torch.int32, device=dev)
+        q = torch.div(L_real[:, None] - 1 - s_idx[None, :], clen,
+                      rounding_mode="floor")  # [B, clen]
+        win = s_idx[None, :] + clen * q
+        has = win >= 0
+        # clipped before the gather, as the reference does: a negative
+        # index must not wrap
+        src = torch.clamp(win, 0, S - 1).long()
+        idx = src[None, :, :, None, None].expand(
+            (ks.shape[0], B, clen) + ks.shape[3:])
+        mask5 = has[None, :, :, None, None]
+        dt = torch_dtype(cfg.dtype)
+        new_k = torch.where(mask5, torch.gather(ks, 2, idx), 0).to(dt)
+        new_v = torch.where(mask5, torch.gather(vs, 2, idx), 0).to(dt)
+        kpos = torch.where(has, win, INT_SENTINEL)
+
+        if lengths is None:
+            x_last = x[:, -1:]
+        else:
+            at = (L_real - 1).long().reshape(B, 1, 1).expand(
+                B, 1, x.shape[-1])
+            x_last = torch.gather(x, 1, at)
+        return self._lm_logits(params, x_last), \
+            {"k": new_k, "v": new_v, "kpos": kpos}
+
+    @torch.inference_mode()
+    def decode_step(self, cache, tokens, pos, active=None,
+                    params: Optional[Dict] = None):
+        """tokens [B, 1]; pos [B, 1] absolute positions -> (fp32 logits
+        [B, 1, V_padded] of the new token, ``cache``).
+
+        The cache is updated in place: each lane writes its new k/v rows
+        and kpos at slot pos % clen (a rolling buffer).  ``active`` [B]
+        bool is the serving slot mask: lanes with False leave every cache
+        leaf bitwise unchanged; their logits are garbage the caller masks.
+        None means every lane is live."""
+        cfg = self.cfg
+        params = self.cast_params() if params is None else params
+        x = self._embed_tokens(params, tokens)
+        clen = cache["k"].shape[2]
+        slot = (pos[:, 0] % clen).long()  # [B]
+        # kpos first: every layer attends over the updated positions
+        attn.write_rows(cache["kpos"], slot, pos.to(torch.int32), active)
+        for i, (a, m, ln1, ln2) in enumerate(self._layers(params)):
+            y, _, _ = attn.decode_attend(
+                a, L.rms_norm(x, ln1, cfg.norm_eps), pos, cache["k"][i],
+                cache["v"][i], cache["kpos"], slot, cfg, active=active)
+            x = x + y
+            x = x + L.mlp(m, L.rms_norm(x, ln2, cfg.norm_eps), cfg)
+        return self._lm_logits(params, x), cache

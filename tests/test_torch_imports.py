@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under src/repro_torch imports JAX or the
-reference package, and it imports with JAX made unimportable."""
+"""The port stands alone: nothing under src/repro_torch, and not
+chip_smoke.py, imports JAX or the reference package, and the port imports
+with JAX made unimportable."""
 import ast
 import pkgutil
 import subprocess
@@ -22,8 +23,7 @@ def test_the_port_has_modules():
     assert len(FILES) > 20
 
 
-@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(PORT)))
-def test_no_jax_or_reference_imports(path):
+def _bad_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = []
     for node in ast.walk(tree):
@@ -32,7 +32,18 @@ def test_no_jax_or_reference_imports(path):
         elif isinstance(node, ast.ImportFrom) and node.module and \
                 node.level == 0 and _forbidden(node.module):
             bad.append(node.module)
+    return bad
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(PORT)))
+def test_no_jax_or_reference_imports(path):
+    bad = _bad_imports(path)
     assert not bad, f"{path}: imports {bad}"
+
+
+def test_chip_smoke_has_no_jax_or_reference_imports():
+    path = SRC.parent / "chip_smoke.py"
+    assert not _bad_imports(path), path
 
 
 def test_imports_with_jax_blocked():

@@ -100,9 +100,24 @@ def test_bf16_loss_matches_reference():
 
 
 def test_unported_families_and_decode_raise():
+    """The moe family and tied embeddings still raise; the serving
+    methods of the dense model run (their parity with the reference is in
+    ``test_torch_decode.py``), with these shapes at SMOKE."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(gpt2_paper.SMOKE.replace(family="moe"), device="cpu")
-    model = Model(gpt2_paper.SMOKE, device="cpu")
-    for fn in (model.prefill, model.init_cache, model.decode_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(gpt2_paper.SMOKE.replace(tie_embeddings=True), device="cpu")
+    cfg = gpt2_paper.SMOKE
+    model = Model(cfg, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, batch=2, seq=12))
+    assert tuple(model.prefill({"tokens": toks}).shape) == (2, 1, 256)
+    cache = model.init_cache(2, 16)
+    assert tuple(cache["k"].shape) == (2, 2, 16, 16, 16)  # [L,B,len,KV,Hd]
+    assert cache["v"].shape == cache["k"].shape
+    assert cache["k"].dtype == torch.bfloat16
+    assert tuple(cache["kpos"].shape) == (2, 16)
+    logits, cache = model.decode_step(cache, toks[:, :1],
+                                      torch.zeros((2, 1), dtype=torch.int32))
+    assert tuple(logits.shape) == (2, 1, 256)
+    assert logits.dtype == torch.float32
+    assert cache["kpos"][:, 0].tolist() == [0, 0]

@@ -49,6 +49,12 @@ class JaxKey:
         return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
             device=device, dtype=dtype)
 
+    def gumbel(self, shape, dtype, device):
+        jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+        a = jax.random.gumbel(self.key, tuple(shape), jd)
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+            device=device, dtype=dtype)
+
 
 def _t(a, dtype="float32"):
     return torch.from_numpy(np.array(a, np.float32)).to(getattr(torch, dtype))
