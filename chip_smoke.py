@@ -36,6 +36,8 @@ Phases (any failure exits non-zero and prints no result):
      through l = 136, contractions up to K = 50272) in fp32 and bf16,
      checked, timed beside ``torch.bmm``/``baddbmm`` and their bound, and
      at one ragged l = 21 case on the element-by-element instantiation;
+     and at granite-moe's Muon buckets (``GRANITE_SHAPES``: [2352, 1024,
+     512], [48, 1024, 1024], [24, 1024, 32]) in fp32, the same way;
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
      width (seq 512, batch 4, random weights from seed 0), STEPS steps
      through the launcher's configuration (``build_path``); the launch
@@ -161,7 +163,37 @@ Phases (any failure exits non-zero and prints no result):
      ``top_k=1`` at temperature 0.7 gives the greedy tokens, and a sampled
      run (temperature 0.8, top_k 50) replays bitwise; the phase's
      ``max_memory_allocated``;
- 12. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+ 12. the moe family (the registry, ``launch/train.py``, ``models/moe.py``):
+     (a) granite-moe-1b-a400m at its published widths (24 layers, 32
+     experts top-8, 1,384,989,696 parameters), seq 512, batch 8, bf16
+     compute and fp32 masters, STEPS Trainer steps of Muon PRISM-5 through
+     ``launch/train.py``'s ``build`` with a checkpoint at the last: Muon's
+     views 2,352 x [1024, 512], 48 x [1024, 1024], 24 x [1024, 32]; 27
+     launches a step (K1 18, K2 9: three grid-tier buckets, three warm
+     iterations each); the step-0 CE within 1.5 of ln(V) and the aux loss
+     within a factor 2 of a balanced router's, coef x K summed over the
+     layers (24 x 0.08 = 1.92); one Muon update
+     through the kernels against ``use_kernels=False`` within 1e-3,
+     repeated bitwise, with no synchronizing call; a train step repeated
+     from the same state bitwise (deterministic algorithms on; with them
+     off, printed); step ms,
+     tokens/s, the data stream, forward+backward alone, the optimizer
+     through the kernels and through torch.matmul, max_memory_allocated,
+     a profile of the Muon step by K1/K2 shape and of a whole train step
+     (device busy, idle share, top kernels); (b) that checkpoint served in
+     bf16 through ``restore_params`` (bitwise the trained parameters),
+     phase 11's (a) and (b) on it, the KV cache of batch mode exactly
+     308,306,432 bytes, prefill against the streamed decode at drop-free
+     capacity gated in fp32 (within 2e-2 + 2e-2|x|, the reference's fp32
+     moe decode test; in bf16 a rounding difference can flip a near-tie
+     at the top-k boundary, so the bf16 gap is printed), and (c) printed,
+     not gated: global dispatch couples the Engine's lanes by design; (c)
+     mixtral-8x7b (forward+backward, prefill against a streamed decode
+     drop-free, as in (b)), musicgen-medium
+     (forward+backward, one Muon step, one decode step) and llava-next-34b
+     (2880 patches: forward, loss and ``prefill_cache``) at their
+     published widths, 2 layers each, finite results;
+ 13. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -1514,7 +1546,7 @@ def route_report(torch, p, forced_budget):
 
 
 def profile_step(torch, run, what, fit_buckets=(), whole_fit=False,
-                 by_shape=False):
+                 by_shape=False, fresh=None):
     """A torch.profiler trace of one optimizer step through the kernels
     (``what`` names it): the device time of each of the port's kernels and
     of all other device work (memory copies and PyTorch's own kernels),
@@ -1525,7 +1557,9 @@ def profile_step(torch, run, what, fit_buckets=(), whole_fit=False,
     of the kernels it launched.  ``fit_buckets``: (batch, fits a step) of
     each bucket whose closed-form fit is then timed alone.  ``by_shape``:
     each K1/K2 launch's device time, summed by operand shapes, and the
-    device time of the copy kernels."""
+    device time of the copy kernels.  ``fresh()`` returns the optimizer to
+    step with the parameters and gradients restored (default: a copy of
+    ``run``'s saved state, ``_opt_from`` and ``_restore``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1572,14 +1606,16 @@ def profile_step(torch, run, what, fit_buckets=(), whole_fit=False,
             patched[(ops, attr)] = shaped(name, getattr(ops, attr))
     for (mod, attr), f in patched.items():
         setattr(mod, attr, f)
+    if fresh is None:
+        def fresh():
+            o = _opt_from(torch, run["model"], run["opt"].cfg, run["state"],
+                          run["p_root"])
+            _restore(torch, run["model"], run)
+            return o
     try:
-        o = _opt_from(torch, run["model"], run["opt"].cfg, run["state"],
-                      run["p_root"])
-        _restore(torch, run["model"], run)
+        o = fresh()
         o.step(key=run["key"])  # warm
-        o = _opt_from(torch, run["model"], run["opt"].cfg, run["state"],
-                      run["p_root"])
-        _restore(torch, run["model"], run)
+        o = fresh()
         torch.cuda.synchronize()
         fit_host[0] = 0.0
         shapes.clear()
@@ -2184,20 +2220,22 @@ def _lowrank_operands(torch, a, b, with_c, dt, gen):
     return A, B, C
 
 
-def lowrank_kernel_checks(torch, rows):
-    """K1 and K2 at the lowrank tier's shapes (``LOWRANK_SHAPES``, the long
-    contraction K = 50272 included) against their plain versions in fp32
-    and bf16 with KERNEL_TOL, each on the aligned instantiation; and one
-    ragged case (l = 21: 84- and 42-byte rows) on the element-by-element
-    one, which no main path takes."""
+def gemm_shape_checks(torch, rows, shapes=LOWRANK_SHAPES, dtypes=DTYPES,
+                      seed=9):
+    """K1 and K2 at a path's shapes (``LOWRANK_SHAPES``, the long
+    contraction K = 50272 included, or ``GRANITE_SHAPES``) against their
+    plain versions with KERNEL_TOL, each on the aligned instantiation; and,
+    with the lowrank shapes, one ragged case (l = 21: 84- and 42-byte
+    rows) on the element-by-element one, which no main path takes."""
     from repro_torch.kernels import gram, matmul_add
 
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(9)
-    cases = [(n, a, b, c, DTYPES, True) for n, a, b, c, _ in LOWRANK_SHAPES]
-    cases += [("gram_upper", (1, 300, 21), None, False, DTYPES, False),
-              ("matmul_add", (1, 300, 21), (1, 21, 21), True, DTYPES,
-               False)]
+    gen.manual_seed(seed)
+    cases = [(n, a, b, c, dtypes, True) for n, a, b, c, _ in shapes]
+    if shapes is LOWRANK_SHAPES:
+        cases += [("gram_upper", (1, 300, 21), None, False, DTYPES, False),
+                  ("matmul_add", (1, 300, 21), (1, 21, 21), True, DTYPES,
+                   False)]
     for name, a, b, with_c, dtypes, main in cases:
         for dtype in dtypes:
             dt = getattr(torch, dtype)
@@ -2229,16 +2267,17 @@ def lowrank_kernel_checks(torch, rows):
     return rows
 
 
-def lowrank_timings(torch):
+def gemm_shape_timings(torch, shapes=LOWRANK_SHAPES, dtypes=DTYPES,
+                       seed=10):
     """Kernel, plain, library (``torch.bmm`` / ``baddbmm``) and bound ms of
-    one launch at each lowrank shape, fp32 and bf16."""
+    one launch at each of a path's shapes (``gemm_shape_checks``)."""
     from repro_torch.kernels import gram, matmul_add
 
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(10)
+    gen.manual_seed(seed)
     out = {}
-    for name, a, b, with_c, what in LOWRANK_SHAPES:
-        for dtype in DTYPES:
+    for name, a, b, with_c, what in shapes:
+        for dtype in dtypes:
             dt = getattr(torch, dtype)
             item = 2 if dtype == "bfloat16" else 4
             A, B, C = _lowrank_operands(torch, a, b, with_c, dt, gen)
@@ -2876,6 +2915,7 @@ SERVE_ARGS = dict(batch=4, prompt_len=1536, gen_len=32, cache_len=1568,
                   seed=0)
 PARITY_LENGTHS = (96, 61, 17)   # prefill against a streamed decode loop
 PARITY_TOL = 5e-2               # tests/test_serving.py:277
+MOE_PARITY_TOL = 2e-2           # tests/test_models_smoke.py:134, fp32
 # (b) the Engine with the reference launcher's trace palettes
 ENGINE_CFG = dict(slots=16, cache_len=64, eos_id=0)
 ENGINE_TRACE = dict(n_requests=64, qps=20.0)
@@ -2980,11 +3020,34 @@ def serve_handoff(torch, work):
     return served
 
 
+@contextlib.contextmanager
+def dropfree(model, fp32=False):
+    """``model`` with drop-free MoE capacity (capacity_factor = E) inside
+    the block, as the reference's tests hold prefill against decode
+    (tests/test_models_smoke.py:110-121): with capacity dropping, a
+    prefill's tokens compete for other slots than a decode step's.  A
+    no-op for the other families.  ``fp32``: the compute and cache dtype
+    float32 too (the caller passes the fp32 masters as params)."""
+    import dataclasses
+
+    cfg = model.cfg
+    changes = dict(dtype="float32", emb_dtype="float32") if fp32 else {}
+    if cfg.moe is not None:
+        changes["moe"] = dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts))
+    model.cfg = cfg.replace(**changes)
+    try:
+        yield model
+    finally:
+        model.cfg = cfg
+
+
 def batch_mode(torch, model, params):
     """(a): ``launch/serve.py``'s batch loop at ``SERVE_ARGS`` (tokens in
     the vocab, every logit finite), then a prefill of ragged lanes against
-    a streamed, active-masked decode loop over the same prompts: kpos
-    bitwise, the last real position's logits within PARITY_TOL."""
+    a streamed, active-masked decode loop over the same prompts (drop-free
+    for moe): kpos bitwise, the last real position's logits within
+    PARITY_TOL.  Returns the batch loop's results."""
     from types import SimpleNamespace
 
     from repro_torch.launch import serve
@@ -3021,34 +3084,66 @@ def batch_mode(torch, model, params):
                   f"{a.cache_len})")
     del cache
 
+    prefill_parity(torch, model, params, "(a)")
+    return res
+
+
+def prefill_parity(torch, model, params, what):
+    """``prefill_cache`` of ragged lanes (PARITY_LENGTHS) against a
+    streamed, active-masked decode loop over the same prompts, drop-free
+    for moe: kpos bitwise, the last real position's logits within
+    PARITY_TOL + PARITY_TOL |x| in the compute dtype.  A moe model is
+    gated in fp32 (MOE_PARITY_TOL, as the reference's moe decode test runs
+    in fp32): in bf16 a rounding difference between the prefill's and a
+    decode step's products can flip a near-tie at the top-k boundary and
+    route a token to another expert; its bf16 gap is printed."""
+    if model.cfg.moe is None:
+        _parity(torch, model, params, what, PARITY_TOL, gate=True)
+        return
+    masters = {k: p.detach() for k, p in model.named_parameters()}
+    _parity(torch, model, masters, f"{what} fp32", MOE_PARITY_TOL,
+            gate=True, fp32=True)
+    _parity(torch, model, params, f"{what} {model.cfg.dtype}", PARITY_TOL,
+            gate=False)
+
+
+def _parity(torch, model, params, what, tol, gate, fp32=False):
+    cfg = model.cfg
+    V = cfg.vocab_size
     B, S = len(PARITY_LENGTHS), max(PARITY_LENGTHS)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(11)
-    prompts = torch.randint(0, V, (B, S), generator=gen, device=DEVICE,
+    shape = (B, cfg.num_codebooks, S) if cfg.family == "audio" else (B, S)
+    prompts = torch.randint(0, V, shape, generator=gen, device=DEVICE,
                             dtype=torch.int32)
     lengths = torch.tensor(PARITY_LENGTHS, dtype=torch.int32, device=DEVICE)
-    lp, cp = model.prefill_cache({"tokens": prompts}, S, lengths,
-                                 params=params)
-    cache = model.init_cache(B, S)
-    last = torch.zeros_like(lp)
-    for t in range(S):
-        lg, cache = model.decode_step(
-            cache, prompts[:, t:t + 1],
-            torch.full((B, 1), t, dtype=torch.int32, device=DEVICE),
-            active=t < lengths, params=params)
-        last = torch.where((t == lengths - 1).reshape(B, 1, 1), lg, last)
+    with dropfree(model, fp32):
+        lp, cp = model.prefill_cache({"tokens": prompts}, S, lengths,
+                                     params=params)
+        cache = model.init_cache(B, S)
+        last = torch.zeros_like(lp)
+        lane = (B,) + (1,) * (lp.ndim - 1)
+        for t in range(S):
+            lg, cache = model.decode_step(
+                cache, prompts[..., t:t + 1],
+                torch.full((B, 1), t, dtype=torch.int32, device=DEVICE),
+                active=t < lengths, params=params)
+            last = torch.where((t == lengths - 1).reshape(lane), lg, last)
     if not torch.equal(cp["kpos"], cache["kpos"]):
-        fail("(a): prefill_cache's kpos differs from the streamed loop's")
+        fail(f"{what}: prefill_cache's kpos differs from the streamed "
+             f"loop's")
     err = (lp - last)[..., :V].abs()
-    excess = (err - PARITY_TOL * (1 + last[..., :V].abs())).max().item()
+    excess = (err - tol * (1 + last[..., :V].abs())).max().item()
     kv_err = max((cp[n] - cache[n]).float().abs().max().item()
                  for n in ("k", "v"))
-    log(f"  (a) prefill_cache of lengths {list(PARITY_LENGTHS)} against "
-        f"{S} streamed decode steps: kpos bitwise, logits max |diff| "
-        f"{err.max().item():.3e} (tolerance {PARITY_TOL} + {PARITY_TOL}"
-        f"|x|), k/v max |diff| {kv_err:.3e}")
-    if excess > 0:
-        fail(f"(a): prefill logits leave the streamed loop's by "
+    log(f"  {what} prefill_cache of lengths {list(PARITY_LENGTHS)} against "
+        f"{S} streamed decode steps"
+        + (" (drop-free capacity)" if cfg.moe else "")
+        + f": kpos bitwise, logits max |diff| {err.max().item():.3e} "
+        f"(tolerance {tol} + {tol}|x|{'' if gate else ', printed'}), k/v "
+        f"max |diff| {kv_err:.3e}")
+    if excess > 0 and gate:
+        fail(f"{what}: prefill logits leave the streamed loop's by "
              f"{excess:.3e} beyond the tolerance")
 
 
@@ -3066,7 +3161,10 @@ def engine_checks(torch, model, params, trace):
     """(b): the Engine on the virtual clock (the shape contract, every
     request done, frozen lanes, replay, continuous against static), then
     on the wall clock at each of WALL_QPS, and a profile of full-table
-    ticks; returns the greedy continuous run."""
+    ticks; returns the greedy continuous run.  A moe model's lanes share
+    each expert's capacity (global dispatch), so continuous and static
+    admission may generate other tokens: their counts are printed, not
+    held equal."""
     from repro_torch.serving import make_trace
 
     V = model.cfg.vocab_size
@@ -3088,7 +3186,8 @@ def engine_checks(torch, model, params, trace):
     if not cont.n_decode_steps < stat.n_decode_steps:
         fail(f"(b): continuous took {cont.n_decode_steps} decode steps, "
              f"static {stat.n_decode_steps}")
-    if cont.generated_tokens != stat.generated_tokens:
+    if cont.generated_tokens != stat.generated_tokens and \
+            model.cfg.moe is None:
         fail(f"(b): continuous generated {cont.generated_tokens} tokens, "
              f"static {stat.generated_tokens}")
     same = sum(a == b for a, b in zip(_tokens_of(cont).values(),
@@ -3099,7 +3198,8 @@ def engine_checks(torch, model, params, trace):
         f"continuous {cont.n_decode_steps} decode steps and "
         f"{cont.n_prefill_launches} prefill calls against static "
         f"{stat.n_decode_steps} and {stat.n_prefill_launches} "
-        f"({same} of {len(trace)} sequences equal); two runs equal; "
+        f"({same} of {len(trace)} sequences equal, {stat.generated_tokens} "
+        f"tokens); two runs equal; "
         f"{run_s:.2f} s of wall time a run")
     for qps in WALL_QPS:
         wall = make_trace(0, vocab_size=V, n_requests=len(trace), qps=qps)
@@ -3207,7 +3307,10 @@ def batching_invariance(torch, model, params, greedy, trace):
     """(c): each of INVARIANCE_REQUESTS requests through a batch-1 loop
     (prefill at its pow2 length, then decode) against its tokens from the
     slot table; where they part, the batch-1 loop's top-2 logit gap there
-    must be under INVARIANCE_GAP of its largest |logit|."""
+    must be under INVARIANCE_GAP of its largest |logit|.  A moe model's
+    global dispatch couples the lanes by design (``models/moe.py``): its
+    count of equal sequences and its divergences are printed, not
+    gated."""
     import numpy as np
 
     from repro_torch.serving import pow2_pad
@@ -3247,7 +3350,7 @@ def batching_invariance(torch, model, params, greedy, trace):
         top = torch.topk(logits[j], 2).values
         share = ((top[0] - top[1]) / logits[j].abs().max()).item()
         parts.append(f"rid {r.rid} at token {j}: gap {share:.3e}")
-        if share >= INVARIANCE_GAP:
+        if share >= INVARIANCE_GAP and model.cfg.moe is None:
             fail(f"(c): rid {r.rid} leaves its batch-1 loop at token {j}, "
                  f"where the top-2 gap is {share:.3e} of the largest "
                  f"|logit| (bound {INVARIANCE_GAP})")
@@ -3276,6 +3379,532 @@ def sampling_checks(torch, model, params, greedy, trace):
         f"{SAMPLED['top_k']}) replays bitwise, {moved} of {len(trace)} "
         f"sequences differ from greedy, {first.generated_tokens} tokens, "
         f"{run_s:.2f} s of wall time a run")
+
+
+# ---------------------------------------------- phase 12: the moe family
+
+GRANITE = "granite-moe-1b-a400m"
+GRANITE_PARAMS = 1_384_989_696
+# launch/train.py at its defaults (the published config, seq 512, batch 8,
+# Muon PRISM-5, matfn fp32); only the step count is cut
+GRANITE_ARGV = ["--arch", GRANITE, "--steps", str(STEPS)]
+# Muon's matrix views by shape: the experts' w_gate/w_up/w_down and
+# wk/wv, wq/wo, the routers
+GRANITE_VIEWS = {(1024, 512): 2352, (1024, 1024): 48, (1024, 32): 24}
+# no bucket fits the fused tier (the routers' [1024, 32] views neither):
+# each runs three warm iterations of one K2 (R = I - X^T X) and two K1
+# (Horner on R)
+GRANITE_PER_STEP = dict(matmul_add=6 * len(GRANITE_VIEWS),
+                        gram_upper=3 * len(GRANITE_VIEWS))
+GRANITE_SHAPES = [
+    ("gram_upper", (2352, 1024, 512), None, False, "experts, wk/wv: R"),
+    ("matmul_add", (2352, 1024, 512), (2352, 512, 512), True,
+     "experts, wk/wv: Horner"),
+    ("gram_upper", (48, 1024, 1024), None, False, "wq/wo: R"),
+    ("matmul_add", (48, 1024, 1024), (48, 1024, 1024), True,
+     "wq/wo: Horner"),
+    ("gram_upper", (24, 1024, 32), None, False, "routers: R"),
+    ("matmul_add", (24, 1024, 32), (24, 32, 32), True, "routers: Horner"),
+]
+# a balanced router's Switch loss: E * sum_e f_e P_e = K with P_e = 1/E,
+# times the coefficient, summed over the layers (24 x 0.01 x 8 = 1.92); a
+# random router at step 0 sits near it, a wrong factor (E, K, the layer
+# sum, the coefficient) falls outside this band around it
+AUX_BAND = (0.5, 2.0)
+# 2 (k, v) x 24 layers x batch 4 x 1568 slots x 8 kv heads x 64 x 2 bytes,
+# plus kpos [4, 1568] int32
+GRANITE_KV_BYTES = 308_306_432
+# (c): the other new families at their published widths, depth cut
+FAMILY_LAYERS = 2
+FAMILY_BATCH, FAMILY_SEQ = 2, 512
+
+
+def phase12(torch):
+    """(a) granite-moe-1b-a400m trained through launch/train.py and (b)
+    served from the Trainer's checkpoint (a temporary directory under
+    build/, removed at the end); (c) the other new families.  Returns the
+    training run's launch counts."""
+    import shutil
+    import tempfile
+
+    base_dir = ROOT / "build"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase12_", dir=base_dir))
+    try:
+        counts, trained = granite_training(torch, work)
+        granite_serving(torch, work, trained)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    family_runs(torch)
+    return counts
+
+
+def _granite_views(opt):
+    """Muon's matrix views of ``opt``'s parameters, counted by shape."""
+    from repro_torch.optim import base
+
+    views = {}
+    for p, axes in zip(opt.param_groups[0]["params"], opt.axes):
+        if base.is_matrix_param(axes, tuple(p.shape)):
+            m, n = base.matrix_view_dims(axes, tuple(p.shape))
+            views[(m, n)] = views.get((m, n), 0) + p.numel() // (m * n)
+    return views
+
+
+def granite_training(torch, work):
+    """(a): STEPS Trainer steps through launch/train.py's ``build`` with a
+    checkpoint at the last; the gates of the module docstring.  Returns
+    (launch counts of the run, the trained parameters on the host)."""
+    from repro_torch.core.rng import Key
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = train_launch.parser().parse_args(
+        GRANITE_ARGV + ["--ckpt_dir", str(work), "--ckpt_every", str(STEPS)])
+    tr = train_launch.build(args)
+    model, cfg, pc = tr.model, tr.model.cfg, tr.ocfg.prism
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != GRANITE_PARAMS:
+        fail(f"(a): {n_params} parameters, not {GRANITE_PARAMS}")
+    views = _granite_views(tr.opt)
+    if views != GRANITE_VIEWS:
+        fail(f"(a): Muon's views {views}, want {GRANITE_VIEWS}")
+    log(f"  (a) {cfg.name}: {n_params} params ({cfg.num_layers} layers, "
+        f"d {cfg.d_model}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.num_experts_per_tok}, d_ff {cfg.d_ff}, capacity "
+        f"{cfg.moe.capacity_factor}, {cfg.moe.dispatch} dispatch), seq "
+        f"{args.seq}, batch {args.batch}, {cfg.dtype} compute, fp32 "
+        f"masters; Muon PRISM-5 (degree {pc.degree}, {pc.warm_alpha_iters} "
+        f"warm of {pc.iterations} iterations, sketch {pc.sketch_dim}), "
+        f"use_kernels={pc.use_kernels}, matfn_dtype {tr.ocfg.matfn_dtype}; "
+        f"Muon views " + ", ".join(f"{n} x {list(s)}" for s, n in
+                                   sorted(views.items())))
+    per_step, mets = {}, {}
+    unaligned = unaligned_launches()
+    ops.reset_launches()
+    last = [ops.launch_counts()]
+
+    def on_metrics(t, m):
+        now = ops.launch_counts()
+        per_step[t] = {k: now[k] - last[0][k] for k in now}
+        last[0] = now
+        mets[t] = {k: float(torch.as_tensor(m[k]).detach())
+                   for k in ("loss", "ce", "aux", "grad_norm")}
+
+    t0 = time.perf_counter()
+    _, _, losses = tr.run(on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if unaligned_launches() != unaligned:
+        fail("(a): K1/K2 launched their unaligned instantiation")
+    for t in sorted(per_step):
+        m = mets[t]
+        log(f"  (a) step {t}: loss {m['loss']:.4f} (ce {m['ce']:.4f}, aux "
+            f"{m['aux']:.5f}), grad_norm {m['grad_norm']:.4f}, launches "
+            + ", ".join(f"{k} {v}" for k, v in per_step[t].items() if v))
+        _expect_launches(per_step[t], GRANITE_PER_STEP, f"(a) step {t}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"(a): non-finite loss {losses}")
+    ln_v = math.log(cfg.vocab_size)
+    want_aux = cfg.num_layers * cfg.moe.router_aux_loss_coef \
+        * cfg.moe.num_experts_per_tok
+    if abs(mets[0]["ce"] - ln_v) > 1.5:
+        fail(f"(a): step-0 CE {mets[0]['ce']:.4f} not within 1.5 of ln(V) "
+             f"{ln_v:.4f}")
+    lo, hi = (f * want_aux for f in AUX_BAND)
+    if not lo <= mets[0]["aux"] <= hi:
+        fail(f"(a): step-0 aux {mets[0]['aux']:.5f} outside [{lo:.3f}, "
+             f"{hi:.3f}] around a balanced router's {want_aux:.3f}")
+    step_ms = statistics.median(tr.step_times) * 1e3
+    tokens = args.seq * args.batch
+    data = []
+    for t in range(1, STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.batch_fn(t)
+        torch.cuda.synchronize()
+        data.append((time.perf_counter() - t0) * 1e3)
+    npz = work / f"step_{STEPS:08d}" / "tree.npz"
+    log(f"  (a) {STEPS} steps in {run_s:.1f} s with a checkpoint at step "
+        f"{STEPS} ({npz.stat().st_size} bytes); step-0 CE "
+        f"{mets[0]['ce']:.4f} against ln(V) {ln_v:.4f}, aux "
+        f"{mets[0]['aux']:.5f} against a balanced router's {want_aux:.3f} "
+        f"(coef x K, summed over {cfg.num_layers} layers); "
+        f"step {step_ms:.1f} ms (median of steps 1..{STEPS - 1}, the "
+        f"Trainer's clock: data, forward, backward, Muon), "
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s; the data stream alone "
+        f"{statistics.median(data):.1f} ms a batch; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; the allocator's retries (cache flushes) "
+        f"{torch.cuda.memory_stats().get('num_alloc_retries', 0)}")
+    trained = {k: p.detach().to("cpu", copy=True)
+               for k, p in model.named_parameters()}
+    granite_update(torch, tr, Key(0).fold_in(STEPS))
+    batches = [tr.batch_fn(t) for t in range(1, STEPS)]
+    fb = []
+    for b in batches:
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.loss(b)[0].backward()
+        torch.cuda.synchronize()
+        fb.append((time.perf_counter() - t0) * 1e3)
+    log(f"  (a) forward+backward alone (median of {len(fb)}): "
+        f"{statistics.median(fb):.1f} ms")
+    profile_train_step(torch, lambda: tr.step_fn(batches[0], STEPS),
+                       "(a) a granite-moe train step")
+    repeated_step(torch, tr, batches[1], STEPS + 1)
+    log(f"  (a) max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB over (a)")
+    del tr, model, batches
+    torch.cuda.empty_cache()
+    return counts, trained
+
+
+def granite_update(torch, tr, key):
+    """One Muon update from the Trainer's state, parameters and last
+    clipped gradients, through the kernels and through torch.matmul
+    (``use_kernels=False``): within UPDATE_REL_TOL of the largest update
+    entry, the kernels' update bitwise the same when repeated, no
+    synchronizing call, the times, and a profile by K1/K2 shape.  Leaves
+    the Trainer's parameters as it found them and their gradients
+    cleared."""
+    from repro_torch.optim import make_optimizer
+
+    model, src = tr.model, tr.opt
+    named = dict(model.named_parameters())
+    before = {k: p.detach().clone() for k, p in named.items()}
+    grads = {k: p.grad for k, p in named.items()}
+
+    def fresh(use_kernels):
+        # Muon.step replaces its state tensors and never writes into
+        # them, so the new optimizer may hold the Trainer's own
+        o = make_optimizer(_with_prism(src.cfg, use_kernels=use_kernels),
+                           model.named_parameters(), model.logical_axes())
+        for p, st in src.state.items():
+            o.state[p] = dict(st)
+        o.count = src.count
+        with torch.no_grad():
+            for k, p in named.items():
+                p.copy_(before[k])
+                p.grad = grads[k]
+        return o
+
+    def timed(o):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o.step(key=key)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # the kernels' result waits on the host: the card holds the masters,
+    # their copy, the gradients, the Trainer's state and a step
+    opt_ms = {"kernels": [timed(fresh(True))], "plain": []}
+    after = {k: p.detach().to("cpu", copy=True) for k, p in named.items()}
+    opt_ms["plain"].append(timed(fresh(False)))
+    worst = 0.0
+    for k, p in named.items():
+        dk = after[k].to(p.device) - before[k]
+        rel = float((dk - (p.detach() - before[k])).abs().max()) / max(
+            float(dk.abs().max()), 1e-30)
+        worst = max(worst, rel)
+        if not rel <= UPDATE_REL_TOL:
+            fail(f"(a): the update of {k} through the kernels differs from "
+                 f"torch.matmul's by {rel:.3e} of its largest entry "
+                 f"(bound {UPDATE_REL_TOL})")
+    opt_ms["plain"].append(timed(fresh(False)))
+    opt_ms["kernels"].append(timed(fresh(True)))
+    differ = [k for k, p in named.items()
+              if not torch.equal(p.detach().cpu(), after[k])]
+    if differ:
+        fail(f"(a): a repeated Muon step through the kernels differs in "
+             f"{len(differ)} parameters, e.g. {differ[:3]}")
+    del after
+    o = fresh(True)
+    syncs = count_syncs(torch, lambda: o.step(key=key))
+    del o
+    log(f"  (a) Muon update, kernels vs torch.matmul: worst relative gap "
+        f"{worst:.3e} (bound {UPDATE_REL_TOL}); repeated through the "
+        f"kernels bitwise the same; Muon step through the kernels "
+        + ", ".join(f"{t:.1f}" for t in opt_ms["kernels"])
+        + " ms, through torch.matmul "
+        + ", ".join(f"{t:.1f}" for t in opt_ms["plain"])
+        + f" ms; synchronizing calls in one Muon step: {len(syncs)} "
+        f"{sorted(set(syncs))}")
+    if syncs:
+        fail(f"(a): {len(syncs)} synchronizing calls in one Muon step")
+    run = dict(model=model, opt=src, key=key)
+    profile_step(torch, run, "(a) granite-moe Muon PRISM-5", by_shape=True,
+                 fresh=lambda: fresh(True))
+    with torch.no_grad():
+        for k, p in named.items():
+            p.copy_(before[k])
+            p.grad = None
+    del run, before, grads
+    torch.cuda.empty_cache()
+
+
+def profile_train_step(torch, fn, what, top=8):
+    """A torch.profiler trace of one call of ``fn`` (a whole train step):
+    the device's busy time against the wall time, the idle share, and the
+    device kernels with the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Optimizer.")):
+            n, us = per.get(e.key, (0, 0.0))
+            per[e.key] = (n + e.count, us + e.self_device_time_total)
+    busy_ms = sum(us for _, us in per.values()) / 1e3
+    log(f"  {what}, profiled: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}"
+        f"; {sum(n for n, _ in per.values())} device activities")
+    for key, (n, us) in sorted(per.items(), key=lambda t: -t[1][1])[:top]:
+        log(f"    {us / 1e3:9.2f} ms {n:6d}x  {key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms)
+
+
+def repeated_step(torch, tr, batch, t):
+    """One Trainer step run twice from the same parameters and optimizer
+    state, with deterministic algorithms on, as phase 10 runs (the
+    embedding's backward): bitwise the same parameters (gated); then once
+    more with the mode off, its equality printed (the MoE dispatch's
+    backward adds no atomics: ``models/moe.py::_Dispatch``).  The states
+    are kept on the host."""
+    import warnings
+
+    model, opt = tr.model, tr.opt
+    named = dict(model.named_parameters())
+    saved = {k: p.detach().to("cpu", copy=True) for k, p in named.items()}
+    state = {p: dict(st) for p, st in opt.state.items()}
+    count = opt.count
+
+    def again():
+        with torch.no_grad():
+            for k, p in named.items():
+                p.copy_(saved[k])
+        for p, st in state.items():
+            opt.state[p] = dict(st)
+        opt.count = count
+        tr.step_fn(batch, t)
+        torch.cuda.synchronize()
+        return [k for k, p in named.items()
+                if not torch.equal(p.detach().cpu(), first[k])]
+
+    with deterministic(torch), warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step_fn(batch, t)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        first = {k: p.detach().to("cpu", copy=True)
+                 for k, p in named.items()}
+        differ = again()
+    loose = again()
+    notes = sorted({str(x.message).splitlines()[0][:120] for x in w
+                    if "deterministic" in str(x.message)})
+    log(f"  (a) a train step repeated from the same state with "
+        f"deterministic algorithms: {len(named) - len(differ)} of "
+        f"{len(named)} parameters bitwise the same ({ms:.1f} ms a step in "
+        f"that mode)" + (f"; warnings: {notes}" if notes else "")
+        + f"; with the mode off, {len(named) - len(loose)} of {len(named)}"
+        f" bitwise the first run's")
+    if differ:
+        fail(f"(a): a repeated train step differs in {len(differ)} "
+             f"parameters, e.g. {differ[:3]}")
+
+
+def granite_serving(torch, work, trained):
+    """(b): the Trainer's checkpoint into a fresh Model (another seed)
+    through ``restore_params``, bitwise the trained parameters; then phase
+    11's serving checks on it in bf16 (batch mode with the KV cache's
+    bytes gated, prefill against a streamed decode drop-free, the Engine,
+    batching printed; sampling, which no model changes, stays phase
+    11's)."""
+    from repro_torch.checkpoint import restore_params
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.serving import make_trace
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(GRANITE)
+    served = Model(cfg, device=DEVICE, seed=1)
+    t0 = time.perf_counter()
+    step, restored = restore_params(str(work),
+                                    dict(served.named_parameters()))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step != STEPS:
+        fail(f"(b): restore_params took step {step}, not {STEPS}")
+    served.load_params(restored)
+    del restored
+    for name, p in served.named_parameters():
+        if not torch.equal(p.detach().cpu(), trained[name]):
+            fail(f"(b): {name} is not bitwise the Trainer's")
+    log(f"  (b) restore_params of step {STEPS} in {restore_s:.2f} s: "
+        f"{len(trained)} parameters bitwise the Trainer's")
+    trained.clear()
+    with torch.inference_mode():
+        params = served.cast_params()
+    ops.reset_launches()
+    res = batch_mode(torch, served, params)
+    if res["cache_bytes"] != GRANITE_KV_BYTES:
+        fail(f"(b): KV cache of {res['cache_bytes']} bytes, not "
+             f"{GRANITE_KV_BYTES}")
+    trace = make_trace(0, vocab_size=cfg.vocab_size, **ENGINE_TRACE)
+    greedy = engine_checks(torch, served, params, trace)
+    batching_invariance(torch, served, params, greedy, trace)
+    counts = ops.launch_counts()
+    if sum(counts.values()):
+        fail(f"(b): serving launched PRISM kernels: {counts}")
+    log(f"  (b) serving launched 0 PRISM kernels; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del served, params
+    torch.cuda.empty_cache()
+
+
+def _finite(torch, what, tensors):
+    bad = [k for k, v in tensors.items()
+           if v is not None and not bool(torch.isfinite(v).all())]
+    if bad:
+        fail(f"{what}: non-finite {bad[:3]}")
+
+
+def family_runs(torch):
+    """(c): mixtral-8x7b, musicgen-medium and llava-next-34b at their
+    published widths, FAMILY_LAYERS layers each (the only cut), bf16
+    compute, random weights from seed 0."""
+    from repro_torch.configs import get_config
+
+    for arch in ("mixtral-8x7b", "musicgen-medium", "llava-next-34b"):
+        full = get_config(arch)
+        cfg = full.replace(num_layers=FAMILY_LAYERS)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        family_run(torch, arch, full, cfg)
+        torch.cuda.empty_cache()
+
+
+def family_run(torch, arch, full, cfg):
+    """One (c) run: vlm forward, loss and ``prefill_cache`` (no backward);
+    moe forward+backward and prefill against a streamed decode drop-free;
+    audio forward+backward, one Muon PRISM-5 step (launch/train.py's
+    optimizer) and one decode step."""
+    from repro_torch.core.rng import Key
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import Model
+    from repro_torch.models.inputs import make_decode_inputs, make_train_batch
+    from repro_torch.optim import make_optimizer
+
+    model = Model(cfg, device=DEVICE, seed=0)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    B = 1 if cfg.family == "vlm" else FAMILY_BATCH
+    S = FAMILY_SEQ
+    batch = make_train_batch(gen, cfg, B, S)
+    n = sum(p.numel() for p in model.parameters())
+    what = (f"(c) {arch} [{cfg.family}] (layers {full.num_layers} -> "
+            f"{cfg.num_layers}, {n} params), batch {B}, seq {S}")
+    ln_v = math.log(cfg.vocab_size)
+    if cfg.family == "vlm":
+        with torch.inference_mode():
+            params = model.cast_params()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, m = model.loss(batch, params=params)
+            torch.cuda.synchronize()
+            loss_ms = (time.perf_counter() - t0) * 1e3
+            logits, _ = model(batch, params=params)
+        P = cfg.num_patches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.prefill_cache(batch, P + S, params=params)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        _finite(torch, what, {"logits": logits, "prefill": lg,
+                              "k": cache["k"], "v": cache["v"]})
+        filled = int((cache["kpos"] < P + S).sum())
+        if tuple(logits.shape) != (B, S, model.padded_vocab) or \
+                filled != B * (P + S):
+            fail(f"{what}: logits {tuple(logits.shape)}, {filled} cache "
+                 f"slots filled")
+        if abs(float(m["ce"]) - ln_v) > 1.5:
+            fail(f"{what}: CE {float(m['ce']):.4f} not within 1.5 of ln(V) "
+                 f"{ln_v:.4f}")
+        log(f"  {what}, {P} patches x {cfg.vision_dim}: loss "
+            f"{float(loss):.4f} (ln V {ln_v:.4f}) in {loss_ms:.1f} ms "
+            f"(forward only); prefill_cache of {P + S} positions in "
+            f"{pre_ms:.1f} ms, every slot filled; logits finite")
+    else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, m = model.loss(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        fb_ms = (time.perf_counter() - t0) * 1e3
+        _finite(torch, what, {k: p.grad for k, p in
+                              model.named_parameters()})
+        ce = float(m["ce"].detach())
+        aux = float(torch.as_tensor(m["aux"]).detach())
+        if abs(ce - ln_v) > 1.5:
+            fail(f"{what}: CE {ce:.4f} not within 1.5 of ln(V) {ln_v:.4f}")
+        note = ""
+        if cfg.family == "audio":
+            args = train_launch.parser().parse_args(["--arch", arch])
+            opt = make_optimizer(train_launch.configs(args)[1],
+                                 model.named_parameters(),
+                                 model.logical_axes())
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.step(key=Key(0).fold_in(0))
+            torch.cuda.synchronize()
+            opt_ms = (time.perf_counter() - t0) * 1e3
+            c = {k: v for k, v in ops.launch_counts().items() if v}
+            _finite(torch, what, dict(model.named_parameters()))
+            del opt
+        for p in model.parameters():
+            p.grad = None
+        with torch.inference_mode():
+            params = model.cast_params()
+        if cfg.family == "audio":
+            with torch.inference_mode():
+                cache = model.init_cache(B, 64)
+                inp = make_decode_inputs(gen, cfg, B, 0)
+                lg, cache = model.decode_step(cache, inp["tokens"],
+                                              inp["pos"], params=params)
+            _finite(torch, what, {"decode": lg})
+            if tuple(lg.shape) != (B, cfg.num_codebooks, 1,
+                                   model.padded_vocab):
+                fail(f"{what}: decode logits {tuple(lg.shape)}")
+            note = (f"; one Muon PRISM-5 step in {opt_ms:.1f} ms (launches "
+                    f"{c}); one decode step of {B} lanes x "
+                    f"{cfg.num_codebooks} codebooks, logits finite")
+        else:
+            prefill_parity(torch, model, params, f"(c) {arch}")
+        log(f"  {what}: loss {float(loss):.4f} (ce {ce:.4f}, ln V "
+            f"{ln_v:.4f}, aux {aux:.5f}), forward+backward {fb_ms:.1f} ms, "
+            f"gradients finite" + note)
+    log(f"  {what}: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
 def main() -> None:
@@ -3320,11 +3949,15 @@ def main() -> None:
     rows = fit_kernel_checks(torch, rows)
     rows = family_checks(torch, rows)
     log("  K1/K2 at the lowrank tier's shapes (phase 9 (d))")
-    rows = lowrank_kernel_checks(torch, rows)
+    rows = gemm_shape_checks(torch, rows)
+    log("  K1/K2 at granite-moe's Muon bucket shapes (phase 12)")
+    rows = gemm_shape_checks(torch, rows, GRANITE_SHAPES, ("float32",), 13)
     timings = kernel_timings(torch, rows)
     timings.update(fit_kernel_timings(torch, rows))
     timings.update(family_timings(torch))
-    timings.update(lowrank_timings(torch))
+    timings.update(gemm_shape_timings(torch))
+    timings.update(gemm_shape_timings(torch, GRANITE_SHAPES, ("float32",),
+                                      14))
 
     runs = {}
     log("phase 4: PRISM-5 path, gpt2-paper Muon step at full width")
@@ -3377,10 +4010,16 @@ def main() -> None:
     log("phase 11: serving gpt2-paper at full width")
     phase11(torch)
 
+    log("phase 12: the moe family: granite-moe-1b-a400m trained through "
+        "launch/train.py and served at full width; mixtral-8x7b, "
+        "musicgen-medium and llava-next-34b at their widths, 2 layers")
+    granite = phase12(torch)
+
     by_path = {k: r["counts"] for k, r in runs.items()}
     by_path["fallback"] = fallback
     by_path["trainer"] = phase8["counts"]
     by_path.update(async_counts)
+    by_path["granite"] = granite
     print(json.dumps({"kernels": kernel_rows(rows, timings, by_path)}),
           flush=True)
     log(f"card: {card}")
@@ -3462,11 +4101,14 @@ def _drop(torch, run):
 
 # The kernels line: for each kernel, the measurements of each family and
 # main-path shape it was timed at, as (family, row/timing key, path); the
-# first entry, the one this slice's path runs where it runs one, gives the
-# kernel's top-level numbers.  Sign runs on no training path (signm only),
+# first entry, the one this slice's path runs where it runs one (K1's and
+# K2's: granite-moe's largest bucket), gives the kernel's top-level
+# numbers.  Sign runs on no training path (signm only),
 # nor do K1's and K2's bf16 rows (the paths' matfn dtype is fp32).
 VARIANTS = {
     "matmul_add": [
+        ("-", _lowrank_key(n, a, b, "float32"), "granite")
+        for n, a, b, _, _ in GRANITE_SHAPES if n == "matmul_add"] + [
         ("-", ("matmul_add", (20, 4096, 1024)), "trainer"),
         ("-", ("matmul_add", (40, 1024, 1024)), "trainer"),
         ("-", ("matmul_add", (100, 1024, 1024)), "shampoo_prism5"),
@@ -3478,6 +4120,8 @@ VARIANTS = {
        for n, a, b, _, _ in LOWRANK_SHAPES if n == "matmul_add"
        for dt in DTYPES],
     "gram_upper": [
+        ("polar", _lowrank_key(n, a, b, "float32"), "granite")
+        for n, a, b, _, _ in GRANITE_SHAPES if n == "gram_upper"] + [
         ("polar", ("gram_upper", (20, 4096, 1024)), "trainer"),
         ("polar", ("gram_upper", (40, 1024, 1024)), "trainer"),
         ("polar", ("gram_upper", (20, 4096, 1024), "bfloat16"), None),

@@ -1,4 +1,7 @@
-"""Architecture configs ported so far (the dense gpt2-paper model)."""
+"""Architecture configs: the registry (``--arch <id>``) over one module
+per published model."""
 from repro_torch.configs import gpt2_paper
+from repro_torch.configs.registry import (arch_ids, get_config,
+                                          get_smoke_config)
 
-__all__ = ["gpt2_paper"]
+__all__ = ["arch_ids", "get_config", "get_smoke_config", "gpt2_paper"]

@@ -59,7 +59,10 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig
                     ) -> Dict[str, torch.Tensor]:
     """The port's fp32 master parameters from the reference's parameter
     tree of numpy arrays (any float dtype, bf16 included: every bf16 value
-    is exact in fp32).  Names and shapes must match ``cfg`` exactly."""
+    is exact in fp32): every family ``param_specs`` covers, e.g.
+    ``layers.moe.*``, audio's ``heads``, vlm's ``vision_proj`` and a tied
+    tree with no ``head``.  Names and shapes must match ``cfg`` exactly;
+    a name the port does not carry raises."""
     flat = _flatten(tree)
     specs = param_specs(cfg)
     if set(flat) != set(specs):
@@ -87,11 +90,12 @@ def _tensor(a) -> torch.Tensor:
 def cache_from_jax(tree: Dict[str, Any], device=None
                    ) -> Dict[str, torch.Tensor]:
     """The port's decode cache from the reference's (``init_cache`` /
-    ``prefill_cache`` of the dense family: ``k``, ``v`` [L, B, clen, KV,
-    Hd] and ``kpos`` [B, clen] int32, as numpy arrays), each leaf in its
-    own dtype on ``device``."""
+    ``prefill_cache`` of the dense, moe, vlm and audio families, which
+    share one KV layout: ``k``, ``v`` [L, B, clen, KV, Hd] and ``kpos``
+    [B, clen] int32, as numpy arrays), each leaf in its own dtype on
+    ``device``.  Any other tree (the ssm/hybrid caches) raises."""
     if set(tree) != {"k", "v", "kpos"}:
-        raise KeyError(f"a dense decode cache has k, v and kpos; got "
+        raise KeyError(f"a KV decode cache has k, v and kpos; got "
                        f"{sorted(tree)}")
     return {name: _tensor(a).to(device) for name, a in tree.items()}
 

@@ -4,8 +4,11 @@
 Tokens come from a fixed random low-rank bigram (Markov) source, so
 optimizer runs show real learning — uniform random tokens would make
 every optimizer look identical.  ``batch_for_step(step)`` is a pure
-function of (seed, step).  Drawn with ``torch.Generator``s on the target
-device: the same distribution as the reference, not the same bits.
+function of (seed, step).  Audio batches draw batch * K rows of tokens
+and shape them [B, K, S]; vlm batches add bf16 patch embeddings from a
+generator of their own (seed + 2), as the reference does.  Drawn with
+``torch.Generator``s on the target device: the same distribution as the
+reference, not the same bits.
 """
 from __future__ import annotations
 
@@ -44,11 +47,12 @@ def bigram_factors(cfg: DataConfig, device):
 
 
 def sample_tokens(cfg: DataConfig, step: int, batch: int, factors,
-                  device) -> torch.Tensor:
-    """[batch, seq] int64 tokens for this step."""
+                  device, num_codebooks: int = 0) -> torch.Tensor:
+    """[batch, seq] (or [batch, K, seq]) int64 tokens for this step."""
     U, V = factors
     g = _generator(device, (cfg.seed + 1) * 1_000_003 + int(step))
-    x = torch.randint(0, cfg.vocab_size, (batch,), generator=g,
+    rows = batch * max(num_codebooks, 1)
+    x = torch.randint(0, cfg.vocab_size, (rows,), generator=g,
                       device=device)
     toks = [x]
     inv_t = 1.0 / np.sqrt(cfg.markov_rank)
@@ -56,23 +60,30 @@ def sample_tokens(cfg: DataConfig, step: int, batch: int, factors,
         probs = torch.softmax((U[x] @ V) * inv_t, dim=-1)
         x = torch.multinomial(probs, 1, generator=g)[:, 0]
         toks.append(x)
-    return torch.stack(toks, dim=1)
+    toks = torch.stack(toks, dim=1)
+    if num_codebooks:
+        return toks.reshape(batch, num_codebooks, cfg.seq_len)
+    return toks
 
 
 def make_batch_fn(model_cfg: ModelConfig, data_cfg: DataConfig,
                   device=None):
-    """Returns batch_for_step(step) -> {"tokens": [B, S]} on ``device``
-    (CUDA unless named)."""
-    if model_cfg.family != "dense":
-        raise NotImplementedError(
-            f"batches for the {model_cfg.family!r} family are ported with "
-            "its model (ROADMAP.md Queue 1 item 10)")
+    """Returns batch_for_step(step) -> the model's input dict on
+    ``device`` (CUDA unless named): {"tokens"} ([B, S], or [B, K, S] for
+    audio), plus "patches" [B, P, vision_dim] bf16 for vlm."""
     dev = resolve_device(device)
     factors = bigram_factors(data_cfg, dev)
+    books = model_cfg.num_codebooks if model_cfg.family == "audio" else 0
+    B = data_cfg.global_batch
 
     def batch_for_step(step: int):
-        return {"tokens": sample_tokens(data_cfg, step,
-                                        data_cfg.global_batch, factors,
-                                        dev)}
+        out = {"tokens": sample_tokens(data_cfg, step, B, factors, dev,
+                                       books)}
+        if model_cfg.family == "vlm":
+            g = _generator(dev, (data_cfg.seed + 2) * 1_000_003 + int(step))
+            out["patches"] = torch.randn(
+                (B, model_cfg.num_patches, model_cfg.vision_dim),
+                generator=g, device=dev).to(torch.bfloat16)
+        return out
 
     return batch_for_step

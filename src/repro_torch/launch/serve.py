@@ -11,32 +11,36 @@ or the continuous-batching Engine under a seeded Poisson trace.
     # train -> serve handoff: parameters from a Trainer checkpoint
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
         --ckpt_dir CKPT
+    # another architecture of the registry (dense, moe, vlm, audio)
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-1b-a400m --smoke --device cpu
 
-``--arch gpt2-paper`` is the one model the port has (the registry is
-ROADMAP.md Queue 1 item 10); ``--smoke`` takes its SMOKE width.  Weights
-are random from ``--seed`` unless ``--ckpt_dir`` names a checkpoint.
-Batch-mode prompts are uniform tokens from ``np.random.default_rng(
-seed)``, in place of the reference's ``models/inputs.make_train_batch``.
-The first prefill call is timed apart from the second, so the prefill
-tokens/s is a steady-state number.  ``--mesh production`` is ported with
-ROADMAP.md Queue 1 item 11.  Without ``--device`` it runs on CUDA.
+``--arch`` names a model of the registry (``configs/registry.py``,
+default gpt2-paper); ``--smoke`` takes its SMOKE width.  The Engine
+(``--continuous``) serves dense and moe models; batch mode serves vlm
+and audio too (a vlm prompt carries its patch prefix, so its positions
+and cache include it; audio decodes K codebooks a step).  Weights are
+random from ``--seed`` unless ``--ckpt_dir`` names a checkpoint.
+Batch-mode prompts come from ``models/inputs.make_train_batch`` on a
+generator seeded with ``--seed``.  The first prefill call is timed apart
+from the second, so the prefill tokens/s is a steady-state number.
+``--mesh production`` is ported with ROADMAP.md Queue 1 item 11.
+Without ``--device`` it runs on CUDA.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-import numpy as np
 import torch
 
 from repro_torch.checkpoint import restore_params
-from repro_torch.configs import gpt2_paper
+from repro_torch.configs import arch_ids, get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
+from repro_torch.models.inputs import make_train_batch
 from repro_torch.serving import (Engine, EngineConfig, make_serve_step,
                                  make_trace)
-
-ARCHS = {"gpt2-paper": gpt2_paper}
 
 
 def _sync(device) -> None:
@@ -48,8 +52,7 @@ def load_model(args, device):
     """(model, compute-dtype params) of ``args``: random from
     ``args.seed``, or the params of ``args.ckpt_dir``'s newest checkpoint
     that verifies."""
-    mod = ARCHS[args.arch]
-    cfg = mod.SMOKE if args.smoke else mod.CONFIG
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     model = Model(cfg, device=device, seed=args.seed)
     if args.ckpt_dir:
         step, params = restore_params(args.ckpt_dir,
@@ -64,18 +67,24 @@ def batch_loop(model, params, args, device) -> dict:
     """One prefill_cache call over ``args.batch`` prompts of
     ``args.prompt_len`` (timed twice: the first call apart), then
     ``args.gen_len`` greedy decode steps from its token; returns the
-    times, the tokens [B, gen_len + 1], whether every logit was finite
-    and the KV cache bytes."""
+    times, the tokens [B, gen_len + 1] ([B, K, gen_len + 1] audio),
+    whether every logit was finite and the KV cache bytes.  A vlm
+    prompt's patch prefix adds its length to the cache and the decode
+    positions."""
     cfg = model.cfg
     B = args.batch
     cache_len = args.cache_len or (args.prompt_len + args.gen_len)
-    prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (B, args.prompt_len)).astype(np.int32)).to(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    batch = make_train_batch(gen, cfg, B, args.prompt_len)
+    extra = batch["patches"].shape[1] if cfg.family == "vlm" else 0
+    cache_len += extra
+    start = args.prompt_len + extra
     times = []
     for _ in range(2):
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = model.prefill_cache({"tokens": prompts}, cache_len,
+        logits, cache = model.prefill_cache(batch, cache_len,
                                             params=params)
         _sync(device)
         times.append(time.perf_counter() - t0)
@@ -84,7 +93,7 @@ def batch_loop(model, params, args, device) -> dict:
     out, seen = [tok], [logits]
     _sync(device)
     t0 = time.perf_counter()
-    for t in range(args.prompt_len, args.prompt_len + args.gen_len):
+    for t in range(start, start + args.gen_len):
         pos = torch.full((B, 1), t, dtype=torch.int32, device=device)
         lg, tok, cache = step(cache, tok, pos, params=params)
         out.append(tok)
@@ -96,8 +105,8 @@ def batch_loop(model, params, args, device) -> dict:
            "decode_s": decode_s, "decode_ms_step": decode_s / steps * 1e3,
            "prefill_tok_s": B * args.prompt_len / times[1],
            "decode_tok_s": B * steps / decode_s,
-           "tokens": torch.cat(out, dim=1).cpu().numpy(),
-           "finite": bool(torch.isfinite(torch.cat(seen, dim=1)).all()),
+           "tokens": torch.cat(out, dim=-1).cpu().numpy(),
+           "finite": bool(torch.isfinite(torch.cat(seen, dim=-2)).all()),
            "cache_bytes": sum(v.numel() * v.element_size()
                               for v in cache.values())}
     print(f"arch={cfg.name} batch={B} prompt={args.prompt_len} "
@@ -134,7 +143,8 @@ def serve_continuous(model, params, args):
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gpt2-paper", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="gpt2-paper",
+                    choices=sorted(arch_ids() + ["gpt2-paper"]))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt_len", type=int, default=16)

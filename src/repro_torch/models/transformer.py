@@ -1,4 +1,4 @@
-"""Decoder model, dense family (counterpart of
+"""Decoder model: the dense, moe, vlm and audio families (counterpart of
 ``repro/models/transformer.py``).
 
 ``Model`` is an ``nn.Module`` whose parameters are the fp32 MASTER copies,
@@ -6,15 +6,15 @@ layer-stacked with the reference's names and shapes (``layers.attn.wq``:
 [L, d, H, hd], ...).  ``logical_axes()`` gives the same axis tuples, so
 Muon's matrix views and buckets come out as in the reference.  The
 forward pass casts every master to ``param_dtypes()`` (bf16 matrices,
-fp32 norms) on the way in, and autograd returns fp32 gradients to the
-masters.
+fp32 norms and router) on the way in, and autograd returns fp32
+gradients to the masters.
 
   param_shapes()       name -> shape (no tensors, any size)
   logical_axes()       name -> logical-axis tuple
   param_dtypes()       name -> compute dtype of the forward pass
   cast_params()        name -> master cast to its compute dtype
   forward(batch)       -> (logits [B, S, V_padded] fp32, aux)
-  loss(batch)          -> (scalar next-token CE, metrics)
+  loss(batch)          -> (scalar CE + aux, metrics)
   prefill(batch)       -> last position's logits [B, 1, V_padded]
   init_cache(B, len)   -> empty decode cache {k, v, kpos}
   prefill_cache(batch, cache_len, lengths)
@@ -22,12 +22,26 @@ masters.
   decode_step(cache, tokens, pos, active)
                        -> (logits [B, 1, V_padded], cache updated in place)
 
-The vocabulary pads to a multiple of 16; pad logits are masked out of
-the CE.  The reference remats each block (``jax.checkpoint``); at the
-sizes this port trains, activations fit without it.  The serving methods
-run under ``torch.inference_mode()``.  The moe, ssm, hybrid, vlm and
-audio families are ported with a later slice (ROADMAP.md Queue 1 item
-10).
+Families (all on the dense trunk's attention and KV cache):
+
+  dense  [attn, mlp] x L
+  moe    [attn, moe_ffn] x L (``models/moe.py``); the layers' aux
+         load-balancing losses add to the CE
+  vlm    dense backbone over a prefix of projected patch embeddings
+         (``batch["patches"]`` [B, P, vision_dim] @ ``vision_proj``),
+         sliced off before the head
+  audio  dense backbone over the sum of K codebook embeddings
+         (``embed`` [K, V, d], tokens [B, K, S]), one head per codebook
+         (``heads`` [K, d, V], logits [B, K, S, V]); the CE averages the
+         codebooks
+
+``tie_embeddings`` drops ``head`` and projects onto ``embed``.  The ssm
+and hybrid families (their own recurrent caches) are ported with
+ROADMAP.md Queue 1 item 10b and raise here.  The vocabulary pads to a
+multiple of 16; pad logits are masked out of the CE.  The reference
+remats each block (``jax.checkpoint``); at the sizes this port trains,
+activations fit without it.  The serving methods run under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -40,6 +54,7 @@ from repro_torch.config import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 VOCAB_PAD_MULTIPLE = 16  # pad odd vocab tables so TP sharding divides
 INT_SENTINEL = attn.INT32_MAX  # kpos of an empty cache slot
@@ -52,30 +67,43 @@ def padded_vocab(cfg: ModelConfig) -> int:
 def param_specs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, tuple, str]]:
     """name -> (shape, logical axes, dtype name) of every parameter, in the
     order the model registers them."""
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"the {cfg.family!r} family is ported with a later slice "
-            "(ROADMAP.md Queue 1 item 10); only 'dense' runs so far")
-    if cfg.tie_embeddings:
-        raise NotImplementedError("tied embeddings are ported with a later "
-                                  "slice (ROADMAP.md Queue 1 item 10)")
+            "(ROADMAP.md Queue 1 item 10b); dense, moe, vlm and audio run")
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     V, d, Lyr = padded_vocab(cfg), cfg.d_model, cfg.num_layers
-    specs = {
-        "final_ln": ((d,), ("embed",), "float32"),
-        "embed": ((V, d), ("vocab", "embed"), cfg.emb_dtype),
-        "head": ((d, V), ("embed", "vocab"), cfg.emb_dtype),
-        "layers.ln1": ((Lyr, d), ("layers", "embed"), "float32"),
-        "layers.ln2": ((Lyr, d), ("layers", "embed"), "float32"),
-    }
+    specs = {"final_ln": ((d,), ("embed",), "float32")}
+    if cfg.family == "audio":
+        K = cfg.num_codebooks
+        specs["embed"] = ((K, V, d), ("codebooks", "vocab", "embed"),
+                          cfg.emb_dtype)
+        specs["heads"] = ((K, d, V), ("codebooks", "embed", "vocab"),
+                          cfg.emb_dtype)
+    else:
+        specs["embed"] = ((V, d), ("vocab", "embed"), cfg.emb_dtype)
+        if not cfg.tie_embeddings:
+            specs["head"] = ((d, V), ("embed", "vocab"), cfg.emb_dtype)
+    if cfg.family == "vlm":
+        specs["vision_proj"] = ((cfg.vision_dim, d), (None, "embed"),
+                                cfg.emb_dtype)
+    specs["layers.ln1"] = ((Lyr, d), ("layers", "embed"), "float32")
+    specs["layers.ln2"] = ((Lyr, d), ("layers", "embed"), "float32")
     a_shapes, a_axes = attn.attention_shapes(cfg), attn.attention_axes(cfg)
     for k, shp in a_shapes.items():
         dt = "float32" if k.endswith("norm") else cfg.dtype
         specs[f"layers.attn.{k}"] = ((Lyr,) + shp, ("layers",) + a_axes[k],
                                      dt)
-    m_shapes, m_axes = L.mlp_shapes(cfg), L.mlp_axes(cfg)
-    for k, shp in m_shapes.items():
-        specs[f"layers.mlp.{k}"] = ((Lyr,) + shp, ("layers",) + m_axes[k],
-                                    cfg.dtype)
+    if cfg.family == "moe":
+        f_shapes, f_axes, sub = (moe_lib.moe_shapes(cfg),
+                                 moe_lib.moe_axes(cfg), "moe")
+    else:
+        f_shapes, f_axes, sub = L.mlp_shapes(cfg), L.mlp_axes(cfg), "mlp"
+    for k, shp in f_shapes.items():
+        dt = "float32" if k == "router" else cfg.dtype
+        specs[f"layers.{sub}.{k}"] = ((Lyr,) + shp, ("layers",) + f_axes[k],
+                                      dt)
     return specs
 
 
@@ -83,24 +111,30 @@ def _init_values(cfg: ModelConfig, gen: torch.Generator, device):
     """Initial values in each parameter's compute dtype (as the reference's
     ``Model.init`` makes them)."""
     emb_dt, dt = torch_dtype(cfg.emb_dtype), torch_dtype(cfg.dtype)
-    V, d, Lyr = padded_vocab(cfg), cfg.d_model, cfg.num_layers
-    vals = {
-        "final_ln": torch.zeros((d,), device=device),
-        "embed": L.embed_init(gen, (V, d), emb_dt, device),
-        "head": L.dense_init(gen, (d, V), -2, emb_dt, device),
-        "layers.ln1": torch.zeros((Lyr, d), device=device),
-        "layers.ln2": torch.zeros((Lyr, d), device=device),
-    }
+    specs = param_specs(cfg)
+    d, Lyr = cfg.d_model, cfg.num_layers
+    vals = {"final_ln": torch.zeros((d,), device=device),
+            "embed": L.embed_init(gen, specs["embed"][0], emb_dt, device)}
+    for name in ("head", "heads", "vision_proj"):
+        if name in specs:
+            vals[name] = L.dense_init(gen, specs[name][0], -2, emb_dt,
+                                      device)
+    vals["layers.ln1"] = torch.zeros((Lyr, d), device=device)
+    vals["layers.ln2"] = torch.zeros((Lyr, d), device=device)
     for k, v in attn.init_attention(gen, cfg, Lyr, dt, device).items():
         vals[f"layers.attn.{k}"] = v
-    for k, shp in L.mlp_shapes(cfg).items():
-        vals[f"layers.mlp.{k}"] = L.dense_init(gen, (Lyr,) + shp, -2, dt,
-                                               device)
+    if cfg.family == "moe":
+        for k, v in moe_lib.init_moe(gen, cfg, Lyr, dt, device).items():
+            vals[f"layers.moe.{k}"] = v
+    else:
+        for k, shp in L.mlp_shapes(cfg).items():
+            vals[f"layers.mlp.{k}"] = L.dense_init(gen, (Lyr,) + shp, -2,
+                                                   dt, device)
     return vals
 
 
 class Model(nn.Module):
-    """Dense decoder with fp32 master parameters (see module docstring).
+    """Decoder with fp32 master parameters (see module docstring).
 
     ``device`` defaults to CUDA (``device.resolve_device``); ``seed``
     seeds the ``torch.Generator`` of the initial values.
@@ -168,7 +202,13 @@ class Model(nn.Module):
 
     def _embed_tokens(self, params, tokens):
         cfg = self.cfg
-        x = params["embed"][tokens]
+        if cfg.family == "audio":
+            # tokens [B, K, S]: sum the codebook embeddings
+            K = cfg.num_codebooks
+            book = torch.arange(K, device=tokens.device)[None, :, None]
+            x = torch.sum(params["embed"][book, tokens], dim=1)
+        else:
+            x = params["embed"][tokens]
         if cfg.scale_embeddings:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
         return x.to(torch_dtype(cfg.dtype))
@@ -176,7 +216,13 @@ class Model(nn.Module):
     def _lm_logits(self, params, x):
         cfg = self.cfg
         x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
-        logits = L.softcap((x @ params["head"]).float(), cfg.logits_softcap)
+        if cfg.family == "audio":
+            logits = torch.einsum("bsd,kdv->bksv", x, params["heads"])
+        elif cfg.tie_embeddings:
+            logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+        else:
+            logits = x @ params["head"]
+        logits = L.softcap(logits.float(), cfg.logits_softcap)
         if self.padded_vocab != cfg.vocab_size:  # mask pad rows out of CE
             iota = torch.arange(self.padded_vocab, device=logits.device)
             logits = torch.where(iota < cfg.vocab_size, logits,
@@ -185,42 +231,62 @@ class Model(nn.Module):
         return logits
 
     def _layers(self, params):
-        """Per-layer (attention, mlp, ln1, ln2) parameter dicts."""
+        """Per-layer (attention, feed-forward, ln1, ln2) parameter dicts;
+        the feed-forward is the moe subtree or the mlp."""
         lay = {k[len("layers."):]: v for k, v in params.items()
                if k.startswith("layers.")}
+        sub = "moe." if self.cfg.family == "moe" else "mlp."
         for i in range(self.cfg.num_layers):
             p = {k: v[i] for k, v in lay.items()}
             a = {k[len("attn."):]: v for k, v in p.items()
                  if k.startswith("attn.")}
-            m = {k[len("mlp."):]: v for k, v in p.items()
-                 if k.startswith("mlp.")}
+            m = {k[len(sub):]: v for k, v in p.items() if k.startswith(sub)}
             yield a, m, p["ln1"], p["ln2"]
 
+    def _ffn(self, m, x):
+        """The layer's feed-forward -> (out, aux loss)."""
+        if self.cfg.family == "moe":
+            return moe_lib.moe_ffn(m, x, self.cfg)
+        return L.mlp(m, x, self.cfg), 0.0
+
     def _block(self, layer, x, positions):
-        """One decoder layer -> (x, (k, v)): the (k, v) ``attend``
+        """One decoder layer -> (x, aux, (k, v)): the (k, v) ``attend``
         projects, which the serving prefill stacks into its cache."""
         cfg = self.cfg
         a, m, ln1, ln2 = layer
         h, kv = attn.attend(a, L.rms_norm(x, ln1, cfg.norm_eps), positions,
                             cfg)
         x = x + h
-        return x + L.mlp(m, L.rms_norm(x, ln2, cfg.norm_eps), cfg), kv
+        h, aux = self._ffn(m, L.rms_norm(x, ln2, cfg.norm_eps))
+        return x + h, aux, kv
 
     def _backbone(self, params, x, positions):
-        """x [B, S, D] -> (x, aux_loss); one loop over the stacked layers."""
+        """x [B, S, D] -> (x, summed aux loss); one loop over the stacked
+        layers."""
+        total = 0.0
         for layer in self._layers(params):
-            x, _ = self._block(layer, x, positions)
-        return x, 0.0
+            x, aux, _ = self._block(layer, x, positions)
+            total = total + aux
+        return x, total
 
     def _backbone_kv(self, params, x, positions):
         """The backbone that also returns each layer's projected k and v,
         stacked [L, B, S, KV, Hd], for the serving prefill."""
         ks, vs = [], []
         for layer in self._layers(params):
-            x, (k, v) = self._block(layer, x, positions)
+            x, _, (k, v) = self._block(layer, x, positions)
             ks.append(k)
             vs.append(v)
         return x, torch.stack(ks), torch.stack(vs)
+
+    def _inputs(self, params, batch):
+        """Embedded tokens, behind the projected patch prefix for vlm ->
+        (x [B, P + S, D], P)."""
+        x = self._embed_tokens(params, batch["tokens"])
+        if self.cfg.family != "vlm":
+            return x, 0
+        px = batch["patches"].to(x.dtype) @ params["vision_proj"]
+        return torch.cat([px.to(x.dtype), x], dim=1), px.shape[1]
 
     def _positions(self, x):
         B, S = x.shape[0], x.shape[1]
@@ -232,18 +298,18 @@ class Model(nn.Module):
     def forward(self, batch, params: Optional[Dict] = None):
         """Full-sequence fp32 logits over the padded vocab, and aux."""
         params = self.cast_params() if params is None else params
-        x = self._embed_tokens(params, batch["tokens"])
+        x, P = self._inputs(params, batch)
         x, aux = self._backbone(params, x, self._positions(x))
-        return self._lm_logits(params, x), aux
+        return self._lm_logits(params, x[:, P:]), aux
 
     def loss(self, batch, params: Optional[Dict] = None,
              chunk: Optional[int] = None):
-        """Next-token CE with seq-chunked logits -> (loss, metrics)."""
+        """Next-token CE with seq-chunked logits, plus the MoE aux loss ->
+        (loss, metrics)."""
         params = self.cast_params() if params is None else params
-        tokens = batch["tokens"]
-        x = self._embed_tokens(params, tokens)
+        x, P = self._inputs(params, batch)
         x, aux = self._backbone(params, x, self._positions(x))
-        ce = self._ce_from_hidden(params, x, tokens, chunk)
+        ce = self._ce_from_hidden(params, x[:, P:], batch["tokens"], chunk)
         loss = ce + aux
         return loss, {"ce": ce, "aux": aux,
                       "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0))}
@@ -251,11 +317,13 @@ class Model(nn.Module):
     def _ce_from_hidden(self, params, x, tokens,
                         chunk: Optional[int] = None):
         """Chunked next-token CE given backbone output x [B, S, D]: the LM
-        head runs per sequence chunk, so at most [B, chunk, V] logits
-        exist at once."""
+        head runs per sequence chunk, so at most [B, (K,) chunk, V] logits
+        exist at once.  Audio targets are [B, K, S]; its CE averages the
+        codebooks."""
         chunk = chunk or self.cfg.loss_chunk
+        audio = self.cfg.family == "audio"
         B = x.shape[0]
-        tg = tokens[:, 1:]
+        tg = tokens[..., 1:]
         xs = x[:, :-1]
         Sm1 = xs.shape[1]
         total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -263,7 +331,9 @@ class Model(nn.Module):
             logits = self._lm_logits(params, xs[:, s0:s0 + chunk])
             logp = torch.log_softmax(logits, dim=-1)
             nll = -torch.gather(logp, -1,
-                                tg[:, s0:s0 + chunk, None].long())[..., 0]
+                                tg[..., s0:s0 + chunk, None].long())[..., 0]
+            if audio:
+                nll = torch.mean(nll, dim=1)  # average codebooks
             total = total + torch.sum(nll)
         return total / (B * Sm1)
 
@@ -281,7 +351,7 @@ class Model(nn.Module):
         """Serving prefill: the backbone over the whole prompt, fp32
         logits [B, 1, V_padded] of the last position only."""
         params = self.cast_params() if params is None else params
-        x = self._embed_tokens(params, batch["tokens"])
+        x, _ = self._inputs(params, batch)
         x, _ = self._backbone(params, x, self._positions(x))
         return self._lm_logits(params, x[:, -1:])
 
@@ -315,10 +385,14 @@ class Model(nn.Module):
         cache (kpos stays the sentinel, k/v zeros).  It matches a streamed
         decode loop when the rolling cache drops no position still inside
         the attention window (``cache_len`` >= the prompt for full
-        attention)."""
+        attention).  A vlm prompt's positions and cache include its patch
+        prefix, and it takes no ``lengths``."""
         cfg = self.cfg
         params = self.cast_params() if params is None else params
-        x = self._embed_tokens(params, batch["tokens"])
+        if cfg.family == "vlm":
+            assert lengths is None, \
+                "ragged prompts are not supported for vlm prefill"
+        x, _ = self._inputs(params, batch)
         B, S = x.shape[0], x.shape[1]
         x, ks, vs = self._backbone_kv(params, x, self._positions(x))
 
@@ -355,14 +429,17 @@ class Model(nn.Module):
     @torch.inference_mode()
     def decode_step(self, cache, tokens, pos, active=None,
                     params: Optional[Dict] = None):
-        """tokens [B, 1]; pos [B, 1] absolute positions -> (fp32 logits
-        [B, 1, V_padded] of the new token, ``cache``).
+        """tokens [B, 1] ([B, K, 1] audio); pos [B, 1] absolute positions
+        -> (fp32 logits [B, 1, V_padded] ([B, K, 1, V_padded] audio) of
+        the new token, ``cache``).
 
         The cache is updated in place: each lane writes its new k/v rows
         and kpos at slot pos % clen (a rolling buffer).  ``active`` [B]
         bool is the serving slot mask: lanes with False leave every cache
         leaf bitwise unchanged; their logits are garbage the caller masks.
-        None means every lane is live."""
+        None means every lane is live.  A moe layer routes the B lanes as
+        one global dispatch (``models/moe.py``), inactive lanes too, as
+        the reference does."""
         cfg = self.cfg
         params = self.cast_params() if params is None else params
         x = self._embed_tokens(params, tokens)
@@ -375,5 +452,5 @@ class Model(nn.Module):
                 a, L.rms_norm(x, ln1, cfg.norm_eps), pos, cache["k"][i],
                 cache["v"][i], cache["kpos"], slot, cfg, active=active)
             x = x + y
-            x = x + L.mlp(m, L.rms_norm(x, ln2, cfg.norm_eps), cfg)
+            x = x + self._ffn(m, L.rms_norm(x, ln2, cfg.norm_eps))[0]
         return self._lm_logits(params, x), cache

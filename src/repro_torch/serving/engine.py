@@ -35,8 +35,11 @@ it re-admits only when the WHOLE table has drained).
 Per-slot sampling keys fold (request id, position) — see
 ``serving/decode.py`` — so two requests decoding at the same position
 never share a sample stream and any trace replays bitwise.  The engine
-serves the dense family (the other families are ported with ROADMAP.md
-Queue 1 item 10).
+serves the KV-cache families with one token per lane, dense and moe, as
+the reference's does.  A moe model routes the whole slot table as one
+global dispatch (``models/moe.py``): once an expert overflows its
+capacity, a lane's tokens depend on its batch-mates, by the reference's
+design.
 """
 from __future__ import annotations
 
@@ -137,11 +140,10 @@ class Engine:
     ``gumbel``)."""
 
     def __init__(self, model: Model, params, cfg: EngineConfig, key=None):
-        if model.cfg.family != "dense":
+        if model.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"Engine serves the dense family; {model.cfg.family!r} "
-                f"caches are not slot-installable here (ROADMAP.md Queue "
-                f"1 item 10)")
+                f"Engine serves KV-cache families (dense, moe); "
+                f"{model.cfg.family!r} caches are not slot-installable")
         self.model = model
         if params is None:
             with torch.inference_mode():

@@ -99,14 +99,15 @@ def test_bf16_loss_matches_reference():
     assert abs(float(loss.detach()) - float(jloss)) < 1e-2
 
 
-def test_unported_families_and_decode_raise():
-    """The moe family and tied embeddings still raise; the serving
-    methods of the dense model run (their parity with the reference is in
-    ``test_torch_decode.py``), with these shapes at SMOKE."""
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
+def test_unported_families_and_decode_raise(family):
+    """The recurrent families still raise (ROADMAP.md Queue 1 item 10b;
+    moe, vlm, audio and tied embeddings run: ``test_torch_archs.py``); the
+    serving methods of the dense model run (their parity with the
+    reference is in ``test_torch_decode.py``), with these shapes at
+    SMOKE."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(gpt2_paper.SMOKE.replace(family="moe"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(gpt2_paper.SMOKE.replace(tie_embeddings=True), device="cpu")
+        Model(gpt2_paper.SMOKE.replace(family=family), device="cpu")
     cfg = gpt2_paper.SMOKE
     model = Model(cfg, device="cpu")
     toks = torch.from_numpy(_tokens(cfg, batch=2, seq=12))

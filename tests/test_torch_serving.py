@@ -14,6 +14,7 @@ import pytest
 import torch
 from conftest import hypothesis_or_stub
 
+from repro.configs import get_smoke_config as jsmoke
 from repro.configs import qwen3_14b as jqwen
 from repro.models import build
 from repro.serving import Engine as JEngine
@@ -33,6 +34,7 @@ from repro_torch.serving import (Engine, EngineConfig, make_trace, pow2_pad,
 from repro_torch.serving.decode import make_serve_step
 from repro_torch.train import Trainer
 from test_torch_decode import CFG32, port_config
+from test_torch_moe import port_cfg
 from test_torch_prism import JaxKey
 
 given, settings, st = hypothesis_or_stub()
@@ -248,6 +250,21 @@ def test_sampled_engine_run_matches_reference():
     want = _jax_engine_run(jcfg, params, trace, **kw)
     got = Engine(model, None, EngineConfig(**kw),
                  key=JaxKey(jax.random.PRNGKey(4))).run(trace, step_dt=0.01)
+    _same_run(got, want)
+
+
+def test_greedy_moe_engine_run_matches_reference():
+    """granite-moe's SMOKE (8 experts, top-2, global dispatch at capacity
+    1.25, so the slot table's lanes share each expert's slots) in fp32
+    through both Engines on the virtual clock: the same completions."""
+    jcfg = jsmoke("granite-moe-1b-a400m").replace(**CFG32)
+    model = Model(port_cfg(jcfg), device="cpu", seed=23)
+    params = jax.tree.map(jnp.asarray, convert.params_to_jax(
+        dict(model.named_parameters())))
+    trace = _trace(jcfg, seed=6, n=10, qps=200.0)
+    kw = dict(slots=4, cache_len=CLEN, eos_id=None)
+    want = _jax_engine_run(jcfg, params, trace, **kw)
+    got = Engine(model, None, EngineConfig(**kw)).run(trace, step_dt=0.01)
     _same_run(got, want)
 
 
