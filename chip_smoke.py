@@ -37,7 +37,8 @@ Phases (any failure exits non-zero and prints no result):
      checked, timed beside ``torch.bmm``/``baddbmm`` and their bound, and
      at one ragged l = 21 case on the element-by-element instantiation;
      and at granite-moe's Muon buckets (``GRANITE_SHAPES``: [2352, 1024,
-     512], [48, 1024, 1024], [24, 1024, 32]) in fp32, the same way;
+     512], [48, 1024, 1024], [24, 1024, 32]) and the recurrent families'
+     (``RECURRENT_SHAPES``, phase 13) in fp32, the same way;
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
      width (seq 512, batch 4, random weights from seed 0), STEPS steps
      through the launcher's configuration (``build_path``); the launch
@@ -193,7 +194,39 @@ Phases (any failure exits non-zero and prints no result):
      (forward+backward, one Muon step, one decode step) and llava-next-34b
      (2880 patches: forward, loss and ``prefill_cache``) at their
      published widths, 2 layers each, finite results;
- 13. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+ 13. the recurrent families (``models/ssm.py``, ``models/rglru.py``, the
+     ssm and hybrid stacks of ``models/transformer.py``): (a)
+     recurrentgemma-2b at its published widths and depth (26 layers, d
+     2560, vocab 256000, 2,446,307,840 parameters) through
+     ``launch/train.py``'s ``build`` (seq 512, batch 8, Muon PRISM-5),
+     STEPS Trainer steps: Muon's views 90 x [2560, 2560], 52 x [2560,
+     7680], 16 x [2560, 4096], 16 x [2560, 256]; the launches of each step
+     equal to those derived from the port's bucket plan and tiers
+     (``plan_launches``: 4 grid buckets, K1 24, K2 12); the step-0 CE
+     within 1.5 of ln(V); the Muon update through the kernels against
+     ``use_kernels=False`` within 1e-3, repeated bitwise, with no
+     synchronizing call; a train step repeated bitwise under deterministic
+     algorithms; step ms, tokens/s, forward+backward alone, a profiled
+     train step, max_memory_allocated; its compute-dtype parameters
+     checkpointed under a temporary ``build/phase13_*``; (b)
+     falcon-mamba-7b at every published width (d 4096, d_inner 8192,
+     state 16, dt_rank 256, vocab 65024), depth cut to FALCON_LAYERS (8;
+     1,375,178,752 parameters), the same gates (5 grid buckets: K1 30, K2
+     15), and the selective scan of one layer timed forward and backward
+     and profiled (device busy, device kernels); (c) each checkpoint
+     through ``restore_params`` into a fresh model (bitwise), served in
+     bf16 by ``launch/serve.batch_loop`` at batch 4, prompt 256, gen 32
+     (tokens in the vocab, logits finite, the decode state's bytes those
+     of ``init_cache``'s shapes, exactly 11,284,992 and 18,350,080), a
+     profiled decode step, ``prefill_cache`` of ragged lengths 96, 61, 17
+     bitwise a streamed active-masked decode loop in the logits and every
+     cache leaf, a step with one lane inactive leaving its leaves bitwise,
+     no PRISM kernel; (d) both at full width in fp32 (recurrentgemma 5
+     layers: one period and the two tail layers; falcon 2), 32 greedy
+     decode steps against the forward logits within 2e-2 + 2e-2|x|; K1/K2
+     at these buckets' shapes (``RECURRENT_SHAPES``) are checked and timed
+     in phase 3 (median of RECURRENT_REPS launches);
+ 14. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -288,6 +321,7 @@ DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA's data sheet: dense rates, 700 W)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+ALLOC_CONF = "expandable_segments:True"  # PyTorch's caching allocator
 
 
 def fail(msg: str) -> None:
@@ -2268,9 +2302,10 @@ def gemm_shape_checks(torch, rows, shapes=LOWRANK_SHAPES, dtypes=DTYPES,
 
 
 def gemm_shape_timings(torch, shapes=LOWRANK_SHAPES, dtypes=DTYPES,
-                       seed=10):
+                       seed=10, reps=TIMED_REPS):
     """Kernel, plain, library (``torch.bmm`` / ``baddbmm``) and bound ms of
-    one launch at each of a path's shapes (``gemm_shape_checks``)."""
+    one launch at each of a path's shapes (``gemm_shape_checks``), each
+    the median of ``reps`` launches."""
     from repro_torch.kernels import gram, matmul_add
 
     gen = torch.Generator(device="cuda")
@@ -2286,10 +2321,10 @@ def gemm_shape_timings(torch, shapes=LOWRANK_SHAPES, dtypes=DTYPES,
                 eye = torch.eye(n, device="cuda", dtype=dt)
                 At = A.transpose(-1, -2)
                 t = dict(
-                    ms=time_ms(torch, lambda: gram.gram_upper(A)),
-                    plain_ms=time_ms(torch, lambda: gram.plain(A)),
+                    ms=time_ms(torch, lambda: gram.gram_upper(A), reps),
+                    plain_ms=time_ms(torch, lambda: gram.plain(A), reps),
                     library_ms=time_ms(torch, lambda: torch.baddbmm(
-                        eye, At, A, alpha=-1.0)),
+                        eye, At, A, alpha=-1.0), reps),
                     bound=bound_ms(1.0 * nb * m * n * (n + 1),
                                    item * (nb * m * n + nb * n * n), dtype))
             else:
@@ -2300,10 +2335,10 @@ def gemm_shape_timings(torch, shapes=LOWRANK_SHAPES, dtypes=DTYPES,
                        else (lambda: torch.bmm(A, B)))
                 t = dict(
                     ms=time_ms(torch, lambda: matmul_add.matmul_add(
-                        A, B, C, beta=beta)),
+                        A, B, C, beta=beta), reps),
                     plain_ms=time_ms(torch, lambda: matmul_add.plain(
-                        A, B, C, beta=beta)),
-                    library_ms=time_ms(torch, lib),
+                        A, B, C, beta=beta), reps),
+                    library_ms=time_ms(torch, lib, reps),
                     bound=bound_ms(
                         2.0 * nb * m * k * n + (3.0 if with_c else 0) * nb
                         * m * n,
@@ -3565,31 +3600,71 @@ def granite_training(torch, work):
     return counts, trained
 
 
-def granite_update(torch, tr, key):
+def pinned(torch, t):
+    """A copy of ``t`` in page-locked host memory (where there is a card):
+    the copies of a full-width model's parameters and state to the host
+    and back run at the bus's rate, not through a staging buffer."""
+    out = torch.empty(t.shape, dtype=t.dtype,
+                      pin_memory=torch.cuda.is_available())
+    out.copy_(t)
+    return out
+
+
+def granite_update(torch, tr, key, what="(a)", name="granite-moe",
+                   profile=True, lean=False):
     """One Muon update from the Trainer's state, parameters and last
     clipped gradients, through the kernels and through torch.matmul
     (``use_kernels=False``): within UPDATE_REL_TOL of the largest update
     entry, the kernels' update bitwise the same when repeated, no
-    synchronizing call, the times, and a profile by K1/K2 shape.  Leaves
-    the Trainer's parameters as it found them and their gradients
-    cleared."""
-    from repro_torch.optim import make_optimizer
+    synchronizing call, the times, and (``profile``) a profile by K1/K2
+    shape; ``what`` labels the lines, ``name`` the model.  ``lean`` (a
+    model whose plain step would not fit beside the Trainer's state)
+    keeps the parameters' starting values and the Trainer's state on the
+    host and runs both updates one bucket of the plan at a time, then the
+    other leaves: PRISM-5's warm iterations draw no sketch, so a leaf's
+    update does not depend on the other buckets.
+    Leaves the Trainer's parameters and state as it found them and their
+    gradients cleared."""
+    from repro_torch.optim import base, bucketing, make_optimizer
 
     model, src = tr.model, tr.opt
     named = dict(model.named_parameters())
-    before = {k: p.detach().clone() for k, p in named.items()}
+    axes = model.logical_axes()
+    before = {k: pinned(torch, p.detach()) if lean else p.detach().clone()
+              for k, p in named.items()}
     grads = {k: p.grad for k, p in named.items()}
+    state = dict(src.state)
+    if lean:
+        state = {p: {k: pinned(torch, v) for k, v in st.items()}
+                 for p, st in state.items()}
+        for p in state:
+            src.state[p] = {}
+    # the plain reference's groups: each bucket of the plan, then the
+    # leaves outside Muon's views (AdamW, no kernel)
+    views, rest = [], []
+    for k, p in named.items():
+        shape = tuple(p.shape)
+        if base.is_matrix_param(axes[k], shape):
+            m, n = base.matrix_view_dims(axes[k], shape)
+            views.append((k, (math.prod(shape) // (m * n), m, n)))
+        else:
+            rest.append(k)
+    groups = [[views[e.index][0] for e in b.entries]
+              for b in bucketing.plan_buckets(
+                  [v for _, v in views], pad=src.cfg.bucket_pad,
+                  pad_slack=src.cfg.bucket_pad_slack)] + [rest]
 
-    def fresh(use_kernels):
+    def fresh(use_kernels, names=tuple(named)):
         # Muon.step replaces its state tensors and never writes into
         # them, so the new optimizer may hold the Trainer's own
+        sub = [(k, named[k]) for k in names]
         o = make_optimizer(_with_prism(src.cfg, use_kernels=use_kernels),
-                           model.named_parameters(), model.logical_axes())
-        for p, st in src.state.items():
-            o.state[p] = dict(st)
+                           sub, axes)
+        for _, p in sub:
+            o.state[p] = {k: v.to(p.device) for k, v in state[p].items()}
         o.count = src.count
         with torch.no_grad():
-            for k, p in named.items():
+            for k, p in sub:
                 p.copy_(before[k])
                 p.grad = grads[k]
         return o
@@ -3601,50 +3676,67 @@ def granite_update(torch, tr, key):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
+    def update(use_kernels):
+        """ms of one update of every leaf: one step, or (lean) one step a
+        group"""
+        if not lean:
+            return timed(fresh(use_kernels))
+        return sum(timed(fresh(use_kernels, names)) for names in groups)
+
     # the kernels' result waits on the host: the card holds the masters,
     # their copy, the gradients, the Trainer's state and a step
-    opt_ms = {"kernels": [timed(fresh(True))], "plain": []}
-    after = {k: p.detach().to("cpu", copy=True) for k, p in named.items()}
-    opt_ms["plain"].append(timed(fresh(False)))
+    opt_ms = {"kernels": [update(True)], "plain": []}
+    after = {k: pinned(torch, p.detach()) for k, p in named.items()}
+    opt_ms["plain"].append(update(False))
     worst = 0.0
     for k, p in named.items():
-        dk = after[k].to(p.device) - before[k]
-        rel = float((dk - (p.detach() - before[k])).abs().max()) / max(
+        b = before[k].to(p.device)
+        dk = after[k].to(p.device) - b
+        rel = float((dk - (p.detach() - b)).abs().max()) / max(
             float(dk.abs().max()), 1e-30)
         worst = max(worst, rel)
         if not rel <= UPDATE_REL_TOL:
-            fail(f"(a): the update of {k} through the kernels differs from "
+            fail(f"{what}: the update of {k} through the kernels differs from "
                  f"torch.matmul's by {rel:.3e} of its largest entry "
                  f"(bound {UPDATE_REL_TOL})")
-    opt_ms["plain"].append(timed(fresh(False)))
-    opt_ms["kernels"].append(timed(fresh(True)))
+    if not lean:
+        opt_ms["plain"].append(update(False))
+        opt_ms["kernels"].append(update(True))
+    # (lean: the update the synchronizing calls are counted in is the
+    # repeat held bitwise)
+    opts = [fresh(True, names) for names in (groups if lean
+                                               else [tuple(named)])]
+    syncs = count_syncs(torch, lambda: [o.step(key=key) for o in opts])
+    del opts
     differ = [k for k, p in named.items()
               if not torch.equal(p.detach().cpu(), after[k])]
     if differ:
-        fail(f"(a): a repeated Muon step through the kernels differs in "
+        fail(f"{what}: a repeated Muon step through the kernels differs in "
              f"{len(differ)} parameters, e.g. {differ[:3]}")
     del after
-    o = fresh(True)
-    syncs = count_syncs(torch, lambda: o.step(key=key))
-    del o
-    log(f"  (a) Muon update, kernels vs torch.matmul: worst relative gap "
+    log(f"  {what} Muon update, kernels vs torch.matmul: worst relative gap "
         f"{worst:.3e} (bound {UPDATE_REL_TOL}); repeated through the "
         f"kernels bitwise the same; Muon step through the kernels "
         + ", ".join(f"{t:.1f}" for t in opt_ms["kernels"])
         + " ms, through torch.matmul "
         + ", ".join(f"{t:.1f}" for t in opt_ms["plain"])
-        + f" ms; synchronizing calls in one Muon step: {len(syncs)} "
+        + (f" ms (each summed over {len(groups)} steps: a bucket each, "
+           f"and the other leaves)" if lean else " ms")
+        + f"; synchronizing calls in one Muon step: {len(syncs)} "
         f"{sorted(set(syncs))}")
     if syncs:
-        fail(f"(a): {len(syncs)} synchronizing calls in one Muon step")
+        fail(f"{what}: {len(syncs)} synchronizing calls in one Muon step")
     run = dict(model=model, opt=src, key=key)
-    profile_step(torch, run, "(a) granite-moe Muon PRISM-5", by_shape=True,
-                 fresh=lambda: fresh(True))
+    if profile:
+        profile_step(torch, run, f"{what} {name} Muon PRISM-5",
+                     by_shape=True, fresh=lambda: fresh(True))
     with torch.no_grad():
         for k, p in named.items():
             p.copy_(before[k])
             p.grad = None
-    del run, before, grads
+    for p, st in state.items():
+        src.state[p] = {k: v.to(p.device) for k, v in st.items()}
+    del run, before, grads, state
     torch.cuda.empty_cache()
 
 
@@ -3678,19 +3770,21 @@ def profile_train_step(torch, fn, what, top=8):
     return dict(wall_ms=wall_ms, busy_ms=busy_ms)
 
 
-def repeated_step(torch, tr, batch, t):
+def repeated_step(torch, tr, batch, t, what="(a)", host=False):
     """One Trainer step run twice from the same parameters and optimizer
     state, with deterministic algorithms on, as phase 10 runs (the
     embedding's backward): bitwise the same parameters (gated); then once
     more with the mode off, its equality printed (the MoE dispatch's
-    backward adds no atomics: ``models/moe.py::_Dispatch``).  The states
-    are kept on the host."""
+    backward adds no atomics: ``models/moe.py::_Dispatch``).  The
+    parameters are kept on the host, and with ``host`` the optimizer state
+    too (else its tensors stay referenced on the card)."""
     import warnings
 
     model, opt = tr.model, tr.opt
     named = dict(model.named_parameters())
-    saved = {k: p.detach().to("cpu", copy=True) for k, p in named.items()}
-    state = {p: dict(st) for p, st in opt.state.items()}
+    saved = {k: pinned(torch, p.detach()) for k, p in named.items()}
+    state = {p: {k: pinned(torch, v) if host else v
+                 for k, v in st.items()} for p, st in opt.state.items()}
     count = opt.count
 
     def again():
@@ -3698,7 +3792,7 @@ def repeated_step(torch, tr, batch, t):
             for k, p in named.items():
                 p.copy_(saved[k])
         for p, st in state.items():
-            opt.state[p] = dict(st)
+            opt.state[p] = {k: v.to(p.device) for k, v in st.items()}
         opt.count = count
         tr.step_fn(batch, t)
         torch.cuda.synchronize()
@@ -3712,20 +3806,20 @@ def repeated_step(torch, tr, batch, t):
         tr.step_fn(batch, t)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        first = {k: p.detach().to("cpu", copy=True)
+        first = {k: pinned(torch, p.detach())
                  for k, p in named.items()}
         differ = again()
     loose = again()
     notes = sorted({str(x.message).splitlines()[0][:120] for x in w
                     if "deterministic" in str(x.message)})
-    log(f"  (a) a train step repeated from the same state with "
+    log(f"  {what} a train step repeated from the same state with "
         f"deterministic algorithms: {len(named) - len(differ)} of "
         f"{len(named)} parameters bitwise the same ({ms:.1f} ms a step in "
         f"that mode)" + (f"; warnings: {notes}" if notes else "")
         + f"; with the mode off, {len(named) - len(loose)} of {len(named)}"
         f" bitwise the first run's")
     if differ:
-        fail(f"(a): a repeated train step differs in {len(differ)} "
+        fail(f"{what}: a repeated train step differs in {len(differ)} "
              f"parameters, e.g. {differ[:3]}")
 
 
@@ -3907,6 +4001,534 @@ def family_run(torch, arch, full, cfg):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# ------------------------------------- phase 13: the recurrent families
+
+RGEMMA = "recurrentgemma-2b"
+RGEMMA_PARAMS = 2_446_307_840
+FALCON = "falcon-mamba-7b"
+# all 64 layers hold ~7.3e9 parameters, whose fp32 masters, gradients and
+# momentum alone (~87 GB) pass the card's 80 GB: 8 layers, every width kept
+FALCON_LAYERS = 8
+FALCON_PARAMS = 1_375_178_752
+# Muon's matrix views by shape: recurrentgemma's RG-LRU matrices (in_x,
+# in_gate, w_a, w_i, out_proj of 18 recurrent layers), MLPs (26 x w_up,
+# w_down), wq/wo at 16 padded heads, wk/wv (one kv head); falcon's in_proj,
+# out_proj, x_proj, dt_proj and A_log (min dim 16: a matrix leaf in both
+# packages, base.is_matrix_param)
+RGEMMA_VIEWS = {(2560, 2560): 90, (2560, 7680): 52, (2560, 4096): 16,
+                (2560, 256): 16}
+FALCON_VIEWS = {(4096, 16384): 8, (4096, 8192): 8, (8192, 288): 8,
+                (256, 8192): 8, (8192, 16): 8}
+# K1/K2 at those buckets, as the polar runs them (a wide view transposed to
+# [B, max, min]: the Gram side is the short one): R = I - X^T X, and each
+# Horner step X P(R) + c X
+RECURRENT_SHAPES = [
+    ("gram_upper", (90, 2560, 2560), None, False, "recurrentgemma RG-LRU: R"),
+    ("matmul_add", (90, 2560, 2560), (90, 2560, 2560), True,
+     "recurrentgemma RG-LRU: Horner"),
+    ("gram_upper", (52, 7680, 2560), None, False, "recurrentgemma MLPs: R"),
+    ("matmul_add", (52, 7680, 2560), (52, 2560, 2560), True,
+     "recurrentgemma MLPs: Horner"),
+    ("gram_upper", (16, 4096, 2560), None, False, "recurrentgemma wq/wo: R"),
+    ("matmul_add", (16, 4096, 2560), (16, 2560, 2560), True,
+     "recurrentgemma wq/wo: Horner"),
+    ("gram_upper", (16, 2560, 256), None, False, "recurrentgemma wk/wv: R"),
+    ("matmul_add", (16, 2560, 256), (16, 256, 256), True,
+     "recurrentgemma wk/wv: Horner"),
+    ("gram_upper", (8, 16384, 4096), None, False, "falcon in_proj: R"),
+    ("matmul_add", (8, 16384, 4096), (8, 4096, 4096), True,
+     "falcon in_proj: Horner"),
+    ("gram_upper", (8, 8192, 4096), None, False, "falcon out_proj: R"),
+    ("matmul_add", (8, 8192, 4096), (8, 4096, 4096), True,
+     "falcon out_proj: Horner"),
+    ("gram_upper", (8, 8192, 288), None, False, "falcon x_proj: R"),
+    ("matmul_add", (8, 8192, 288), (8, 288, 288), True,
+     "falcon x_proj: Horner"),
+    ("gram_upper", (8, 8192, 256), None, False, "falcon dt_proj: R"),
+    ("matmul_add", (8, 8192, 256), (8, 256, 256), True,
+     "falcon dt_proj: Horner"),
+    ("gram_upper", (8, 8192, 16), None, False, "falcon A_log: R"),
+    ("matmul_add", (8, 8192, 16), (8, 16, 16), True, "falcon A_log: Horner"),
+]
+RECURRENT_REPS = 5  # launches a median at these shapes (up to ~0.1 s each)
+# (c): launch/serve.batch_loop; the prompt is cut from phase 11's 1536,
+# since the scan prefill takes one full decode step a prompt token
+RECURRENT_SERVE = dict(batch=4, prompt_len=256, gen_len=32, cache_len=0,
+                       seed=0)
+# the decode state at batch 4, cache_len 288 (prompt + gen): falcon's 8
+# layers x 4 lanes x (conv 3 x 8192 bf16 + ssm 8192 x 16 fp32);
+# recurrentgemma's 16 recurrent period layers (conv 3 x 2560 bf16, h 2560
+# fp32 a lane), the 8 attention layers' k, v [4, 288, 1, 256] bf16, kpos
+# [4, 288] int32 and the 2 tail layers
+FALCON_STATE_BYTES = 18_350_080
+RGEMMA_STATE_BYTES = 11_284_992
+# (d): decode against forward in fp32 at full width, tests/test_models_
+# smoke.py:110-130's tolerance (2e-2 + 2e-2 |x|)
+DECODE_FWD_LAYERS = {RGEMMA: 5, FALCON: 2}   # hybrid: 1 period + 2 tail
+DECODE_FWD_TOL = 2e-2
+DECODE_FWD_BATCH, DECODE_FWD_SEQ = 2, 32
+
+
+def phase13(torch):
+    """(a) recurrentgemma-2b and (b) falcon-mamba-7b trained through
+    launch/train.py's configuration, (c) each served from a checkpoint of
+    its trained parameters (a temporary directory under build/, removed at
+    the end), (d) decode against forward in fp32.  Returns each training
+    run's launch counts."""
+    import shutil
+    import tempfile
+
+    base_dir = ROOT / "build"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase13_", dir=base_dir))
+    counts = {}
+    free_card(torch, "phase 13")
+    try:
+        for key, arch, layers, n, views, what in (
+                ("rgemma", RGEMMA, None, RGEMMA_PARAMS, RGEMMA_VIEWS, "(a)"),
+                ("falcon", FALCON, FALCON_LAYERS, FALCON_PARAMS,
+                 FALCON_VIEWS, "(b)")):
+            ckpt = work / key
+            t0 = time.perf_counter()
+            counts[key], trained = recurrent_training(
+                torch, arch, layers, n, views, ckpt, what)
+            t1 = time.perf_counter()
+            recurrent_serving(torch, arch, layers, ckpt, trained,
+                              f"(c) {arch}")
+            shutil.rmtree(ckpt, ignore_errors=True)
+            log(f"  {what} {arch}: training and its gates {t1 - t0:.1f} s, "
+                f"(c) serving {time.perf_counter() - t1:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    decode_vs_forward(torch)
+    log(f"  (d) in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def free_card(torch, what):
+    """Collect the garbage of earlier phases (a Trainer's reference cycles
+    keep its tensors until the cyclic collector runs) and return the
+    allocator's free blocks; logs what stays allocated.  recurrentgemma-2b
+    at full width needs all but a few GiB of the card."""
+    import gc
+
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  {what}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated on the card ({before / 2**30:.2f} GiB before collecting "
+        f"garbage)")
+
+
+def plan_launches(model, ocfg):
+    """K1/K2/K3 launches of one Muon step, derived from the port's bucket
+    plan of ``model``'s matrix views and each bucket's tier: a grid-tier
+    bucket runs each warm iteration as one K2 (R = I - X^T X) and
+    ``degree`` K1 (Horner on R), a fused-tier one a K3.  Returns (counts,
+    [(bucket shape, slices, tier)])."""
+    from repro_torch.optim import base, bucketing
+
+    pc = ocfg.resolved_prism
+    if pc.iterations != pc.warm_alpha_iters:
+        fail(f"plan_launches covers warm iterations only: {pc}")
+    shapes = []
+    for name, shape in model.param_shapes().items():
+        axes = model.logical_axes()[name]
+        if base.is_matrix_param(axes, shape):
+            m, n = base.matrix_view_dims(axes, shape)
+            shapes.append((math.prod(shape) // (m * n), m, n))
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    plan = []
+    for b in bucketing.plan_buckets(shapes, pad=ocfg.bucket_pad,
+                                    pad_slack=ocfg.bucket_pad_slack):
+        tier = bucketing.resolve_tier(ocfg, b.shape)
+        plan.append((b.shape, sum(e.count for e in b.entries), tier))
+        if tier == "grid":
+            counts["matmul_add"] += pc.degree * pc.iterations
+            counts["gram_upper"] += pc.iterations
+        elif tier == "fused":
+            counts["warm_tail"] += 1
+        else:
+            fail(f"bucket {b.shape}: tier {tier} not in the launch plan")
+    return counts, plan
+
+
+def recurrent_training(torch, arch, layers, want_params, want_views, ckpt,
+                       what):
+    """(a)/(b): STEPS Trainer steps of launch/train.py's configuration
+    (its ``build``; with ``layers``, the same Trainer over the config cut
+    to that depth), the gates of the module docstring; then a checkpoint of
+    the trained parameters in their compute dtypes under ``ckpt``.
+    Returns (launch counts of the run, those parameters on the host)."""
+    from repro_torch.checkpoint import save
+    from repro_torch.configs import get_config
+    from repro_torch.core.rng import Key
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import Model
+    from repro_torch.train import Trainer
+
+    free_card(torch, what)
+    torch.cuda.reset_peak_memory_stats()
+    args = train_launch.parser().parse_args(["--arch", arch, "--steps",
+                                             str(STEPS)])
+    if layers is None:
+        tr = train_launch.build(args)
+    else:
+        cfg, ocfg, tcfg, dcfg = train_launch.configs(args)
+        tr = Trainer(Model(cfg.replace(num_layers=layers), device=DEVICE,
+                           seed=args.seed), ocfg, tcfg, dcfg)
+    model, cfg, pc = tr.model, tr.model.cfg, tr.ocfg.prism
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != want_params:
+        fail(f"{what}: {n_params} parameters, not {want_params}")
+    views = _granite_views(tr.opt)
+    if views != want_views:
+        fail(f"{what}: Muon's views {views}, want {want_views}")
+    want, plan = plan_launches(model, tr.ocfg)
+    depth = "" if layers is None else \
+        f" of {get_config(arch).num_layers}, depth cut"
+    log(f"  {what} {cfg.name} [{cfg.family}]: {n_params} params "
+        f"({cfg.num_layers} layers{depth}, d {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}), seq {args.seq}, batch {args.batch}, "
+        f"{cfg.dtype} compute, fp32 masters, remat {cfg.remat}; Muon "
+        f"PRISM-5 (degree {pc.degree}, {pc.warm_alpha_iters} warm of "
+        f"{pc.iterations} iterations), use_kernels={pc.use_kernels}; "
+        f"buckets " + ", ".join(f"{[n] + list(s)} {t}" for s, n, t in plan)
+        + "; launches a step from the plan "
+        + ", ".join(f"{k} {v}" for k, v in want.items() if v))
+    per_step, mets = {}, {}
+    unaligned = unaligned_launches()
+    ops.reset_launches()
+    last = [ops.launch_counts()]
+
+    def on_metrics(t, m):
+        now = ops.launch_counts()
+        per_step[t] = {k: now[k] - last[0][k] for k in now}
+        last[0] = now
+        mets[t] = {k: float(torch.as_tensor(m[k]).detach())
+                   for k in ("loss", "ce", "grad_norm")}
+
+    t0 = time.perf_counter()
+    _, _, losses = tr.run(on_metrics=on_metrics)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if unaligned_launches() != unaligned:
+        fail(f"{what}: K1/K2 launched their unaligned instantiation")
+    for t in sorted(per_step):
+        m = mets[t]
+        log(f"  {what} step {t}: loss {m['loss']:.4f} (ce {m['ce']:.4f}), "
+            f"grad_norm {m['grad_norm']:.4f}, launches "
+            + ", ".join(f"{k} {v}" for k, v in per_step[t].items() if v))
+        _expect_launches(per_step[t], want, f"{what} step {t}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{what}: non-finite loss {losses}")
+    ln_v = math.log(cfg.vocab_size)
+    if abs(mets[0]["ce"] - ln_v) > 1.5:
+        fail(f"{what}: step-0 CE {mets[0]['ce']:.4f} not within 1.5 of "
+             f"ln(V) {ln_v:.4f}")
+    step_ms = statistics.median(tr.step_times) * 1e3
+    tokens = args.seq * args.batch
+    with torch.inference_mode():
+        cast = model.cast_params()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save(str(ckpt), STEPS, {"params": cast}, keep=1)
+    save_s = time.perf_counter() - t0
+    trained = {k: pinned(torch, v) for k, v in cast.items()}
+    del cast
+    log(f"  {what} {STEPS} steps in {run_s:.1f} s; step-0 CE "
+        f"{mets[0]['ce']:.4f} against ln(V) {ln_v:.4f}; step "
+        f"{step_ms:.1f} ms (median of steps 1..{STEPS - 1}, the Trainer's "
+        f"clock: data, forward, backward, Muon), "
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; the trained parameters in their compute "
+        f"dtypes checkpointed in {save_s:.1f} s "
+        f"({(ckpt / f'step_{STEPS:08d}' / 'tree.npz').stat().st_size} "
+        f"bytes)")
+    free_card(torch, f"{what} before the update gate")
+    granite_update(torch, tr, Key(0).fold_in(STEPS), what=what, name=arch,
+                   profile=False, lean=True)
+    batches = [tr.batch_fn(t) for t in range(1, STEPS)]
+    fb = []
+    for b in batches[:2]:
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.loss(b)[0].backward()
+        torch.cuda.synchronize()
+        fb.append((time.perf_counter() - t0) * 1e3)
+    for p in model.parameters():
+        p.grad = None
+    log(f"  {what} forward+backward alone (mean of {len(fb)}): "
+        f"{statistics.median(fb):.1f} ms")
+    free_card(torch, f"{what} after the update gate")
+    profile_train_step(torch, lambda: tr.step_fn(batches[0], STEPS),
+                       f"{what} a {arch} train step")
+    repeated_step(torch, tr, batches[1], STEPS + 1, what, host=True)
+    if cfg.family == "ssm":
+        scan_profile(torch, model, args.batch, args.seq, what)
+    log(f"  {what} max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB over {what}")
+    del tr, model, batches
+    torch.cuda.empty_cache()
+    return counts, trained
+
+
+def _device_profile(torch, fn):
+    """(wall ms, device busy ms, device kernels) of one ``fn()`` in a
+    profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
+            busy += e.self_device_time_total
+            n += e.count
+    return wall_ms, busy / 1e3, n
+
+
+def scan_profile(torch, model, B, S, what):
+    """The selective scan of falcon's layer 0 alone, on its trained
+    parameters and a random bf16 input [B, S, d]: forward (under autograd,
+    chunks checkpointed) and backward ms on the host clock (median of 3),
+    and each profiled: wall, device busy, device kernels."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import ssm
+
+    cfg = model.cfg
+    with torch.no_grad():
+        p = {k[len("layers.mamba."):]: v[0] for k, v in
+             model.cast_params().items() if k.startswith("layers.mamba.")}
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(13)
+        x = torch.randn((B, S, cfg.d_model), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        xin = torch.chunk(x @ p["in_proj"], 2, dim=-1)[0]
+        xc = F.silu(ssm._conv(xin, p["conv_w"], p["conv_b"],
+                              cfg.ssm.conv_dim).float()).to(x.dtype)
+        dt, Bm, Cm = ssm._ssm_params(p, xc, cfg)
+        A = -torch.exp(p["A_log"])
+        g = torch.randn((B, S, ssm._d_inner(cfg)), generator=gen,
+                        device=DEVICE)
+    ins = [t.detach().requires_grad_(True)
+           for t in (dt, xc.float(), Bm, Cm, A)]
+    state = {}
+
+    def fwd():
+        state["y"] = ssm.selective_scan(*ins)
+
+    def bwd():
+        state.pop("y").backward(g)
+
+    f_ms, b_ms = [], []
+    for _ in range(3):
+        for t in ins:
+            t.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bwd()
+        torch.cuda.synchronize()
+        f_ms.append((t1 - t0) * 1e3)
+        b_ms.append((time.perf_counter() - t1) * 1e3)
+    fp = _device_profile(torch, fwd)
+    bp = _device_profile(torch, bwd)
+    if not all(bool(torch.isfinite(t.grad).all()) for t in ins):
+        fail(f"{what}: the selective scan's gradients are not finite")
+    log(f"  {what} the selective scan of one layer ([{B}, {S}, "
+        f"{ssm._d_inner(cfg)}, {cfg.ssm.state_dim}], chunks of "
+        f"{ssm.SCAN_CHUNK}): forward {statistics.median(f_ms):.1f} ms, "
+        f"backward {statistics.median(b_ms):.1f} ms (host clock, median of "
+        f"3); profiled forward: wall {fp[0]:.1f} ms, device busy "
+        f"{fp[1]:.1f} ms, {fp[2]} device kernels; backward: wall "
+        f"{bp[0]:.1f} ms, device busy {bp[1]:.1f} ms, {bp[2]} device "
+        f"kernels")
+    del ins, state, dt, Bm, Cm, xc, xin, x, g
+
+
+def _lane_axes(cache):
+    """(leaf, batch axis) of every leaf of a recurrent decode cache, in
+    ``cache_leaves`` order within each group."""
+    from repro_torch.models.transformer import cache_leaves
+
+    if "ssm" in cache:
+        return [(t, 1) for t in cache_leaves(cache)]
+    return ([(t, 1) for t in cache_leaves(cache["rec"])]
+            + [(cache["k"], 2), (cache["v"], 2), (cache["kpos"], 0)]
+            + [(t, 0) for t in cache_leaves(cache.get("tail", []))])
+
+
+def recurrent_serving(torch, arch, layers, ckpt, trained, what):
+    """(c): the checkpoint into a fresh Model (another seed) through
+    ``restore_params``, bitwise the trained compute-dtype parameters;
+    ``launch/serve.batch_loop`` at RECURRENT_SERVE in bf16 (tokens in the
+    vocab, logits finite, the decode state's bytes exact), a profiled
+    decode step, the scan prefill bitwise a streamed active-masked decode
+    loop over ragged lengths (logits and every cache leaf), and inactive
+    lanes' leaves bitwise frozen; no PRISM kernel launched."""
+    from types import SimpleNamespace
+
+    from repro_torch.checkpoint import restore_params
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import cache_leaves
+
+    free_card(torch, what)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    served = Model(cfg, device=DEVICE, seed=1)
+    with torch.inference_mode():
+        target = served.cast_params()
+    t0 = time.perf_counter()
+    step, params = restore_params(str(ckpt), target)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del target
+    if step != STEPS:
+        fail(f"{what}: restore_params took step {step}, not {STEPS}")
+    for name, v in params.items():
+        if not torch.equal(v.cpu(), trained[name]):
+            fail(f"{what}: {name} is not bitwise the trained parameter")
+    log(f"  {what} restore_params of step {STEPS} in {restore_s:.2f} s: "
+        f"{len(params)} compute-dtype parameters bitwise the trained ones")
+    trained.clear()
+    ops.reset_launches()
+    a = SimpleNamespace(**RECURRENT_SERVE)
+    res = serve.batch_loop(served, params, a, torch.device(DEVICE))
+    toks = res["tokens"]
+    if toks.shape != (a.batch, a.gen_len + 1) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        fail(f"{what}: tokens of shape {toks.shape} in [{toks.min()}, "
+             f"{toks.max()}]")
+    if not res["finite"]:
+        fail(f"{what}: a logit is not finite")
+    clen = a.prompt_len + a.gen_len
+    with torch.inference_mode():
+        shapes = sum(t.numel() * t.element_size()
+                     for t in cache_leaves(served.init_cache(a.batch, clen)))
+    want = FALCON_STATE_BYTES if cfg.family == "ssm" else RGEMMA_STATE_BYTES
+    if not res["cache_bytes"] == shapes == want:
+        fail(f"{what}: decode state of {res['cache_bytes']} bytes; "
+             f"init_cache's shapes {shapes}, want {want}")
+    log(f"  {what} batch {a.batch}, prompt {a.prompt_len}, gen "
+        f"{a.gen_len}, {cfg.dtype}: prefill (one decode step a prompt "
+        f"token) {res['prefill_s'] * 1e3:.1f} ms ({res['prefill_tok_s']:.0f}"
+        f" prompt tok/s; first call {res['first_prefill_s'] * 1e3:.1f} ms),"
+        f" decode {res['decode_ms_step']:.3f} ms a step "
+        f"({res['decode_tok_s']:.1f} tok/s), decode state "
+        f"{res['cache_bytes']} bytes (init_cache's shapes exactly); tokens "
+        f"in the vocab, logits finite")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(12)
+    B, S = len(PARITY_LENGTHS), max(PARITY_LENGTHS)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=DEVICE, dtype=torch.int32)
+    lengths = torch.tensor(PARITY_LENGTHS, dtype=torch.int32, device=DEVICE)
+    lp, cp = served.prefill_cache({"tokens": prompts}, S, lengths,
+                                  params=params)
+    cache = served.init_cache(B, S)
+    last = torch.zeros_like(lp)
+    for t in range(S):
+        lg, cache = served.decode_step(
+            cache, prompts[:, t:t + 1],
+            torch.full((B, 1), t, dtype=torch.int32, device=DEVICE),
+            active=t < lengths, params=params)
+        last = torch.where((t == lengths - 1).reshape(B, 1, 1), lg, last)
+    pairs = list(zip(cache_leaves(cp), cache_leaves(cache)))
+    if not torch.equal(lp, last) or not all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in pairs):
+        fail(f"{what}: the scan prefill is not bitwise the streamed "
+             f"decode loop")
+    tok = torch.argmax(lp, dim=-1).to(torch.int32)
+    pos = lengths.reshape(B, 1)
+    profile_ticks(torch, lambda: served.decode_step(cp, tok, pos,
+                                                    params=params),
+                  f"{what} a decode step (batch {B})")
+    before = [(t.clone(), ax) for t, ax in _lane_axes(cache)]
+    active = torch.tensor([True, False, True], device=DEVICE)
+    served.decode_step(cache, tok, pos, active=active, params=params)
+    for (old, ax), (new, _) in zip(before, _lane_axes(cache)):
+        if not torch.equal(old.select(ax, 1), new.select(ax, 1)):
+            fail(f"{what}: an inactive lane's cache leaf changed")
+        if torch.equal(old.select(ax, 0), new.select(ax, 0)):
+            fail(f"{what}: an active lane's cache leaf did not move")
+    counts = ops.launch_counts()
+    if sum(counts.values()):
+        fail(f"{what}: serving launched PRISM kernels: {counts}")
+    log(f"  {what} prefill_cache of lengths {list(PARITY_LENGTHS)} bitwise "
+        f"{S} streamed active-masked decode steps, in the logits and all "
+        f"{len(pairs)} cache leaves; a step with lane 1 inactive leaves "
+        f"its {len(before)} leaves bitwise and moves the others'; 0 PRISM "
+        f"kernels; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del served, params, cache, cp, before
+    torch.cuda.empty_cache()
+
+
+def decode_vs_forward(torch):
+    """(d): both configs at full width, DECODE_FWD_LAYERS layers, fp32
+    compute, random weights from seed 0: greedy decode logits against the
+    forward logits at every position, within DECODE_FWD_TOL + DECODE_FWD_TOL
+    |x|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    for arch, layers in DECODE_FWD_LAYERS.items():
+        torch.cuda.empty_cache()
+        cfg = get_config(arch).replace(num_layers=layers, dtype="float32",
+                                       emb_dtype="float32")
+        model = Model(cfg, device=DEVICE, seed=0)
+        B, S = DECODE_FWD_BATCH, DECODE_FWD_SEQ
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(14)
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device=DEVICE, dtype=torch.int32)
+        with torch.inference_mode():
+            params = model.cast_params()
+            full, _ = model({"tokens": toks}, params=params)
+        cache = model.init_cache(B, S)
+        worst, excess = 0.0, -1.0
+        for t in range(S):
+            lg, cache = model.decode_step(
+                cache, toks[:, t:t + 1],
+                torch.full((B, 1), t, dtype=torch.int32, device=DEVICE),
+                params=params)
+            want = full[:, t:t + 1, :cfg.vocab_size]
+            err = (lg[..., :cfg.vocab_size] - want).abs()
+            worst = max(worst, err.max().item())
+            excess = max(excess, (err - DECODE_FWD_TOL
+                                  * (1 + want.abs())).max().item())
+        log(f"  (d) {arch} at full width, {layers} layers, fp32, batch {B}:"
+            f" {S} greedy decode steps against the forward logits, max "
+            f"|diff| {worst:.3e} (tolerance {DECODE_FWD_TOL} + "
+            f"{DECODE_FWD_TOL}|x|)")
+        if excess > 0:
+            fail(f"(d) {arch}: decode logits leave the forward's by "
+                 f"{excess:.3e} beyond the tolerance")
+        del model, params, full, cache
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -3915,6 +4537,10 @@ def main() -> None:
     # cuBLAS's workspace as PyTorch sizes it on Hopper by default, named so
     # that the deterministic mode of phase 10 takes cuBLAS as it is
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # growable segments: phase 13's Muon steps at recurrentgemma-2b's width
+    # come within a few GiB of the card, and a pool of fixed segments
+    # fragments there (out of memory with 10.5 GiB reserved but free)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", ALLOC_CONF)
     import torch
 
     if not torch.cuda.is_available():
@@ -3958,6 +4584,11 @@ def main() -> None:
     timings.update(gemm_shape_timings(torch))
     timings.update(gemm_shape_timings(torch, GRANITE_SHAPES, ("float32",),
                                       14))
+    log("  K1/K2 at recurrentgemma-2b's and falcon-mamba-7b's Muon bucket "
+        "shapes (phase 13)")
+    rows = gemm_shape_checks(torch, rows, RECURRENT_SHAPES, ("float32",), 15)
+    timings.update(gemm_shape_timings(torch, RECURRENT_SHAPES, ("float32",),
+                                      16, RECURRENT_REPS))
 
     runs = {}
     log("phase 4: PRISM-5 path, gpt2-paper Muon step at full width")
@@ -4015,11 +4646,17 @@ def main() -> None:
         "musicgen-medium and llava-next-34b at their widths, 2 layers")
     granite = phase12(torch)
 
+    log("phase 13: the recurrent families: recurrentgemma-2b (full depth) "
+        f"and falcon-mamba-7b ({FALCON_LAYERS} layers) trained through "
+        "launch/train.py's configuration and served at full width")
+    recurrent = phase13(torch)
+
     by_path = {k: r["counts"] for k, r in runs.items()}
     by_path["fallback"] = fallback
     by_path["trainer"] = phase8["counts"]
     by_path.update(async_counts)
     by_path["granite"] = granite
+    by_path.update(recurrent)
     print(json.dumps({"kernels": kernel_rows(rows, timings, by_path)}),
           flush=True)
     log(f"card: {card}")
@@ -4102,11 +4739,14 @@ def _drop(torch, run):
 # The kernels line: for each kernel, the measurements of each family and
 # main-path shape it was timed at, as (family, row/timing key, path); the
 # first entry, the one this slice's path runs where it runs one (K1's and
-# K2's: granite-moe's largest bucket), gives the kernel's top-level
+# K2's: recurrentgemma-2b's RG-LRU bucket), gives the kernel's top-level
 # numbers.  Sign runs on no training path (signm only),
 # nor do K1's and K2's bf16 rows (the paths' matfn dtype is fp32).
 VARIANTS = {
     "matmul_add": [
+        ("-", _lowrank_key(n, a, b, "float32"),
+         "rgemma" if "recurrentgemma" in w else "falcon")
+        for n, a, b, _, w in RECURRENT_SHAPES if n == "matmul_add"] + [
         ("-", _lowrank_key(n, a, b, "float32"), "granite")
         for n, a, b, _, _ in GRANITE_SHAPES if n == "matmul_add"] + [
         ("-", ("matmul_add", (20, 4096, 1024)), "trainer"),
@@ -4120,6 +4760,9 @@ VARIANTS = {
        for n, a, b, _, _ in LOWRANK_SHAPES if n == "matmul_add"
        for dt in DTYPES],
     "gram_upper": [
+        ("polar", _lowrank_key(n, a, b, "float32"),
+         "rgemma" if "recurrentgemma" in w else "falcon")
+        for n, a, b, _, w in RECURRENT_SHAPES if n == "gram_upper"] + [
         ("polar", _lowrank_key(n, a, b, "float32"), "granite")
         for n, a, b, _, _ in GRANITE_SHAPES if n == "gram_upper"] + [
         ("polar", ("gram_upper", (20, 4096, 1024)), "trainer"),

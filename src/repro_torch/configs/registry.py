@@ -3,9 +3,7 @@
 
 Each architecture lives in its own module exposing CONFIG (the exact
 published dims) and SMOKE (a reduced same-family config for CPU tests),
-copied field for field from the reference's.  The ssm and hybrid configs
-import and list; building their models raises until ROADMAP.md Queue 1
-item 10b.
+copied field for field from the reference's.
 """
 from __future__ import annotations
 

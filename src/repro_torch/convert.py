@@ -1,9 +1,10 @@
 """Carry parameters and optimizer state across between the reference
 package and the port.
 
-The reference keeps parameters as a nested dict of arrays (``Model.init``);
-the port as a flat name -> tensor dict with dotted names
-(``layers.attn.wq``), same shapes, same layout.  Arrays cross as numpy
+The reference keeps parameters as a nested dict of arrays (``Model.init``;
+the hybrid's ``tail`` a list of layer dicts); the port as a flat name ->
+tensor dict with dotted names (``layers.attn.wq``, ``tail.0.rglru.w_a``),
+same shapes, same layout.  Arrays cross as numpy
 (e.g. ``np.asarray`` of each reference leaf), so this module imports
 neither JAX nor the reference package.
 """
@@ -44,15 +45,33 @@ def _state_dtype(key: str, cache: torch.dtype) -> torch.dtype:
     return torch.float32
 
 
-def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """name -> leaf of a nested tree of dicts and lists; a list's items
+    are named by their index (the hybrid's ``tail.0.ln1``)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     out = {}
-    for k, v in tree.items():
+    for k, v in items:
         name = f"{prefix}{k}"
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             out.update(_flatten(v, name + "."))
         else:
             out[name] = v
     return out
+
+
+def _listify(node):
+    """Turn every dict of the nested tree whose keys are 0..n-1 (as
+    strings) into a list, as the reference keeps its ``tail``."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and sorted(node) == sorted(str(i) for i in range(len(node))):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def _child(node, part: str):
+    return node[int(part)] if isinstance(node, list) else node[part]
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig
@@ -87,22 +106,32 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def cache_from_jax(tree: Dict[str, Any], device=None
-                   ) -> Dict[str, torch.Tensor]:
+def cache_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """The port's decode cache from the reference's (``init_cache`` /
-    ``prefill_cache`` of the dense, moe, vlm and audio families, which
-    share one KV layout: ``k``, ``v`` [L, B, clen, KV, Hd] and ``kpos``
-    [B, clen] int32, as numpy arrays), each leaf in its own dtype on
-    ``device``.  Any other tree (the ssm/hybrid caches) raises."""
-    if set(tree) != {"k", "v", "kpos"}:
-        raise KeyError(f"a KV decode cache has k, v and kpos; got "
+    ``prefill_cache``, arrays as numpy), the same nesting with each leaf a
+    tensor in its own dtype on ``device``: the KV families' {k, v [L, B,
+    clen, KV, Hd], kpos [B, clen] int32}, the ssm family's {ssm: {conv,
+    ssm}} and the hybrid's {rec: {r{j}: {conv, h}}, k, v, kpos[, tail: a
+    list of {conv, h}]}.  Any other top level raises."""
+    layouts = ({"k", "v", "kpos"}, {"ssm"}, {"rec", "k", "v", "kpos"},
+               {"rec", "k", "v", "kpos", "tail"})
+    if set(tree) not in layouts:
+        raise KeyError(f"not a decode cache of the reference's: "
                        f"{sorted(tree)}")
-    return {name: _tensor(a).to(device) for name, a in tree.items()}
+
+    def carry(node):
+        if isinstance(node, dict):
+            return {k: carry(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [carry(v) for v in node]
+        return _tensor(node).to(device)
+
+    return carry(tree)
 
 
 def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of ``params_from_jax``: a nested dict of fp32 numpy arrays
-    in the reference's tree layout."""
+    in the reference's tree layout (the hybrid's ``tail`` a list)."""
     tree: Dict[str, Any] = {}
     for name, t in params.items():
         *path, leaf = name.split(".")
@@ -110,7 +139,7 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = t.detach().float().cpu().numpy()
-    return tree
+    return _listify(tree)
 
 
 def _state_from_jax(opt, named_params, state: Dict[str, Any],
@@ -120,7 +149,7 @@ def _state_from_jax(opt, named_params, state: Dict[str, Any],
     for name, p in named_params:
         node = leaves
         for part in name.split("."):
-            node = node[part]
+            node = _child(node, part)
         unknown = sorted(set(node) - set(keys))
         if unknown:
             raise KeyError(f"{name}: state keys {unknown} are not carried "

@@ -39,6 +39,7 @@ from repro_torch.configs import arch_ids, get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
 from repro_torch.models.inputs import make_train_batch
+from repro_torch.models.transformer import cache_leaves
 from repro_torch.serving import (Engine, EngineConfig, make_serve_step,
                                  make_trace)
 
@@ -108,7 +109,7 @@ def batch_loop(model, params, args, device) -> dict:
            "tokens": torch.cat(out, dim=-1).cpu().numpy(),
            "finite": bool(torch.isfinite(torch.cat(seen, dim=-2)).all()),
            "cache_bytes": sum(v.numel() * v.element_size()
-                              for v in cache.values())}
+                              for v in cache_leaves(cache))}
     print(f"arch={cfg.name} batch={B} prompt={args.prompt_len} "
           f"gen={args.gen_len} cache_len={cache_len}")
     print(f"prefill {res['prefill_s'] * 1e3:.1f} ms (1 call, "

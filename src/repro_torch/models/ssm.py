@@ -1,0 +1,205 @@
+"""Mamba-1 selective state-space block, falcon-mamba-7b (counterpart of
+``repro/models/ssm.py``).
+
+Train path: the reference's chunked selective scan.  The sequence runs in
+chunks of ``SCAN_CHUNK`` steps, each chunk a sequential scan from the
+[B, d_inner, d_state] fp32 state the previous chunk left; the tail chunk
+is padded with dA = 1, dBx = 0, which leave the state as it was.  Each
+chunk runs under ``torch.utils.checkpoint``, as the reference runs each
+under ``jax.checkpoint``: backward keeps only the boundary states and
+recomputes a chunk's per-step states.  The chunk also recomputes its own
+dA = exp(dt A) and dBx = dt x B from dt, x and B (the same elementwise
+values the reference computes for the whole sequence), so the
+[B, S, d_inner, d_state] tensors exist one chunk at a time, in forward
+and backward alike.  Decode path: one recurrence step against a carried
+(conv, ssm) state.
+
+The scan is plain PyTorch: the reference's is ``lax.scan``, no Pallas
+kernel.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import layers as L
+
+SCAN_CHUNK = 16
+#: the parameters kept in fp32 whatever the compute dtype
+FP32 = ("dt_bias", "A_log", "D")
+
+
+def _d_inner(cfg: ModelConfig) -> int:
+    return cfg.ssm.expand * cfg.d_model
+
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return cfg.ssm.dt_rank or -(-cfg.d_model // 16)
+
+
+def mamba_shapes(cfg: ModelConfig):
+    d, di, ds = cfg.d_model, _d_inner(cfg), cfg.ssm.state_dim
+    dtr, dc = _dt_rank(cfg), cfg.ssm.conv_dim
+    return {"in_proj": (d, 2 * di), "conv_w": (dc, di), "conv_b": (di,),
+            "x_proj": (di, dtr + 2 * ds), "dt_proj": (dtr, di),
+            "dt_bias": (di,), "A_log": (di, ds), "D": (di,),
+            "out_proj": (di, d)}
+
+
+def mamba_axes(cfg: ModelConfig):
+    return {
+        "in_proj": ("embed", "mlp"), "conv_w": (None, "mlp"),
+        "conv_b": ("mlp",), "x_proj": ("mlp", None),
+        "dt_proj": (None, "mlp"), "dt_bias": ("mlp",),
+        "A_log": ("mlp", None), "D": ("mlp",),
+        "out_proj": ("mlp", "embed"),
+    }
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, lead: tuple, dtype,
+               device=None):
+    """Mamba parameters with leading dims ``lead`` ((L,) stacked): the
+    matrices fan-in scaled in ``dtype``, ``conv_b`` zeros in ``dtype``;
+    fp32 ``dt_bias`` = softplus^-1(0.01), ``A_log`` = log(1..d_state) on
+    every channel, ``D`` ones."""
+    shapes = mamba_shapes(cfg)
+    di, ds = _d_inner(cfg), cfg.ssm.state_dim
+    out = {}
+    for name in ("in_proj", "conv_w", "x_proj", "dt_proj", "out_proj"):
+        out[name] = L.dense_init(gen, lead + shapes[name], -2, dtype,
+                                 device)
+    f32 = dict(dtype=torch.float32, device=device)
+    out["conv_b"] = torch.zeros(lead + (di,), dtype=dtype, device=device)
+    out["dt_bias"] = torch.log(torch.expm1(
+        torch.full(lead + (di,), 0.01, **f32)))
+    A = torch.arange(1, ds + 1, **f32).expand(lead + (di, ds))
+    out["A_log"] = torch.log(A).contiguous()
+    out["D"] = torch.ones(lead + (di,), **f32)
+    return out
+
+
+def _conv(xin, w, b, dc: int):
+    """Causal depthwise conv along seq in ``xin``'s dtype, the reference's
+    sum of shifted products; xin [B, S, C], w [dc, C]."""
+    S = xin.shape[1]
+    xpad = F.pad(xin, (0, 0, dc - 1, 0))
+    return sum(xpad[:, i:i + S, :] * w[i] for i in range(dc)) + b
+
+
+def _ssm_params(params, xc, cfg: ModelConfig):
+    """xc [B, S, di] (post-conv) -> fp32 (dt [B,S,di], B [B,S,ds],
+    C [B,S,ds])."""
+    ds, dtr = cfg.ssm.state_dim, _dt_rank(cfg)
+    proj = xc @ params["x_proj"]  # [B, S, dtr + 2 ds]
+    dt_in, Bmat, Cmat = torch.split(proj.float(), [dtr, ds, ds], dim=-1)
+    dt = F.softplus(dt_in @ params["dt_proj"].float() + params["dt_bias"])
+    return dt, Bmat, Cmat
+
+
+def _discretize(dt, xf, Bmat, A):
+    """(dA, dBx) [B, S, di, ds] from dt, xf [B, S, di], B [B, S, ds] and
+    A = -exp(A_log) [di, ds]."""
+    dA = torch.exp(dt[..., None] * A)
+    dBx = (dt * xf)[..., None] * Bmat[..., None, :]
+    return dA, dBx
+
+
+def _ssm_inputs(params, xc, cfg: ModelConfig):
+    """xc [B, S, di] -> (dA [B,S,di,ds], dBx, C [B,S,ds]), fp32."""
+    dt, Bmat, Cmat = _ssm_params(params, xc, cfg)
+    A = -torch.exp(params["A_log"])
+    dA, dBx = _discretize(dt, xc.float(), Bmat, A)
+    return dA, dBx, Cmat
+
+
+def _scan_chunk(h, dA, dBx, Cmat):
+    """Sequential scan within one chunk from h [B, di, ds] -> (h, y
+    [B, c, di]).  The steps are ``unbind`` views: backward stacks their
+    gradients once, where indexing each step would zero-fill and add a
+    chunk-sized gradient a step."""
+    hs = []
+    for dAt, dBxt in zip(dA.unbind(1), dBx.unbind(1)):
+        h = torch.addcmul(dBxt, dAt, h)
+        hs.append(h)
+    y = torch.einsum("bcds,bcs->bcd", torch.stack(hs, dim=1), Cmat)
+    return h, y
+
+
+def _chunk(h, dt, xf, Bmat, Cmat, A):
+    """One checkpointed chunk: discretize, then scan."""
+    dA, dBx = _discretize(dt, xf, Bmat, A)
+    return _scan_chunk(h, dA, dBx, Cmat)
+
+
+def selective_scan(dt, xf, Bmat, Cmat, A, chunk: int = SCAN_CHUNK):
+    """y [B, S, di] fp32 of the selective scan from a zero state: dt, xf
+    [B, S, di], B, C [B, S, ds] fp32, A [di, ds].  Padded to whole chunks
+    (dt = x = B = C = 0: dA = 1, dBx = 0); under autograd each chunk is
+    checkpointed."""
+    Bsz, S, di = dt.shape
+    nchunk = -(-S // chunk)
+    pad = nchunk * chunk - S
+    if pad:
+        dt, xf, Bmat, Cmat = (F.pad(a, (0, 0, 0, pad))
+                              for a in (dt, xf, Bmat, Cmat))
+    h = torch.zeros((Bsz, di, A.shape[-1]), dtype=torch.float32,
+                    device=dt.device)
+    grad = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (dt, xf, Bmat, Cmat, A))
+    ys = []
+    # ``split`` views: backward concatenates the chunks' gradients once
+    for blk in zip(*(torch.split(a, chunk, dim=1)
+                     for a in (dt, xf, Bmat, Cmat))):
+        args = (h,) + blk + (A,)
+        h, y = checkpoint(_chunk, *args, use_reentrant=False) if grad \
+            else _chunk(*args)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :S]
+
+
+def mamba_block(params, x, cfg: ModelConfig, chunk: int = SCAN_CHUNK):
+    """x [B, S, D] -> y [B, S, D] (training / prefill)."""
+    xz = x @ params["in_proj"]
+    xin, z = torch.chunk(xz, 2, dim=-1)  # [B, S, di]
+    xc = _conv(xin, params["conv_w"], params["conv_b"], cfg.ssm.conv_dim)
+    xc = F.silu(xc.float()).to(x.dtype)
+    dt, Bmat, Cmat = _ssm_params(params, xc, cfg)
+    xf = xc.float()
+    y = selective_scan(dt, xf, Bmat, Cmat, -torch.exp(params["A_log"]),
+                       chunk)
+    y = y + params["D"] * xf
+    y = y * F.silu(z.float())
+    return y.to(x.dtype) @ params["out_proj"]
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     lead: tuple = (), device=None):
+    """{conv [*lead, B, dc - 1, di] in ``dtype``, ssm [*lead, B, di, ds]
+    fp32}, zeros."""
+    di, ds, dc = _d_inner(cfg), cfg.ssm.state_dim, cfg.ssm.conv_dim
+    return {
+        "conv": torch.zeros(lead + (batch, dc - 1, di), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros(lead + (batch, di, ds), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def mamba_decode_step(params, x, cache, cfg: ModelConfig):
+    """x [B, 1, D] + cache -> (y [B, 1, D], the new cache's values)."""
+    xz = x @ params["in_proj"]
+    xin, z = torch.chunk(xz, 2, dim=-1)  # [B, 1, di]
+    win = torch.cat([cache["conv"], xin.to(cache["conv"].dtype)], dim=1)
+    xc = torch.einsum("bcd,cd->bd", win, params["conv_w"]) \
+        + params["conv_b"]
+    xc = F.silu(xc.float()).to(x.dtype)[:, None, :]
+    dA, dBx, Cmat = _ssm_inputs(params, xc, cfg)
+    h = dA[:, 0] * cache["ssm"] + dBx[:, 0]
+    y = torch.einsum("bds,bs->bd", h, Cmat[:, 0])[:, None, :]
+    y = y + params["D"] * xc.float()
+    y = y * F.silu(z.float())
+    out = y.to(x.dtype) @ params["out_proj"]
+    return out, {"conv": win[:, 1:], "ssm": h}
+

@@ -1,4 +1,4 @@
-"""Decoder model: the dense, moe, vlm and audio families (counterpart of
+"""Decoder model of every family (counterpart of
 ``repro/models/transformer.py``).
 
 ``Model`` is an ``nn.Module`` whose parameters are the fp32 MASTER copies,
@@ -16,13 +16,14 @@ gradients to the masters.
   forward(batch)       -> (logits [B, S, V_padded] fp32, aux)
   loss(batch)          -> (scalar CE + aux, metrics)
   prefill(batch)       -> last position's logits [B, 1, V_padded]
-  init_cache(B, len)   -> empty decode cache {k, v, kpos}
+  init_cache(B, len)   -> empty decode cache ({k, v, kpos}; the recurrent
+                          families' below)
   prefill_cache(batch, cache_len, lengths)
                        -> (last real position's logits, filled cache)
   decode_step(cache, tokens, pos, active)
                        -> (logits [B, 1, V_padded], cache updated in place)
 
-Families (all on the dense trunk's attention and KV cache):
+Families:
 
   dense  [attn, mlp] x L
   moe    [attn, moe_ffn] x L (``models/moe.py``); the layers' aux
@@ -34,14 +35,30 @@ Families (all on the dense trunk's attention and KV cache):
          (``embed`` [K, V, d], tokens [B, K, S]), one head per codebook
          (``heads`` [K, d, V], logits [B, K, S, V]); the CE averages the
          codebooks
+  ssm    [mamba] x L (``models/ssm.py``), attention-free: parameters
+         ``layers.ln``, ``layers.mamba.*`` [L, ...]; decode cache
+         {"ssm": {conv [L, B, dc - 1, di], ssm [L, B, di, ds] fp32}}
+  hybrid periods of ``cfg.rglru.pattern`` (recurrent: RG-LRU + MLP,
+         ``models/rglru.py``; attention: local attention over
+         ``attention_window`` + MLP), parameters ``layers.p{i}.*``
+         stacked [n_periods, ...], then the recurrent-only remainder
+         ``tail.{i}.*`` unstacked (the reference's ``params["tail"]``
+         list); decode cache {"rec": {"r{j}": {conv, h}} [n_periods, ...],
+         k, v [n_periods, n_attn, B, clen, KV, Hd], kpos [B, clen],
+         "tail": [{conv, h}, ...]}
 
-``tie_embeddings`` drops ``head`` and projects onto ``embed``.  The ssm
-and hybrid families (their own recurrent caches) are ported with
-ROADMAP.md Queue 1 item 10b and raise here.  The vocabulary pads to a
-multiple of 16; pad logits are masked out of the CE.  The reference
-remats each block (``jax.checkpoint``); at the sizes this port trains,
-activations fit without it.  The serving methods run under
-``torch.inference_mode()``.
+``tie_embeddings`` drops ``head`` and projects onto ``embed``.  The
+vocabulary pads to a multiple of 16; pad logits are masked out of the
+CE.  The reference remats each block (``jax.checkpoint``).  The dense,
+moe, vlm and audio families fit the sizes this port trains without it;
+the recurrent families' layers run under ``torch.utils.checkpoint`` when
+``cfg.remat == "block"`` (the default), since recurrentgemma-2b's 26
+layers at batch 8 x seq 512 would keep ~30 GB of activations, and the
+Mamba scan keeps its own per-chunk checkpoint inside, as the
+reference's does.  The recurrent families prefill with one
+``decode_step`` a prompt position (``_prefill_scan``), as the reference
+does.  The serving methods run under ``torch.inference_mode()``;
+``decode_step`` updates every cache leaf in place.
 """
 from __future__ import annotations
 
@@ -49,12 +66,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 
 VOCAB_PAD_MULTIPLE = 16  # pad odd vocab tables so TP sharding divides
 INT_SENTINEL = attn.INT32_MAX  # kpos of an empty cache slot
@@ -64,14 +84,54 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // VOCAB_PAD_MULTIPLE) * VOCAB_PAD_MULTIPLE
 
 
+def _put(specs, prefix, shapes, axes, dtypes, lead: tuple):
+    """Add ``prefix + k`` -> (lead + shape, lead axes + axes, dtype) for
+    every k of ``shapes``; a stacked ``lead`` takes the "layers" axis."""
+    lead_axes = ("layers",) * len(lead)
+    for k, shp in shapes.items():
+        specs[prefix + k] = (lead + tuple(shp), lead_axes + tuple(axes[k]),
+                             dtypes(k))
+
+
+def _hybrid_layer_specs(specs, cfg: ModelConfig, prefix: str, lead: tuple,
+                        kind: str):
+    """A hybrid layer: ln1, then rglru.* (recurrent) or attn.* (attention),
+    ln2, mlp.*; ``lead`` is (n_periods,) in the stacked periods, () in
+    the tail."""
+    if kind == "recurrent":
+        mixer = ("rglru.", rglru_lib.rglru_shapes(cfg),
+                 rglru_lib.rglru_axes(cfg),
+                 lambda k: "float32" if k in rglru_lib.FP32 else cfg.dtype)
+    else:
+        mixer = ("attn.", attn.attention_shapes(cfg),
+                 attn.attention_axes(cfg),
+                 lambda k: "float32" if k.endswith("norm") else cfg.dtype)
+    norm = (lead + (cfg.d_model,), ("layers",) * len(lead) + ("embed",),
+            "float32")
+    specs[prefix + "ln1"] = norm
+    _put(specs, prefix + mixer[0], *mixer[1:], lead)
+    specs[prefix + "ln2"] = norm
+    _put(specs, prefix + "mlp.", L.mlp_shapes(cfg), L.mlp_axes(cfg),
+         lambda k: cfg.dtype, lead)
+
+
+def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_periods, n_tail) of a hybrid config: whole periods of
+    ``cfg.rglru.pattern``, then the first ``n_tail`` kinds of the pattern,
+    which must be recurrent (the reference's decode path assumes it)."""
+    period = len(cfg.rglru.pattern)
+    n_periods = cfg.num_layers // period
+    n_tail = cfg.num_layers - n_periods * period
+    if not all(k == "recurrent" for k in cfg.rglru.pattern[:n_tail]):
+        raise ValueError(f"a partial tail period must be recurrent-only: "
+                         f"{cfg.rglru.pattern}")
+    return n_periods, n_tail
+
+
 def param_specs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, tuple, str]]:
     """name -> (shape, logical axes, dtype name) of every parameter, in the
     order the model registers them."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is ported with a later slice "
-            "(ROADMAP.md Queue 1 item 10b); dense, moe, vlm and audio run")
-    if cfg.family not in ("dense", "moe", "vlm", "audio"):
+    if cfg.family not in ("dense", "moe", "vlm", "audio", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family!r}")
     V, d, Lyr = padded_vocab(cfg), cfg.d_model, cfg.num_layers
     specs = {"final_ln": ((d,), ("embed",), "float32")}
@@ -88,6 +148,21 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, tuple, str]]:
     if cfg.family == "vlm":
         specs["vision_proj"] = ((cfg.vision_dim, d), (None, "embed"),
                                 cfg.emb_dtype)
+    if cfg.family == "ssm":
+        specs["layers.ln"] = ((Lyr, d), ("layers", "embed"), "float32")
+        _put(specs, "layers.mamba.", ssm_lib.mamba_shapes(cfg),
+             ssm_lib.mamba_axes(cfg),
+             lambda k: "float32" if k in ssm_lib.FP32 else cfg.dtype,
+             (Lyr,))
+        return specs
+    if cfg.family == "hybrid":
+        n_periods, n_tail = hybrid_layout(cfg)
+        for i, kind in enumerate(cfg.rglru.pattern):
+            _hybrid_layer_specs(specs, cfg, f"layers.p{i}.", (n_periods,),
+                                kind)
+        for i in range(n_tail):
+            _hybrid_layer_specs(specs, cfg, f"tail.{i}.", (), "recurrent")
+        return specs
     specs["layers.ln1"] = ((Lyr, d), ("layers", "embed"), "float32")
     specs["layers.ln2"] = ((Lyr, d), ("layers", "embed"), "float32")
     a_shapes, a_axes = attn.attention_shapes(cfg), attn.attention_axes(cfg)
@@ -107,6 +182,44 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, tuple, str]]:
     return specs
 
 
+def _mlp_values(gen, cfg: ModelConfig, lead: tuple, dtype, device):
+    return {k: L.dense_init(gen, lead + shp, -2, dtype, device)
+            for k, shp in L.mlp_shapes(cfg).items()}
+
+
+def _recurrent_values(cfg: ModelConfig, gen: torch.Generator, dt, device):
+    """The ssm and hybrid layers' initial values (name -> tensor)."""
+    d, vals = cfg.d_model, {}
+
+    def put(prefix, tree):
+        vals.update({prefix + k: v for k, v in tree.items()})
+
+    if cfg.family == "ssm":
+        Lyr = cfg.num_layers
+        vals["layers.ln"] = torch.zeros((Lyr, d), device=device)
+        put("layers.mamba.", ssm_lib.init_mamba(gen, cfg, (Lyr,), dt,
+                                                device))
+        return vals
+
+    def layer(prefix, lead, kind):
+        vals[prefix + "ln1"] = torch.zeros(lead + (d,), device=device)
+        if kind == "recurrent":
+            put(prefix + "rglru.", rglru_lib.init_rglru(gen, cfg, lead, dt,
+                                                        device))
+        else:  # only in the stacked periods: the tail is recurrent
+            put(prefix + "attn.", attn.init_attention(gen, cfg, lead[0], dt,
+                                                      device))
+        vals[prefix + "ln2"] = torch.zeros(lead + (d,), device=device)
+        put(prefix + "mlp.", _mlp_values(gen, cfg, lead, dt, device))
+
+    n_periods, n_tail = hybrid_layout(cfg)
+    for i, kind in enumerate(cfg.rglru.pattern):
+        layer(f"layers.p{i}.", (n_periods,), kind)
+    for i in range(n_tail):
+        layer(f"tail.{i}.", (), "recurrent")
+    return vals
+
+
 def _init_values(cfg: ModelConfig, gen: torch.Generator, device):
     """Initial values in each parameter's compute dtype (as the reference's
     ``Model.init`` makes them)."""
@@ -119,6 +232,9 @@ def _init_values(cfg: ModelConfig, gen: torch.Generator, device):
         if name in specs:
             vals[name] = L.dense_init(gen, specs[name][0], -2, emb_dt,
                                       device)
+    if cfg.family in ("ssm", "hybrid"):
+        vals.update(_recurrent_values(cfg, gen, dt, device))
+        return vals
     vals["layers.ln1"] = torch.zeros((Lyr, d), device=device)
     vals["layers.ln2"] = torch.zeros((Lyr, d), device=device)
     for k, v in attn.init_attention(gen, cfg, Lyr, dt, device).items():
@@ -127,10 +243,49 @@ def _init_values(cfg: ModelConfig, gen: torch.Generator, device):
         for k, v in moe_lib.init_moe(gen, cfg, Lyr, dt, device).items():
             vals[f"layers.moe.{k}"] = v
     else:
-        for k, shp in L.mlp_shapes(cfg).items():
-            vals[f"layers.mlp.{k}"] = L.dense_init(gen, (Lyr,) + shp, -2,
-                                                   dt, device)
+        vals.update({f"layers.mlp.{k}": v for k, v in _mlp_values(
+            gen, cfg, (Lyr,), dt, device).items()})
     return vals
+
+
+def _sub(params, prefix: str):
+    """The entries of ``params`` under ``prefix``, the prefix dropped."""
+    n = len(prefix)
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def _unstack(params, prefix: str):
+    """The layers of the stacked entries under ``prefix``: one dict a layer
+    of ``unbind`` views, whose backward stacks the layers' gradients once
+    (indexing each layer would zero-fill and add a full-size gradient a
+    layer)."""
+    cols = {k: v.unbind(0) for k, v in _sub(params, prefix).items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _store(dst: torch.Tensor, new: torch.Tensor, active) -> None:
+    """dst [B, ...] <- new in place; lanes with ``active`` False keep their
+    old values bitwise (the reference's ``_gate_cache``)."""
+    if active is not None:
+        new = torch.where(active.reshape((-1,) + (1,) * (new.ndim - 1)),
+                          new.to(dst.dtype), dst)
+    dst.copy_(new)
+
+
+def _store_tree(dst: Dict[str, torch.Tensor], new, active) -> None:
+    for k, v in new.items():
+        _store(dst[k], v, active)
+
+
+def cache_leaves(cache):
+    """Every tensor of a decode cache (nested dicts and lists), in
+    ``jax.tree``'s leaf order: dict keys sorted, list items by index."""
+    if isinstance(cache, torch.Tensor):
+        return [cache]
+    items = [cache[k] for k in sorted(cache)] if isinstance(cache, dict) \
+        else cache
+    return [t for c in items for t in cache_leaves(c)]
 
 
 class Model(nn.Module):
@@ -145,6 +300,8 @@ class Model(nn.Module):
         self.cfg = cfg
         self.padded_vocab = padded_vocab(cfg)
         self._specs = param_specs(cfg)
+        if cfg.family == "hybrid":
+            self.n_periods, self.n_tail = hybrid_layout(cfg)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -260,9 +417,63 @@ class Model(nn.Module):
         h, aux = self._ffn(m, L.rms_norm(x, ln2, cfg.norm_eps))
         return x + h, aux, kv
 
+    def _rec_layer(self, p, x):
+        """A hybrid recurrent layer (RG-LRU, then the MLP)."""
+        cfg = self.cfg
+        x = x + rglru_lib.rglru_block(
+            _sub(p, "rglru."), L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
+        return x + L.mlp(_sub(p, "mlp."), L.rms_norm(x, p["ln2"],
+                                                     cfg.norm_eps), cfg)
+
+    def _attn_layer(self, p, x, positions):
+        """A hybrid attention layer (local window, then the MLP)."""
+        cfg = self.cfg
+        h, _ = attn.attend(_sub(p, "attn."),
+                           L.rms_norm(x, p["ln1"], cfg.norm_eps), positions,
+                           cfg, window=cfg.rglru.attention_window)
+        x = x + h
+        return x + L.mlp(_sub(p, "mlp."), L.rms_norm(x, p["ln2"],
+                                                     cfg.norm_eps), cfg)
+
+    def _mamba_layer(self, p, x):
+        cfg = self.cfg
+        return x + ssm_lib.mamba_block(
+            _sub(p, "mamba."), L.rms_norm(x, p["ln"], cfg.norm_eps), cfg)
+
+    def _remat(self, fn, *args):
+        """``fn(*args)``, under ``torch.utils.checkpoint`` when the config
+        remats each block and autograd records (backward keeps the layer's
+        input and recomputes the rest)."""
+        if self.cfg.remat == "block" and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def _recurrent_backbone(self, params, x, positions):
+        """The ssm stack, or the hybrid periods and then the tail; each
+        layer rematerialized as the reference's ``jax.checkpoint(body)``
+        (``cfg.remat``)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            for p in _unstack(params, "layers."):
+                x = self._remat(self._mamba_layer, p, x)
+            return x
+        pattern = cfg.rglru.pattern
+        periods = zip(*(_unstack(params, f"layers.p{i}.")
+                        for i in range(len(pattern))))
+        for period in periods:
+            for kind, p in zip(pattern, period):
+                x = self._remat(self._rec_layer, p, x) \
+                    if kind == "recurrent" \
+                    else self._remat(self._attn_layer, p, x, positions)
+        for i in range(self.n_tail):
+            x = self._remat(self._rec_layer, _sub(params, f"tail.{i}."), x)
+        return x
+
     def _backbone(self, params, x, positions):
         """x [B, S, D] -> (x, summed aux loss); one loop over the stacked
         layers."""
+        if self.cfg.family in ("ssm", "hybrid"):
+            return self._recurrent_backbone(params, x, positions), 0.0
         total = 0.0
         for layer in self._layers(params):
             x, aux, _ = self._block(layer, x, positions)
@@ -341,9 +552,15 @@ class Model(nn.Module):
 
     def cache_len(self, seq_len: int) -> int:
         """Decode-cache length a sequence of ``seq_len`` needs (a rolling
-        buffer of the window for sliding-window attention)."""
-        if self.cfg.sliding_window:
-            return min(seq_len, self.cfg.sliding_window)
+        buffer of the window for sliding-window and the hybrid's local
+        attention; none for ssm)."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return 0
+        if cfg.sliding_window:
+            return min(seq_len, cfg.sliding_window)
+        if cfg.family == "hybrid":
+            return min(seq_len, cfg.rglru.attention_window)
         return seq_len
 
     @torch.inference_mode()
@@ -359,16 +576,39 @@ class Model(nn.Module):
     def init_cache(self, batch: int, seq_len: int):
         """An empty decode cache for ``batch`` lanes: k/v zeros [L, B,
         clen, KV, Hd] in the compute dtype, kpos [B, clen] int32 at
-        ``INT_SENTINEL`` (clen = ``cache_len(seq_len)``)."""
+        ``INT_SENTINEL`` (clen = ``cache_len(seq_len)``); the recurrent
+        families' layouts are in the module docstring (conv states in the
+        compute dtype, the ssm and RG-LRU states fp32, zeros)."""
         cfg = self.cfg
         dev = self.embed.device
-        shape = (cfg.num_layers, batch, self.cache_len(seq_len),
-                 attn.padded_heads(cfg)[1], cfg.resolved_head_dim)
         dt = torch_dtype(cfg.dtype)
+        if cfg.family == "ssm":
+            return {"ssm": ssm_lib.init_mamba_cache(
+                cfg, batch, dt, (cfg.num_layers,), dev)}
+        clen = self.cache_len(seq_len)
+        kv_shape = (batch, clen, attn.padded_heads(cfg)[1],
+                    cfg.resolved_head_dim)
+        kpos = torch.full((batch, clen), INT_SENTINEL, dtype=torch.int32,
+                          device=dev)
+        if cfg.family == "hybrid":
+            n_attn = sum(k == "attention" for k in cfg.rglru.pattern)
+            n_rec = len(cfg.rglru.pattern) - n_attn
+            shape = (self.n_periods, n_attn) + kv_shape
+            cache = {
+                "rec": {f"r{i}": rglru_lib.init_rglru_cache(
+                    cfg, batch, dt, (self.n_periods,), dev)
+                    for i in range(n_rec)},
+                "k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "kpos": kpos}
+            if self.n_tail:
+                cache["tail"] = [rglru_lib.init_rglru_cache(
+                    cfg, batch, dt, (), dev) for _ in range(self.n_tail)]
+            return cache
+        shape = (cfg.num_layers,) + kv_shape
         return {"k": torch.zeros(shape, dtype=dt, device=dev),
                 "v": torch.zeros(shape, dtype=dt, device=dev),
-                "kpos": torch.full(shape[1:3], INT_SENTINEL,
-                                   dtype=torch.int32, device=dev)}
+                "kpos": kpos}
 
     @torch.inference_mode()
     def prefill_cache(self, batch, cache_len: int, lengths=None,
@@ -386,9 +626,12 @@ class Model(nn.Module):
         decode loop when the rolling cache drops no position still inside
         the attention window (``cache_len`` >= the prompt for full
         attention).  A vlm prompt's positions and cache include its patch
-        prefix, and it takes no ``lengths``."""
+        prefix, and it takes no ``lengths``.  The recurrent families run
+        ``_prefill_scan``."""
         cfg = self.cfg
         params = self.cast_params() if params is None else params
+        if cfg.family in ("ssm", "hybrid"):
+            return self._prefill_scan(batch, cache_len, lengths, params)
         if cfg.family == "vlm":
             assert lengths is None, \
                 "ragged prompts are not supported for vlm prefill"
@@ -426,6 +669,85 @@ class Model(nn.Module):
         return self._lm_logits(params, x_last), \
             {"k": new_k, "v": new_v, "kpos": kpos}
 
+    def _prefill_scan(self, batch, cache_len: int, lengths, params):
+        """The recurrent families' prefill: one ``decode_step`` a prompt
+        position from an empty cache, lanes past their ``lengths`` inactive
+        (their state frozen bitwise), each lane's logits taken at its last
+        real position; bitwise the streamed decode loop it replaces."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape[0], tokens.shape[-1]
+        dev = tokens.device
+        cache = self.init_cache(B, cache_len)
+        L_real = None if lengths is None else torch.as_tensor(
+            lengths, device=dev).to(torch.int32)
+        last = torch.zeros((B, 1, self.padded_vocab), dtype=torch.float32,
+                           device=dev)
+        for t in range(S):
+            pos = torch.full((B, 1), t, dtype=torch.int32, device=dev)
+            act = None if L_real is None else t < L_real
+            logits, cache = self.decode_step(cache, tokens[..., t:t + 1],
+                                             pos, active=act, params=params)
+            if L_real is None:
+                last = logits if t == S - 1 else last
+            else:
+                last = torch.where((t == L_real - 1).reshape(B, 1, 1),
+                                   logits, last)
+        return last, cache
+
+    def _decode_ssm(self, params, cache, x, active):
+        cfg = self.cfg
+        c = cache["ssm"]
+        for i, p in enumerate(_unstack(params, "layers.")):
+            ci = {k: v[i] for k, v in c.items()}
+            y, new = ssm_lib.mamba_decode_step(
+                _sub(p, "mamba."), L.rms_norm(x, p["ln"], cfg.norm_eps), ci,
+                cfg)
+            _store_tree(ci, new, active)
+            x = x + y
+        return x
+
+    def _rec_decode(self, p, x, c, active):
+        """One hybrid recurrent layer's decode step; its cache ``c``
+        ({conv, h} [B, ...]) updated in place."""
+        cfg = self.cfg
+        y, new = rglru_lib.rglru_decode_step(
+            _sub(p, "rglru."), L.rms_norm(x, p["ln1"], cfg.norm_eps), c, cfg)
+        _store_tree(c, new, active)
+        x = x + y
+        return x + L.mlp(_sub(p, "mlp."), L.rms_norm(x, p["ln2"],
+                                                     cfg.norm_eps), cfg)
+
+    def _decode_hybrid(self, params, cache, x, pos, active):
+        cfg = self.cfg
+        clen = cache["k"].shape[3]
+        slot = (pos[:, 0] % clen).long()
+        # kpos first: every attention layer attends over it
+        attn.write_rows(cache["kpos"], slot, pos.to(torch.int32), active)
+        pattern = cfg.rglru.pattern
+        periods = zip(*(_unstack(params, f"layers.p{i}.")
+                        for i in range(len(pattern))))
+        for j, period in enumerate(periods):
+            ai = ri = 0
+            for kind, p in zip(pattern, period):
+                if kind == "recurrent":
+                    c = {k: v[j] for k, v in cache["rec"][f"r{ri}"].items()}
+                    x = self._rec_decode(p, x, c, active)
+                    ri += 1
+                    continue
+                y, _, _ = attn.decode_attend(
+                    _sub(p, "attn."), L.rms_norm(x, p["ln1"], cfg.norm_eps),
+                    pos, cache["k"][j, ai], cache["v"][j, ai],
+                    cache["kpos"], slot, cfg,
+                    window=cfg.rglru.attention_window, active=active)
+                ai += 1
+                x = x + y
+                x = x + L.mlp(_sub(p, "mlp."),
+                              L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+        for i in range(self.n_tail):
+            x = self._rec_decode(_sub(params, f"tail.{i}."), x,
+                                 cache["tail"][i], active)
+        return x
+
     @torch.inference_mode()
     def decode_step(self, cache, tokens, pos, active=None,
                     params: Optional[Dict] = None):
@@ -439,10 +761,18 @@ class Model(nn.Module):
         leaf bitwise unchanged; their logits are garbage the caller masks.
         None means every lane is live.  A moe layer routes the B lanes as
         one global dispatch (``models/moe.py``), inactive lanes too, as
-        the reference does."""
+        the reference does.  The recurrent families write their conv and
+        recurrent states in place the same way (the hybrid's attention
+        layers its rolling k/v rows)."""
         cfg = self.cfg
         params = self.cast_params() if params is None else params
         x = self._embed_tokens(params, tokens)
+        if cfg.family == "ssm":
+            return self._lm_logits(params, self._decode_ssm(
+                params, cache, x, active)), cache
+        if cfg.family == "hybrid":
+            return self._lm_logits(params, self._decode_hybrid(
+                params, cache, x, pos, active)), cache
         clen = cache["k"].shape[2]
         slot = (pos[:, 0] % clen).long()  # [B]
         # kpos first: every layer attends over the updated positions

@@ -67,14 +67,21 @@ def _check_supported(cfg: OptimizerConfig) -> None:
             "ROADMAP.md Queue 1 item 11)")
 
 
+def _tree_key(name: str):
+    """The sort key of a dotted name in ``jax.tree``'s order: dict keys as
+    strings, list indices (the hybrid's ``tail.10``) as integers."""
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                 for p in name.split("."))
+
+
 def leaf_order(names):
     """Each name's index in the reference's leaf order: ``jax.tree``
     flattens the nested parameter dict with its keys sorted at every
-    level, i.e. the names sorted by ``tuple(name.split("."))``.  Per-leaf
+    level and a list's items by index, i.e. the names sorted by their
+    dotted parts, integer parts as integers (``_tree_key``).  Per-leaf
     sketch keys fold in this index, so that a leaf draws the sketch the
     reference draws for it."""
-    order = sorted(range(len(names)),
-                   key=lambda i: tuple(names[i].split(".")))
+    order = sorted(range(len(names)), key=lambda i: _tree_key(names[i]))
     rank = [0] * len(names)
     for r, i in enumerate(order):
         rank[i] = r

@@ -2,7 +2,7 @@
 against the reference on the CPU: every config field for field, the
 parameter layout of every SMOKE and full config, the fp32 SMOKE loss and
 gradients, decode against forward and prefill against a streamed decode
-(drop-free), the ssm/hybrid refusal and the family batches."""
+(drop-free), the Engine's ssm/hybrid refusal and the family batches."""
 import dataclasses
 
 import jax
@@ -63,7 +63,7 @@ def _layout(jcfg):
 
 
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
-@pytest.mark.parametrize("arch", KV_ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 def test_param_specs_equal_the_reference(arch, smoke):
     jcfg = (jget_smoke if smoke else jget_config)(arch)
     specs = param_specs((get_smoke_config if smoke else get_config)(arch))
@@ -93,8 +93,23 @@ def test_granite_params_and_muon_views():
 
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_recurrent_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        Model(get_smoke_config(arch), device="cpu")
+    """The recurrent families build and decode (their parity is in
+    ``test_torch_recurrent_model.py``), and the Engine refuses them with
+    the reference's message, as the reference's Engine does
+    (``tests/test_serving.py:243-248``): their caches are not
+    slot-installable."""
+    from repro.serving import Engine as JEngine
+    from repro.serving import EngineConfig as JEngineConfig
+    from repro_torch.serving import Engine, EngineConfig
+
+    model = Model(get_smoke_config(arch), device="cpu")
+    with pytest.raises(NotImplementedError) as mine:
+        Engine(model, None, EngineConfig(slots=2, cache_len=16))
+    with pytest.raises(NotImplementedError) as ref:
+        JEngine(build(jget_smoke(arch)), None,
+                JEngineConfig(slots=2, cache_len=16))
+    assert str(mine.value) == str(ref.value)
+    assert "not slot-installable" in str(mine.value)
 
 
 # ------------------------------------------------------- loss and gradients
@@ -248,7 +263,7 @@ def test_family_batches(arch):
 def test_train_launcher_on_the_cpu(capsys):
     """``python -m repro_torch.launch.train --arch granite-moe-1b-a400m
     --smoke --device cpu``: two Trainer steps with finite losses; the
-    production mesh raises item 11, an ssm model item 10b."""
+    production mesh raises item 11; an ssm model trains too."""
     from repro_torch.launch import train
 
     argv = ["--arch", "granite-moe-1b-a400m", "--smoke", "--steps", "2",
@@ -258,9 +273,9 @@ def test_train_launcher_on_the_cpu(capsys):
     assert "losses:" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="item 11"):
         train.main(argv + ["--mesh", "production"])
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        train.main(["--arch", "falcon-mamba-7b", "--smoke", "--steps", "1",
-                    "--device", "cpu"])
+    ssm = train.main(["--arch", "falcon-mamba-7b", "--smoke", "--steps",
+                      "1", "--seq", "32", "--batch", "2", "--device", "cpu"])
+    assert len(ssm) == 1 and np.isfinite(ssm[0])
 
 
 @pytest.mark.parametrize("arch", ["musicgen-medium", "llava-next-34b"])

@@ -101,13 +101,21 @@ def test_bf16_loss_matches_reference():
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])
 def test_unported_families_and_decode_raise(family):
-    """The recurrent families still raise (ROADMAP.md Queue 1 item 10b;
-    moe, vlm, audio and tied embeddings run: ``test_torch_archs.py``); the
-    serving methods of the dense model run (their parity with the
+    """The recurrent families build and take one decode step (their
+    parity with the reference is in ``test_torch_recurrent_model.py``);
+    the serving methods of the dense model run (their parity with the
     reference is in ``test_torch_decode.py``), with these shapes at
     SMOKE."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(gpt2_paper.SMOKE.replace(family=family), device="cpu")
+    from repro_torch.configs import get_smoke_config
+
+    arch = {"ssm": "falcon-mamba-7b", "hybrid": "recurrentgemma-2b"}[family]
+    rec = Model(get_smoke_config(arch), device="cpu")
+    assert rec.cfg.family == family
+    toks = torch.from_numpy(_tokens(rec.cfg, batch=2, seq=1))
+    logits, cache = rec.decode_step(rec.init_cache(2, 16), toks,
+                                    torch.zeros((2, 1), dtype=torch.int32))
+    assert tuple(logits.shape) == (2, 1, 256)
+    assert bool(torch.isfinite(logits).all())
     cfg = gpt2_paper.SMOKE
     model = Model(cfg, device="cpu")
     toks = torch.from_numpy(_tokens(cfg, batch=2, seq=12))
