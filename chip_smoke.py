@@ -36,8 +36,8 @@ Phases (any failure exits non-zero and prints no result):
      through l = 136, contractions up to K = 50272) in fp32 and bf16,
      checked, timed beside ``torch.bmm``/``baddbmm`` and their bound, and
      at one ragged l = 21 case on the element-by-element instantiation;
-     and at granite-moe's Muon buckets (``GRANITE_SHAPES``: [2352, 1024,
-     512], [48, 1024, 1024], [24, 1024, 32]) and the recurrent families'
+     and at granite-moe's Muon buckets (``GRANITE_SHAPES``: [588, 1024,
+     512], [12, 1024, 1024], [6, 1024, 32]) and the recurrent families'
      (``RECURRENT_SHAPES``, phase 13) in fp32, the same way;
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
      width (seq 512, batch 4, random weights from seed 0), STEPS steps
@@ -151,8 +151,8 @@ Phases (any failure exits non-zero and prints no result):
      tokens/s, the KV cache bytes; ``prefill_cache`` at lengths 96, 61, 17
      against a streamed active-masked decode loop (kpos bitwise, logits
      within 5e-2 + 5e-2|x|); (b) the Engine (slots 16, cache_len 64, EOS
-     0, greedy) over the launcher's 64-request trace (seed 0): on the
-     virtual clock one decode shape, every request done, a tick with every
+     0, greedy) over the launcher's trace (seed 0) cut to 32 requests: on
+     the virtual clock one decode shape, every request done, a tick with every
      other lane inactive leaving their k, v and kpos rows bitwise, two
      runs equal, continuous admission in fewer decode steps than static
      with as many tokens; on the wall clock at qps 20 and 1e6, tokens/s,
@@ -165,15 +165,16 @@ Phases (any failure exits non-zero and prints no result):
      run (temperature 0.8, top_k 50) replays bitwise; the phase's
      ``max_memory_allocated``;
  12. the moe family (the registry, ``launch/train.py``, ``models/moe.py``):
-     (a) granite-moe-1b-a400m at its published widths (24 layers, 32
-     experts top-8, 1,384,989,696 parameters), seq 512, batch 8, bf16
-     compute and fp32 masters, STEPS Trainer steps of Muon PRISM-5 through
-     ``launch/train.py``'s ``build`` with a checkpoint at the last: Muon's
-     views 2,352 x [1024, 512], 48 x [1024, 1024], 24 x [1024, 32]; 27
-     launches a step (K1 18, K2 9: three grid-tier buckets, three warm
-     iterations each); the step-0 CE within 1.5 of ln(V) and the aux loss
-     within a factor 2 of a balanced router's, coef x K summed over the
-     layers (24 x 0.08 = 1.92); one Muon update
+     (a) granite-moe-1b-a400m at its published widths (32 experts top-8),
+     depth cut to GRANITE_LAYERS (6 of 24; 421,770,240 parameters), seq
+     512, batch 8, bf16 compute and fp32 masters, STEPS Trainer steps of
+     Muon PRISM-5 through ``launch/train.py``'s configuration
+     (``cut_trainer``) with a checkpoint at the last: Muon's views 588 x
+     [1024, 512], 12 x [1024, 1024], 6 x [1024, 32]; 27 launches a step
+     (K1 18, K2 9: three grid-tier buckets, three warm iterations each);
+     the step-0 CE within 1.5 of ln(V) and the aux loss within a factor 2
+     of a balanced router's, coef x K summed over the layers (6 x 0.08 =
+     0.48); one Muon update
      through the kernels against ``use_kernels=False`` within 1e-3,
      repeated bitwise, with no synchronizing call; a train step repeated
      from the same state bitwise (deterministic algorithms on; with them
@@ -184,7 +185,7 @@ Phases (any failure exits non-zero and prints no result):
      (device busy, idle share, top kernels); (b) that checkpoint served in
      bf16 through ``restore_params`` (bitwise the trained parameters),
      phase 11's (a) and (b) on it, the KV cache of batch mode exactly
-     308,306,432 bytes, prefill against the streamed decode at drop-free
+     77,095,424 bytes, prefill against the streamed decode at drop-free
      capacity gated in fp32 (within 2e-2 + 2e-2|x|, the reference's fp32
      moe decode test; in bf16 a rounding difference can flip a near-tie
      at the top-k boundary, so the bf16 gap is printed), and (c) printed,
@@ -196,11 +197,13 @@ Phases (any failure exits non-zero and prints no result):
      published widths, 2 layers each, finite results;
  13. the recurrent families (``models/ssm.py``, ``models/rglru.py``, the
      ssm and hybrid stacks of ``models/transformer.py``): (a)
-     recurrentgemma-2b at its published widths and depth (26 layers, d
-     2560, vocab 256000, 2,446,307,840 parameters) through
-     ``launch/train.py``'s ``build`` (seq 512, batch 8, Muon PRISM-5),
-     STEPS Trainer steps: Muon's views 90 x [2560, 2560], 52 x [2560,
-     7680], 16 x [2560, 4096], 16 x [2560, 256]; the launches of each step
+     recurrentgemma-2b at its published widths (d 2560, vocab 256000),
+     depth cut to RGEMMA_LAYERS (5 of 26: one (rec, rec, attn) period
+     and the two tail layers; 1,005,432,320 parameters) through
+     ``launch/train.py``'s configuration (``cut_trainer``; seq 512, batch
+     8, Muon PRISM-5), STEPS Trainer steps: Muon's views 20 x [2560,
+     2560], 10 x [2560, 7680], 2 x [2560, 4096], 2 x [2560, 256]; the
+     launches of each step
      equal to those derived from the port's bucket plan and tiers
      (``plan_launches``: 4 grid buckets, K1 24, K2 12); the step-0 CE
      within 1.5 of ln(V); the Muon update through the kernels against
@@ -210,14 +213,14 @@ Phases (any failure exits non-zero and prints no result):
      train step, max_memory_allocated; its compute-dtype parameters
      checkpointed under a temporary ``build/phase13_*``; (b)
      falcon-mamba-7b at every published width (d 4096, d_inner 8192,
-     state 16, dt_rank 256, vocab 65024), depth cut to FALCON_LAYERS (8;
-     1,375,178,752 parameters), the same gates (5 grid buckets: K1 30, K2
+     state 16, dt_rank 256, vocab 65024), depth cut to FALCON_LAYERS (2
+     of 64; 743,305,216 parameters), the same gates (5 grid buckets: K1 30, K2
      15), and the selective scan of one layer timed forward and backward
      and profiled (device busy, device kernels); (c) each checkpoint
      through ``restore_params`` into a fresh model (bitwise), served in
      bf16 by ``launch/serve.batch_loop`` at batch 4, prompt 256, gen 32
      (tokens in the vocab, logits finite, the decode state's bytes those
-     of ``init_cache``'s shapes, exactly 11,284,992 and 18,350,080), a
+     of ``init_cache``'s shapes, exactly 1,593,856 and 4,587,520), a
      profiled decode step, ``prefill_cache`` of ragged lengths 96, 61, 17
      bitwise a streamed active-masked decode loop in the logits and every
      cache leaf, a step with one lane inactive leaving its leaves bitwise,
@@ -226,7 +229,48 @@ Phases (any failure exits non-zero and prints no result):
      decode steps against the forward logits within 2e-2 + 2e-2|x|; K1/K2
      at these buckets' shapes (``RECURRENT_SHAPES``) are checked and timed
      in phase 3 (median of RECURRENT_REPS launches);
- 14. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+ 14. data parallelism (``phase14``): a world of P14_WORLD = 2 ranks that
+     share the card, spawned, joined by ``launch/mesh.init_world`` on
+     gloo (printed; NCCL refuses two ranks on one device) through a file
+     store under a temporary ``build/phase14_*`` removed at the end,
+     with a P14_TIMEOUT_S timeout on every collective and P14_DEADLINE_S
+     on the world (a rank that raises fails the phase); the kernels are
+     built before the ranks start.  First the single-process Trainer
+     (gpt2-paper, Muon PRISM-5, seq 512, global batch 4, STEPS steps,
+     seed 0) for (b)'s losses and step-0 update, and one step of it at
+     fp32 compute for its update.  On each rank, under
+     ``make_debug_mesh(data=2, model=1)``: (a) gpt2-paper Muon's buckets
+     (random views of its 9 matrix shapes) through ``polar_bucketed``,
+     fp32, PRISM-5 and PRISM-3, single and sharded: each rank launches
+     the single process's count (19: K1 12, K2 6, K3 1; 29: K1 10, K2 10,
+     K3 1, K5 4, K6 2, K7 2), the gathered polars within P14_POLAR_TOL
+     (2e-5) of the single process's (bitwise or not printed), the
+     engine's and the all-gathers' time and bytes; (b) the Trainer on the
+     mesh, 2 rows a rank, STEPS steps with a checkpoint at the last
+     (rank 0 writes, every rank waits): every parameter's crc32 equal on
+     both ranks after every step, 19 launches a step, losses finite, the
+     first within 1.5 of ln(V), all within RESUME_LOSS_TOL of the single
+     process's, step 0's Muon update's gap to the single process's
+     printed (bf16 activations round differently at 2 rows than at 4),
+     and one step at fp32 compute whose Muon update is within
+     UPDATE_REL_TOL of the single process's; the step time, tokens/s
+     over both ranks, the gradient all-reduce's calls, bytes and times,
+     the synchronizing calls of one step; (c) ``grads_dtype="bfloat16"``
+     and ``gradient_compression="int8"``, P14_EXTRA_STEPS steps each,
+     losses finite and within P14_EXTRA_LOSS_TOL of (b)'s while the
+     same steps' losses with no update lie beyond it (the control), the
+     parameters' crc32 equal on both ranks, the reduced dtypes printed,
+     and ``int8_psum`` on the card: one fp32 MAX and one int32 SUM,
+     within P14_PSUM_STEPS int8 steps of the exact sum; (e) Muon
+     PRISM-5 with ``precond_async`` and ``precond_every`` P14_ASYNC_K,
+     P14_ASYNC_STEPS steps beside a ``Shadow`` (one process's async Muon
+     on the same gradients): dispatches at 0 and 5 on both ranks and in
+     the shadow, 19 launches in each dispatching ``step_begin`` and none
+     in the steps, the final parameters and caches within 2e-5 + 2e-5|x|
+     of the shadow's; each rank's max_memory_allocated.  Then (d): one
+     process restores (b)'s checkpoint, its state bitwise the ranks'
+     (crc32 of every leaf) and its next step 19 launches;
+ 15. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -329,8 +373,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg`` after the script's clock (seconds since it started)."""
+    print(f"[{time.perf_counter() - _T0:6.1f}] {msg}", flush=True)
 
 
 # --------------------------------------------------------------- timing
@@ -2951,9 +2999,11 @@ SERVE_ARGS = dict(batch=4, prompt_len=1536, gen_len=32, cache_len=1568,
 PARITY_LENGTHS = (96, 61, 17)   # prefill against a streamed decode loop
 PARITY_TOL = 5e-2               # tests/test_serving.py:277
 MOE_PARITY_TOL = 2e-2           # tests/test_models_smoke.py:134, fp32
-# (b) the Engine with the reference launcher's trace palettes
+# (b) the Engine with the reference launcher's trace palettes; its 64
+# requests cut to 32 (each run of the trace is host-bound, ~25-40 ms a
+# tick), so that the script stays well inside its time limit
 ENGINE_CFG = dict(slots=16, cache_len=64, eos_id=0)
-ENGINE_TRACE = dict(n_requests=64, qps=20.0)
+ENGINE_TRACE = dict(n_requests=32, qps=20.0)
 STEP_DT = 0.01                  # the virtual clock's tick
 WALL_QPS = (20.0, 1e6)          # offered loads of the wall-clock runs
 PROFILE_TICKS = 8
@@ -3419,36 +3469,52 @@ def sampling_checks(torch, model, params, greedy, trace):
 # ---------------------------------------------- phase 12: the moe family
 
 GRANITE = "granite-moe-1b-a400m"
-GRANITE_PARAMS = 1_384_989_696
+# every published width, depth cut from 24 layers so that the script stays
+# well inside its time limit (its checkpoint, restore and serving scale
+# with the depth)
+GRANITE_LAYERS = 6
+GRANITE_PARAMS = 421_770_240
 # launch/train.py at its defaults (the published config, seq 512, batch 8,
-# Muon PRISM-5, matfn fp32); only the step count is cut
+# Muon PRISM-5, matfn fp32) over the config cut to GRANITE_LAYERS; the
+# step count is cut too
 GRANITE_ARGV = ["--arch", GRANITE, "--steps", str(STEPS)]
 # Muon's matrix views by shape: the experts' w_gate/w_up/w_down and
-# wk/wv, wq/wo, the routers
-GRANITE_VIEWS = {(1024, 512): 2352, (1024, 1024): 48, (1024, 32): 24}
+# wk/wv (98 a layer), wq/wo (2), the routers (1)
+GRANITE_VIEWS = {(1024, 512): 98 * GRANITE_LAYERS,
+                 (1024, 1024): 2 * GRANITE_LAYERS, (1024, 32): GRANITE_LAYERS}
 # no bucket fits the fused tier (the routers' [1024, 32] views neither):
 # each runs three warm iterations of one K2 (R = I - X^T X) and two K1
 # (Horner on R)
 GRANITE_PER_STEP = dict(matmul_add=6 * len(GRANITE_VIEWS),
                         gram_upper=3 * len(GRANITE_VIEWS))
-GRANITE_SHAPES = [
-    ("gram_upper", (2352, 1024, 512), None, False, "experts, wk/wv: R"),
-    ("matmul_add", (2352, 1024, 512), (2352, 512, 512), True,
-     "experts, wk/wv: Horner"),
-    ("gram_upper", (48, 1024, 1024), None, False, "wq/wo: R"),
-    ("matmul_add", (48, 1024, 1024), (48, 1024, 1024), True,
-     "wq/wo: Horner"),
-    ("gram_upper", (24, 1024, 32), None, False, "routers: R"),
-    ("matmul_add", (24, 1024, 32), (24, 32, 32), True, "routers: Horner"),
-]
+
+
+def bucket_shapes(views, labels):
+    """K1/K2 at Muon's buckets of ``views`` ({(m, n): count}), as the polar
+    runs them (a wide view transposed to [B, max, min]: the Gram side is
+    the short one): R = I - X^T X, and each Horner step X P(R) + c X;
+    ``labels`` names each view shape."""
+    out = []
+    for (m, n), B in views.items():
+        hi, lo = max(m, n), min(m, n)
+        out += [("gram_upper", (B, hi, lo), None, False,
+                 f"{labels[m, n]}: R"),
+                ("matmul_add", (B, hi, lo), (B, lo, lo), True,
+                 f"{labels[m, n]}: Horner")]
+    return out
+
+
+GRANITE_SHAPES = bucket_shapes(GRANITE_VIEWS, {
+    (1024, 512): "experts, wk/wv", (1024, 1024): "wq/wo",
+    (1024, 32): "routers"})
 # a balanced router's Switch loss: E * sum_e f_e P_e = K with P_e = 1/E,
-# times the coefficient, summed over the layers (24 x 0.01 x 8 = 1.92); a
+# times the coefficient, summed over the layers (6 x 0.01 x 8 = 0.48); a
 # random router at step 0 sits near it, a wrong factor (E, K, the layer
 # sum, the coefficient) falls outside this band around it
 AUX_BAND = (0.5, 2.0)
-# 2 (k, v) x 24 layers x batch 4 x 1568 slots x 8 kv heads x 64 x 2 bytes,
-# plus kpos [4, 1568] int32
-GRANITE_KV_BYTES = 308_306_432
+# 2 (k, v) x GRANITE_LAYERS x batch 4 x 1568 slots x 8 kv heads x 64 x 2
+# bytes, plus kpos [4, 1568] int32
+GRANITE_KV_BYTES = 2 * GRANITE_LAYERS * 4 * 1568 * 8 * 64 * 2 + 4 * 1568 * 4
 # (c): the other new families at their published widths, depth cut
 FAMILY_LAYERS = 2
 FAMILY_BATCH, FAMILY_SEQ = 2, 512
@@ -3474,6 +3540,18 @@ def phase12(torch):
     return counts
 
 
+def cut_trainer(args, layers):
+    """launch/train.py's Trainer of ``args`` (as its ``build`` makes it)
+    over the config cut to ``layers`` layers, on the card."""
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import Model
+    from repro_torch.train import Trainer
+
+    cfg, ocfg, tcfg, dcfg = train_launch.configs(args)
+    return Trainer(Model(cfg.replace(num_layers=layers), device=DEVICE,
+                         seed=args.seed), ocfg, tcfg, dcfg)
+
+
 def _granite_views(opt):
     """Muon's matrix views of ``opt``'s parameters, counted by shape."""
     from repro_torch.optim import base
@@ -3490,6 +3568,7 @@ def granite_training(torch, work):
     """(a): STEPS Trainer steps through launch/train.py's ``build`` with a
     checkpoint at the last; the gates of the module docstring.  Returns
     (launch counts of the run, the trained parameters on the host)."""
+    from repro_torch.configs import get_config
     from repro_torch.core.rng import Key
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_launch
@@ -3498,7 +3577,7 @@ def granite_training(torch, work):
     torch.cuda.reset_peak_memory_stats()
     args = train_launch.parser().parse_args(
         GRANITE_ARGV + ["--ckpt_dir", str(work), "--ckpt_every", str(STEPS)])
-    tr = train_launch.build(args)
+    tr = cut_trainer(args, GRANITE_LAYERS)
     model, cfg, pc = tr.model, tr.model.cfg, tr.ocfg.prism
     n_params = sum(p.numel() for p in model.parameters())
     if n_params != GRANITE_PARAMS:
@@ -3506,7 +3585,8 @@ def granite_training(torch, work):
     views = _granite_views(tr.opt)
     if views != GRANITE_VIEWS:
         fail(f"(a): Muon's views {views}, want {GRANITE_VIEWS}")
-    log(f"  (a) {cfg.name}: {n_params} params ({cfg.num_layers} layers, "
+    log(f"  (a) {cfg.name}: {n_params} params ({cfg.num_layers} of "
+        f"{get_config(GRANITE).num_layers} layers, depth cut, "
         f"d {cfg.d_model}, {cfg.moe.num_experts} experts top-"
         f"{cfg.moe.num_experts_per_tok}, d_ff {cfg.d_ff}, capacity "
         f"{cfg.moe.capacity_factor}, {cfg.moe.dispatch} dispatch), seq "
@@ -3611,60 +3691,34 @@ def pinned(torch, t):
 
 
 def granite_update(torch, tr, key, what="(a)", name="granite-moe",
-                   profile=True, lean=False):
+                   profile=True):
     """One Muon update from the Trainer's state, parameters and last
     clipped gradients, through the kernels and through torch.matmul
     (``use_kernels=False``): within UPDATE_REL_TOL of the largest update
     entry, the kernels' update bitwise the same when repeated, no
     synchronizing call, the times, and (``profile``) a profile by K1/K2
-    shape; ``what`` labels the lines, ``name`` the model.  ``lean`` (a
-    model whose plain step would not fit beside the Trainer's state)
-    keeps the parameters' starting values and the Trainer's state on the
-    host and runs both updates one bucket of the plan at a time, then the
-    other leaves: PRISM-5's warm iterations draw no sketch, so a leaf's
-    update does not depend on the other buckets.
-    Leaves the Trainer's parameters and state as it found them and their
-    gradients cleared."""
-    from repro_torch.optim import base, bucketing, make_optimizer
+    shape; ``what`` labels the lines, ``name`` the model.  Leaves the
+    Trainer's parameters and state as it found them and their gradients
+    cleared."""
+    from repro_torch.optim import make_optimizer
 
     model, src = tr.model, tr.opt
     named = dict(model.named_parameters())
     axes = model.logical_axes()
-    before = {k: pinned(torch, p.detach()) if lean else p.detach().clone()
-              for k, p in named.items()}
+    before = {k: p.detach().clone() for k, p in named.items()}
     grads = {k: p.grad for k, p in named.items()}
     state = dict(src.state)
-    if lean:
-        state = {p: {k: pinned(torch, v) for k, v in st.items()}
-                 for p, st in state.items()}
-        for p in state:
-            src.state[p] = {}
-    # the plain reference's groups: each bucket of the plan, then the
-    # leaves outside Muon's views (AdamW, no kernel)
-    views, rest = [], []
-    for k, p in named.items():
-        shape = tuple(p.shape)
-        if base.is_matrix_param(axes[k], shape):
-            m, n = base.matrix_view_dims(axes[k], shape)
-            views.append((k, (math.prod(shape) // (m * n), m, n)))
-        else:
-            rest.append(k)
-    groups = [[views[e.index][0] for e in b.entries]
-              for b in bucketing.plan_buckets(
-                  [v for _, v in views], pad=src.cfg.bucket_pad,
-                  pad_slack=src.cfg.bucket_pad_slack)] + [rest]
 
-    def fresh(use_kernels, names=tuple(named)):
+    def fresh(use_kernels):
         # Muon.step replaces its state tensors and never writes into
         # them, so the new optimizer may hold the Trainer's own
-        sub = [(k, named[k]) for k in names]
         o = make_optimizer(_with_prism(src.cfg, use_kernels=use_kernels),
-                           sub, axes)
-        for _, p in sub:
-            o.state[p] = {k: v.to(p.device) for k, v in state[p].items()}
+                           list(named.items()), axes)
+        for p in named.values():
+            o.state[p] = dict(state[p])
         o.count = src.count
         with torch.no_grad():
-            for k, p in sub:
+            for k, p in named.items():
                 p.copy_(before[k])
                 p.grad = grads[k]
         return o
@@ -3677,11 +3731,8 @@ def granite_update(torch, tr, key, what="(a)", name="granite-moe",
         return (time.perf_counter() - t0) * 1e3
 
     def update(use_kernels):
-        """ms of one update of every leaf: one step, or (lean) one step a
-        group"""
-        if not lean:
-            return timed(fresh(use_kernels))
-        return sum(timed(fresh(use_kernels, names)) for names in groups)
+        """ms of one update of every leaf"""
+        return timed(fresh(use_kernels))
 
     # the kernels' result waits on the host: the card holds the masters,
     # their copy, the gradients, the Trainer's state and a step
@@ -3699,15 +3750,11 @@ def granite_update(torch, tr, key, what="(a)", name="granite-moe",
             fail(f"{what}: the update of {k} through the kernels differs from "
                  f"torch.matmul's by {rel:.3e} of its largest entry "
                  f"(bound {UPDATE_REL_TOL})")
-    if not lean:
-        opt_ms["plain"].append(update(False))
-        opt_ms["kernels"].append(update(True))
-    # (lean: the update the synchronizing calls are counted in is the
-    # repeat held bitwise)
-    opts = [fresh(True, names) for names in (groups if lean
-                                               else [tuple(named)])]
-    syncs = count_syncs(torch, lambda: [o.step(key=key) for o in opts])
-    del opts
+    opt_ms["plain"].append(update(False))
+    opt_ms["kernels"].append(update(True))
+    o = fresh(True)
+    syncs = count_syncs(torch, lambda: o.step(key=key))
+    del o
     differ = [k for k, p in named.items()
               if not torch.equal(p.detach().cpu(), after[k])]
     if differ:
@@ -3720,9 +3767,7 @@ def granite_update(torch, tr, key, what="(a)", name="granite-moe",
         + ", ".join(f"{t:.1f}" for t in opt_ms["kernels"])
         + " ms, through torch.matmul "
         + ", ".join(f"{t:.1f}" for t in opt_ms["plain"])
-        + (f" ms (each summed over {len(groups)} steps: a bucket each, "
-           f"and the other leaves)" if lean else " ms")
-        + f"; synchronizing calls in one Muon step: {len(syncs)} "
+        + f" ms; synchronizing calls in one Muon step: {len(syncs)} "
         f"{sorted(set(syncs))}")
     if syncs:
         fail(f"{what}: {len(syncs)} synchronizing calls in one Muon step")
@@ -3838,7 +3883,7 @@ def granite_serving(torch, work, trained):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(GRANITE)
+    cfg = get_config(GRANITE).replace(num_layers=GRANITE_LAYERS)
     served = Model(cfg, device=DEVICE, seed=1)
     t0 = time.perf_counter()
     step, restored = restore_params(str(work),
@@ -4004,64 +4049,45 @@ def family_run(torch, arch, full, cfg):
 # ------------------------------------- phase 13: the recurrent families
 
 RGEMMA = "recurrentgemma-2b"
-RGEMMA_PARAMS = 2_446_307_840
+# every published width, depth cut from 26 layers to one (rec, rec, attn)
+# period and the two recurrent tail layers, every kind of layer kept, so
+# that the script stays well inside its time limit
+RGEMMA_LAYERS = 5
+RGEMMA_PARAMS = 1_005_432_320
 FALCON = "falcon-mamba-7b"
 # all 64 layers hold ~7.3e9 parameters, whose fp32 masters, gradients and
-# momentum alone (~87 GB) pass the card's 80 GB: 8 layers, every width kept
-FALCON_LAYERS = 8
-FALCON_PARAMS = 1_375_178_752
+# momentum alone (~87 GB) pass the card's 80 GB; 2 layers, every width
+# kept, to stay well inside the time limit
+FALCON_LAYERS = 2
+FALCON_PARAMS = 743_305_216
 # Muon's matrix views by shape: recurrentgemma's RG-LRU matrices (in_x,
-# in_gate, w_a, w_i, out_proj of 18 recurrent layers), MLPs (26 x w_up,
-# w_down), wq/wo at 16 padded heads, wk/wv (one kv head); falcon's in_proj,
-# out_proj, x_proj, dt_proj and A_log (min dim 16: a matrix leaf in both
-# packages, base.is_matrix_param)
-RGEMMA_VIEWS = {(2560, 2560): 90, (2560, 7680): 52, (2560, 4096): 16,
-                (2560, 256): 16}
-FALCON_VIEWS = {(4096, 16384): 8, (4096, 8192): 8, (8192, 288): 8,
-                (256, 8192): 8, (8192, 16): 8}
-# K1/K2 at those buckets, as the polar runs them (a wide view transposed to
-# [B, max, min]: the Gram side is the short one): R = I - X^T X, and each
-# Horner step X P(R) + c X
-RECURRENT_SHAPES = [
-    ("gram_upper", (90, 2560, 2560), None, False, "recurrentgemma RG-LRU: R"),
-    ("matmul_add", (90, 2560, 2560), (90, 2560, 2560), True,
-     "recurrentgemma RG-LRU: Horner"),
-    ("gram_upper", (52, 7680, 2560), None, False, "recurrentgemma MLPs: R"),
-    ("matmul_add", (52, 7680, 2560), (52, 2560, 2560), True,
-     "recurrentgemma MLPs: Horner"),
-    ("gram_upper", (16, 4096, 2560), None, False, "recurrentgemma wq/wo: R"),
-    ("matmul_add", (16, 4096, 2560), (16, 2560, 2560), True,
-     "recurrentgemma wq/wo: Horner"),
-    ("gram_upper", (16, 2560, 256), None, False, "recurrentgemma wk/wv: R"),
-    ("matmul_add", (16, 2560, 256), (16, 256, 256), True,
-     "recurrentgemma wk/wv: Horner"),
-    ("gram_upper", (8, 16384, 4096), None, False, "falcon in_proj: R"),
-    ("matmul_add", (8, 16384, 4096), (8, 4096, 4096), True,
-     "falcon in_proj: Horner"),
-    ("gram_upper", (8, 8192, 4096), None, False, "falcon out_proj: R"),
-    ("matmul_add", (8, 8192, 4096), (8, 4096, 4096), True,
-     "falcon out_proj: Horner"),
-    ("gram_upper", (8, 8192, 288), None, False, "falcon x_proj: R"),
-    ("matmul_add", (8, 8192, 288), (8, 288, 288), True,
-     "falcon x_proj: Horner"),
-    ("gram_upper", (8, 8192, 256), None, False, "falcon dt_proj: R"),
-    ("matmul_add", (8, 8192, 256), (8, 256, 256), True,
-     "falcon dt_proj: Horner"),
-    ("gram_upper", (8, 8192, 16), None, False, "falcon A_log: R"),
-    ("matmul_add", (8, 8192, 16), (8, 16, 16), True, "falcon A_log: Horner"),
-]
+# in_gate, w_a, w_i, out_proj of 4 recurrent layers), MLPs (5 x w_up,
+# w_down), wq/wo at 16 padded heads, wk/wv (one kv head) of the attention
+# layer; falcon's in_proj, out_proj, x_proj, dt_proj and A_log (min dim
+# 16: a matrix leaf in both packages, base.is_matrix_param)
+RGEMMA_VIEWS = {(2560, 2560): 20, (2560, 7680): 10, (2560, 4096): 2,
+                (2560, 256): 2}
+FALCON_VIEWS = {(4096, 16384): 2, (4096, 8192): 2, (8192, 288): 2,
+                (256, 8192): 2, (8192, 16): 2}
+RECURRENT_SHAPES = bucket_shapes(RGEMMA_VIEWS, {
+    (2560, 2560): "recurrentgemma RG-LRU", (2560, 7680): "recurrentgemma MLPs",
+    (2560, 4096): "recurrentgemma wq/wo", (2560, 256): "recurrentgemma wk/wv"}
+) + bucket_shapes(FALCON_VIEWS, {
+    (4096, 16384): "falcon in_proj", (4096, 8192): "falcon out_proj",
+    (8192, 288): "falcon x_proj", (256, 8192): "falcon dt_proj",
+    (8192, 16): "falcon A_log"})
 RECURRENT_REPS = 5  # launches a median at these shapes (up to ~0.1 s each)
 # (c): launch/serve.batch_loop; the prompt is cut from phase 11's 1536,
 # since the scan prefill takes one full decode step a prompt token
 RECURRENT_SERVE = dict(batch=4, prompt_len=256, gen_len=32, cache_len=0,
                        seed=0)
-# the decode state at batch 4, cache_len 288 (prompt + gen): falcon's 8
+# the decode state at batch 4, cache_len 288 (prompt + gen): falcon's 2
 # layers x 4 lanes x (conv 3 x 8192 bf16 + ssm 8192 x 16 fp32);
-# recurrentgemma's 16 recurrent period layers (conv 3 x 2560 bf16, h 2560
-# fp32 a lane), the 8 attention layers' k, v [4, 288, 1, 256] bf16, kpos
+# recurrentgemma's 2 recurrent period layers (conv 3 x 2560 bf16, h 2560
+# fp32 a lane), the attention layer's k, v [4, 288, 1, 256] bf16, kpos
 # [4, 288] int32 and the 2 tail layers
-FALCON_STATE_BYTES = 18_350_080
-RGEMMA_STATE_BYTES = 11_284_992
+FALCON_STATE_BYTES = 4_587_520
+RGEMMA_STATE_BYTES = 1_593_856
 # (d): decode against forward in fp32 at full width, tests/test_models_
 # smoke.py:110-130's tolerance (2e-2 + 2e-2 |x|)
 DECODE_FWD_LAYERS = {RGEMMA: 5, FALCON: 2}   # hybrid: 1 period + 2 tail
@@ -4085,7 +4111,8 @@ def phase13(torch):
     free_card(torch, "phase 13")
     try:
         for key, arch, layers, n, views, what in (
-                ("rgemma", RGEMMA, None, RGEMMA_PARAMS, RGEMMA_VIEWS, "(a)"),
+                ("rgemma", RGEMMA, RGEMMA_LAYERS, RGEMMA_PARAMS, RGEMMA_VIEWS,
+                 "(a)"),
                 ("falcon", FALCON, FALCON_LAYERS, FALCON_PARAMS,
                  FALCON_VIEWS, "(b)")):
             ckpt = work / key
@@ -4109,8 +4136,7 @@ def phase13(torch):
 def free_card(torch, what):
     """Collect the garbage of earlier phases (a Trainer's reference cycles
     keep its tensors until the cyclic collector runs) and return the
-    allocator's free blocks; logs what stays allocated.  recurrentgemma-2b
-    at full width needs all but a few GiB of the card."""
+    allocator's free blocks; logs what stays allocated."""
     import gc
 
     before = torch.cuda.memory_allocated()
@@ -4157,28 +4183,21 @@ def plan_launches(model, ocfg):
 def recurrent_training(torch, arch, layers, want_params, want_views, ckpt,
                        what):
     """(a)/(b): STEPS Trainer steps of launch/train.py's configuration
-    (its ``build``; with ``layers``, the same Trainer over the config cut
-    to that depth), the gates of the module docstring; then a checkpoint of
-    the trained parameters in their compute dtypes under ``ckpt``.
-    Returns (launch counts of the run, those parameters on the host)."""
+    cut to ``layers`` layers (``cut_trainer``), the gates of the module
+    docstring; then a checkpoint of the trained parameters in their compute
+    dtypes under ``ckpt``.  Returns (launch counts of the run, those
+    parameters on the host)."""
     from repro_torch.checkpoint import save
     from repro_torch.configs import get_config
     from repro_torch.core.rng import Key
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_launch
-    from repro_torch.models import Model
-    from repro_torch.train import Trainer
 
     free_card(torch, what)
     torch.cuda.reset_peak_memory_stats()
     args = train_launch.parser().parse_args(["--arch", arch, "--steps",
                                              str(STEPS)])
-    if layers is None:
-        tr = train_launch.build(args)
-    else:
-        cfg, ocfg, tcfg, dcfg = train_launch.configs(args)
-        tr = Trainer(Model(cfg.replace(num_layers=layers), device=DEVICE,
-                           seed=args.seed), ocfg, tcfg, dcfg)
+    tr = cut_trainer(args, layers)
     model, cfg, pc = tr.model, tr.model.cfg, tr.ocfg.prism
     n_params = sum(p.numel() for p in model.parameters())
     if n_params != want_params:
@@ -4187,8 +4206,7 @@ def recurrent_training(torch, arch, layers, want_params, want_views, ckpt,
     if views != want_views:
         fail(f"{what}: Muon's views {views}, want {want_views}")
     want, plan = plan_launches(model, tr.ocfg)
-    depth = "" if layers is None else \
-        f" of {get_config(arch).num_layers}, depth cut"
+    depth = f" of {get_config(arch).num_layers}, depth cut"
     log(f"  {what} {cfg.name} [{cfg.family}]: {n_params} params "
         f"({cfg.num_layers} layers{depth}, d {cfg.d_model}, vocab "
         f"{cfg.vocab_size}), seq {args.seq}, batch {args.batch}, "
@@ -4251,7 +4269,7 @@ def recurrent_training(torch, arch, layers, want_params, want_views, ckpt,
         f"bytes)")
     free_card(torch, f"{what} before the update gate")
     granite_update(torch, tr, Key(0).fold_in(STEPS), what=what, name=arch,
-                   profile=False, lean=True)
+                   profile=False)
     batches = [tr.batch_fn(t) for t in range(1, STEPS)]
     fb = []
     for b in batches[:2]:
@@ -4394,9 +4412,7 @@ def recurrent_serving(torch, arch, layers, ckpt, trained, what):
 
     free_card(torch, what)
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(arch)
-    if layers is not None:
-        cfg = cfg.replace(num_layers=layers)
+    cfg = get_config(arch).replace(num_layers=layers)
     served = Model(cfg, device=DEVICE, seed=1)
     with torch.inference_mode():
         target = served.cast_params()
@@ -4529,6 +4545,641 @@ def decode_vs_forward(torch):
         del model, params, full, cache
 
 
+# ------------------------------------------------------------ phase 14
+
+P14_WORLD = 2            # ranks sharing the one card
+P14_ASYNC_STEPS = 7      # (e): bootstrap at 0, the clock at 5
+P14_ASYNC_K = 5
+P14_EXTRA_STEPS = 2      # (c): bf16 gradients, int8 compression
+# (c)'s losses against (b)'s: the sound runs read at most 1.35e-4 on the
+# H100, the same steps with no update at all 1.50e-3 (the control, which
+# must lie beyond the bound, or the gate could not tell a broken update)
+P14_EXTRA_LOSS_TOL = 5e-4
+P14_POLAR_TOL = 2e-5     # tests/test_sharded_precond.py, sharded vs not
+P14_PSUM_STEPS = 8       # int8_psum's bound: tests/test_sharded_precond.py
+P14_TIMEOUT_S = 300      # a collective that waits longer fails the rank
+P14_DEADLINE_S = 900     # the whole world
+P14_PATHS = ("prism5", "prism3")
+
+
+def phase14(torch, preset="full", device="cuda", launches=True):
+    """Phase 14 (see the module docstring) in a temporary build/phase14_*
+    directory, removed at the end; returns rank 0's launch counts of (b).
+    ``preset``/``device``/``launches`` let it rehearse on the CPU."""
+    import shutil
+    import tempfile
+
+    base_dir = ROOT / "build"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase14_", dir=base_dir))
+    try:
+        return _phase14(torch, work, preset, device, launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _p14_cfgs(preset, fp32=False, **kw):
+    from repro_torch.launch import train_lm
+
+    cfg, ocfg, dcfg = train_lm.configs(preset, "prism", "float32", 0,
+                                       "prism5", "muon", **kw)
+    if fp32 or preset == "cpu-small":
+        # fp32 compute: bf16 GEMMs round differently at each batch size
+        # (the CPU rehearsal's gradients 3e-3 apart), so the update gate
+        # against one process runs here
+        cfg = cfg.replace(dtype="float32", emb_dtype="float32")
+    return cfg, ocfg, dcfg
+
+
+def _p14_trainer(cfgs, device, mesh=None, **tkw):
+    from repro_torch.config import TrainConfig
+    from repro_torch.models import Model
+    from repro_torch.train import Trainer
+
+    cfg, ocfg, dcfg = cfgs
+    tkw.setdefault("log_every", 1)
+    return Trainer(Model(cfg, device=device, seed=0), ocfg,
+                   TrainConfig(**tkw), dcfg, mesh=mesh)
+
+
+def _p14_sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _crcs(torch, tree):
+    """crc32 of each leaf of a checkpoint tree, as checkpoint.save takes
+    them (host copies)."""
+    from repro_torch.checkpoint import checkpoint as ck
+
+    return {k: ck._crc(ck._host(v)) for k, v in ck._flatten(tree).items()}
+
+
+def _p14_step0_update(torch, tr, on_metrics=None):
+    """Run ``tr``; returns (losses, its step-0 parameter change)."""
+    before = {k: p.detach().clone() for k, p in tr.model.named_parameters()}
+    upd = {}
+
+    def hook(t, m):
+        if t == 0:
+            upd.update({k: p.detach() - before.pop(k)
+                        for k, p in tr.model.named_parameters()})
+        if on_metrics is not None:
+            on_metrics(t, m)
+    _, _, losses = tr.run(on_metrics=hook)
+    return losses, upd
+
+
+def _p14_references(torch, work, preset, device):
+    """The single-process Trainer runs (b) is held against: STEPS steps
+    (its losses, returned, and its step-0 update) and one step at fp32
+    compute (its update); the updates go to files."""
+    tr = _p14_trainer(_p14_cfgs(preset), device, steps=STEPS)
+    losses, upd = _p14_step0_update(torch, tr)
+    torch.save({k: v.cpu() for k, v in upd.items()}, work / "ref_update.pt")
+    del tr, upd
+    tr = _p14_trainer(_p14_cfgs(preset, fp32=True), device, steps=1)
+    _, upd = _p14_step0_update(torch, tr)
+    torch.save({k: v.cpu() for k, v in upd.items()},
+               work / "ref_update32.pt")
+    del tr, upd
+    return losses
+
+
+class Shadow:
+    """A single process's optimizer beside a rank's Trainer: its own copy
+    of the parameters and state, stepped without the mesh (no sharding)
+    on the gradients the rank's step consumed (each parameter's .grad
+    after the step: the reduced, clipped gradients), with its own §12
+    service when the Trainer has one.  It computes what one process
+    computes from the same gradients."""
+
+    def __init__(self, torch, tr):
+        from repro_torch.optim import base, make_optimizer
+
+        self.tr = tr
+        self.named = [(k, torch.nn.Parameter(p.detach().clone()))
+                      for k, p in tr.model.named_parameters()]
+        self.opt = make_optimizer(tr.ocfg, self.named,
+                                  tr.model.logical_axes())
+        self.svc = (base.AsyncPrecondService(self.opt)
+                    if tr.ocfg.precond_async else None)
+        self.drift = 0.0
+        self.dispatched = []
+
+    def step(self, t):
+        from repro_torch.core.rng import Key
+        from repro_torch.optim import base
+
+        if self.svc is not None:
+            self.svc.step_begin(t, Key(1).fold_in(t), drift=self.drift)
+            if self.svc.last_dispatch == t:
+                self.dispatched.append(t)
+        for (_, s), p in zip(self.named, self.tr.model.parameters()):
+            s.grad = p.grad
+        self.opt.step(key=Key(0).fold_in(t),
+                      refresh=False if self.svc is not None else None)
+        if self.svc is not None:
+            self.drift = float(base.precond_drift(self.opt))
+
+    def gap(self, torch, names=("ortho",)):
+        """The largest entry of |rank - shadow| - tol |shadow| and of
+        |rank - shadow| over the parameters and the ``names`` caches."""
+        from repro_torch.optim import base
+
+        base.wait_pending(self.opt)
+        worst = over = 0.0
+        for (_, s), p in zip(self.named, self.tr.model.parameters()):
+            pairs = [(p.detach(), s.detach())] + [
+                (self.tr.opt.state[p][n].float(), self.opt.state[s][n].float())
+                for n in names if n in self.opt.state[s]]
+            for a, b in pairs:
+                d = (a - b).abs()
+                worst = max(worst, float(d.max()))
+                over = max(over, float((d - P14_POLAR_TOL * b.abs()).max()))
+        return over, worst
+
+
+def _phase14(torch, work, preset, device, launches):
+    import torch.multiprocessing as mp
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.kernels import ops
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        free_card(torch, "phase 14")
+    card = _card_line()
+    t0 = time.perf_counter()
+    ref_losses = _p14_references(torch, work, preset, device)
+    log(f"  the single-process Trainer ((b)'s reference, {STEPS} steps) in "
+        f"{time.perf_counter() - t0:.1f} s; losses "
+        f"{', '.join(f'{v:.4f}' for v in ref_losses)}")
+    if cuda:
+        free_card(torch, "before the ranks")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _phase14_rank, args=(P14_WORLD, str(work), preset, device,
+                             ref_losses, launches),
+        nprocs=P14_WORLD, start_method="spawn", join=False)
+    deadline = time.monotonic() + P14_DEADLINE_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"phase 14: the world of {P14_WORLD} ranks did not "
+                     f"finish in {P14_DEADLINE_S} s")
+    except Exception as e:  # a rank raised or died: the phase fails
+        for r in range(P14_WORLD):
+            err = work / f"rank{r}.err"
+            if err.exists():
+                log(f"  rank {r} raised:\n{err.read_text()}")
+        fail(f"phase 14: a rank failed: {type(e).__name__}: "
+             f"{str(e).splitlines()[0] if str(e) else ''}")
+    world_s = time.perf_counter() - t0
+    res = [json.loads((work / f"rank{r}.json").read_text())
+           for r in range(P14_WORLD)]
+    log(f"  the world of {P14_WORLD} ranks (spawned, gloo) ran in "
+        f"{world_s:.1f} s ({card})")
+    for r, rr in enumerate(res):
+        log(f"  rank {r}: (a) engine "
+            + ", ".join(f"{p} {rr['a'][p]['ms']:.1f} ms (all-gathers "
+                        f"{rr['a'][p]['gather_ms']:.1f} ms)"
+                        for p in P14_PATHS)
+            + f"; (b) step {rr['step_ms']:.1f} ms, gradient all-reduce "
+            f"{', '.join(f'{v:.1f}' for v in rr['grad_ms'])} ms; "
+            f"max_memory_allocated {rr['peak_gib']:.2f} GiB ({card})")
+    r0 = res[0]
+    # (a)/(b)/(e): what every rank must hold alike
+    for key in ("digests", "dispatched", "final_crcs", "c_crcs",
+                "async_final"):
+        if any(r[key] != r0[key] for r in res[1:]):
+            fail(f"phase 14: the ranks disagree on {key}")
+    log(f"  (b) parameters bitwise equal on every rank after each of "
+        f"{len(r0['digests'])} steps, and (c)'s after their last (crc32 of "
+        f"every parameter); (e) both ranks dispatched at steps "
+        f"{r0['dispatched']}")
+    # (d): a single process restores the world's checkpoint
+    cfgs = _p14_cfgs(preset)
+    ck = work / "ckpt_b"
+    if latest_step(str(ck)) != STEPS:
+        fail(f"phase 14 (d): the world's checkpoint is at step "
+             f"{latest_step(str(ck))}, not {STEPS}")
+    tr = _p14_trainer(cfgs, device, steps=STEPS + 1,
+                      checkpoint_dir=str(ck), checkpoint_every=0)
+    t0 = time.perf_counter()
+    start = tr.restore_or_init()
+    restore_s = time.perf_counter() - t0
+    count = int(tr.opt.count)
+    crcs = _crcs(torch, tr.state_tree())
+    want = r0["final_crcs"]
+    if start != STEPS or crcs != want:
+        bad = sorted(k for k in set(crcs) | set(want)
+                     if crcs.get(k) != want.get(k))
+        fail(f"phase 14 (d): the restored state is not what the ranks "
+             f"held (start {start}; leaves differing: {bad[:5]})")
+    ops.reset_launches()
+    tr.step_fn(tr.batch_fn(STEPS), STEPS)
+    _p14_sync(torch, device)
+    counts = ops.launch_counts()
+    if launches:
+        _expect_launches(counts, PER_STEP["prism5"],
+                         "phase 14 (d), the restored run's next step")
+    log(f"  (d) a single process restored the world's step-{STEPS} "
+        f"checkpoint in {restore_s:.1f} s: {len(crcs)} leaves bitwise the "
+        f"ranks' (crc32), count {count}; its next step "
+        f"launched {sum(counts.values())} ({card})")
+    del tr
+    return r0["counts_b"]
+
+
+def _card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+    except FileNotFoundError:
+        return "no nvidia-smi"
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else "no nvidia-smi"
+
+
+def _phase14_rank(rank, world, work, preset, device, ref_losses, launches):
+    """One rank of phase 14: (a), (b), (c) and (e); writes
+    rank<r>.json, or rank<r>.err with the traceback when it raises."""
+    import traceback
+
+    work = Path(work)
+    try:
+        res = _p14_rank_body(rank, world, work, preset, device, ref_losses,
+                             launches)
+        (work / f"rank{rank}.json").write_text(json.dumps(res))
+    except BaseException:
+        (work / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _rank_log(rank, msg):
+    if rank == 0:
+        print(msg, flush=True)
+
+
+def _p14_expect(rank, counts, path, what, launches):
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(PER_STEP[path])
+    if launches and counts != want:
+        raise AssertionError(f"rank {rank}, {what}: launches {counts}, "
+                             f"want {want}")
+
+
+def _p14_rank_body(rank, world, work, preset, device, ref_losses,
+                   launches):
+    import torch
+
+    from repro_torch import collectives
+    from repro_torch.launch import mesh as lmesh
+
+    dev = lmesh.init_world(rank, world, f"file://{work}/store",
+                           device=device, timeout_s=P14_TIMEOUT_S)
+    try:
+        mesh = lmesh.make_debug_mesh(data=world, model=1)
+        card = _card_line() if dev.type == "cuda" else "cpu"
+        res = {"backend": lmesh.world_backend()}
+        _rank_log(rank, f"  rank 0: backend {res['backend']}, device {dev}, "
+                  f"{card}")
+        res["a"] = {p: _p14_engine(torch, rank, mesh, dev, preset, p,
+                                   launches) for p in P14_PATHS}
+        res.update(_p14_trainer_b(torch, rank, mesh, dev, work, preset,
+                                  ref_losses, launches))
+        res.update(_p14_update32(torch, rank, mesh, dev, work, preset))
+        res.update(_p14_extras(torch, rank, mesh, dev, preset, res))
+        res.update(_p14_async(torch, rank, mesh, dev, preset, launches))
+        res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                           if dev.type == "cuda" else 0.0)
+        _rank_log(rank, f"  max_memory_allocated: rank 0 "
+                  f"{res['peak_gib']:.2f} GiB ({card})")
+        collectives.barrier()
+        return res
+    finally:
+        lmesh.close_world()
+
+
+def _p14_engine(torch, rank, mesh, dev, preset, path, launches):
+    """(a): gpt2-paper Muon's buckets through polar_bucketed, single and
+    sharded, on this rank."""
+    from repro_torch import collectives
+    from repro_torch.core.rng import Key
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.launch import train_lm
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.optim import base, bucketing
+    from repro_torch.sharding_ctx import activation_sharding
+
+    cfg, ocfg, _ = train_lm.configs(preset, "prism", "float32", 0, path,
+                                    "muon")
+    cfg = _p14_cfgs(preset)[0]
+    shapes = [tuple(base.to_matrix_view(torch.empty(s, device="meta"),
+                                        a)[0].shape)
+              for s, a, _ in param_specs(cfg).values()
+              if base.is_matrix_param(a, tuple(s))]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    views = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    key = Key(0).fold_in(0)
+    rules = sharding.activation_rules(cfg, mesh)
+
+    def run(sharded):
+        ops.reset_launches()
+        _p14_sync(torch, dev)
+        t0 = time.perf_counter()
+        with collectives.count_collectives() as calls:
+            if sharded:
+                with activation_sharding(mesh, rules):
+                    out = bucketing.polar_bucketed(views, ocfg, key)
+            else:
+                out = bucketing.polar_bucketed(views, ocfg, key)
+            _p14_sync(torch, dev)
+        return (out, (time.perf_counter() - t0) * 1e3, ops.launch_counts(),
+                calls)
+
+    run(False)  # warm up: the kernels' first launches load them
+    single, single_ms, c1, _ = run(False)
+    run(True)
+    sharded, ms, c2, calls = run(True)
+    _p14_expect(rank, c1, path, f"(a) {path} single", launches)
+    _p14_expect(rank, c2, path, f"(a) {path} sharded", launches)
+    gap = max(float((a - b).abs().max()) for a, b in zip(sharded, single))
+    bitwise = all(torch.equal(a, b) for a, b in zip(sharded, single))
+    if not gap <= P14_POLAR_TOL:
+        raise AssertionError(f"rank {rank}, (a) {path}: the gathered polars "
+                             f"differ from the single process's by {gap:.3e} "
+                             f"(bound {P14_POLAR_TOL})")
+    gathers = [c for c in calls if c.op == "all_gather"]
+    out = {"views": len(views), "launches": sum(c2.values()), "counts": c2,
+           "ms": ms, "single_ms": single_ms, "gap": gap, "bitwise": bitwise,
+           "gathers": len(gathers),
+           "gather_ms": sum(c.ms for c in gathers),
+           "gather_bytes": sum(c.nbytes for c in gathers)}
+    _rank_log(rank, f"  (a) {path}: {len(views)} views, {len(gathers)} "
+              f"buckets; rank 0 launched {out['launches']} ({c2}) = the "
+              f"single process's; engine {ms:.1f} ms (single process "
+              f"{single_ms:.1f} ms), of which {len(gathers)} all-gathers "
+              f"{out['gather_ms']:.1f} ms, {out['gather_bytes']} bytes sent "
+              f"a rank; polars within {gap:.3e} of the single process's "
+              f"(bound {P14_POLAR_TOL}), bitwise {bitwise}")
+    return out
+
+
+def _p14_trainer_b(torch, rank, mesh, dev, work, preset, ref_losses,
+                   launches):
+    """(b): the Trainer on the mesh, STEPS steps, a checkpoint at the
+    last."""
+    from repro_torch import collectives
+    from repro_torch.kernels import ops
+
+    cfgs = _p14_cfgs(preset)
+    tr = _p14_trainer(cfgs, dev, mesh, steps=STEPS,
+                      checkpoint_dir=str(work / "ckpt_b"),
+                      checkpoint_every=STEPS)
+    digests, per_step = [], []
+    last = [None]
+
+    def on_metrics(t, m):
+        now = ops.launch_counts()
+        per_step.append({k: now[k] - last[0][k] for k in now})
+        last[0] = now
+        digests.append([_crcs(torch, {k: p}) for k, p in
+                        tr.model.named_parameters()])
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    last[0] = ops.launch_counts()
+    with collectives.count_collectives() as calls:
+        losses, upd = _p14_step0_update(torch, tr, on_metrics)
+    # Muon's leaves (AdamW's first update is lr * sign(g)); the gap to
+    # the single-process Trainer's update at bf16 compute is printed (bf16
+    # activations round differently at 2 rows than at 4), the update gate
+    # runs at fp32 compute (_p14_update32)
+    ref = torch.load(work / "ref_update.pt", map_location=dev)
+    worst_bf16 = _worst_gap(torch, {k: v for k, v in upd.items()
+                                    if k in _muon_leaves(tr)}, ref, "",
+                            gate=False)
+    del upd, ref
+    for t, c in enumerate(per_step):
+        _p14_expect(rank, c, "prism5", f"(b) step {t}", launches)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"(b) non-finite losses {losses}")
+    ln_v = math.log(tr.model.cfg.vocab_size)
+    gaps = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    if abs(losses[0] - ln_v) > 1.5 or not max(gaps) <= RESUME_LOSS_TOL:
+        raise AssertionError(f"(b) losses {losses} vs the single process's "
+                             f"{ref_losses} (bound {RESUME_LOSS_TOL}; ln V "
+                             f"{ln_v:.4f})")
+    grads = [c for c in calls if c.op == "all_reduce_sum" and c.numel > 3]
+    seq, batch = tr.dcfg.seq_len, tr.dcfg.global_batch
+    step_ms = statistics.median(tr.step_times) * 1e3
+    final = _crcs(torch, tr.state_tree())
+    # the synchronizing calls of one more step (not checkpointed)
+    syncs = count_syncs(torch, lambda: tr.step_fn(tr.batch_fn(STEPS),
+                                                  STEPS)) \
+        if dev.type == "cuda" else []
+    total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    out = {"losses": losses, "digests": digests, "counts_b": total,
+           "final_crcs": final, "step_ms": step_ms,
+           "grad_calls": len(grads) / len(losses),
+           "grad_bytes": sum(c.nbytes for c in grads) / len(losses),
+           "grad_ms": [c.ms for c in grads], "syncs": len(syncs),
+           "worst_b_bf16": worst_bf16}
+    _rank_log(rank, f"  (b) Trainer on the mesh, global batch {batch} "
+              f"({batch // mesh.size} rows a rank), seq {seq}: losses "
+              f"{', '.join(f'{v:.4f}' for v in losses)} (single process: "
+              f"largest gap {max(gaps):.2e}, bound {RESUME_LOSS_TOL}); "
+              f"launches {sum(per_step[0].values())} a step on rank 0; "
+              f"step-0 Muon update {worst_bf16:.3e} of the largest entry "
+              f"from the single-process Trainer's at bf16 compute "
+              f"(printed; the gate runs at fp32 compute)")
+    _rank_log(rank, f"  (b) step {step_ms:.1f} ms (median of steps "
+              f"1..{STEPS - 1}), {seq * batch / (step_ms / 1e3):.0f} "
+              f"tokens/s over both ranks; gradient all-reduce "
+              f"{out['grad_calls']:g} call(s) a step, "
+              f"{out['grad_bytes']:.0f} bytes a rank a step, "
+              f"{', '.join(f'{v:.1f}' for v in out['grad_ms'])} ms; "
+              f"{len(syncs)} synchronizing calls in one step "
+              f"{sorted(set(syncs))[:4]}")
+    del tr
+    return out
+
+
+def _muon_leaves(tr):
+    """The parameters Muon steps (AdamW's state has "nu")."""
+    return {k for k, p in tr.model.named_parameters()
+            if "nu" not in tr.opt.state[p]}
+
+
+def _p14_update32(torch, rank, mesh, dev, work, preset):
+    """(b) at fp32 compute: one step of the Trainer on the mesh, its Muon
+    update within UPDATE_REL_TOL of the single-process Trainer's."""
+    tr = _p14_trainer(_p14_cfgs(preset, fp32=True), dev, mesh, steps=1)
+    _, upd = _p14_step0_update(torch, tr)
+    ref = torch.load(work / "ref_update32.pt", map_location=dev)
+    worst = _worst_gap(torch, {k: v for k, v in upd.items()
+                               if k in _muon_leaves(tr)}, ref, "",
+                       gate=False)
+    del tr, upd, ref
+    if not worst <= UPDATE_REL_TOL:
+        raise AssertionError(f"rank {rank}, (b) fp32: the step-0 Muon "
+                             f"update differs from the single process's by "
+                             f"{worst:.3e} of its largest entry (bound "
+                             f"{UPDATE_REL_TOL})")
+    _rank_log(rank, f"  (b) at fp32 compute: the step-0 Muon update within "
+              f"{worst:.3e} of the single-process Trainer's, relative to "
+              f"its largest entry (bound {UPDATE_REL_TOL})")
+    return {"worst_b32": worst}
+
+
+def _p14_extras(torch, rank, mesh, dev, preset, res):
+    """(c): bf16 gradients, int8 compression, int8_psum on the card."""
+    import dataclasses
+
+    from repro_torch import collectives
+    from repro_torch.optim import compression
+
+    out = {"c_crcs": {}}
+    still = None
+    for what, change in (("bf16", dict(grads_dtype="bfloat16")),
+                         ("int8", dict(gradient_compression="int8"))):
+        cfg, ocfg, dcfg = _p14_cfgs(preset)
+        ocfg = dataclasses.replace(ocfg, **change)
+        tr = _p14_trainer((cfg, ocfg, dcfg), dev, mesh,
+                          steps=P14_EXTRA_STEPS)
+        if still is None:
+            # the control: the same steps' losses with no update at all
+            with torch.no_grad():
+                still = [float(collectives.all_reduce(
+                    tr.model.loss(tr.batch_fn(t))[0].float().reshape(1),
+                    "sum")) / tr.n_data for t in range(P14_EXTRA_STEPS)]
+        with collectives.count_collectives() as calls:
+            _, _, losses = tr.run()
+        out["c_crcs"][what] = _crcs(torch, {"p": dict(
+            tr.model.named_parameters())})
+        del tr
+        gap = max(abs(a - b) for a, b in zip(losses, res["losses"]))
+        if not all(math.isfinite(v) for v in losses) or \
+                not gap <= P14_EXTRA_LOSS_TOL:
+            raise AssertionError(f"(c) {what}: losses {losses} vs (b)'s "
+                                 f"{res['losses']} (bound "
+                                 f"{P14_EXTRA_LOSS_TOL})")
+        dtypes = sorted({str(c.dtype) for c in calls
+                         if c.op == "all_reduce_sum" and c.numel > 3})
+        out[what] = {"losses": losses, "gap": gap, "dtypes": dtypes}
+        _rank_log(rank, f"  (c) {what}: losses "
+                  f"{', '.join(f'{v:.4f}' for v in losses)}, within "
+                  f"{gap:.2e} of (b)'s (bound {P14_EXTRA_LOSS_TOL}); "
+                  f"gradients reduced as {dtypes}")
+    still_gap = max(abs(a - b) for a, b in zip(still, res["losses"]))
+    if not still_gap > P14_EXTRA_LOSS_TOL:
+        raise AssertionError(f"(c) the losses with no update, {still}, lie "
+                             f"within {P14_EXTRA_LOSS_TOL} of (b)'s: the gate "
+                             f"cannot tell a broken update")
+    out["still_gap"] = still_gap
+    _rank_log(rank, f"  (c) the control, the same steps with no update: "
+              f"losses {', '.join(f'{v:.4f}' for v in still)}, "
+              f"{still_gap:.2e} from (b)'s (beyond the bound "
+              f"{P14_EXTRA_LOSS_TOL}, as it must be)")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(100 + rank)
+    x = torch.randn(1000, generator=gen, device=dev) * (10.0 ** rank / 1e3)
+    exact = collectives.all_reduce(x.clone(), "sum")
+    top = collectives.all_reduce(x.abs().max().reshape(1), "max")
+    with collectives.count_collectives() as calls:
+        q = compression.int8_psum(x)
+    census = [(c.op, str(c.dtype)) for c in calls]
+    if sorted(census) != [("all_reduce_max", "torch.float32"),
+                          ("all_reduce_sum", "torch.int32")]:
+        raise AssertionError(f"(c) int8_psum's collectives {census}")
+    step = float(top) / 127.0
+    err = float((q - exact).abs().max())
+    if not err <= P14_PSUM_STEPS * step:
+        raise AssertionError(f"(c) int8_psum error {err:.3e} > "
+                             f"{P14_PSUM_STEPS} steps of {step:.3e}")
+    out["psum"] = {"err": err, "step": step, "census": census}
+    _rank_log(rank, f"  (c) int8_psum on the card: {census}, error "
+              f"{err:.3e} = {err / step:.2f} int8 steps (bound "
+              f"{P14_PSUM_STEPS})")
+    return out
+
+
+def _p14_async(torch, rank, mesh, dev, preset, launches):
+    """(e): the async plane on the mesh, P14_ASYNC_STEPS steps, beside a
+    ``Shadow`` (one process's async Muon on the same gradients)."""
+    from repro_torch.kernels import ops
+
+    cfgs = _p14_cfgs(preset, precond_every=P14_ASYNC_K, precond_async=True)
+    tr = _p14_trainer(cfgs, dev, mesh, steps=P14_ASYNC_STEPS)
+    begin, steps, dispatched = {}, {}, []
+    real, shadow = None, None
+
+    def counted_begin(t, key, drift=0.0):
+        ops.reset_launches()
+        real(t, key, drift=drift)
+        _p14_sync(torch, dev)
+        begin[t] = sum(ops.launch_counts().values())
+        if tr.precond.last_dispatch == t:
+            dispatched.append(t)
+        ops.reset_launches()
+
+    def on_metrics(t, m):
+        steps[t] = sum(ops.launch_counts().values())
+        shadow.step(t)
+
+    # the run's init_state makes a new optimizer and service: wrap the
+    # service's step_begin, and copy the shadow, once the run made them
+    real_init = tr.init_state
+
+    def init_state(seed=None):
+        nonlocal real, shadow
+        start = real_init(seed)
+        real = tr.precond.step_begin
+        tr.precond.step_begin = counted_begin
+        shadow = Shadow(torch, tr)
+        return start
+    tr.init_state = init_state
+    tr.run(on_metrics=on_metrics)
+    want_at = [0, P14_ASYNC_K]
+    per = sum(PER_STEP["prism5"].values())
+    if dispatched != want_at or shadow.dispatched != want_at:
+        raise AssertionError(f"(e) dispatched at {dispatched}, one "
+                             f"process at {shadow.dispatched}, want "
+                             f"{want_at}")
+    if launches and ([begin[t] for t in want_at] != [per, per]
+                     or any(steps.values())
+                     or any(begin[t] for t in begin if t not in want_at)):
+        raise AssertionError(f"(e) launches in step_begin {begin}, in the "
+                             f"steps {steps}")
+    over, worst = shadow.gap(torch)
+    if not over <= P14_POLAR_TOL:
+        raise AssertionError(f"(e) the final state differs from one "
+                             f"process's by {worst:.3e} (bound "
+                             f"{P14_POLAR_TOL} + {P14_POLAR_TOL}|x|)")
+    final = _crcs(torch, {"p": {k: p for k, p in
+                                tr.model.named_parameters()}})
+    _rank_log(rank, f"  (e) async plane on the mesh: dispatched at "
+              f"{dispatched} on rank 0 (one process on the same gradients: "
+              f"{shadow.dispatched}), step_begin launched "
+              f"{[begin[t] for t in sorted(begin)]}, the steps "
+              f"{[steps[t] for t in sorted(steps)]}; final parameters and "
+              f"caches within {worst:.3e} of one process's async run on the "
+              f"same gradients (bound {P14_POLAR_TOL} + "
+              f"{P14_POLAR_TOL}|x|)")
+    del tr, shadow
+    return {"dispatched": dispatched, "async_final": final,
+            "async_begin": begin, "async_steps": steps}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -4552,7 +5203,7 @@ def main() -> None:
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
-    log(f"card: {card}")
+    print(f"card: {card}", flush=True)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}")
 
@@ -4641,15 +5292,25 @@ def main() -> None:
     log("phase 11: serving gpt2-paper at full width")
     phase11(torch)
 
-    log("phase 12: the moe family: granite-moe-1b-a400m trained through "
-        "launch/train.py and served at full width; mixtral-8x7b, "
-        "musicgen-medium and llava-next-34b at their widths, 2 layers")
+    log(f"phase 12: the moe family: granite-moe-1b-a400m ({GRANITE_LAYERS} "
+        f"layers) trained through launch/train.py's configuration and "
+        f"served at full width; mixtral-8x7b, musicgen-medium and "
+        f"llava-next-34b at their widths, {FAMILY_LAYERS} layers")
     granite = phase12(torch)
 
-    log("phase 13: the recurrent families: recurrentgemma-2b (full depth) "
-        f"and falcon-mamba-7b ({FALCON_LAYERS} layers) trained through "
+    log(f"phase 13: the recurrent families: recurrentgemma-2b "
+        f"({RGEMMA_LAYERS} layers) and falcon-mamba-7b ({FALCON_LAYERS} "
+        f"layers) trained through "
         "launch/train.py's configuration and served at full width")
     recurrent = phase13(torch)
+
+    log(f"phase 14: data parallelism, {P14_WORLD} ranks on the card (gloo): "
+        f"the §8 engine, the Trainer, bf16 gradients and int8 compression, "
+        f"an elastic restore, the async plane")
+    t0 = time.perf_counter()
+    dp = phase14(torch)
+    log(f"  phase 14 in {time.perf_counter() - t0:.1f} s; the script so far "
+        f"{time.perf_counter() - _T0:.1f} s")
 
     by_path = {k: r["counts"] for k, r in runs.items()}
     by_path["fallback"] = fallback
@@ -4657,9 +5318,10 @@ def main() -> None:
     by_path.update(async_counts)
     by_path["granite"] = granite
     by_path.update(recurrent)
+    by_path["data_parallel_rank0"] = dp
     print(json.dumps({"kernels": kernel_rows(rows, timings, by_path)}),
           flush=True)
-    log(f"card: {card}")
+    print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,8 +20,14 @@ Python numbers.  Tensors are copied to the host before ``save`` returns
 holds every bf16 value exactly, and cast back on restore.  ``restore``
 returns each leaf like the target's: a tensor on the target leaf's device
 and dtype, else a numpy array of its dtype.  ``restore_params`` is the
-train -> serve handoff.  The reference's elastic re-shard
-(``shardings=``) is ported with ROADMAP.md Queue 1 item 11.
+train -> serve handoff.
+
+Elastic restore (``restore(shardings=)``): a checkpoint holds the whole
+state, whatever world wrote it, and restores onto a world of any size.
+Replicated leaves are restored whole on every rank; a leaf sharded over
+the batch axes (pod, data) gives each rank its own block of rows.
+Parameters sharded over the model axis come with ROADMAP.md Queue 1 item
+11b and raise.
 """
 from __future__ import annotations
 
@@ -197,17 +203,59 @@ def _like(arr: np.ndarray, leaf):
     return arr.astype(np.asarray(leaf).dtype)
 
 
+def _local_block(arr: np.ndarray, sh) -> np.ndarray:
+    """This rank's block of ``arr`` under ``sh`` (a
+    ``launch.sharding.Sharding``, or None for the whole leaf): dims
+    split over the batch axes keep this rank's rows; mesh axes of size 1
+    split nothing."""
+    if sh is None or not any(e is not None for e in sh.spec):
+        return arr
+    import torch.distributed as dist
+
+    from repro_torch.launch.sharding import axes_of
+
+    mesh = sh.mesh
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    stride, coord = 1, {}
+    for ax in reversed(mesh.axis_names):  # row-major rank order
+        coord[ax] = (rank // stride) % mesh.shape[ax]
+        stride *= mesh.shape[ax]
+    for dim, entry in enumerate(sh.spec):
+        # an axis of size 1 splits nothing
+        axes = tuple(a for a in axes_of(entry) if mesh.shape[a] > 1)
+        if not axes:
+            continue
+        if any(a not in ("pod", "data") for a in axes):
+            raise NotImplementedError(
+                f"a leaf sharded over {axes} (model-axis parameter "
+                f"sharding) comes with ROADMAP.md Queue 1 item 11b")
+        n, idx = 1, 0
+        for a in axes:
+            idx = idx * mesh.shape[a] + coord[a]
+            n *= mesh.shape[a]
+        if arr.shape[dim] % n:
+            raise ValueError(f"dim {dim} of a {arr.shape} leaf does not "
+                             f"split over {axes} ({n} ranks)")
+        rows = arr.shape[dim] // n
+        arr = np.take(arr, range(idx * rows, (idx + 1) * rows), axis=dim)
+    return arr
+
+
 def restore(ckpt_dir: str, target: Dict[str, Any],
-            step: Optional[int] = None, allow_missing=()):
+            step: Optional[int] = None, allow_missing=(),
+            shardings: Optional[Dict[str, Any]] = None):
     """Restore into the structure of ``target``; returns (step, tree).
 
     ``allow_missing``: key names that may be absent from the file (saved
     with ``drop=``): the target's own leaf is kept for those instead of
-    raising.  The chosen step is read once and crc-verified against its
-    MANIFEST before any leaf is used: with ``step=None`` a corrupt newest
-    step falls back to the newest step that verifies; an explicitly
-    requested corrupt step raises.  A leaf whose shape differs from the
-    target's raises."""
+    raising.  ``shardings``: a tree of ``launch.sharding.Sharding``
+    matching ``target`` (None keeps every leaf whole): each leaf is
+    restored as this rank's block of it, and the target's leaf has the
+    block's shape.  The chosen step is read once and crc-verified
+    against its MANIFEST before any leaf is used: with ``step=None`` a
+    corrupt newest step falls back to the newest step that verifies; an
+    explicitly requested corrupt step raises.  A leaf whose shape
+    differs from the target's raises."""
     if step is None:
         for step in reversed(_complete_steps(ckpt_dir)):
             data = _read_verified(ckpt_dir, step)
@@ -224,12 +272,13 @@ def restore(ckpt_dir: str, target: Dict[str, Any],
                 f"verification against its MANIFEST (corrupt or torn "
                 f"write)")
     allow_missing = frozenset(allow_missing)
+    shard_of = {} if shardings is None else _flatten(shardings)
     out = {}
     for k, leaf in _flatten(target).items():
         if k not in data and allow_missing.intersection(k.split(_SEP)):
             out[k] = leaf
             continue
-        arr = data[k]
+        arr = _local_block(data[k], shard_of.get(k))
         want = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
         if tuple(arr.shape) != want:
             raise ValueError(f"shape mismatch for {k}: {arr.shape} vs "

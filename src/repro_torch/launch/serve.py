@@ -24,7 +24,8 @@ random from ``--seed`` unless ``--ckpt_dir`` names a checkpoint.
 Batch-mode prompts come from ``models/inputs.make_train_batch`` on a
 generator seeded with ``--seed``.  The first prefill call is timed apart
 from the second, so the prefill tokens/s is a steady-state number.
-``--mesh production`` is ported with ROADMAP.md Queue 1 item 11.
+``--mesh production`` (model = 16) comes with model-axis sharding,
+ROADMAP.md Queue 1 item 11b.
 Without ``--device`` it runs on CUDA.
 """
 from __future__ import annotations
@@ -171,7 +172,8 @@ def main(argv=None):
     args = parser().parse_args(argv)
     if args.mesh == "production":
         raise NotImplementedError(
-            "--mesh production is ported with ROADMAP.md Queue 1 item 11")
+            "--mesh production (model = 16) comes with model-axis "
+            "sharding, ROADMAP.md Queue 1 item 11b")
     device = resolve_device(args.device)
     model, params = load_model(args, device)
     if args.continuous:

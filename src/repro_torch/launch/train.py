@@ -19,9 +19,11 @@ unless it names a directory (the reference writes /tmp/repro_ckpt).
 With ``--ckpt_dir`` the run checkpoints every ``--ckpt_every`` steps and
 resumes from the newest checkpoint that verifies.
 
-``--mesh production``, ``--multi_pod``, ``--compression int8`` and
-``--pipeline_stages > 1`` are ported with ROADMAP.md Queue 1 item 11 and
-raise; the ssm and hybrid families raise until item 10b.
+``--compression int8`` passes the clipped gradients through the int8
+round trip (``optim/compression.py``), as the reference's step does.
+``--mesh production`` and ``--multi_pod`` (model = 16) come with
+model-axis sharding, ROADMAP.md Queue 1 item 11b, and
+``--pipeline_stages > 1`` with the 1F1B pipeline, item 11c: they raise.
 """
 from __future__ import annotations
 
@@ -78,12 +80,14 @@ def parser() -> argparse.ArgumentParser:
 def configs(args):
     """(model config, optimizer config, train config, data config) of the
     parsed ``args``."""
-    if args.mesh == "production" or args.multi_pod \
-            or args.compression != "none" or args.pipeline_stages > 1:
+    if args.mesh == "production" or args.multi_pod:
         raise NotImplementedError(
-            "--mesh production, --multi_pod, --compression int8 and "
-            "--pipeline_stages > 1 are ported with ROADMAP.md Queue 1 item "
-            "11")
+            "--mesh production and --multi_pod (model = 16) come with "
+            "model-axis sharding, ROADMAP.md Queue 1 item 11b")
+    if args.pipeline_stages > 1:
+        raise NotImplementedError(
+            "--pipeline_stages > 1 (1F1B) comes with ROADMAP.md Queue 1 "
+            "item 11c")
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     ocfg = OptimizerConfig(
         name=args.optimizer, learning_rate=args.lr,

@@ -27,16 +27,20 @@ tables) routes through the §14 lowrank tier (``resolve_lowrank_tier``,
 ``transform_bucketed`` is the same engine for matrix functions without a
 pad-exactness story (Shampoo's inverse roots): exact-shape buckets only.
 
-Not ported yet: mesh sharding over the batch dim (``shard_over_batch``,
-ROADMAP.md Queue 1 item 11).
+Sharding (DESIGN.md §8): under a mesh with a data axis larger than 1
+(``mesh_batch_axes``) each bucket's batch dim is partitioned over the
+ranks (``shard_over_batch``): each rank runs the chains on its own
+contiguous slices, and the results are all-gathered.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+import math
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import collectives, sharding_ctx
 from repro_torch.config import OptimizerConfig, PrismConfig
 from repro_torch.core import matfn
 
@@ -228,6 +232,66 @@ def resolve_tier(cfg: OptimizerConfig, mshape: Tuple[int, int]) -> str:
     return "fused" if pcfg.use_kernels and pcfg.fuse == "on" else "grid"
 
 
+# ------------------------------------------------------------------ sharding
+
+def mesh_batch_axes(cfg: Optional[OptimizerConfig]):
+    """(mesh, axes) the bucket batch dim is partitioned over, or (None,
+    ()) when the engine is off.
+
+    Active iff ``cfg.precond_shard == "auto"``, an activation-sharding
+    context is installed and its mesh has a batch axis larger than 1.
+    Only the data-parallel axes partition the bucket (the rules'
+    ``opt_batch`` override, ``launch/sharding.py::pipeline_rules``, else
+    ("pod", "data")).
+    """
+    if cfg is None or getattr(cfg, "precond_shard", "off") != "auto":
+        return None, ()
+    ctx = sharding_ctx.current()
+    if ctx is None:
+        return None, ()
+    mesh, rules = ctx
+    allowed = rules.get("opt_batch", ("pod", "data"))
+    axes = tuple(a for a in allowed
+                 if a in mesh.axis_names and mesh.shape[a] > 1)
+    return (mesh, axes) if axes else (None, ())
+
+
+def shard_over_batch(fn: Callable, mesh, axes: Tuple[str, ...],
+                     stacked: torch.Tensor,
+                     slice_args: Sequence[torch.Tensor] = (),
+                     slice_pads: Sequence = ()):
+    """``fn(stacked, *slice_args)`` with the leading batch dim partitioned
+    over the mesh ``axes``: each rank runs ``fn`` on its contiguous rows,
+    and every output (an array, or the §11 tuple of batch-leading
+    arrays) is all-gathered and un-padded.
+
+    ``slice_args`` are per-slice companions [B, ...] (the ``n_real``
+    trace correction) that shard with the batch; ``slice_pads`` gives
+    each one's fill when B pads up to a multiple of the shard count.  The
+    batch pads with identity slices: every chain normalizes and fits per
+    slice, so pad slices run finite chains of their own and are sliced
+    away after the gather.  §11's adaptive loop runs per rank: each rank
+    iterates until its own slowest slice certifies.
+    """
+    group = mesh.group(axes)
+    n = math.prod(mesh.shape[a] for a in axes)
+    B, M, N = stacked.shape
+    pad = (-B) % n
+    if pad:
+        eye = torch.eye(M, N, dtype=stacked.dtype, device=stacked.device)
+        stacked = torch.cat([stacked, eye.expand(pad, M, N)], dim=0)
+        slice_args = [
+            torch.cat([s, torch.full((pad,) + tuple(s.shape[1:]), v,
+                                     dtype=s.dtype, device=s.device)])
+            for s, v in zip(slice_args, slice_pads)]
+    per = (B + pad) // n
+    lo = collectives.rank(group) * per
+    out = fn(stacked[lo:lo + per], *(s[lo:lo + per] for s in slice_args))
+    if isinstance(out, tuple):
+        return tuple(collectives.all_gather(o, group)[:B] for o in out)
+    return collectives.all_gather(out, group)[:B]
+
+
 def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
                    key=None, with_iters: bool = False):
     """Polar factor of every matrix view via one batched call per bucket,
@@ -254,6 +318,7 @@ def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
     buckets = plan_buckets([tuple(v.shape) for v in views],
                            pad=cfg.bucket_pad and method != "svd",
                            pad_slack=cfg.bucket_pad_slack)
+    mesh, mesh_axes = mesh_batch_axes(cfg)
     outs: List[Optional[torch.Tensor]] = [None] * len(views)
     iters: List[Optional[torch.Tensor]] = [None] * len(views)
     statuses: List[Optional[torch.Tensor]] = [None] * len(views)
@@ -263,17 +328,31 @@ def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
         kw = {}
         if with_iters:
             kw.update(return_iters=True, return_status=True)
+        n_real = ()
         if resolve_lowrank_tier(cfg, b.shape) is not None:
             from repro_torch.core import lowrank
 
-            O = lowrank.polar_lowrank(stacked, cfg.lowrank_rank,
-                                      cfg.lowrank_oversample, cfg=pcfg,
-                                      key=kk, method=method, **kw)
+            def run(x):
+                return lowrank.polar_lowrank(x, cfg.lowrank_rank,
+                                             cfg.lowrank_oversample,
+                                             cfg=pcfg, key=kk,
+                                             method=method, **kw)
         else:
+            pcfg_b = resolve_fused_tier(pcfg, b)
             if b.padded and method == "prism":
-                kw["n_real"] = _gram_real_dims(b, stacked.device)
-            O = matfn.polar(stacked, method=method,
-                            cfg=resolve_fused_tier(pcfg, b), key=kk, **kw)
+                n_real = (_gram_real_dims(b, stacked.device),)
+
+            def run(x, *nr):
+                extra = {"n_real": nr[0]} if nr else {}
+                return matfn.polar(x, method=method, cfg=pcfg_b, key=kk,
+                                   **kw, **extra)
+
+        if mesh is not None:
+            # pad slices carry no intra-slice pad: their n_real is full
+            O = shard_over_batch(run, mesh, mesh_axes, stacked, n_real,
+                                 (min(b.shape),) * len(n_real))
+        else:
+            O = run(stacked, *n_real)
         if with_iters:
             O, it, st = O
             scatter_bucket_aux(b, it, iters)
@@ -309,6 +388,7 @@ def polar_refresh(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
 
 
 def transform_bucketed(mats: Sequence[torch.Tensor], fn,
+                       cfg: Optional[OptimizerConfig] = None,
                        with_aux: int = 0):
     """Apply ``fn(stacked, bucket, bucket_index)`` once per exact-shape
     bucket and scatter the [B, n, n] results back.
@@ -319,17 +399,25 @@ def transform_bucketed(mats: Sequence[torch.Tensor], fn,
     are Shampoo's fp32 EMA Kronecker factors, whose eps-ridge must apply
     in fp32 before the chain casts down, DESIGN.md §9): fn owns the cast.
     fn must be per-slice (elementwise over the batch dim) and may use the
-    bucket and its index only for static metadata (shape, key folding).
-    The fused tier resolves inside the iteration family from the bucket
-    shape.  The reference's ``cfg`` argument, which shards the batch dim
-    over a mesh, is ported with ROADMAP.md Queue 1 item 11.
+    bucket and its index only for static metadata (shape, key folding):
+    with a ``cfg`` and an active mesh (``mesh_batch_axes``) its
+    ``stacked`` is a rank's own, possibly identity-padded, rows of the
+    bucket (identity slices are SPD, so inverse-root chains on them stay
+    finite).  The fused tier resolves inside the iteration family from
+    the bucket shape.
     """
     n_aux = int(with_aux)
     buckets = plan_buckets([tuple(m.shape) for m in mats], pad=False)
+    mesh, mesh_axes = mesh_batch_axes(cfg)
     outs: List[Optional[torch.Tensor]] = [None] * len(mats)
     auxs = [[None] * len(mats) for _ in range(n_aux)]
     for bi, b in enumerate(buckets):
-        out = fn(gather_bucket(b, mats), b, bi)
+        stacked = gather_bucket(b, mats)
+        if mesh is not None:
+            out = shard_over_batch(lambda x: fn(x, b, bi), mesh,
+                                   mesh_axes, stacked)
+        else:
+            out = fn(stacked, b, bi)
         if n_aux:
             out, *aux = out
             for k in range(n_aux):

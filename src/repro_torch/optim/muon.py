@@ -46,7 +46,12 @@ order) and resets the drift proxy; ``base.AsyncPrecondService``
 dispatches it, and the step swaps the twins in once ``count >=
 pending_at + precond_swap_delay`` (``base.swap_pending``).
 
-``muon_local_reshard`` raises here (ROADMAP.md Queue 1 item 11).
+Sharding (DESIGN.md §8): under an activation-sharding context whose mesh
+has a data axis larger than 1, ``polar_bucketed`` and ``polar_refresh``
+partition each bucket's slices over the ranks and all-gather the polars
+(``bucketing.shard_over_batch``); every rank then holds the same state.
+``muon_local_reshard`` (layers over model, rows over data) raises here
+(ROADMAP.md Queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -63,8 +68,8 @@ from repro_torch.optim import base, bucketing
 def _check_supported(cfg: OptimizerConfig) -> None:
     if cfg.muon_local_reshard:
         raise NotImplementedError(
-            "Muon options not ported yet: muon_local_reshard (sharding, "
-            "ROADMAP.md Queue 1 item 11)")
+            "Muon options not ported yet: muon_local_reshard (model-axis "
+            "sharding, ROADMAP.md Queue 1 item 11b)")
 
 
 def _tree_key(name: str):

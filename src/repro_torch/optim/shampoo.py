@@ -27,6 +27,8 @@ index in the reference's leaf order (``muon.leaf_order``).  They are
 recomputed every ``base.resolve_refresh_period`` steps, a count kept on
 the host (a Python-bool ``refresh`` forces the choice): a step that does
 not refresh serves "Linv"/"Rinv" from the state and launches nothing.
+Under a mesh with a data axis larger than 1 the buckets' slices are
+partitioned over the ranks and the roots all-gathered (DESIGN.md §8).
 
 Precision (DESIGN.md §9): the EMA factors and their eps-ridge stay fp32;
 the inverse-root chains run at ``matfn_dtype`` with fp32 accumulation,
@@ -204,7 +206,7 @@ class Shampoo(torch.optim.Optimizer):
             [A for (_, _, A) in jobs],
             lambda st, b, bi: one(st, key.fold_in(bi)
                                   if key is not None else None),
-            with_aux=2 if tele else 0)
+            cfg=cfg, with_aux=2 if tele else 0)
         return out if tele else (out, None, None)
 
     @torch.no_grad()

@@ -28,11 +28,29 @@
 The checkpoint tree is ``{"params": {name: tensor}, "opt": {name:
 {state key: tensor}, "count": ..., ["pending_at": ...,] ["bad_steps":
 ...]}}``, flattened by ``checkpoint`` with the reference's ``|``
-separator; the pending twins are left out.  Meshes, shardings and
-pipeline stages raise here (ROADMAP.md Queue 1 item 11).
+separator; the pending twins are left out.
+
+Data parallelism (``mesh``, ``launch/mesh.py``, inside a world joined
+with ``init_world``): the parameters and the optimizer state are
+replicated, and every rank builds the global batch of step t from the
+same stream and takes its own rows [r·B/s, (r+1)·B/s) (the reference's
+``P(("pod", "data"), None)``); the train step averages the gradients
+over the data group (``train/state.py``) and the optimizer shards its
+matrix functions over the buckets' slices (DESIGN.md §8), under the
+mesh's activation-sharding context, which also covers the §12 service's
+refresh and its all-gather on the side stream.  Every host decision
+(the refresh schedule, the drift trigger, the swap, the guard's verdict)
+is taken from values bitwise equal on every rank, so every rank issues
+the same collectives in the same order.  Only rank 0 writes checkpoints
+and the HEARTBEAT, and every rank waits at a barrier until the write is
+done; a restore reads the replicated state on a world of any size
+(elastic).  A mesh with model > 1 and the moe family on a data axis
+larger than 1 raise (ROADMAP.md Queue 1 item 11b), as do pipeline stages
+(item 11c).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import statistics
 import time
@@ -42,42 +60,78 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
+from repro_torch import collectives, sharding_ctx
 from repro_torch.config import OptimizerConfig, TrainConfig
 from repro_torch.core.rng import Key
 from repro_torch.data import DataConfig, make_batch_fn
+from repro_torch.launch import sharding
 from repro_torch.models.transformer import Model
 from repro_torch.optim import base, make_optimizer
 from repro_torch.train import fault
-from repro_torch.train.state import make_train_step
+from repro_torch.train.state import data_group, data_size, make_train_step
 
 
 class Trainer:
     """Train ``model`` with the optimizer ``ocfg`` names, on the synthetic
-    stream ``dcfg`` (or on ``batch_fn(step)`` when given), on the
-    model's device."""
+    stream ``dcfg`` (or on ``batch_fn(step)`` when given: the global
+    batch), on the model's device; with a data ``mesh``, as one rank of
+    the world.  ``shardings`` ({"params": {name: Sharding}, ...}) may
+    name the parameters' layout, which must be replicated."""
 
     def __init__(self, model: Model, ocfg: OptimizerConfig,
                  tcfg: TrainConfig, dcfg: DataConfig, mesh=None,
                  shardings=None, batch_fn: Optional[Callable] = None):
-        if mesh is not None or shardings is not None \
-                or tcfg.pipeline_stages > 1:
+        if tcfg.pipeline_stages > 1:
             raise NotImplementedError(
-                "meshes, shardings and pipeline stages are ported with "
-                "ROADMAP.md Queue 1 item 11")
+                "pipeline stages (1F1B) are ported with ROADMAP.md Queue 1 "
+                "item 11c")
+        if shardings is not None and mesh is None:
+            raise ValueError("shardings need a mesh")
+        self.mesh = mesh
+        self.group, self.n_data = None, 1
+        if mesh is not None:
+            sharding_ctx.check_data_axis(mesh)
+            if any(e is not None for sh in
+                   (shardings or {}).get("params", {}).values()
+                   for e in sh.spec):
+                raise NotImplementedError(
+                    "sharded parameters come with ROADMAP.md Queue 1 item "
+                    "11b; on the data axis they are replicated")
+            if model.cfg.family == "moe" and data_size(mesh) > 1:
+                raise NotImplementedError(
+                    "the moe family on a data mesh comes with ROADMAP.md "
+                    "Queue 1 item 11b: global dispatch draws its capacity "
+                    "from every row of the batch, so a rank that drops its "
+                    "own tokens would change the result")
+            self.group, self.n_data = data_group(mesh)
+        self.rank = 0 if self.group is None else \
+            collectives.rank(self.group)
         self.model = model
         self.ocfg, self.tcfg, self.dcfg = ocfg, tcfg, dcfg
         self.device = next(model.parameters()).device
-        self.batch_fn = batch_fn or make_batch_fn(model.cfg, dcfg,
-                                                  self.device)
+        full = batch_fn or make_batch_fn(model.cfg, dcfg, self.device)
+        self.batch_fn = full if self.group is None else \
+            self._own_rows(full)
         self._new_optimizer()
         self._ckpt_thread = None
         self.step_times: list = []
         self.straggler_events = 0
 
+    def _own_rows(self, full: Callable) -> Callable:
+        """``full``'s global batch cut to this rank's rows."""
+        B = self.dcfg.global_batch
+        if B % self.n_data:
+            raise ValueError(f"global batch {B} does not divide over "
+                             f"{self.n_data} data ranks")
+        lo = self.rank * (B // self.n_data)
+        hi = lo + B // self.n_data
+        return lambda t: {k: v[lo:hi] for k, v in full(t).items()}
+
     def _new_optimizer(self) -> None:
         self.opt = make_optimizer(self.ocfg, self.model.named_parameters(),
                                   self.model.logical_axes())
-        self.step_fn = make_train_step(self.model, self.opt, self.ocfg)
+        self.step_fn = make_train_step(self.model, self.opt, self.ocfg,
+                                       mesh=self.mesh)
         self.precond = (base.AsyncPrecondService(self.opt)
                         if self.ocfg.precond_async else None)
 
@@ -130,23 +184,43 @@ class Trainer:
         if cdir is None or ckpt.latest_step(cdir) is None:
             return self.init_state(seed)
         self.init_state(seed)
+        # on the data axis every rank holds the whole state, so every
+        # leaf restores whole, whatever world wrote it
         step, tree = ckpt.restore(cdir, self.state_tree(),
                                   allow_missing=base.PENDING_STATE_KEYS)
         self.load_state_tree(tree)
         # a resumed run never swaps in a buffer it did not dispatch
         fault.discard_inflight(self.opt)
-        print(f"[trainer] resumed from step {step}", flush=True)
+        self._log(f"[trainer] resumed from step {step}")
         return step
+
+    def _sharded(self):
+        """The mesh's activation-sharding context (none without one)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return sharding_ctx.activation_sharding(
+            self.mesh, sharding.activation_rules(self.model.cfg, self.mesh))
+
+    def _log(self, msg: str) -> None:
+        if self.rank == 0:
+            print(msg, flush=True)
 
     def _checkpoint(self, step: int) -> None:
         if self._ckpt_thread is not None:
             self._ckpt_thread.join()  # one in-flight write at a time
             self._ckpt_thread = None
-        self._ckpt_thread = ckpt.save(
-            self.tcfg.checkpoint_dir, step, self.state_tree(),
-            keep=self.tcfg.keep_checkpoints,
-            async_write=self.tcfg.async_checkpoint,
-            drop=base.PENDING_STATE_KEYS)
+        if self.rank == 0:
+            self._ckpt_thread = ckpt.save(
+                self.tcfg.checkpoint_dir, step, self.state_tree(),
+                keep=self.tcfg.keep_checkpoints,
+                async_write=self.tcfg.async_checkpoint,
+                drop=base.PENDING_STATE_KEYS)
+        if self.group is not None:
+            # every rank goes on once rank 0's write is complete
+            if self._ckpt_thread is not None:
+                self._ckpt_thread.join()
+                self._ckpt_thread = None
+            collectives.barrier(self.group)
 
     # ------------------------------------------------------------- loop
 
@@ -166,7 +240,11 @@ class Trainer:
         for t in range(start, steps):
             t0 = time.perf_counter()
             if self.precond is not None:
-                self.precond.step_begin(t, Key(1).fold_in(t), drift=drift)
+                # the refresh's buckets shard over the mesh as in-step
+                # ones do (its all-gathers run on the side stream)
+                with self._sharded():
+                    self.precond.step_begin(t, Key(1).fold_in(t),
+                                            drift=drift)
                 refresh = False
             else:
                 refresh = (t % K == 0) if K > 1 else None
@@ -184,16 +262,16 @@ class Trainer:
                 if dt > self.tcfg.straggler_slack * med and \
                         len(self.step_times) > 5:
                     self.straggler_events += 1
-                    print(f"[trainer] straggler: step {t} took {dt:.2f}s "
-                          f"(median {med:.2f}s)", flush=True)
-            if cdir is not None:
+                    self._log(f"[trainer] straggler: step {t} took "
+                              f"{dt:.2f}s (median {med:.2f}s)")
+            if cdir is not None and self.rank == 0:
                 with open(os.path.join(cdir, "HEARTBEAT"), "w") as f:
                     f.write(f"{t} {time.time()}")
             losses.append(loss)
             if t % self.tcfg.log_every == 0:
-                print(f"[trainer] step {t}: loss {loss:.4f} grad_norm "
-                      f"{float(metrics['grad_norm']):.4f} "
-                      f"({dt * 1e3:.1f} ms)", flush=True)
+                self._log(f"[trainer] step {t}: loss {loss:.4f} grad_norm "
+                          f"{float(metrics['grad_norm']):.4f} "
+                          f"({dt * 1e3:.1f} ms)")
             if on_metrics is not None:
                 on_metrics(t, metrics)
             if cdir is not None and self.tcfg.checkpoint_every and \

@@ -152,8 +152,11 @@ def test_unported_trainer_options_raise(tmp_path):
     model = Model(gpt2_paper.SMOKE, device="cpu")
     dcfg = DataConfig(vocab_size=gpt2_paper.SMOKE.vocab_size)
     ocfg = OptimizerConfig(name="muon")
-    for kw, tkw, item in ((dict(mesh=object()), {}, "11"),
-                          ({}, dict(pipeline_stages=2), "11")):
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    for kw, tkw, item in ((dict(mesh=make_debug_mesh(data=1, model=2)), {},
+                           "11b"),
+                          ({}, dict(pipeline_stages=2), "11c")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             Trainer(model, ocfg, TrainConfig(**tkw), dcfg, **kw)
     tr = Trainer(model, OptimizerConfig(name="muon", precond_async=True,

@@ -1,0 +1,58 @@
+"""A world of ranks on gloo for the port's distribution tests (CPU).
+
+``run_world(fn, world, tmp_path, *args)`` spawns ``world`` processes
+(the spawn start method), joins each to one process group through a
+``file://`` store under ``tmp_path`` (no TCP port to collide with other
+pytest workers), runs ``fn(rank, world, *args)`` and re-raises the first
+rank's exception (``start_world`` and ``join_world`` split the two
+halves).  ``fn`` must be importable (a module-level function of a test
+module) and reports back through files: ``save``/``load`` keep one
+pickle a rank under ``tmp_path``.
+"""
+import os
+import pickle
+
+import torch
+import torch.multiprocessing as mp
+
+#: a hung collective fails the test after this many seconds
+TIMEOUT_S = 120.0
+
+
+def _entry(rank, world, store, fn, args):
+    torch.set_num_threads(1)
+    from repro_torch.launch import mesh
+
+    mesh.init_world(rank, world, f"file://{store}", device="cpu",
+                    timeout_s=TIMEOUT_S)
+    try:
+        fn(rank, world, *args)
+    finally:
+        mesh.close_world()
+
+
+def start_world(fn, world, tmp_path, *args):
+    """Spawn the world without waiting for it (the caller's work then
+    overlaps the ranks'); ``join_world`` waits."""
+    store = os.path.join(str(tmp_path), "store")
+    return mp.start_processes(_entry, args=(world, store, fn, args),
+                              nprocs=world, start_method="spawn", join=False)
+
+
+def join_world(ctx):
+    while not ctx.join():
+        pass
+
+
+def run_world(fn, world, tmp_path, *args):
+    join_world(start_world(fn, world, tmp_path, *args))
+
+
+def save(tmp_path, rank, obj):
+    with open(os.path.join(str(tmp_path), f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(obj, f)
+
+
+def load(tmp_path, rank):
+    with open(os.path.join(str(tmp_path), f"rank{rank}.pkl"), "rb") as f:
+        return pickle.load(f)
