@@ -37,8 +37,12 @@ Phases (any failure exits non-zero and prints no result):
      checked, timed beside ``torch.bmm``/``baddbmm`` and their bound, and
      at one ragged l = 21 case on the element-by-element instantiation;
      and at granite-moe's Muon buckets (``GRANITE_SHAPES``: [588, 1024,
-     512], [12, 1024, 1024], [6, 1024, 32]) and the recurrent families'
-     (``RECURRENT_SHAPES``, phase 13) in fp32, the same way;
+     512], [12, 1024, 1024], [6, 1024, 32]), the recurrent families'
+     (``RECURRENT_SHAPES``, phase 13) and phase 15's (``P15_SHAPES``:
+     (a)'s shares [20, 1024, 1024] and [10, 4096, 1024] of gpt2-paper's
+     buckets, and (b)'s row blocks [20, 512, 1024] and [10, 2048, 1024],
+     on which K2 forms the partial Gram -X^T X with alpha = 0) in fp32,
+     the same way;
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
      width (seq 512, batch 4, random weights from seed 0), STEPS steps
      through the launcher's configuration (``build_path``); the launch
@@ -151,8 +155,9 @@ Phases (any failure exits non-zero and prints no result):
      tokens/s, the KV cache bytes; ``prefill_cache`` at lengths 96, 61, 17
      against a streamed active-masked decode loop (kpos bitwise, logits
      within 5e-2 + 5e-2|x|); (b) the Engine (slots 16, cache_len 64, EOS
-     0, greedy) over the launcher's trace (seed 0) cut to 32 requests: on
-     the virtual clock one decode shape, every request done, a tick with every
+     0, greedy) over the launcher's trace (seed 0) cut to 20 requests: on
+     the virtual clock (a STEP_DT = 35 ms tick, the card's own) one
+     decode shape, every request done, a tick with every
      other lane inactive leaving their k, v and kpos rows bitwise, two
      runs equal, continuous admission in fewer decode steps than static
      with as many tokens; on the wall clock at qps 20 and 1e6, tokens/s,
@@ -270,7 +275,31 @@ Phases (any failure exits non-zero and prints no result):
      of the shadow's; each rank's max_memory_allocated.  Then (d): one
      process restores (b)'s checkpoint, its state bitwise the ranks'
      (crc32 of every leaf) and its next step 19 launches;
- 15. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+ 15. the model axis (``phase15``, ``python3 tools/tp_probe.py`` alone): a
+     world of P15_WORLD = 4 ranks that share the card on gloo, spawned as
+     in phase 14, on a ``make_debug_mesh(2, 2)`` (data, model) mesh;
+     gpt2-paper at full width, seq 512, global batch 4, Muon PRISM-5, at
+     fp32 compute (the gates against one process).  Beside the ranks'
+     start, one process's Trainer, P15_STEPS steps (its losses and its
+     step-0 Muon update, handed to the ranks through files).
+     (a) "tp" (FSDP over data, tensor parallelism over model,
+     ``Model.shard``), P15_STEPS steps with a checkpoint at the last:
+     losses within P15_LOSS_TOL (1e-4) of one process's, the step-0 Muon
+     update gathered whole within UPDATE_REL_TOL (1e-3), the leaves
+     replicated over data crc32-equal on both data ranks after every
+     step, each rank the single process's 19 launches a step (K1/K2/K3
+     wrapper calls printed by shape: each rank's share of every bucket),
+     the step time, tokens/s over the world and the collectives a step by
+     kind (calls, bytes, host ms); (b) a new Trainer resumes the
+     checkpoint under "zero" (every leaf flat-sharded over (data, model))
+     with ``muon_local_reshard``, P15_STEPS steps: every restored leaf,
+     gathered whole, has the crc32 the checkpoint's MANIFEST recorded,
+     19 launches a step, K2 on (a)'s shapes with the rows halved (the
+     [B/2, m/2, n] row blocks), one Gram all-reduce a K2 call (a
+     grid-tier iteration and bucket; bytes printed), and the losses
+     within P15_LOSS_TOL of one process that resumes the same
+     checkpoint (run after the world);
+ 16. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -2271,6 +2300,9 @@ INV_REL_TOL = 1e-3
 # largest entry; the parameter change, rounded into parameters whose ulp
 # is ~1e-4 of it, within UPDATE_REL_TOL
 PER_LEAF_REL_TOL = 1e-6
+# what a K2 entry of a path's shapes ends with where it forms the local
+# reshard's partial Gram (``gram_alpha``)
+PARTIAL = "partial -X^T X"
 # K1/K2 at the lowrank tier's shapes on gpt2-paper's vocab bucket
 # [2, 1024, 50272] (X = its transpose [2, 50272, 1024], l = 136):
 # (kernel, A, B, with C, what it computes)
@@ -2302,38 +2334,48 @@ def _lowrank_operands(torch, a, b, with_c, dt, gen):
     return A, B, C
 
 
+def gram_alpha(what: str) -> float:
+    """K2's alpha at a path's shape: 0 for the local reshard's partial
+    Gram (-X^T X, I added after the all-reduce), else 1 (R = I - X^T X)."""
+    return 0.0 if what.endswith(PARTIAL) else 1.0
+
+
 def gemm_shape_checks(torch, rows, shapes=LOWRANK_SHAPES, dtypes=DTYPES,
                       seed=9):
     """K1 and K2 at a path's shapes (``LOWRANK_SHAPES``, the long
-    contraction K = 50272 included, or ``GRANITE_SHAPES``) against their
-    plain versions with KERNEL_TOL, each on the aligned instantiation; and,
-    with the lowrank shapes, one ragged case (l = 21: 84- and 42-byte
-    rows) on the element-by-element one, which no main path takes."""
+    contraction K = 50272 included, ``GRANITE_SHAPES`` and so on) against
+    their plain versions with KERNEL_TOL, each on the aligned
+    instantiation, K2 with the path's alpha (``gram_alpha``); and, with
+    the lowrank shapes, one ragged case (l = 21: 84- and 42-byte rows) on
+    the element-by-element one, which no main path takes."""
     from repro_torch.kernels import gram, matmul_add
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    cases = [(n, a, b, c, dtypes, True) for n, a, b, c, _ in shapes]
+    cases = [(n, a, b, c, dtypes, True, gram_alpha(w))
+             for n, a, b, c, w in shapes]
     if shapes is LOWRANK_SHAPES:
-        cases += [("gram_upper", (1, 300, 21), None, False, DTYPES, False),
+        cases += [("gram_upper", (1, 300, 21), None, False, DTYPES, False,
+                   1.0),
                   ("matmul_add", (1, 300, 21), (1, 21, 21), True, DTYPES,
-                   False)]
-    for name, a, b, with_c, dtypes, main in cases:
+                   False, 1.0)]
+    for name, a, b, with_c, dtypes, main, alpha in cases:
         for dtype in dtypes:
             dt = getattr(torch, dtype)
             A, B, C = _lowrank_operands(torch, a, b, with_c, dt, gen)
             before = unaligned_launches()
             if name == "gram_upper":
-                want = gram.plain(A, alpha=1.0, beta=-1.0)
+                want = gram.plain(A, alpha=alpha, beta=-1.0)
                 poison(torch, (a[0], a[-1], a[-1]), dt)
-                got = gram.gram_upper(A, alpha=1.0, beta=-1.0)
+                got = gram.gram_upper(A, alpha=alpha, beta=-1.0)
                 fast = matmul_add.aligned(A)
             else:
                 want = matmul_add.plain(A, B, C, alpha=1.0, beta=0.5)
                 poison(torch, a[:-1] + (b[-1],), dt)
                 got = matmul_add.matmul_add(A, B, C, alpha=1.0, beta=0.5)
                 fast = matmul_add.aligned(A, B, C)
-            err = check(torch, name, a if b is None else (a, b), dtype, got,
+            what = name if alpha == 1.0 else f"{name} alpha={alpha:g}"
+            err = check(torch, what, a if b is None else (a, b), dtype, got,
                         want, KERNEL_TOL[dtype])
             took = unaligned_launches() - before
             if took != (0 if fast else 1) or fast != main:
@@ -2366,11 +2408,14 @@ def gemm_shape_timings(torch, shapes=LOWRANK_SHAPES, dtypes=DTYPES,
             A, B, C = _lowrank_operands(torch, a, b, with_c, dt, gen)
             if name == "gram_upper":
                 nb, m, n = a
-                eye = torch.eye(n, device="cuda", dtype=dt)
+                ga = gram_alpha(what)
+                eye = ga * torch.eye(n, device="cuda", dtype=dt)
                 At = A.transpose(-1, -2)
                 t = dict(
-                    ms=time_ms(torch, lambda: gram.gram_upper(A), reps),
-                    plain_ms=time_ms(torch, lambda: gram.plain(A), reps),
+                    ms=time_ms(torch, lambda: gram.gram_upper(
+                        A, alpha=ga), reps),
+                    plain_ms=time_ms(torch, lambda: gram.plain(
+                        A, alpha=ga), reps),
                     library_ms=time_ms(torch, lambda: torch.baddbmm(
                         eye, At, A, alpha=-1.0), reps),
                     bound=bound_ms(1.0 * nb * m * n * (n + 1),
@@ -2553,7 +2598,7 @@ def lowrank_tiers(torch, opt):
     params = opt.param_groups[0]["params"]
     views = [tuple(base.to_matrix_view(torch.empty(p.shape, device="meta"),
                                        a)[0].shape)
-             for p, a in zip(params, opt.axes) if opt._matrix(a, p)]
+             for p, a in zip(params, opt.axes) if opt._matrix(a, p.shape)]
     for c, gate in ((cfg, True), (dataclasses.replace(
             cfg, lowrank_aspect=4.0), False)):
         got = {}
@@ -2567,7 +2612,7 @@ def lowrank_tiers(torch, opt):
         if gate and got != LOWRANK_TIERS:
             fail(f"lowrank tiers {got}, want {LOWRANK_TIERS}")
     codes = {int(opt.state[p]["tier"]) for p, a in zip(params, opt.axes)
-             if opt._matrix(a, p)}
+             if opt._matrix(a, p.shape)}
     want = {bucketing.TIER_CODES[t] for t in LOWRANK_TIERS.values()}
     if codes != want:
         fail(f"the leaves' tier states {codes}, want {want}")
@@ -3000,11 +3045,16 @@ PARITY_LENGTHS = (96, 61, 17)   # prefill against a streamed decode loop
 PARITY_TOL = 5e-2               # tests/test_serving.py:277
 MOE_PARITY_TOL = 2e-2           # tests/test_models_smoke.py:134, fp32
 # (b) the Engine with the reference launcher's trace palettes; its 64
-# requests cut to 32 (each run of the trace is host-bound, ~25-40 ms a
-# tick), so that the script stays well inside its time limit
+# requests cut to 20, still more than the 16 slots hold (each run of the
+# trace is host-bound, ~25-40 ms a tick), so that the script with phase
+# 15 stays well inside its time limit
 ENGINE_CFG = dict(slots=16, cache_len=64, eos_id=0)
-ENGINE_TRACE = dict(n_requests=32, qps=20.0)
-STEP_DT = 0.01                  # the virtual clock's tick
+ENGINE_TRACE = dict(n_requests=20, qps=20.0)
+# the virtual clock's tick: the card's wall time of a full-table decode
+# tick (35.1-40.9 ms, phases 11 and 12 on the H100), so that the trace
+# arrives at the rate the card serves it, not over many ticks with few
+# lanes active
+STEP_DT = 0.035
 WALL_QPS = (20.0, 1e6)          # offered loads of the wall-clock runs
 PROFILE_TICKS = 8
 # (c) a slot-table sequence may leave its batch-1 loop only at a token
@@ -4057,7 +4107,8 @@ RGEMMA_PARAMS = 1_005_432_320
 FALCON = "falcon-mamba-7b"
 # all 64 layers hold ~7.3e9 parameters, whose fp32 masters, gradients and
 # momentum alone (~87 GB) pass the card's 80 GB; 2 layers, every width
-# kept, to stay well inside the time limit
+# kept: the least depth at which one SSM layer's state and output reach
+# the next, in training, in decode against forward and in the served state
 FALCON_LAYERS = 2
 FALCON_PARAMS = 743_305_216
 # Muon's matrix views by shape: recurrentgemma's RG-LRU matrices (in_x,
@@ -4067,8 +4118,9 @@ FALCON_PARAMS = 743_305_216
 # 16: a matrix leaf in both packages, base.is_matrix_param)
 RGEMMA_VIEWS = {(2560, 2560): 20, (2560, 7680): 10, (2560, 4096): 2,
                 (2560, 256): 2}
-FALCON_VIEWS = {(4096, 16384): 2, (4096, 8192): 2, (8192, 288): 2,
-                (256, 8192): 2, (8192, 16): 2}
+FALCON_VIEWS = {(4096, 16384): FALCON_LAYERS, (4096, 8192): FALCON_LAYERS,
+                (8192, 288): FALCON_LAYERS, (256, 8192): FALCON_LAYERS,
+                (8192, 16): FALCON_LAYERS}
 RECURRENT_SHAPES = bucket_shapes(RGEMMA_VIEWS, {
     (2560, 2560): "recurrentgemma RG-LRU", (2560, 7680): "recurrentgemma MLPs",
     (2560, 4096): "recurrentgemma wq/wo", (2560, 256): "recurrentgemma wk/wv"}
@@ -4081,16 +4133,17 @@ RECURRENT_REPS = 5  # launches a median at these shapes (up to ~0.1 s each)
 # since the scan prefill takes one full decode step a prompt token
 RECURRENT_SERVE = dict(batch=4, prompt_len=256, gen_len=32, cache_len=0,
                        seed=0)
-# the decode state at batch 4, cache_len 288 (prompt + gen): falcon's 2
-# layers x 4 lanes x (conv 3 x 8192 bf16 + ssm 8192 x 16 fp32);
+# the decode state at batch 4, cache_len 288 (prompt + gen): falcon's
+# FALCON_LAYERS x 4 lanes x (conv 3 x 8192 bf16 + ssm 8192 x 16 fp32);
 # recurrentgemma's 2 recurrent period layers (conv 3 x 2560 bf16, h 2560
 # fp32 a lane), the attention layer's k, v [4, 288, 1, 256] bf16, kpos
 # [4, 288] int32 and the 2 tail layers
-FALCON_STATE_BYTES = 4_587_520
+FALCON_STATE_BYTES = FALCON_LAYERS * 4 * (3 * 8192 * 2 + 8192 * 16 * 4)
 RGEMMA_STATE_BYTES = 1_593_856
 # (d): decode against forward in fp32 at full width, tests/test_models_
 # smoke.py:110-130's tolerance (2e-2 + 2e-2 |x|)
-DECODE_FWD_LAYERS = {RGEMMA: 5, FALCON: 2}   # hybrid: 1 period + 2 tail
+DECODE_FWD_LAYERS = {RGEMMA: 5, FALCON: FALCON_LAYERS}  # hybrid: 1 period
+# and the 2 tail layers
 DECODE_FWD_TOL = 2e-2
 DECODE_FWD_BATCH, DECODE_FWD_SEQ = 2, 32
 
@@ -5180,6 +5233,440 @@ def _p14_async(torch, rank, mesh, dev, preset, launches):
             "async_begin": begin, "async_steps": steps}
 
 
+
+# ------------------------------------------------------------------ phase 15
+
+P15_WORLD = 4            # ranks sharing the one card
+P15_MESH = (2, 2)        # (data, model)
+P15_STEPS = 3            # (a): tp, a checkpoint at the last; (b): 3 more
+P15_LOSS_TOL = 1e-4      # the world's losses against one process's
+P15_TIMEOUT_S = 300      # a collective that waits longer fails the rank
+P15_DEADLINE_S = 600     # the whole world
+P15_KINDS = ("tp", "fsdp", "grad", "opt", "engine", "norm", "gram",
+             "checkpoint")
+P15_WRAPPED = ("matmul_add", "gram", "warm_tail")
+# K1/K2 at phase 15's shapes, checked and timed in phase 3: gpt2-paper's
+# buckets ([40, 1024, 1024] wq/wk/wv/wo, [20, 4096, 1024] the mlp) as (a)'s
+# engine shares them over the data axis, and as (b)'s local reshard splits
+# their slices over the model axis and their rows over the data axis
+P15_BUCKETS = {(1024, 1024): ("wq/wk/wv/wo", 40),
+               (4096, 1024): ("w_up/w_down", 20)}
+P15_SHAPES = bucket_shapes(
+    {v: B // P15_MESH[0] for v, (_, B) in P15_BUCKETS.items()},
+    {v: f"(a) {w}" for v, (w, _) in P15_BUCKETS.items()}) + [
+    entry for (m, n), (w, B) in P15_BUCKETS.items()
+    for blk in [(B // P15_MESH[1], m // P15_MESH[0], n)]
+    for entry in [("gram_upper", blk, None, False, f"(b) {w}: {PARTIAL}"),
+                  ("matmul_add", blk, (blk[0], n, n), True,
+                   f"(b) {w}: Horner")]]
+
+
+def phase15(torch, preset="full", device="cuda", launches=True):
+    """Phase 15 (see the module docstring) in a temporary build/phase15_*
+    directory, removed at the end; returns rank 0's launch counts of (a)
+    and (b).  ``preset``/``device``/``launches`` let it rehearse on the
+    CPU."""
+    import shutil
+    import tempfile
+
+    base_dir = ROOT / "build"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase15_", dir=base_dir))
+    try:
+        return _phase15(torch, work, preset, device, launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _p15_cfgs(preset, **kw):
+    """gpt2-paper's Muon PRISM-5 experiment at fp32 compute (the gates
+    against one process: bf16 activations round differently at each row
+    count)."""
+    import dataclasses
+
+    cfg, ocfg, dcfg = _p14_cfgs(preset, fp32=True)
+    return cfg, dataclasses.replace(ocfg, **kw), dcfg
+
+
+def _p15_trainer(cfgs, device, mesh=None, strategy="tp", **tkw):
+    """A Trainer of ``cfgs`` (seed 0), on the mesh's blocks under
+    ``strategy`` when a mesh is given."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.launch import sharding
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.train import Trainer
+
+    cfg, ocfg, dcfg = cfgs
+    tkw.setdefault("log_every", 1)
+    shards = None
+    if mesh is not None:
+        specs = param_specs(cfg)
+        shards = {"params": sharding.tree_shardings(
+            mesh, {k: a for k, (_, a, _) in specs.items()},
+            sharding.param_rules(cfg, mesh, strategy),
+            {k: s for k, (s, _, _) in specs.items()})}
+    return Trainer(Model(cfg, device=device, seed=0), ocfg,
+                   TrainConfig(**tkw), dcfg, mesh=mesh, shardings=shards,
+                   strategy=strategy)
+
+
+@contextlib.contextmanager
+def _p15_shapes():
+    """Record (wrapper, operand shape) of every K1/K2/K3 wrapper call in
+    the block; yields the dict of counts."""
+    from repro_torch.kernels import ops
+
+    seen: dict = {}
+    real = {n: getattr(ops, n) for n in P15_WRAPPED}
+
+    def wrap(name):
+        def call(X, *a, **k):
+            key = f"{name} {list(X.shape)}"
+            seen[key] = seen.get(key, 0) + 1
+            return real[name](X, *a, **k)
+        return call
+
+    for n in P15_WRAPPED:
+        setattr(ops, n, wrap(n))
+    try:
+        yield seen
+    finally:
+        for n, f in real.items():
+            setattr(ops, n, f)
+
+
+def _p15_by_kind(calls, steps):
+    """{kind: [calls, bytes, ms]} a step of a census."""
+    out = {}
+    for c in calls:
+        k = out.setdefault(c.kind or "other", [0, 0, 0.0])
+        k[0] += 1
+        k[1] += c.nbytes
+        k[2] += c.ms
+    return {k: [v[0] / steps, v[1] / steps, v[2] / steps]
+            for k, v in sorted(out.items())}
+
+
+def _p15_kind_note(by):
+    return "; ".join(f"{k} {v[0]:g} calls, {v[1]:.0f} B, {v[2]:.1f} ms"
+                     for k, v in by.items())
+
+
+def _phase15(torch, work, preset, device, launches):
+    import torch.multiprocessing as mp
+
+    from repro_torch.checkpoint import latest_step
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        free_card(torch, "phase 15")
+    card = _card_line()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _phase15_rank, args=(P15_WORLD, str(work), preset, device,
+                             launches),
+        nprocs=P15_WORLD, start_method="spawn", join=False)
+    deadline = time.monotonic() + P15_DEADLINE_S
+    # (a)'s reference, while the ranks start: one process's losses and
+    # step-0 Muon update, handed to the ranks through files
+    t1 = time.perf_counter()
+    try:
+        tr = _p15_trainer(_p15_cfgs(preset), device, steps=P15_STEPS)
+        ref_losses, upd = _p14_step0_update(torch, tr)
+        muon = _muon_leaves(tr)
+        torch.save({k: v.cpu() for k, v in upd.items() if k in muon},
+                   work / "ref_update.pt")
+        (work / "ref.json.tmp").write_text(json.dumps(ref_losses))
+        (work / "ref.json.tmp").rename(work / "ref.json")
+        del tr, upd
+    except BaseException:
+        for p in ctx.processes:
+            p.kill()
+        raise
+    if cuda:
+        free_card(torch, "(a)'s reference done")
+    log(f"  one process ((a)'s reference, {P15_STEPS} steps at fp32 "
+        f"compute, beside the ranks' start) in "
+        f"{time.perf_counter() - t1:.1f} s; losses "
+        f"{', '.join(f'{v:.5f}' for v in ref_losses)}")
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"phase 15: the world of {P15_WORLD} ranks did not "
+                     f"finish in {P15_DEADLINE_S} s")
+    except Exception as e:  # a rank raised or died: the phase fails
+        for r in range(P15_WORLD):
+            err = work / f"rank{r}.err"
+            if err.exists():
+                log(f"  rank {r} raised:\n{err.read_text()}")
+        fail(f"phase 15: a rank failed: {type(e).__name__}: "
+             f"{str(e).splitlines()[0] if str(e) else ''}")
+    world_s = time.perf_counter() - t0
+    res = [json.loads((work / f"rank{r}.json").read_text())
+           for r in range(P15_WORLD)]
+    log(f"  the world of {P15_WORLD} ranks (spawned, gloo, mesh (data, "
+        f"model) = {P15_MESH}) ran in {world_s:.1f} s, (a)'s reference "
+        f"beside its start ({card})")
+    for r, rr in enumerate(res):
+        log(f"  rank {r} {rr['coords']}: (a) tp step {rr['a_step_ms']:.1f} "
+            f"ms, (b) zero step {rr['b_step_ms']:.1f} ms; "
+            f"max_memory_allocated {rr['peak_gib']:.2f} GiB ({card})")
+    # (a): the leaves replicated over data, equal on the two data ranks
+    for r, rr in enumerate(res):
+        other = res[r ^ P15_MESH[1]]  # the same model coordinate
+        if rr["coords"]["model"] != other["coords"]["model"] or \
+                rr["replicated"] != other["replicated"]:
+            fail(f"phase 15 (a): ranks {r} and {r ^ P15_MESH[1]} disagree "
+                 f"on the leaves replicated over data")
+    if any(rr["a_losses"] != res[0]["a_losses"] or
+           rr["b_losses"] != res[0]["b_losses"] for rr in res):
+        fail("phase 15: the ranks' losses differ")
+    log(f"  (a) leaves replicated over data "
+        f"({', '.join(sorted(res[0]['replicated'][0]))}): crc32-equal on "
+        f"both data ranks after each of {len(res[0]['replicated'])} steps")
+    # (b)'s reference: one process resumes the world's checkpoint
+    ck = work / "ckpt"
+    if latest_step(str(ck)) != P15_STEPS:
+        fail(f"phase 15: the world's checkpoint is at step "
+             f"{latest_step(str(ck))}, not {P15_STEPS}")
+    cfgs_b = _p15_cfgs(preset, muon_local_reshard=True)
+    tr = _p15_trainer(cfgs_b, device, steps=2 * P15_STEPS,
+                      checkpoint_dir=str(ck), checkpoint_every=0)
+    _, _, one_b = tr.run()
+    del tr
+    b = res[0]["b_losses"]
+    gaps = [abs(x - y) for x, y in zip(b, one_b)]
+    if not all(math.isfinite(v) for v in b) or \
+            not max(gaps) <= P15_LOSS_TOL:
+        fail(f"phase 15 (b): losses {b} against one process resuming the "
+             f"same checkpoint {one_b} (bound {P15_LOSS_TOL})")
+    log(f"  (b) one process resuming the world's step-{P15_STEPS} "
+        f"checkpoint: losses {', '.join(f'{v:.5f}' for v in one_b)}; the "
+        f"world's within {max(gaps):.2e} (bound {P15_LOSS_TOL}) ({card})")
+    return {"tp": res[0]["a_counts"], "zero": res[0]["b_counts"]}
+
+
+def _phase15_rank(rank, world, work, preset, device, launches):
+    """One rank of phase 15: (a) and (b); writes rank<r>.json, or
+    rank<r>.err with the traceback when it raises."""
+    import traceback
+
+    work = Path(work)
+    try:
+        res = _p15_rank_body(rank, world, work, preset, device, launches)
+        (work / f"rank{rank}.json").write_text(json.dumps(res))
+    except BaseException:
+        (work / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _p15_rank_body(rank, world, work, preset, device, launches):
+    import torch
+
+    from repro_torch import collectives
+    from repro_torch.launch import mesh as lmesh
+
+    dev = lmesh.init_world(rank, world, f"file://{work}/store",
+                           device=device, timeout_s=P15_TIMEOUT_S)
+    try:
+        mesh = lmesh.make_debug_mesh(*P15_MESH)
+        card = _card_line() if dev.type == "cuda" else "cpu"
+        res = {"backend": lmesh.world_backend(), "coords": mesh.coords()}
+        _rank_log(rank, f"  rank 0: backend {res['backend']}, device {dev}, "
+                  f"mesh {mesh!r}, {card}")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        res.update(_p15_tp(torch, rank, mesh, dev, work, preset, launches))
+        res.update(_p15_zero(torch, rank, mesh, dev, work, preset,
+                             launches, res["a_shapes"]))
+        res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                           if dev.type == "cuda" else 0.0)
+        collectives.barrier()
+        return res
+    finally:
+        lmesh.close_world()
+
+
+def _p15_steps(torch, tr, dev, on_step=None):
+    """Run ``tr`` with the launches of each step counted (from their
+    difference) and every collective and K1/K2/K3 wrapper call recorded;
+    returns (losses, per-step launches, census, shapes, step-0 update)."""
+    from repro_torch import collectives
+    from repro_torch.kernels import ops
+
+    per_step, last = [], [None]
+
+    def on_metrics(t, m):
+        now = ops.launch_counts()
+        per_step.append({k: now[k] - last[0][k] for k in now})
+        last[0] = now
+        if on_step is not None:
+            on_step(t)
+
+    ops.reset_launches()
+    last[0] = ops.launch_counts()
+    with collectives.count_collectives() as calls, _p15_shapes() as shapes:
+        losses, upd = _p14_step0_update(torch, tr, on_metrics)
+    _p14_sync(torch, dev)
+    return losses, per_step, list(calls), shapes, upd
+
+
+def _p15_reference(work):
+    """(a)'s reference losses, once the main process has written them."""
+    ref = work / "ref.json"
+    deadline = time.monotonic() + P15_TIMEOUT_S
+    while not ref.exists():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no reference losses in {P15_TIMEOUT_S} s")
+        time.sleep(0.2)
+    return json.loads(ref.read_text())
+
+
+def _p15_tp(torch, rank, mesh, dev, work, preset, launches):
+    """(a): "tp" on the mesh, P15_STEPS steps, a checkpoint at the last."""
+    from repro_torch.launch import sharding
+
+    cfgs = _p15_cfgs(preset)
+    tr = _p15_trainer(cfgs, dev, mesh, "tp", steps=P15_STEPS,
+                      checkpoint_dir=str(work / "ckpt"),
+                      checkpoint_every=P15_STEPS)
+    lay = tr.model.layout
+    rep = [k for k, sh in lay.shardings.items()
+           if "data" not in sharding.sharded_axes(sh)]
+    replicated = []
+
+    def on_step(t):
+        named = dict(tr.model.named_parameters())
+        replicated.append(_crcs(torch, {k: named[k] for k in rep}))
+
+    losses, per_step, calls, shapes, upd = _p15_steps(torch, tr, dev,
+                                                      on_step)
+    for t, c in enumerate(per_step):
+        _p14_expect(rank, c, "prism5", f"phase 15 (a) step {t}", launches)
+    ref_losses = _p15_reference(work)
+    gaps = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    if not all(math.isfinite(v) for v in losses) or \
+            not max(gaps) <= P15_LOSS_TOL:
+        raise AssertionError(f"(a) losses {losses} vs one process's "
+                             f"{ref_losses} (bound {P15_LOSS_TOL})")
+    # the step-0 Muon update, gathered whole, against one process's
+    names = _muon_leaves(tr)
+    whole = {k: sharding.gather_full(v, lay.shardings[k])
+             for k, v in upd.items() if k in names}
+    worst = math.nan  # rank 0 holds the update against one process's
+    if rank == 0:
+        ref = torch.load(work / "ref_update.pt", map_location=dev)
+        worst = _worst_gap(torch, whole, ref, "", gate=False)
+        del ref
+        if not worst <= UPDATE_REL_TOL:
+            raise AssertionError(f"(a) the step-0 Muon update differs from "
+                                 f"one process's by {worst:.3e} of its "
+                                 f"largest entry (bound {UPDATE_REL_TOL})")
+    del whole, upd
+    steps = len(losses)
+    by = _p15_by_kind(calls, steps)
+    seq, batch = tr.dcfg.seq_len, tr.dcfg.global_batch
+    step_ms = statistics.median(tr.step_times) * 1e3
+    _rank_log(rank, f"  (a) tp, {batch // lay.batch_size} rows a data rank, "
+              f"seq {seq}: losses {', '.join(f'{v:.5f}' for v in losses)} "
+              f"(one process: largest gap {max(gaps):.2e}, bound "
+              f"{P15_LOSS_TOL}); the step-0 Muon update within {worst:.3e} "
+              f"of one process's (bound {UPDATE_REL_TOL})")
+    _rank_log(rank, f"  (a) launches a step on rank 0: "
+              f"{sum(per_step[0].values())} ({per_step[0]}); K1/K2/K3 calls "
+              f"by shape over {steps} steps: {shapes}")
+    _rank_log(rank, f"  (a) step {step_ms:.1f} ms on rank 0 (median of steps "
+              f"1..{steps - 1}), {seq * batch / (step_ms / 1e3):.0f} "
+              f"tokens/s over the world; collectives a step on rank 0 by "
+              f"kind: {_p15_kind_note(by)}")
+    total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    del tr
+    return {"a_losses": losses, "a_counts": total, "a_step_ms": step_ms,
+            "a_by_kind": by, "replicated": replicated, "a_shapes": shapes}
+
+
+def _row_blocks(shapes):
+    """The K2 calls of ``shapes`` with their rows (the long side) halved:
+    (b)'s blocks of (a)'s slices, whose batch the model axis halves as
+    (a)'s engine halved it over the data axis."""
+    out = {}
+    for k, v in shapes.items():
+        if k.startswith("gram "):
+            b, m, n = json.loads(k[len("gram "):])
+            out[f"gram {[b, m // P15_MESH[0], n]}"] = v
+    return out
+
+
+def _p15_zero(torch, rank, mesh, dev, work, preset, launches, a_shapes):
+    """(b): resume (a)'s checkpoint under "zero" with the local reshard,
+    P15_STEPS steps."""
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.optim import base
+
+    cfgs = _p15_cfgs(preset, muon_local_reshard=True)
+    ckpt_dir = work / "ckpt"
+    tr = _p15_trainer(cfgs, dev, mesh, "zero", steps=2 * P15_STEPS,
+                      checkpoint_dir=str(ckpt_dir), checkpoint_every=0)
+    manifest = json.loads((ckpt_dir / f"step_{P15_STEPS:08d}" /
+                           "MANIFEST").read_text())["crc32"]
+    restored = {}
+    real_restore = tr.restore_or_init
+
+    def restore_or_init(seed=None):
+        start = real_restore(seed)
+        tree = tr.gathered_state_tree()
+        if rank == 0:
+            restored.update(_crcs(torch, tree))
+        del tree
+        return start
+    tr.restore_or_init = restore_or_init
+    losses, per_step, calls, shapes, _ = _p15_steps(torch, tr, dev)
+    if rank == 0:
+        kept = {k: v for k, v in restored.items()
+                if not set(k.split("|")) & set(base.PENDING_STATE_KEYS)}
+        if kept != manifest:
+            bad = sorted(k for k in set(kept) | set(manifest)
+                         if kept.get(k) != manifest.get(k))
+            raise AssertionError(f"(b) restored leaves differ from the "
+                                 f"checkpoint's crc32: {bad[:5]}")
+    for t, c in enumerate(per_step):
+        _p14_expect(rank, c, "prism5", f"phase 15 (b) step {t}", launches)
+    steps = len(losses)
+    grams = [c for c in calls if c.kind == "gram"]
+    k2 = sum(v for k, v in shapes.items() if k.startswith("gram "))
+    if len(grams) != k2:
+        raise AssertionError(f"(b) {len(grams)} Gram all-reduces for {k2} "
+                             f"K2 calls: one a grid-tier iteration and "
+                             f"bucket expected")
+    k2_shapes = {k: v for k, v in shapes.items() if k.startswith("gram ")}
+    if launches and k2_shapes != _row_blocks(a_shapes):
+        raise AssertionError(f"(b) K2 calls {k2_shapes}, want the row "
+                             f"blocks {_row_blocks(a_shapes)}")
+    by = _p15_by_kind(calls, steps)
+    step_ms = statistics.median(tr.step_times) * 1e3
+    seq, batch = tr.dcfg.seq_len, tr.dcfg.global_batch
+    _rank_log(rank, f"  (b) zero + muon_local_reshard, resumed at step "
+              f"{tr.opt.count - steps}: restored leaves gathered whole "
+              f"crc32-equal to the checkpoint's MANIFEST "
+              f"({len(manifest)} leaves); losses "
+              f"{', '.join(f'{v:.5f}' for v in losses)}")
+    _rank_log(rank, f"  (b) launches a step on rank 0: "
+              f"{sum(per_step[0].values())}; K1/K2/K3 calls by shape over "
+              f"{steps} steps (K2 on row blocks): {shapes}; Gram "
+              f"all-reduces {len(grams) / steps:g} a step, "
+              f"{sorted({c.nbytes for c in grams})} bytes each")
+    _rank_log(rank, f"  (b) step {step_ms:.1f} ms on rank 0, "
+              f"{seq * batch / (step_ms / 1e3):.0f} tokens/s over the world; "
+              f"collectives a step on rank 0 by kind: {_p15_kind_note(by)}")
+    total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    del tr
+    return {"b_losses": losses, "b_counts": total, "b_step_ms": step_ms,
+            "b_by_kind": by, "b_shapes": shapes}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -5240,6 +5727,10 @@ def main() -> None:
     rows = gemm_shape_checks(torch, rows, RECURRENT_SHAPES, ("float32",), 15)
     timings.update(gemm_shape_timings(torch, RECURRENT_SHAPES, ("float32",),
                                       16, RECURRENT_REPS))
+    log("  K1/K2 at phase 15's shapes: (a)'s bucket shares and (b)'s row "
+        "blocks (K2's partial Gram, alpha 0)")
+    rows = gemm_shape_checks(torch, rows, P15_SHAPES, ("float32",), 17)
+    timings.update(gemm_shape_timings(torch, P15_SHAPES, ("float32",), 18))
 
     runs = {}
     log("phase 4: PRISM-5 path, gpt2-paper Muon step at full width")
@@ -5312,6 +5803,14 @@ def main() -> None:
     log(f"  phase 14 in {time.perf_counter() - t0:.1f} s; the script so far "
         f"{time.perf_counter() - _T0:.1f} s")
 
+    log(f"phase 15: the model axis, {P15_WORLD} ranks on the card (gloo) on "
+        f"a {P15_MESH} (data, model) mesh: tensor parallelism, then ZeRO-3 "
+        f"with Muon's local reshard from its checkpoint")
+    t0 = time.perf_counter()
+    mp = phase15(torch)
+    log(f"  phase 15 in {time.perf_counter() - t0:.1f} s; the script so far "
+        f"{time.perf_counter() - _T0:.1f} s")
+
     by_path = {k: r["counts"] for k, r in runs.items()}
     by_path["fallback"] = fallback
     by_path["trainer"] = phase8["counts"]
@@ -5319,6 +5818,8 @@ def main() -> None:
     by_path["granite"] = granite
     by_path.update(recurrent)
     by_path["data_parallel_rank0"] = dp
+    by_path["model_axis_tp_rank0"] = mp["tp"]
+    by_path["model_axis_zero_rank0"] = mp["zero"]
     print(json.dumps({"kernels": kernel_rows(rows, timings, by_path)}),
           flush=True)
     print(f"card: {card}", flush=True)
@@ -5398,6 +5899,12 @@ def _drop(torch, run):
     torch.cuda.empty_cache()
 
 
+def _p15_path(what):
+    """The kernels line's path of a ``P15_SHAPES`` entry."""
+    return ("model_axis_tp_rank0" if what.startswith("(a)")
+            else "model_axis_zero_rank0")
+
+
 # The kernels line: for each kernel, the measurements of each family and
 # main-path shape it was timed at, as (family, row/timing key, path); the
 # first entry, the one this slice's path runs where it runs one (K1's and
@@ -5411,6 +5918,8 @@ VARIANTS = {
         for n, a, b, _, w in RECURRENT_SHAPES if n == "matmul_add"] + [
         ("-", _lowrank_key(n, a, b, "float32"), "granite")
         for n, a, b, _, _ in GRANITE_SHAPES if n == "matmul_add"] + [
+        ("-", _lowrank_key(n, a, b, "float32"), _p15_path(w))
+        for n, a, b, _, w in P15_SHAPES if n == "matmul_add"] + [
         ("-", ("matmul_add", (20, 4096, 1024)), "trainer"),
         ("-", ("matmul_add", (40, 1024, 1024)), "trainer"),
         ("-", ("matmul_add", (100, 1024, 1024)), "shampoo_prism5"),
@@ -5427,6 +5936,8 @@ VARIANTS = {
         for n, a, b, _, w in RECURRENT_SHAPES if n == "gram_upper"] + [
         ("polar", _lowrank_key(n, a, b, "float32"), "granite")
         for n, a, b, _, _ in GRANITE_SHAPES if n == "gram_upper"] + [
+        ("polar", _lowrank_key(n, a, b, "float32"), _p15_path(w))
+        for n, a, b, _, w in P15_SHAPES if n == "gram_upper"] + [
         ("polar", ("gram_upper", (20, 4096, 1024)), "trainer"),
         ("polar", ("gram_upper", (40, 1024, 1024)), "trainer"),
         ("polar", ("gram_upper", (20, 4096, 1024), "bfloat16"), None),

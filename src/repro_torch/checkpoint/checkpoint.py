@@ -23,11 +23,11 @@ and dtype, else a numpy array of its dtype.  ``restore_params`` is the
 train -> serve handoff.
 
 Elastic restore (``restore(shardings=)``): a checkpoint holds the whole
-state, whatever world wrote it, and restores onto a world of any size.
-Replicated leaves are restored whole on every rank; a leaf sharded over
-the batch axes (pod, data) gives each rank its own block of rows.
-Parameters sharded over the model axis come with ROADMAP.md Queue 1 item
-11b and raise.
+state, whatever world, mesh and strategy wrote it (a sharded writer
+gathers every leaf whole first: ``Trainer``), and restores onto a world
+of any size and layout.  Replicated leaves are restored whole on every
+rank; a sharded leaf gives each rank its block under its ``Sharding``,
+whatever mesh axes split it (``launch.sharding.local_block``).
 """
 from __future__ import annotations
 
@@ -205,40 +205,14 @@ def _like(arr: np.ndarray, leaf):
 
 def _local_block(arr: np.ndarray, sh) -> np.ndarray:
     """This rank's block of ``arr`` under ``sh`` (a
-    ``launch.sharding.Sharding``, or None for the whole leaf): dims
-    split over the batch axes keep this rank's rows; mesh axes of size 1
-    split nothing."""
-    if sh is None or not any(e is not None for e in sh.spec):
+    ``launch.sharding.Sharding``, or None for the whole leaf); mesh axes
+    of size 1 split nothing, and a dim that does not split evenly
+    raises."""
+    if sh is None:
         return arr
-    import torch.distributed as dist
+    from repro_torch.launch.sharding import local_block
 
-    from repro_torch.launch.sharding import axes_of
-
-    mesh = sh.mesh
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    stride, coord = 1, {}
-    for ax in reversed(mesh.axis_names):  # row-major rank order
-        coord[ax] = (rank // stride) % mesh.shape[ax]
-        stride *= mesh.shape[ax]
-    for dim, entry in enumerate(sh.spec):
-        # an axis of size 1 splits nothing
-        axes = tuple(a for a in axes_of(entry) if mesh.shape[a] > 1)
-        if not axes:
-            continue
-        if any(a not in ("pod", "data") for a in axes):
-            raise NotImplementedError(
-                f"a leaf sharded over {axes} (model-axis parameter "
-                f"sharding) comes with ROADMAP.md Queue 1 item 11b")
-        n, idx = 1, 0
-        for a in axes:
-            idx = idx * mesh.shape[a] + coord[a]
-            n *= mesh.shape[a]
-        if arr.shape[dim] % n:
-            raise ValueError(f"dim {dim} of a {arr.shape} leaf does not "
-                             f"split over {axes} ({n} ranks)")
-        rows = arr.shape[dim] // n
-        arr = np.take(arr, range(idx * rows, (idx + 1) * rows), axis=dim)
-    return arr
+    return np.ascontiguousarray(local_block(arr, sh, sh.mesh.coords()))
 
 
 def restore(ckpt_dir: str, target: Dict[str, Any],

@@ -1,11 +1,27 @@
 """The port's collectives, in one place and counted.
 
 Every collective the port issues goes through this module: ``all_gather``
-over a mesh's batch axes (the §8 engine, DESIGN.md §8) and ``all_reduce``
-with SUM or MAX (the data-parallel gradient and metric averages,
-``optim/compression.py::int8_psum``).  Each call appends its op, dtype,
-element count and host time to the census that ``count_collectives``
-opens, as ``kernels/ops.py::count_launches`` counts kernel launches.
+(the §8 engine, DESIGN.md §8; a sharded leaf gathered whole),
+``reduce_scatter`` (a gathered leaf's gradient) and ``all_reduce`` with
+SUM or MAX (the gradient and metric reductions,
+``optim/compression.py::int8_psum``, the local reshard's Gram).  Each
+call appends its op, dtype, element count, host time and ``kind`` (what
+issued it: "tp", "fsdp", "engine", "grad", "gram", ...) to the census
+that ``count_collectives`` opens, as ``kernels/ops.py::count_launches``
+counts kernel launches.
+
+Tensor parallelism (Megatron's pattern) differentiates through three
+autograd Functions over a group, each issuing one counted collective a
+pass:
+
+  copy_to(x)           identity forward, SUM all-reduce of the gradient
+                       (the input of a column-parallel projection)
+  reduce_from(x)       SUM all-reduce forward, identity backward (the
+                       output of a row-parallel projection)
+  gather_from(x, dim)  all-gather along ``dim`` forward; backward keeps
+                       this rank's slice of the gradient summed over the
+                       group (one reduce-scatter, which gloo runs on
+                       CUDA tensors: ``tools/tp_probe.py`` checks it)
 
 On CUDA tensors the collective runs through the backend ``init_world``
 chose and printed.  Under gloo (ranks that share a device) the backend
@@ -24,13 +40,15 @@ import torch.distributed as dist
 
 
 class Call(NamedTuple):
-    """One collective: ``op`` is "all_gather", "all_reduce_sum" or
-    "all_reduce_max"; ``numel`` the elements this rank contributed."""
+    """One collective: ``op`` is "all_gather", "reduce_scatter",
+    "all_reduce_sum" or "all_reduce_max"; ``numel`` the elements this
+    rank contributed; ``kind`` what issued it."""
 
     op: str
     dtype: torch.dtype
     numel: int
     ms: float
+    kind: str = ""
 
     @property
     def nbytes(self) -> int:
@@ -54,8 +72,9 @@ def count_collectives():
         _CENSUS.remove(calls)
 
 
-def _record(op: str, x: torch.Tensor, t0: float) -> None:
-    call = Call(op, x.dtype, x.numel(), (time.perf_counter() - t0) * 1e3)
+def _record(op: str, x: torch.Tensor, t0: float, kind: str = "") -> None:
+    call = Call(op, x.dtype, x.numel(), (time.perf_counter() - t0) * 1e3,
+                kind)
     for calls in _CENSUS:
         calls.append(call)
 
@@ -65,27 +84,96 @@ def rank(group=None) -> int:
     return dist.get_rank(group)
 
 
-def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Every rank's ``x`` concatenated along dim 0, in rank order (the
-    reference's ``all_gather(..., axis=0, tiled=True)``)."""
+def all_gather(x: torch.Tensor, group=None, dim: int = 0,
+               kind: str = "") -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``, in rank order (the
+    reference's ``all_gather(..., axis=dim, tiled=True)``)."""
     x = x.contiguous()
     t0 = time.perf_counter()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
-    _record("all_gather", x, t0)
-    return torch.cat(parts, dim=0)
+    _record("all_gather", x, t0, kind)
+    return torch.cat(parts, dim=dim)
 
 
-def all_reduce(x: torch.Tensor, op: str = "sum",
-               group=None) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, op: str = "sum", group=None,
+               kind: str = "") -> torch.Tensor:
     """``x`` reduced over the group with ``op`` ("sum" or "max"), in
     place; returns ``x``."""
     if not x.is_contiguous():
         raise ValueError("all_reduce reduces a contiguous tensor in place")
     t0 = time.perf_counter()
     dist.all_reduce(x, op=_OPS[op], group=group)
-    _record("all_reduce_" + op, x, t0)
+    _record("all_reduce_" + op, x, t0, kind)
     return x
+
+
+def reduce_scatter(x: torch.Tensor, group=None, dim: int = 0,
+                   kind: str = "") -> torch.Tensor:
+    """This rank's block along ``dim`` of the SUM over the group of every
+    rank's ``x`` (blocks in rank order)."""
+    parts = [p.contiguous() for p in x.chunk(dist.get_world_size(group),
+                                             dim)]
+    t0 = time.perf_counter()
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    _record("reduce_scatter", x, t0, kind)
+    return out
+
+
+def _summed(x: torch.Tensor, group, kind: str) -> torch.Tensor:
+    return all_reduce(x.contiguous().clone(), "sum", group, kind)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group, ctx.kind), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        return _summed(x, group, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, kind):
+        ctx.group, ctx.dim, ctx.kind = group, dim, kind
+        return all_gather(x, group, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim, ctx.kind), None, None, \
+            None
+
+
+def copy_to(x: torch.Tensor, group, kind: str = "tp") -> torch.Tensor:
+    """``x`` forward; the gradient SUM all-reduced over the group."""
+    return _CopyTo.apply(x, group, kind)
+
+
+def reduce_from(x: torch.Tensor, group, kind: str = "tp") -> torch.Tensor:
+    """The SUM over the group of every rank's ``x``; the gradient passes
+    through unchanged."""
+    return _ReduceFrom.apply(x, group, kind)
+
+
+def gather_from(x: torch.Tensor, group, dim: int,
+                kind: str = "fsdp") -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``; the gradient of this
+    rank's slice summed over the group."""
+    return _GatherFrom.apply(x, group, dim, kind)
 
 
 def barrier(group=None) -> None:

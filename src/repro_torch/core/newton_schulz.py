@@ -30,6 +30,18 @@ way: the grid tier rounds Y X, subtracts it from I and symmetrizes in the
 compute dtype; the fused tier does all three on the fp32 accumulator and
 rounds once.
 
+Rows split over ranks (``polar(..., row_group=)``, Muon's local
+reshard, DESIGN.md §4): each rank holds a block of the rows of every
+slice (the long side; the caller orients it, no transpose here).  The
+entry normalization's Frobenius norm takes one SUM all-reduce of the
+local squares over the group; each iteration's Gram is the local rows'
+partial X^T X (K2, formed from the rows in fp32 whatever the compute
+dtype, so the O(1) partial never rounds to it) with one SUM all-reduce
+of the [n, n] partial, in fp32, and only then is I added and R rounded.  The fit and the certificates read that
+reduced R, bitwise equal on every rank of the group, so every rank takes
+the same decisions; the Horner product (K1) runs on the local rows.  The
+fused tier has no seam for a collective and stays off.
+
 Adaptive early stopping (DESIGN.md §11): with ``cfg.tol`` set, each
 maximal run of fitted iterations becomes one certify-then-freeze loop
 (``prism.adaptive_masked_loop``) reading the certificate est_r ~ ||R||_F
@@ -39,6 +51,7 @@ counts and guardian codes.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -63,16 +76,27 @@ def _fro(M: torch.Tensor) -> torch.Tensor:
                                 keepdim=True))
 
 
-def _safe_fro(M: torch.Tensor) -> torch.Tensor:
+def _row_fro(M: torch.Tensor, row_group) -> torch.Tensor:
+    """||M||_F of each slice whose rows are split over ``row_group``."""
+    from repro_torch import collectives
+
+    sq = torch.sum(torch.square(M.float()), dim=(-2, -1), keepdim=True)
+    return torch.sqrt(collectives.all_reduce(sq, "sum", row_group,
+                                             kind="norm"))
+
+
+def _safe_fro(M: torch.Tensor, row_group=None) -> torch.Tensor:
     """||M||_F clamped away from zero for the entry-point normalization.
 
     A zero slice (rank-collapsed momentum, freshly padded bucket slot)
     would otherwise normalize as 0/0 = NaN before the first iteration.
     Clamping to the smallest normal fp32 leaves every slice with
     ||M||_F >= tiny bit-identical and turns zero slices into exact zero
-    pass-throughs, which the chains then keep at X = 0.
+    pass-throughs, which the chains then keep at X = 0.  With
+    ``row_group`` the rows are split over its ranks.
     """
-    return torch.clamp(_fro(M), min=_TINY)
+    fro = _fro(M) if row_group is None else _row_fro(M, row_group)
+    return torch.clamp(fro, min=_TINY)
 
 
 def _mm(A, B, use_kernels: bool = False, alpha: float = 1.0, C=None,
@@ -89,14 +113,28 @@ def _mm(A, B, use_kernels: bool = False, alpha: float = 1.0, C=None,
     return kref.matmul_add(A, B, C, alpha=alpha, beta=beta)
 
 
-def _gram_residual(X: torch.Tensor, use_kernels: bool) -> torch.Tensor:
+def _gram_residual(X: torch.Tensor, use_kernels: bool,
+                   row_group=None) -> torch.Tensor:
     """R = I - X^T X (symmetric; K2 when enabled, else its plain version),
-    fp32-accumulated and rounded once to the compute dtype."""
+    fp32-accumulated and rounded once to the compute dtype.  With
+    ``row_group`` X holds a block of the rows: the partial -X^T X is
+    formed from X in fp32 (bf16 products are exact there, so only the
+    sums round) and SUM all-reduced over the group in fp32; then I is
+    added and R rounds once, as unsharded."""
     if use_kernels:
         from repro_torch.kernels import ops as kops
 
-        return kops.gram(X, alpha=1.0, beta=-1.0)
-    return kref.gram(X, alpha=1.0, beta=-1.0)
+        gram = kops.gram
+    else:
+        gram = kref.gram
+    if row_group is None:
+        return gram(X, alpha=1.0, beta=-1.0)
+    from repro_torch import collectives
+
+    part = gram(X.float(), alpha=0.0, beta=-1.0).contiguous()
+    collectives.all_reduce(part, "sum", row_group, kind="gram")
+    eye = torch.eye(X.shape[-1], dtype=torch.float32, device=X.device)
+    return (eye + part).to(X.dtype)
 
 
 def _coupled_residual(X, Y, use_kernels: bool) -> torch.Tensor:
@@ -388,7 +426,8 @@ def _with_telemetry(out, info, iters_used, return_info, return_iters,
 def polar(A: torch.Tensor, cfg: Optional[PrismConfig] = None,
           method: str = "prism", iters: Optional[int] = None, key=None,
           return_info: bool = False, n_real: Optional[torch.Tensor] = None,
-          return_iters: bool = False, return_status: bool = False):
+          return_iters: bool = False, return_status: bool = False,
+          row_group=None):
     """Polar factor U V^T of A [..., m, n] via (PRISM-)Newton-Schulz.
 
     method: "prism" | "newton_schulz" (classical Taylor alpha).
@@ -403,17 +442,23 @@ def polar(A: torch.Tensor, cfg: Optional[PrismConfig] = None,
       (int32, shape A.shape[:-2]).
     return_status: also return the per-matrix int8 guardian status
       (prism.STATUS_*), all zeros unless ``cfg.tol`` runs the certificate.
+    row_group: A [..., m_local, n] is this rank's block of the rows (the
+      long side) of every slice, the other blocks on the group's ranks
+      (module docstring); the result is this rank's rows.
     """
     cfg = PrismConfig() if cfg is None else cfg
     iters = cfg.iterations if iters is None else iters
-    transpose = A.shape[-2] < A.shape[-1]
+    transpose = row_group is None and A.shape[-2] < A.shape[-1]
+    if row_group is not None and cfg.fuse != "off":
+        cfg = dataclasses.replace(cfg, fuse="off")
     X = A.transpose(-1, -2) if transpose else A
     in_dtype = X.dtype
     dt = torch_dtype(cfg.dtype)
-    X = X.to(dt) / _safe_fro(X).to(dt)
+    X = X.to(dt) / _safe_fro(X, row_group).to(dt)
     X, _, alphas, fros, used, status = _run_phases(
         X, cfg, method, iters, key, return_info, "polar",
-        lambda x, y: _gram_residual(x, cfg.use_kernels), n_real=n_real)
+        lambda x, y: _gram_residual(x, cfg.use_kernels, row_group),
+        n_real=n_real)
     X = X.transpose(-1, -2) if transpose else X
     X = X.to(in_dtype)
     return _with_telemetry(X, (alphas, fros), used, return_info,

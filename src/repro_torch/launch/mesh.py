@@ -8,7 +8,11 @@ production meshes included.  Inside a world (``init_world``) the mesh
 also holds ``device_mesh``, a ``torch.distributed.device_mesh.DeviceMesh``
 over the current process group with the same named dimensions, and
 ``group(axes)`` gives the process group the collectives of those axes
-run over (``collectives.py``).
+run over (``collectives.py``): every subset of the axes has its groups,
+built when the mesh is built (``dist.new_group`` is collective, so every
+rank creates them all in the same order).  ``coords(rank)`` is a rank's
+row-major coordinate on each axis, the order the groups list their
+ranks in.
 
 The backend is chosen explicitly and printed: NCCL only when every rank
 has a CUDA device of its own; gloo on the CPU and for ranks that share a
@@ -21,7 +25,9 @@ and have no counterpart.
 from __future__ import annotations
 
 import datetime
+import itertools
 import math
+import os
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -54,8 +60,8 @@ def init_world(rank: int, world_size: int, init_method: str, *,
     """Join a world of ``world_size`` ranks as ``rank``; returns this
     rank's device.
 
-    ``init_method`` is ``file://<path>`` or ``tcp://localhost:<port>``
-    (nothing on the machine announces a cluster).  ``device`` is CUDA
+    ``init_method`` is ``file://<path>``, ``tcp://localhost:<port>`` or
+    ``env://`` (``init_world_from_env``: torchrun's variables).  ``device`` is CUDA
     unless named (``device.resolve_device``); rank r takes CUDA device
     r mod the device count.  Prints the backend and why it was chosen."""
     dev = resolve_device(device)
@@ -71,6 +77,23 @@ def init_world(rank: int, world_size: int, init_method: str, *,
     print(f"[mesh] rank {rank}/{world_size}: backend {backend} ({why}), "
           f"device {dev}, timeout {timeout_s:g} s", flush=True)
     return dev
+
+
+#: the variables torchrun sets for ``env://``
+ENV_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def init_world_from_env(*, device=None,
+                        timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
+    """Join the world torchrun describes (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT``) through ``env://``; raises
+    ValueError when the environment names no world."""
+    missing = [v for v in ENV_VARS if v not in os.environ]
+    if missing:
+        raise ValueError(f"no world in the environment: {missing} unset "
+                         f"(run under torchrun)")
+    return init_world(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                      "env://", device=device, timeout_s=timeout_s)
 
 
 def close_world() -> None:
@@ -98,6 +121,7 @@ class Mesh:
                                               (int(s) for s in shape)))
         self.size = math.prod(self.shape.values())
         self.device_mesh = None
+        self._groups: Dict[Tuple[str, ...], object] = {}
         if dist.is_available() and dist.is_initialized():
             world = dist.get_world_size()
             if world != self.size:
@@ -109,26 +133,53 @@ class Mesh:
             self.device_mesh = init_device_mesh(
                 dev.type if dev is not None else "cpu", tuple(shape),
                 mesh_dim_names=self.axis_names)
+            self._build_groups()
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
 
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """``rank``'s coordinate on each axis (row-major: the last axis
+        varies fastest); this process's rank by default."""
+        if rank is None:
+            rank = dist.get_rank() if dist.is_initialized() else 0
+        out, stride = {}, 1
+        for ax in reversed(self.axis_names):
+            out[ax] = (rank // stride) % self.shape[ax]
+            stride *= self.shape[ax]
+        return {ax: out[ax] for ax in self.axis_names}
+
+    def _build_groups(self) -> None:
+        """One process group for every proper subset of two or more axes
+        and every setting of the other axes, created on every rank in the
+        same order; one axis takes its DeviceMesh dimension's group."""
+        me = dist.get_rank()
+        names = self.axis_names
+        for k in range(2, len(names)):
+            for sub in itertools.combinations(names, k):
+                rest = [a for a in names if a not in sub]
+                for fixed in itertools.product(
+                        *(range(self.shape[a]) for a in rest)):
+                    ranks = [r for r in range(self.size)
+                             if all(self.coords(r)[a] == v
+                                    for a, v in zip(rest, fixed))]
+                    g = dist.new_group(ranks)
+                    if me in ranks:
+                        self._groups[sub] = g
+
     def group(self, axes: Sequence[str]):
-        """The process group the collectives over ``axes`` run in.  Axes
-        that hold every rank of more than one give the world; one axis its
-        DeviceMesh dimension."""
+        """The process group the collectives over ``axes`` run in: the
+        ranks that share this rank's coordinates on every other axis,
+        listed in row-major order over ``axes``."""
         if self.device_mesh is None:
             raise RuntimeError(f"{self!r} has no process group: call "
                                f"init_world first")
-        axes = tuple(axes)
+        axes = tuple(a for a in self.axis_names if a in tuple(axes))
         if math.prod(self.shape[a] for a in axes) == self.size:
             return dist.group.WORLD
         if len(axes) == 1:
             return self.device_mesh.get_group(axes[0])
-        raise NotImplementedError(
-            f"collectives over {axes} of {self!r} (part of the world over "
-            f"several axes) come with model-axis sharding, ROADMAP.md "
-            f"Queue 1 item 11b")
+        return self._groups[axes]
 
 
 def _axes(multi_pod: bool) -> Tuple[str, ...]:

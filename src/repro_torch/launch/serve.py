@@ -24,8 +24,9 @@ random from ``--seed`` unless ``--ckpt_dir`` names a checkpoint.
 Batch-mode prompts come from ``models/inputs.make_train_batch`` on a
 generator seeded with ``--seed``.  The first prefill call is timed apart
 from the second, so the prefill tokens/s is a steady-state number.
-``--mesh production`` (model = 16) comes with model-axis sharding,
-ROADMAP.md Queue 1 item 11b.
+``--mesh production`` (model = 16, the "serve" rules with
+``kv_seq``-sharded decode caches) comes with ROADMAP.md Queue 1 item
+11d.
 Without ``--device`` it runs on CUDA.
 """
 from __future__ import annotations
@@ -173,7 +174,7 @@ def main(argv=None):
     if args.mesh == "production":
         raise NotImplementedError(
             "--mesh production (model = 16) comes with model-axis "
-            "sharding, ROADMAP.md Queue 1 item 11b")
+            "sharding, ROADMAP.md Queue 1 item 11d")
     device = resolve_device(args.device)
     model, params = load_model(args, device)
     if args.continuous:

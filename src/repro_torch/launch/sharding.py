@@ -18,13 +18,19 @@ name, or a tuple of axis names, in the form of the reference's
 reference's ``NamedSharding`` does, and ``placements`` turns it into
 DTensor placements for the mesh's ``DeviceMesh``.  The rules take any
 mesh with ``shape``/``axis_names`` (``launch/mesh.py``), the production
-meshes included.  The port runs the data axis (``batch``,
-``opt_batch``); the parameter rules serve the sharded model of ROADMAP.md
-Queue 1 item 11b.
+meshes included.
+
+The layout arithmetic lives here too: ``local_shape``/``local_block``
+give a rank's block of a leaf (numpy or torch; mesh axes of size 1 split
+nothing, a dim split over several axes takes them in mesh order, row
+major), ``full_shape`` inverts ``local_shape``, and ``gather_full``
+all-gathers a block back to the whole leaf over the axes it is split on,
+dim by dim.  The model, the optimizer and the checkpoints take their
+blocks through these functions only.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 from repro_torch.config import ModelConfig
 
@@ -192,6 +198,12 @@ def batch_axes(mesh) -> Tuple[str, ...]:
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
 
 
+def strategy_batch_axes(mesh, strategy: str = "tp") -> Tuple[str, ...]:
+    """The axes a strategy's ``batch`` rule splits the rows over: the
+    whole mesh under "zero", (pod, data) otherwise."""
+    return tuple(mesh.axis_names) if strategy == "zero" else batch_axes(mesh)
+
+
 def activation_rules(cfg: ModelConfig, mesh, strategy: str = "tp"
                      ) -> Dict[str, Any]:
     """Logical-axis rules for activations, installed with
@@ -331,3 +343,93 @@ def shardings_like(mesh, shapes_tree, ref_shardings_tree):
                 for k, v in shapes_tree.items()}
     return replicated(mesh) if not _shape_of(shapes_tree) \
         else ref_shardings_tree
+
+
+# ------------------------------------------------------------------ blocks
+
+def split_axes(sh: Optional[Sharding], dim: int) -> Tuple[str, ...]:
+    """The mesh axes larger than 1 that split dim ``dim`` of a leaf under
+    ``sh``, in mesh order (a dim's axes must be listed in mesh order)."""
+    if sh is None or dim >= len(sh.spec):
+        return ()
+    axes = tuple(a for a in axes_of(sh.spec[dim]) if sh.mesh.shape[a] > 1)
+    order = tuple(a for a in sh.mesh.axis_names if a in axes)
+    if axes != order:
+        raise ValueError(f"spec entry {sh.spec[dim]} lists mesh axes out "
+                         f"of the mesh's order {sh.mesh.axis_names}")
+    return axes
+
+
+def sharded_axes(sh: Optional[Sharding]) -> Tuple[str, ...]:
+    """Every mesh axis larger than 1 that splits some dim under ``sh``."""
+    if sh is None:
+        return ()
+    return tuple(a for d in range(len(sh.spec)) for a in split_axes(sh, d))
+
+
+def _splits(sh: Optional[Sharding], ndim: int, coords=None):
+    """[(dim, parts, index)] of every split dim; ``index`` is the block
+    ``coords`` (axis -> coordinate) holds, None without ``coords``."""
+    out = []
+    for dim in range(ndim):
+        axes = split_axes(sh, dim)
+        if not axes:
+            continue
+        parts, idx = 1, 0
+        for a in axes:
+            parts *= sh.mesh.shape[a]
+            if coords is not None:
+                idx = idx * sh.mesh.shape[a] + coords[a]
+        out.append((dim, parts, idx if coords is not None else None))
+    return out
+
+
+def local_shape(shape: Tuple[int, ...], sh: Optional[Sharding]
+                ) -> Tuple[int, ...]:
+    """The shape of one rank's block of a ``shape`` leaf under ``sh``;
+    raises on a dim that does not split evenly."""
+    shape = list(int(d) for d in shape)
+    for dim, parts, _ in _splits(sh, len(shape)):
+        if shape[dim] % parts:
+            raise ValueError(f"dim {dim} of a {tuple(shape)} leaf does not "
+                             f"split into {parts} blocks ({sh.spec})")
+        shape[dim] //= parts
+    return tuple(shape)
+
+
+def full_shape(shape: Tuple[int, ...], sh: Optional[Sharding]
+               ) -> Tuple[int, ...]:
+    """The whole leaf's shape from one block's ``shape`` under ``sh``."""
+    shape = list(int(d) for d in shape)
+    for dim, parts, _ in _splits(sh, len(shape)):
+        shape[dim] *= parts
+    return tuple(shape)
+
+
+def local_block(x, sh: Optional[Sharding], coords):
+    """The block of ``x`` (a numpy array or a torch tensor: the whole
+    leaf) that the rank at ``coords`` (``Mesh.coords``) holds under
+    ``sh``: a view, contiguous slices of every split dim."""
+    local_shape(tuple(x.shape), sh)  # every split dim must divide
+    for dim, parts, idx in _splits(sh, len(x.shape), coords):
+        n = x.shape[dim] // parts
+        sl = [slice(None)] * len(x.shape)
+        sl[dim] = slice(idx * n, (idx + 1) * n)
+        x = x[tuple(sl)]
+    return x
+
+
+def gather_full(x, sh: Optional[Sharding], *, kind: str = "gather"):
+    """The whole leaf from every rank's block ``x`` under ``sh``: one
+    all-gather a split dim, over the axes that split it (collective on
+    every rank of the mesh; not differentiable, see
+    ``collectives.gather_from``)."""
+    from repro_torch import collectives
+
+    for dim in range(x.dim()):
+        axes = split_axes(sh, dim)
+        if axes:
+            x = collectives.all_gather(x, sh.mesh.group(axes), dim=dim,
+                                       kind=kind)
+    return x
+

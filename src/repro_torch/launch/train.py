@@ -21,19 +21,36 @@ resumes from the newest checkpoint that verifies.
 
 ``--compression int8`` passes the clipped gradients through the int8
 round trip (``optim/compression.py``), as the reference's step does.
-``--mesh production`` and ``--multi_pod`` (model = 16) come with
-model-axis sharding, ROADMAP.md Queue 1 item 11b, and
-``--pipeline_stages > 1`` with the 1F1B pipeline, item 11c: they raise.
+
+``--mesh production [--multi_pod]`` trains as one rank of a world that
+torchrun describes (``launch/mesh.init_world_from_env``):
+
+    torchrun --nproc_per_node 256 -m repro_torch.launch.train --mesh production
+
+on ``make_production_mesh`` ((data 16, model 16), a pod axis of 2 in
+front with ``--multi_pod``) under the reference's default rules,
+``param_rules(cfg, mesh)`` ("tp": FSDP over data, tensor parallelism
+over model), through the Trainer (``production_layout`` builds the mesh
+and the shardings, also without a world).  A world of another size
+fails with the ``Mesh``'s ValueError; ``--multi_pod`` without ``--mesh
+production`` is a ValueError; the other families on the production mesh
+raise (ROADMAP.md Queue 1 item 11d), as ``--pipeline_stages > 1`` (the
+1F1B pipeline) does (item 11c).
 """
 from __future__ import annotations
 
 import argparse
 
+import torch.distributed as dist
+
 from repro_torch.config import OptimizerConfig, PrismConfig, TrainConfig
 from repro_torch.configs import arch_ids, get_config, get_smoke_config
 from repro_torch.data import DataConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import init_world_from_env, make_production_mesh
 from repro_torch.models import Model
+from repro_torch.models.transformer import param_specs
 from repro_torch.train import Trainer
 
 
@@ -80,10 +97,8 @@ def parser() -> argparse.ArgumentParser:
 def configs(args):
     """(model config, optimizer config, train config, data config) of the
     parsed ``args``."""
-    if args.mesh == "production" or args.multi_pod:
-        raise NotImplementedError(
-            "--mesh production and --multi_pod (model = 16) come with "
-            "model-axis sharding, ROADMAP.md Queue 1 item 11b")
+    if args.multi_pod and args.mesh != "production":
+        raise ValueError("--multi_pod needs --mesh production")
     if args.pipeline_stages > 1:
         raise NotImplementedError(
             "--pipeline_stages > 1 (1F1B) comes with ROADMAP.md Queue 1 "
@@ -105,12 +120,37 @@ def configs(args):
     return cfg, ocfg, tcfg, dcfg
 
 
+def production_layout(cfg, multi_pod: bool = False):
+    """(mesh, {"params": shardings}) of ``--mesh production``: the
+    production mesh and ``tree_shardings`` of the reference's default
+    rules (``param_rules(cfg, mesh)``, "tp").  Outside a world the mesh
+    has its shape only; inside one it must hold every rank."""
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    rules = sharding.param_rules(cfg, mesh)
+    specs = param_specs(cfg)
+    shards = sharding.tree_shardings(
+        mesh, {k: a for k, (_, a, _) in specs.items()}, rules,
+        {k: s for k, (s, _, _) in specs.items()})
+    return mesh, {"params": shards}
+
+
 def build(args) -> Trainer:
     """The Trainer of the parsed ``args``: its model drawn from
-    ``args.seed`` on ``args.device``."""
+    ``args.seed`` on ``args.device``; with ``--mesh production``, one rank
+    of the world the environment describes, on its block of the
+    parameters."""
     cfg, ocfg, tcfg, dcfg = configs(args)
+    mesh = shardings = None
+    if args.mesh == "production":
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"--mesh production for the {cfg.family} family comes with "
+                f"ROADMAP.md Queue 1 item 11d")
+        if not dist.is_initialized():
+            init_world_from_env(device=args.device)
+        mesh, shardings = production_layout(cfg, args.multi_pod)
     model = Model(cfg, device=resolve_device(args.device), seed=args.seed)
-    return Trainer(model, ocfg, tcfg, dcfg)
+    return Trainer(model, ocfg, tcfg, dcfg, mesh=mesh, shardings=shardings)
 
 
 def main(argv=None):

@@ -9,21 +9,37 @@ the unnormalized probabilities rounded before P V, fp32 accumulation, one
 division by the fp32 denominator.  A sliding window masks keys more than
 ``window`` positions back.  ``decode_attend`` is the one-token step
 against a KV cache, which it updates in place.
+
+Tensor parallelism (``attend(..., tp=)``): a rank holds H_padded / model
+query heads (``wq``, ``bq`` and ``wo``'s head dim are its block; the
+heads pad to ``HEAD_PAD`` for this).  The kv heads are replicated over
+the model axis: each rank projects only the kv heads its query heads
+read, and ``_expand_kv`` maps its heads onto them from the rank's global
+head offset.  ``wo`` is row-parallel and ends in one SUM all-reduce over
+the model axis; the input enters through ``collectives.copy_to``.  The
+gradients of the replicated leaves a rank uses on its heads only
+(``TP_PARTIAL``) are partial sums, which the train step sums over the
+model axis.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import collectives, sharding_ctx
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 
 KV_BLOCK = 1024
 HEAD_PAD = 16  # pad head counts to the model-axis width for clean TP
 INT32_MAX = torch.iinfo(torch.int32).max  # the k positions of pad keys
+#: replicated over the model axis, used on a rank's heads only: under
+#: tensor parallelism their gradients are partial sums over the ranks
+TP_PARTIAL = ("wk", "wv", "bk", "bv", "q_norm", "k_norm")
 
 
 def padded_heads(cfg: ModelConfig):
@@ -107,9 +123,18 @@ def _project_qkv(params, x, positions, cfg: ModelConfig):
     return q, k, v
 
 
-def _expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
-    """[B, S, KV, Hd] -> [B, S, H, Hd] by repeating each kv head."""
-    return k if groups == 1 else torch.repeat_interleave(k, groups, dim=2)
+def _expand_kv(k: torch.Tensor, groups: int, offset: int = 0,
+               heads: Optional[int] = None) -> torch.Tensor:
+    """[B, S, KV, Hd] -> [B, S, H, Hd] by repeating each kv head: query
+    head j reads kv head (offset + j) // groups, ``offset`` the first
+    query head's global index less ``groups`` times the first kv head's
+    (a rank's heads under tensor parallelism)."""
+    heads = k.shape[2] * groups if heads is None else heads
+    if groups == 1 and offset == 0 and heads == k.shape[2]:
+        return k
+    idx = torch.div(offset + torch.arange(heads, device=k.device), groups,
+                    rounding_mode="floor")
+    return k.index_select(2, idx)
 
 
 def _flash_attend(q, k, v, q_pos, k_pos, window: int, kv_block: int):
@@ -152,13 +177,42 @@ def _flash_attend(q, k, v, q_pos, k_pos, window: int, kv_block: int):
     return out.to(q.dtype)
 
 
+def _rank_kv(params, tp: L.TP, cfg: ModelConfig):
+    """(params with ``wk``/``wv``/``bk``/``bv`` cut to the kv heads this
+    rank's query heads read, groups, offset, local heads)."""
+    Hp, KVp = padded_heads(cfg)
+    groups = Hp // KVp
+    Hl = params["wq"].shape[-2]
+    h0 = tp.index * Hl
+    kv0, kv1 = h0 // groups, (h0 + Hl - 1) // groups + 1
+    p = dict(params)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p:
+            p[name] = p[name].narrow(-2, kv0, kv1 - kv0)
+    return p, groups, h0 - kv0 * groups, Hl
+
+
 def attend(params, x, positions, cfg: ModelConfig, window=None,
-           kv_block: int = KV_BLOCK):
-    """Self-attention over x [B, S, D] (train / prefill) -> (out, (k, v))."""
-    q, k, v = _project_qkv(params, x, positions, cfg)
+           kv_block: int = KV_BLOCK, tp: Optional[L.TP] = None):
+    """Self-attention over x [B, S, D] (train / prefill) -> (out, (k, v));
+    with ``tp`` on the rank's heads (module docstring), (k, v) the kv
+    heads they read."""
     w = cfg.sliding_window if window is None else window
-    out = _flash_attend(q, k, v, positions, positions, w, kv_block)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
+    if tp is None:
+        q, k, v = _project_qkv(params, x, positions, cfg)
+        out = _flash_attend(q, k, v, positions, positions, w, kv_block)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
+    x = collectives.copy_to(x, tp.group)
+    p, groups, offset, Hl = _rank_kv(params, tp, cfg)
+    q, k, v = _project_qkv(p, x, positions, cfg)
+    sharding_ctx.shard_activation(
+        q, (None, None, "heads", None),
+        (q.shape[0], q.shape[1], padded_heads(cfg)[0], q.shape[3]))
+    out = _flash_attend(q, _expand_kv(k, groups, offset, Hl),
+                        _expand_kv(v, groups, offset, Hl), positions,
+                        positions, w, kv_block)
+    h = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return collectives.reduce_from(h, tp.group), (k, v)
 
 
 def write_rows(cache, slot, new, active):

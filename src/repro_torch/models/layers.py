@@ -3,16 +3,35 @@
 
 Parameters are plain tensors in a name -> tensor dict; every function
 takes the tensors it needs and keeps the reference's casts.
+
+Tensor parallelism (``TP``, a rank's place on the model axis): ``mlp``
+is column-parallel in ``w_up``/``w_gate`` over the rank's ``mlp``
+columns and row-parallel in ``w_down``, whose partial sums end in one
+SUM all-reduce over the model axis (``collectives.reduce_from``); its
+input enters through ``collectives.copy_to``, whose backward sums the
+input's gradient over the model axis.
 """
 from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import collectives
 from repro_torch.config import ModelConfig
 
 NEG_INF = -1e30  # finite mask: -inf breaks the softmax max-subtraction
+
+
+class TP(NamedTuple):
+    """A rank's place on the model axis: the group its partial sums
+    reduce over, the group's size and the rank's index in it."""
+
+    group: Any
+    size: int
+    index: int
 
 
 # ---------------------------------------------------------------------------
@@ -79,7 +98,12 @@ def mlp_axes(cfg: ModelConfig):
     return p
 
 
-def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, cfg: ModelConfig,
+        tp: Optional[TP] = None) -> torch.Tensor:
+    """The feed-forward on x [..., d]; with ``tp`` on the rank's columns
+    (see the module docstring)."""
+    if tp is not None:
+        x = collectives.copy_to(x, tp.group)
     up = x @ params["w_up"]
     if cfg.mlp_act == "silu":
         gate = F.silu((x @ params["w_gate"]).float())
@@ -87,7 +111,8 @@ def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(up.float(), approximate="tanh").to(x.dtype)
-    return h @ params["w_down"]
+    out = h @ params["w_down"]
+    return out if tp is None else collectives.reduce_from(out, tp.group)
 
 
 # ---------------------------------------------------------------------------

@@ -59,17 +59,41 @@ reference's does.  The recurrent families prefill with one
 ``decode_step`` a prompt position (``_prefill_scan``), as the reference
 does.  The serving methods run under ``torch.inference_mode()``;
 ``decode_step`` updates every cache leaf in place.
+
+Sharded parameters (``Model.shard(mesh, shardings, strategy)``, the
+layout ``launch/sharding.py::tree_shardings(param_rules(cfg, mesh,
+strategy))`` gives): each rank keeps only its block of every master
+(``sharding.local_block``), and the dense family computes on the blocks
+in the Megatron / ZeRO-3 pattern.  On use, every leaf split over an axis
+other than the tensor-parallel one (``embed -> data`` under "tp", the
+flat ``(data, model)`` split under "zero") is all-gathered over it, one
+``collectives.gather_from`` a stacked leaf and split dim a forward, whose
+backward returns this rank's slice of the gradient summed over those
+ranks.  Under "tp" with a model axis larger than 1 the layers run on the
+rank's heads, mlp columns and vocab rows (``layers.mlp``,
+``attention.attend``): the embedding masks the tokens outside the rank's
+vocab rows and sums over the model axis, the head's logits are the
+rank's vocab columns (``forward`` returns those), pad rows masked at the
+rank's global offset, and the CE reduces the log-softmax's max (one MAX
+all-reduce) and its sum of exponentials with the target logit (one SUM)
+over the model axis.  Shapes
+come from the tensors, not from ``cfg``.  Only the dense family trains
+sharded; the others, and serving, on sharded parameters raise
+(ROADMAP.md Queue 1 item 11d).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import collectives
 from repro_torch.config import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -288,6 +312,42 @@ def cache_leaves(cache):
     return [t for c in items for t in cache_leaves(c)]
 
 
+class Layout:
+    """A rank's layout of a sharded ``Model``: the mesh, the strategy
+    ("tp" or "zero"), each parameter's ``Sharding``, the batch axes the
+    strategy splits the rows over, the tensor-parallel place (``tp``,
+    None unless "tp" with model > 1) and, for each parameter, the split
+    dims gathered on use with their axes."""
+
+    def __init__(self, mesh, shardings, strategy: str, names):
+        if strategy not in ("tp", "zero"):
+            raise ValueError(f"strategy {strategy!r}: 'tp' or 'zero'")
+        self.mesh, self.strategy = mesh, strategy
+        self.shardings = {k: shardings.get(k) for k in names}
+        self.coords = mesh.coords()
+        self.batch_axes = tuple(a for a in sharding.strategy_batch_axes(
+            mesh, strategy) if mesh.shape[a] > 1)
+        tp_axis = "model" if strategy == "tp" and \
+            mesh.shape.get("model", 1) > 1 else None
+        self.tp = None if tp_axis is None else L.TP(
+            mesh.group((tp_axis,)), mesh.shape[tp_axis],
+            self.coords[tp_axis])
+        self.gathered = {}
+        for k, sh in self.shardings.items():
+            spec = () if sh is None else sh.spec
+            dims = [(d, tuple(a for a in sharding.split_axes(sh, d)
+                              if a != tp_axis)) for d in range(len(spec))]
+            self.gathered[k] = [(d, ax) for d, ax in dims if ax]
+
+    @property
+    def batch_size(self) -> int:
+        """The ranks holding distinct rows of the batch."""
+        return math.prod(self.mesh.shape[a] for a in self.batch_axes)
+
+    def gathered_axes(self, name: str):
+        return tuple(a for _, ax in self.gathered[name] for a in ax)
+
+
 class Model(nn.Module):
     """Decoder with fp32 master parameters (see module docstring).
 
@@ -302,6 +362,7 @@ class Model(nn.Module):
         self._specs = param_specs(cfg)
         if cfg.family == "hybrid":
             self.n_periods, self.n_tail = hybrid_layout(cfg)
+        self.layout: Optional[Layout] = None
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -343,17 +404,80 @@ class Model(nn.Module):
     @torch.no_grad()
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Copy ``params`` (name -> tensor, any float dtype) into the
-        masters; names and shapes must match exactly."""
+        masters; names and shapes must match exactly (a sharded model
+        takes each leaf whole or as its own block)."""
         own = dict(self.named_parameters())
         if set(params) != set(own):
             raise KeyError(f"parameter names differ: missing "
                            f"{sorted(set(own) - set(params))}, unexpected "
                            f"{sorted(set(params) - set(own))}")
         for k, v in params.items():
+            if self.layout is not None and \
+                    tuple(v.shape) == tuple(self._specs[k][0]):
+                v = sharding.local_block(v, self.layout.shardings[k],
+                                         self.layout.coords)
             if tuple(v.shape) != tuple(own[k].shape):
                 raise ValueError(f"{k}: shape {tuple(v.shape)} != "
                                  f"{tuple(own[k].shape)}")
             own[k].copy_(v)
+
+    @torch.no_grad()
+    def shard(self, mesh, shardings: Dict[str, "sharding.Sharding"],
+              strategy: str = "tp") -> "Model":
+        """Keep only this rank's block of every master under
+        ``shardings`` (name -> ``Sharding``; a missing name is
+        replicated) and compute on the blocks from now on (module
+        docstring); ``strategy`` is the rules' ("tp" or "zero").
+        Collective: every rank of ``mesh``'s world calls it.  Returns
+        the model."""
+        if self.layout is not None:
+            raise ValueError("the model is sharded already")
+        names = [k for k, _ in self.named_parameters()]
+        layout = Layout(mesh, shardings, strategy, names)
+        if self.cfg.family != "dense" and (layout.tp is not None or any(
+                sharding.sharded_axes(sh)
+                for sh in layout.shardings.values())):
+            raise NotImplementedError(
+                f"the {self.cfg.family} family on sharded parameters or a "
+                f"model axis comes with ROADMAP.md Queue 1 item 11d")
+        if layout.tp is not None:
+            for k in ("embed", "head", "layers.attn.wq", "layers.mlp.w_up"):
+                sh = layout.shardings.get(k)
+                if k in self._specs and "model" not in \
+                        sharding.sharded_axes(sh):
+                    raise ValueError(f"tensor parallelism needs {k} split "
+                                     f"over the model axis, not {sh}")
+        for k, p in self.named_parameters():
+            p.data = sharding.local_block(p.data, layout.shardings[k],
+                                          layout.coords).clone()
+        self.layout = layout
+        return self
+
+    @property
+    def tp(self) -> Optional[L.TP]:
+        return None if self.layout is None else self.layout.tp
+
+    def _use(self, params):
+        """``params`` with every leaf the layout splits over a
+        non-tensor-parallel axis gathered over it (FSDP / ZeRO-3)."""
+        if self.layout is None:
+            return params
+        out = dict(params)
+        mesh = self.layout.mesh
+        for k, dims in self.layout.gathered.items():
+            for d, axes in dims:
+                out[k] = collectives.gather_from(out[k], mesh.group(axes), d)
+        return out
+
+    def _unsharded(self, what: str) -> None:
+        if self.layout is not None:
+            raise NotImplementedError(
+                f"{what} on sharded parameters comes with ROADMAP.md Queue 1 "
+                f"item 11d")
+
+    def _vocab_offset(self, rows: int) -> int:
+        """The first global vocab row of this rank's ``rows`` rows."""
+        return 0 if self.tp is None else self.tp.index * rows
 
     # ------------------------------------------------------------- pieces
 
@@ -364,6 +488,15 @@ class Model(nn.Module):
             K = cfg.num_codebooks
             book = torch.arange(K, device=tokens.device)[None, :, None]
             x = torch.sum(params["embed"][book, tokens], dim=1)
+        elif self.tp is not None:
+            # vocab-parallel: this rank's rows, zeros elsewhere, summed
+            emb = params["embed"]
+            local = tokens - self._vocab_offset(emb.shape[0])
+            mine = (local >= 0) & (local < emb.shape[0])
+            x = emb[torch.where(mine, local, 0)]
+            x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+            x = collectives.reduce_from(x, self.tp.group)
         else:
             x = params["embed"][tokens]
         if cfg.scale_embeddings:
@@ -373,6 +506,8 @@ class Model(nn.Module):
     def _lm_logits(self, params, x):
         cfg = self.cfg
         x = L.rms_norm(x, params["final_ln"], cfg.norm_eps)
+        if self.tp is not None:
+            x = collectives.copy_to(x, self.tp.group)
         if cfg.family == "audio":
             logits = torch.einsum("bsd,kdv->bksv", x, params["heads"])
         elif cfg.tie_embeddings:
@@ -381,7 +516,9 @@ class Model(nn.Module):
             logits = x @ params["head"]
         logits = L.softcap(logits.float(), cfg.logits_softcap)
         if self.padded_vocab != cfg.vocab_size:  # mask pad rows out of CE
-            iota = torch.arange(self.padded_vocab, device=logits.device)
+            rows = logits.shape[-1]
+            iota = self._vocab_offset(rows) + torch.arange(
+                rows, device=logits.device)
             logits = torch.where(iota < cfg.vocab_size, logits,
                                  torch.full((), L.NEG_INF,
                                             device=logits.device))
@@ -404,7 +541,7 @@ class Model(nn.Module):
         """The layer's feed-forward -> (out, aux loss)."""
         if self.cfg.family == "moe":
             return moe_lib.moe_ffn(m, x, self.cfg)
-        return L.mlp(m, x, self.cfg), 0.0
+        return L.mlp(m, x, self.cfg, self.tp), 0.0
 
     def _block(self, layer, x, positions):
         """One decoder layer -> (x, aux, (k, v)): the (k, v) ``attend``
@@ -412,7 +549,7 @@ class Model(nn.Module):
         cfg = self.cfg
         a, m, ln1, ln2 = layer
         h, kv = attn.attend(a, L.rms_norm(x, ln1, cfg.norm_eps), positions,
-                            cfg)
+                            cfg, tp=self.tp)
         x = x + h
         h, aux = self._ffn(m, L.rms_norm(x, ln2, cfg.norm_eps))
         return x + h, aux, kv
@@ -507,8 +644,9 @@ class Model(nn.Module):
     # ------------------------------------------------------------- public
 
     def forward(self, batch, params: Optional[Dict] = None):
-        """Full-sequence fp32 logits over the padded vocab, and aux."""
-        params = self.cast_params() if params is None else params
+        """Full-sequence fp32 logits over the padded vocab (a rank's vocab
+        columns under tensor parallelism), and aux."""
+        params = self._use(self.cast_params() if params is None else params)
         x, P = self._inputs(params, batch)
         x, aux = self._backbone(params, x, self._positions(x))
         return self._lm_logits(params, x[:, P:]), aux
@@ -517,7 +655,7 @@ class Model(nn.Module):
              chunk: Optional[int] = None):
         """Next-token CE with seq-chunked logits, plus the MoE aux loss ->
         (loss, metrics)."""
-        params = self.cast_params() if params is None else params
+        params = self._use(self.cast_params() if params is None else params)
         x, P = self._inputs(params, batch)
         x, aux = self._backbone(params, x, self._positions(x))
         ce = self._ce_from_hidden(params, x[:, P:], batch["tokens"], chunk)
@@ -540,6 +678,10 @@ class Model(nn.Module):
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for s0 in range(0, Sm1, chunk):
             logits = self._lm_logits(params, xs[:, s0:s0 + chunk])
+            if self.tp is not None:
+                total = total + torch.sum(self._tp_nll(
+                    logits, tg[..., s0:s0 + chunk]))
+                continue
             logp = torch.log_softmax(logits, dim=-1)
             nll = -torch.gather(logp, -1,
                                 tg[..., s0:s0 + chunk, None].long())[..., 0]
@@ -547,6 +689,24 @@ class Model(nn.Module):
                 nll = torch.mean(nll, dim=1)  # average codebooks
             total = total + torch.sum(nll)
         return total / (B * Sm1)
+
+    def _tp_nll(self, logits, targets):
+        """-log softmax at ``targets`` from this rank's vocab columns of
+        the logits: the max, the sum of exponentials and the target logit
+        each reduced over the model axis."""
+        group = self.tp.group
+        m = collectives.all_reduce(torch.amax(logits.detach(), dim=-1),
+                                   "max", group, kind="tp")
+        sumexp = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+        local = targets.long() - self._vocab_offset(logits.shape[-1])
+        mine = (local >= 0) & (local < logits.shape[-1])
+        picked = torch.gather(logits, -1,
+                              torch.where(mine, local, 0)[..., None])[..., 0]
+        target = torch.where(mine, picked,
+                             torch.zeros((), device=logits.device))
+        sumexp, target = collectives.reduce_from(
+            torch.stack([sumexp, target]), group)
+        return torch.log(sumexp) + m - target
 
     # ------------------------------------------------------------- decode
 
@@ -567,6 +727,7 @@ class Model(nn.Module):
     def prefill(self, batch, params: Optional[Dict] = None):
         """Serving prefill: the backbone over the whole prompt, fp32
         logits [B, 1, V_padded] of the last position only."""
+        self._unsharded("serving")
         params = self.cast_params() if params is None else params
         x, _ = self._inputs(params, batch)
         x, _ = self._backbone(params, x, self._positions(x))
@@ -579,6 +740,7 @@ class Model(nn.Module):
         ``INT_SENTINEL`` (clen = ``cache_len(seq_len)``); the recurrent
         families' layouts are in the module docstring (conv states in the
         compute dtype, the ssm and RG-LRU states fp32, zeros)."""
+        self._unsharded("serving")
         cfg = self.cfg
         dev = self.embed.device
         dt = torch_dtype(cfg.dtype)
@@ -628,6 +790,7 @@ class Model(nn.Module):
         attention).  A vlm prompt's positions and cache include its patch
         prefix, and it takes no ``lengths``.  The recurrent families run
         ``_prefill_scan``."""
+        self._unsharded("serving")
         cfg = self.cfg
         params = self.cast_params() if params is None else params
         if cfg.family in ("ssm", "hybrid"):
@@ -764,6 +927,7 @@ class Model(nn.Module):
         the reference does.  The recurrent families write their conv and
         recurrent states in place the same way (the hybrid's attention
         layers its rolling k/v rows)."""
+        self._unsharded("serving")
         cfg = self.cfg
         params = self.cast_params() if params is None else params
         x = self._embed_tokens(params, tokens)

@@ -1,11 +1,12 @@
 """Optimizers of the port: Muon (+PRISM) with its AdamW branch, Shampoo
 with PRISM inverse square roots and its Adam branch, the AdamW baseline,
 and the §15 skip-step guard."""
-from typing import Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
 
 from repro_torch.config import OptimizerConfig
+from repro_torch.launch import sharding
 from repro_torch.optim import base, bucketing
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.muon import Muon
@@ -14,12 +15,23 @@ from repro_torch.optim.shampoo import Shampoo
 
 def make_optimizer(cfg: OptimizerConfig,
                    named_params: Iterable[Tuple[str, torch.Tensor]],
-                   axes: Dict[str, tuple]):
+                   axes: Dict[str, tuple],
+                   shardings: Optional[Dict[str, Any]] = None):
     """The optimizer ``cfg.name`` names, over named parameters and their
     logical axes (counterpart of ``repro.optim.make_optimizer``), wrapped
-    in the §15 skip-step guard when ``cfg.skip_nonfinite``."""
+    in the §15 skip-step guard when ``cfg.skip_nonfinite``.
+    ``shardings`` (name -> ``launch.sharding.Sharding``) is a sharded
+    model's layout: Muon gathers its matrix views whole; AdamW is
+    elementwise on the blocks; Shampoo on sharded parameters raises
+    (ROADMAP.md Queue 1 item 11d)."""
+    if shardings and any(sharding.sharded_axes(sh)
+                         for sh in shardings.values()) and \
+            cfg.name == "shampoo":
+        raise NotImplementedError(
+            "Shampoo on sharded parameters comes with ROADMAP.md Queue 1 "
+            "item 11d")
     if cfg.name == "muon":
-        opt = Muon(named_params, cfg, axes)
+        opt = Muon(named_params, cfg, axes, shardings)
     elif cfg.name == "shampoo":
         opt = Shampoo(named_params, cfg, axes)
     elif cfg.name == "adamw":

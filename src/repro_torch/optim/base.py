@@ -54,15 +54,18 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Scale grads (as fp32) so their global norm is at most ``max_norm``.
+    """Scale grads (as fp32) so their global norm (``norm`` when given:
+    the norm of the whole gradients a rank holds blocks of) is at most
+    ``max_norm``.
 
     Guarded (§15): a zero set keeps scale 1 instead of dividing by zero,
     and a NON-FINITE global norm passes the gradients through UNSCALED, so
     one inf entry does not turn into an all-zero or all-NaN step.  Returns
     (clipped grads, raw global norm)."""
-    gn = global_norm(grads)
+    gn = global_norm(grads) if norm is None else norm
     scale = torch.where(torch.isfinite(gn),
                         torch.clamp(max_norm / torch.clamp(gn, min=1e-12),
                                     max=1.0),

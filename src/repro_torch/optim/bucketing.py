@@ -31,6 +31,19 @@ Sharding (DESIGN.md §8): under a mesh with a data axis larger than 1
 (``mesh_batch_axes``) each bucket's batch dim is partitioned over the
 ranks (``shard_over_batch``): each rank runs the chains on its own
 contiguous slices, and the results are all-gathered.
+
+Muon's local reshard (``muon_local_reshard``, DESIGN.md §4; the
+reference's ``bucketing.py:390-403``): under a context whose rules map
+``opt_layers`` and ``opt_rows`` to mesh axes larger than 1
+(``local_reshard_axes``), a bucket built only from layer stacks splits
+its slices over ``opt_layers`` (model) and the rows of its long side over
+``opt_rows`` (data), padding with identity slices as
+``shard_over_batch`` does (``polar_local_rows``): the grid tier's polar
+then runs on the local rows with one [n, n] Gram all-reduce an iteration
+(``newton_schulz.polar(row_group=)``), and the blocks are gathered back.
+A bucket routed to the fused or the lowrank tier gathers its rows first
+(its views enter whole) and takes the batch engine: K3, K6 and K7 have no
+seam for a collective.  Outside a context the option changes nothing.
 """
 from __future__ import annotations
 
@@ -288,8 +301,78 @@ def shard_over_batch(fn: Callable, mesh, axes: Tuple[str, ...],
     lo = collectives.rank(group) * per
     out = fn(stacked[lo:lo + per], *(s[lo:lo + per] for s in slice_args))
     if isinstance(out, tuple):
-        return tuple(collectives.all_gather(o, group)[:B] for o in out)
-    return collectives.all_gather(out, group)[:B]
+        return tuple(collectives.all_gather(o, group, kind="engine")[:B]
+                     for o in out)
+    return collectives.all_gather(out, group, kind="engine")[:B]
+
+
+def local_reshard_axes(cfg: Optional[OptimizerConfig]):
+    """(mesh, slice axes, row axes) of Muon's local reshard, or None when
+    it is off: ``cfg.muon_local_reshard``, a context installed, and its
+    rules' ``opt_layers``/``opt_rows`` naming mesh axes larger than 1."""
+    if cfg is None or not getattr(cfg, "muon_local_reshard", False):
+        return None
+    ctx = sharding_ctx.current()
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    from repro_torch.launch.sharding import axes_of
+
+    def live(rule):
+        named = axes_of(rules.get(rule))
+        return tuple(a for a in mesh.axis_names
+                     if a in named and mesh.shape[a] > 1)
+
+    slices, rows = live("opt_layers"), live("opt_rows")
+    return (mesh, slices, rows) if slices or rows else None
+
+
+def polar_local_rows(fn: Callable, mesh, slice_axes: Tuple[str, ...],
+                     row_axes: Tuple[str, ...], stacked: torch.Tensor,
+                     slice_args: Sequence[torch.Tensor] = (),
+                     slice_pads: Sequence = ()):
+    """``fn(x, *slice_args, row_group=)`` on this rank's block of a [B, M,
+    N] bucket: its slices of ``slice_axes`` and its rows of the long side
+    of ``row_axes``; every output is gathered back whole (the rows over
+    ``row_axes``, then the slices over ``slice_axes``).  The batch pads
+    with identity slices to a multiple of the slice ranks; the companions
+    pad with ``slice_pads``.  Returns None when the long side does not
+    split over the row ranks (the caller takes the batch engine)."""
+    ns = math.prod(mesh.shape[a] for a in slice_axes)
+    nr = math.prod(mesh.shape[a] for a in row_axes)
+    B, M, N = stacked.shape
+    flip = M < N
+    x = stacked.transpose(-1, -2) if flip else stacked
+    long_side = x.shape[-2]
+    if long_side % nr:
+        return None
+    pad = (-B) % ns
+    if pad:
+        eye = torch.eye(x.shape[-2], x.shape[-1], dtype=x.dtype,
+                        device=x.device)
+        x = torch.cat([x, eye.expand(pad, *eye.shape)], dim=0)
+        slice_args = [
+            torch.cat([s, torch.full((pad,) + tuple(s.shape[1:]), v,
+                                     dtype=s.dtype, device=s.device)])
+            for s, v in zip(slice_args, slice_pads)]
+    per, rows = (B + pad) // ns, long_side // nr
+    sg = mesh.group(slice_axes) if slice_axes else None
+    rg = mesh.group(row_axes) if row_axes else None
+    si = collectives.rank(sg) if sg is not None else 0
+    ri = collectives.rank(rg) if rg is not None else 0
+    block = x[si * per:(si + 1) * per, ri * rows:(ri + 1) * rows]
+    out = fn(block.contiguous(),
+             *(s[si * per:(si + 1) * per] for s in slice_args), row_group=rg)
+    outs = out if isinstance(out, tuple) else (out,)
+    whole = []
+    for j, o in enumerate(outs):
+        if j == 0 and rg is not None:  # the polar's rows
+            o = collectives.all_gather(o, rg, dim=1, kind="engine")
+        if sg is not None:
+            o = collectives.all_gather(o, sg, kind="engine")
+        o = o[:B]
+        whole.append(o.transpose(-1, -2) if j == 0 and flip else o)
+    return tuple(whole) if isinstance(out, tuple) else whole[0]
 
 
 def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
@@ -306,7 +389,9 @@ def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
     polars from their [m, l] / [l, n] shapes).  ``with_iters`` (the NS
     family only: methods prism and newton_schulz) also returns per-view
     ``iters_used`` and guardian ``status`` (DESIGN.md §11/§15), scattered
-    back to each view's lead shape: (outs, iters, statuses).
+    back to each view's lead shape: (outs, iters, statuses).  With
+    ``muon_local_reshard`` under a context, a grid-tier bucket of layer
+    stacks runs ``polar_local_rows`` (module docstring).
     """
     method = cfg.matfn_method
     if with_iters and method not in ("prism", "newton_schulz"):
@@ -319,6 +404,7 @@ def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
                            pad=cfg.bucket_pad and method != "svd",
                            pad_slack=cfg.bucket_pad_slack)
     mesh, mesh_axes = mesh_batch_axes(cfg)
+    reshard = local_reshard_axes(cfg)
     outs: List[Optional[torch.Tensor]] = [None] * len(views)
     iters: List[Optional[torch.Tensor]] = [None] * len(views)
     statuses: List[Optional[torch.Tensor]] = [None] * len(views)
@@ -329,6 +415,7 @@ def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
         if with_iters:
             kw.update(return_iters=True, return_status=True)
         n_real = ()
+        local = None
         if resolve_lowrank_tier(cfg, b.shape) is not None:
             from repro_torch.core import lowrank
 
@@ -342,12 +429,22 @@ def polar_bucketed(views: Sequence[torch.Tensor], cfg: OptimizerConfig,
             if b.padded and method == "prism":
                 n_real = (_gram_real_dims(b, stacked.device),)
 
-            def run(x, *nr):
+            def run(x, *nr, row_group=None):
                 extra = {"n_real": nr[0]} if nr else {}
+                if row_group is not None:
+                    extra["row_group"] = row_group
                 return matfn.polar(x, method=method, cfg=pcfg_b, key=kk,
                                    **kw, **extra)
 
-        if mesh is not None:
+            grid = not (pcfg_b.use_kernels and pcfg_b.fuse == "on")
+            if reshard is not None and grid and \
+                    method in ("prism", "newton_schulz") and \
+                    all(e.lead for e in b.entries):
+                local = polar_local_rows(run, *reshard, stacked, n_real,
+                                         (min(b.shape),) * len(n_real))
+        if local is not None:
+            O = local
+        elif mesh is not None:
             # pad slices carry no intra-slice pad: their n_real is full
             O = shard_over_batch(run, mesh, mesh_axes, stacked, n_real,
                                  (min(b.shape),) * len(n_real))

@@ -50,26 +50,29 @@ Sharding (DESIGN.md §8): under an activation-sharding context whose mesh
 has a data axis larger than 1, ``polar_bucketed`` and ``polar_refresh``
 partition each bucket's slices over the ranks and all-gather the polars
 (``bucketing.shard_over_batch``); every rank then holds the same state.
-``muon_local_reshard`` (layers over model, rows over data) raises here
-(ROADMAP.md Queue 1 item 11b).
+With ``muon_local_reshard`` a bucket built only from layer stacks splits
+its slices over the model axis and its rows over the data axis instead
+(``bucketing.polar_local_rows``, DESIGN.md §4).
+
+Sharded parameters (``shardings``: name -> ``launch.sharding.Sharding``,
+a sharded model's layout): the moments are blocks like their parameter;
+each matrix leaf's nesterov view is gathered whole
+(``sharding.gather_full``) before it enters its bucket, and the update
+applies its rank's block.  The AdamW branch is elementwise on the
+blocks.  The "ortho" caches are held whole on every rank.  The §12
+async plane on sharded parameters raises (ROADMAP.md Queue 1 item 11d).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
 from repro_torch.config import OptimizerConfig, torch_dtype
 from repro_torch.core import matfn
+from repro_torch.launch import sharding
 from repro_torch.optim import base, bucketing
-
-
-def _check_supported(cfg: OptimizerConfig) -> None:
-    if cfg.muon_local_reshard:
-        raise NotImplementedError(
-            "Muon options not ported yet: muon_local_reshard (model-axis "
-            "sharding, ROADMAP.md Queue 1 item 11b)")
 
 
 def _tree_key(name: str):
@@ -108,31 +111,42 @@ class Muon(torch.optim.Optimizer):
     """
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
-                 cfg: OptimizerConfig, axes: Dict[str, tuple]):
-        _check_supported(cfg)
+                 cfg: OptimizerConfig, axes: Dict[str, tuple],
+                 shardings: Optional[Dict[str, "sharding.Sharding"]] = None):
         named = list(named_params)
         super().__init__([p for _, p in named], defaults={})
         self.cfg = cfg
         self.axes = [tuple(axes[n]) for n, _ in named]
         self.leaf_idx = leaf_order([n for n, _ in named])
+        shardings = shardings or {}
+        self.shardings = [shardings.get(n) if sharding.sharded_axes(
+            shardings.get(n)) else None for n, _ in named]
+        self.full_shapes = [sharding.full_shape(tuple(p.shape), sh)
+                            for (_, p), sh in zip(named, self.shardings)]
+        sharded = [sh for sh in self.shardings if sh is not None]
+        if sharded and cfg.precond_async:
+            raise NotImplementedError(
+                "the §12 async plane on sharded parameters comes with "
+                "ROADMAP.md Queue 1 item 11d")
+        self._coords = sharded[0].mesh.coords() if sharded else None
         self.count = 0
         if cfg.precond_async:
             base.init_pending(self)
-        for (_, p), a in zip(named, self.axes):
-            self.state[p] = self._init_state(p, a)
+        for (_, p), a, full in zip(named, self.axes, self.full_shapes):
+            self.state[p] = self._init_state(p, a, full)
 
-    def _matrix(self, a: tuple, p: torch.Tensor) -> bool:
-        return base.is_matrix_param(a, tuple(p.shape),
+    def _matrix(self, a: tuple, shape: tuple) -> bool:
+        return base.is_matrix_param(a, tuple(shape),
                                     allow_embed=self.cfg.lowrank_rank > 0)
 
-    def _init_state(self, p: torch.Tensor, a: tuple) -> Dict:
+    def _init_state(self, p: torch.Tensor, a: tuple, full: tuple) -> Dict:
         cfg = self.cfg
         mom = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        if not self._matrix(a, p):
+        if not self._matrix(a, full):
             return {"mom": mom, "nu": torch.zeros_like(mom)}
         st = {"mom": mom}
         vshape = tuple(base.to_matrix_view(
-            torch.empty(p.shape, device="meta"), a)[0].shape)
+            torch.empty(full, device="meta"), a)[0].shape)
         if cfg.matfn_telemetry:
             st["iters"] = torch.zeros(vshape[:-2], dtype=torch.int32,
                                       device=p.device)
@@ -195,7 +209,7 @@ class Muon(torch.optim.Optimizer):
                  else torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device))
             st = self.state[p]
-            if self._matrix(a, p):
+            if self._matrix(a, self.full_shapes[i]):
                 mom = cfg.momentum * st["mom"] + g
                 if cfg.precond_async:
                     # drift proxy (§12): the momentum's movement since
@@ -207,6 +221,9 @@ class Muon(torch.optim.Optimizer):
                         torch.empty(p.shape, device="meta"), a)
                 else:
                     gm = g + cfg.momentum * mom  # nesterov
+                    if self.shardings[i] is not None:
+                        gm = sharding.gather_full(gm, self.shardings[i],
+                                                  kind="opt")
                     M, meta = base.to_matrix_view(gm, a)
                 views.append(M)
                 metas.append(meta)
@@ -255,6 +272,9 @@ class Muon(torch.optim.Optimizer):
             p = params[i]
             scale = math.sqrt(max(1.0, O.shape[-2] / O.shape[-1]))
             upd = base.from_matrix_view(O * scale, meta)
+            if self.shardings[i] is not None:
+                upd = sharding.local_block(upd, self.shardings[i],
+                                           self._coords)
             p32 = p.float() * (1.0 - lr * cfg.weight_decay) - lr * upd
             p.copy_(p32.to(p.dtype))
         self.count += 1

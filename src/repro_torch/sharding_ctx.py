@@ -6,14 +6,16 @@ The launcher installs (mesh, rules) with ``activation_sharding(...)``;
 (``optim/bucketing.py::mesh_batch_axes``) reads its batch axes from it.
 
 Model code annotates activations with logical axis names,
-``shard_activation(x, ("batch", "seq", "embed"))``.  On the data axis
-this returns ``x`` unchanged: each rank's activations are already its own
-rows of the batch, and the parameters are replicated.  A mesh with a
-model axis larger than 1 (tensor parallelism) raises: the DTensor path
-through the model comes with ROADMAP.md Queue 1 item 11b.  The
-reference's ``compat_shard_map`` has no counterpart: its bodies (the
-matrix-function chains, ``int8_psum``) run on each rank as they are,
-with the collectives of ``collectives.py``.
+``shard_activation(x, ("batch", "seq", "embed"), full_shape)``.  The
+port's tensor parallelism is explicit (``models/``: column- and
+row-parallel projections with the collectives of ``collectives.py``), so
+the code, not the annotation, fixes a rank's layout: the annotation is
+an assertion.  With the global shape given, it checks that ``x``'s
+local shape is that shape split by the active rules, raises on a
+mismatch, and returns ``x``.  The reference's ``compat_shard_map`` has
+no counterpart: its bodies (the matrix-function chains, ``int8_psum``)
+run on each rank as they are, with the collectives of
+``collectives.py``.
 """
 from __future__ import annotations
 
@@ -25,18 +27,8 @@ import torch
 _CTX: list = []
 
 
-def check_data_axis(mesh) -> None:
-    """Raise unless ``mesh`` shards nothing but the batch (model = 1)."""
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a mesh with model = {mesh.shape['model']} (tensor "
-            f"parallelism, parameter sharding) comes with ROADMAP.md Queue 1 "
-            f"item 11b; this port distributes the data axis only")
-
-
 @contextlib.contextmanager
 def activation_sharding(mesh, rules: Dict[str, Any]):
-    check_data_axis(mesh)
     _CTX.append((mesh, rules))
     try:
         yield
@@ -61,7 +53,25 @@ def current() -> Optional[Tuple[Any, Dict[str, Any]]]:
     return _CTX[-1] if _CTX else None
 
 
-def shard_activation(x: torch.Tensor, axes: Tuple) -> torch.Tensor:
-    """``x`` itself: on the data axis a rank's activations are its own
-    rows (``activation_sharding`` refuses any other mesh)."""
+def shard_activation(x: torch.Tensor, axes: Tuple,
+                     full_shape: Optional[Tuple[int, ...]] = None
+                     ) -> torch.Tensor:
+    """``x`` itself.  Under a context and with ``full_shape`` (the global
+    shape), raises unless ``x``'s shape is ``full_shape`` split by the
+    rules' mesh axes for ``axes`` (the layout the explicit code must have
+    produced)."""
+    ctx = current()
+    if ctx is None or full_shape is None:
+        return x
+    from repro_torch.launch import sharding
+
+    mesh, rules = ctx
+    spec = sharding.constrain_spec(
+        mesh, sharding.spec_from_axes(tuple(axes), rules), tuple(full_shape))
+    want = sharding.local_shape(tuple(full_shape),
+                                sharding.named(mesh, spec))
+    if tuple(x.shape) != want:
+        raise ValueError(f"activation {tuple(axes)}: local shape "
+                         f"{tuple(x.shape)}, the rules give {want} of "
+                         f"{tuple(full_shape)}")
     return x

@@ -41,12 +41,23 @@ mesh's activation-sharding context, which also covers the §12 service's
 refresh and its all-gather on the side stream.  Every host decision
 (the refresh schedule, the drift trigger, the swap, the guard's verdict)
 is taken from values bitwise equal on every rank, so every rank issues
-the same collectives in the same order.  Only rank 0 writes checkpoints
-and the HEARTBEAT, and every rank waits at a barrier until the write is
-done; a restore reads the replicated state on a world of any size
-(elastic).  A mesh with model > 1 and the moe family on a data axis
-larger than 1 raise (ROADMAP.md Queue 1 item 11b), as do pipeline stages
-(item 11c).
+the same collectives in the same order.  Only rank 0 of the world writes
+checkpoints and the HEARTBEAT, and every rank waits at a barrier until
+the write is done; a restore reads the whole state on a world of any
+size (elastic).
+
+The model axis (``shardings`` naming split parameters, the layout
+``launch/sharding.py::tree_shardings(param_rules(cfg, mesh, strategy))``
+gives, with ``strategy`` "tp" or "zero"): the Trainer shards the model
+(``Model.shard``) and the optimizer keeps its moments as blocks; each
+rank takes the rows of the strategy's batch axes ((pod, data) under
+"tp", the whole mesh under "zero"), in row-major order over them.  A
+checkpoint gathers every sharded leaf whole before rank 0 writes it (a
+collective step), and a restore takes each rank's block under the
+current layout, so a checkpoint written on one mesh and strategy resumes
+on another.  The moe family on a mesh of more than one rank and the
+other non-dense families on a model axis raise (ROADMAP.md Queue 1 item
+11d), as do pipeline stages (item 11c).
 """
 from __future__ import annotations
 
@@ -60,6 +71,7 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
+from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch import collectives, sharding_ctx
 from repro_torch.config import OptimizerConfig, TrainConfig
 from repro_torch.core.rng import Key
@@ -68,19 +80,21 @@ from repro_torch.launch import sharding
 from repro_torch.models.transformer import Model
 from repro_torch.optim import base, make_optimizer
 from repro_torch.train import fault
-from repro_torch.train.state import data_group, data_size, make_train_step
+from repro_torch.train.state import batch_group, make_train_step
 
 
 class Trainer:
     """Train ``model`` with the optimizer ``ocfg`` names, on the synthetic
     stream ``dcfg`` (or on ``batch_fn(step)`` when given: the global
-    batch), on the model's device; with a data ``mesh``, as one rank of
-    the world.  ``shardings`` ({"params": {name: Sharding}, ...}) may
-    name the parameters' layout, which must be replicated."""
+    batch), on the model's device; with a ``mesh``, as one rank of the
+    world.  ``shardings`` ({"params": {name: Sharding}, ...}) names the
+    parameters' layout under ``strategy`` ("tp" or "zero"): replicated
+    on the data axis, or split (module docstring)."""
 
     def __init__(self, model: Model, ocfg: OptimizerConfig,
                  tcfg: TrainConfig, dcfg: DataConfig, mesh=None,
-                 shardings=None, batch_fn: Optional[Callable] = None):
+                 shardings=None, batch_fn: Optional[Callable] = None,
+                 strategy: str = "tp"):
         if tcfg.pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline stages (1F1B) are ported with ROADMAP.md Queue 1 "
@@ -88,24 +102,28 @@ class Trainer:
         if shardings is not None and mesh is None:
             raise ValueError("shardings need a mesh")
         self.mesh = mesh
-        self.group, self.n_data = None, 1
+        self.group, self.n_data, self.row_index = None, 1, 0
         if mesh is not None:
-            sharding_ctx.check_data_axis(mesh)
-            if any(e is not None for sh in
-                   (shardings or {}).get("params", {}).values()
-                   for e in sh.spec):
+            if model.cfg.family == "moe" and mesh.size > 1:
                 raise NotImplementedError(
-                    "sharded parameters come with ROADMAP.md Queue 1 item "
-                    "11b; on the data axis they are replicated")
-            if model.cfg.family == "moe" and data_size(mesh) > 1:
+                    "the moe family on a data or model mesh comes with "
+                    "ROADMAP.md Queue 1 item 11d: global dispatch draws its "
+                    "capacity from every row of the batch, so a rank that "
+                    "drops its own tokens would change the result")
+            if model.cfg.family != "dense" and \
+                    mesh.shape.get("model", 1) > 1:
                 raise NotImplementedError(
-                    "the moe family on a data mesh comes with ROADMAP.md "
-                    "Queue 1 item 11b: global dispatch draws its capacity "
-                    "from every row of the batch, so a rank that drops its "
-                    "own tokens would change the result")
-            self.group, self.n_data = data_group(mesh)
-        self.rank = 0 if self.group is None else \
-            collectives.rank(self.group)
+                    f"the {model.cfg.family} family on a model axis comes "
+                    f"with ROADMAP.md Queue 1 item 11d")
+            params = (shardings or {}).get("params", {})
+            if model.layout is None and any(
+                    sharding.sharded_axes(sh) for sh in params.values()):
+                model.shard(mesh, params, strategy)
+            self.group, self.n_data = batch_group(model, mesh)
+            if self.group is not None:
+                self.row_index = collectives.rank(self.group)
+        self.rank = collectives.rank(None) if mesh is not None and \
+            mesh.device_mesh is not None else 0
         self.model = model
         self.ocfg, self.tcfg, self.dcfg = ocfg, tcfg, dcfg
         self.device = next(model.parameters()).device
@@ -123,13 +141,15 @@ class Trainer:
         if B % self.n_data:
             raise ValueError(f"global batch {B} does not divide over "
                              f"{self.n_data} data ranks")
-        lo = self.rank * (B // self.n_data)
+        lo = self.row_index * (B // self.n_data)
         hi = lo + B // self.n_data
         return lambda t: {k: v[lo:hi] for k, v in full(t).items()}
 
     def _new_optimizer(self) -> None:
+        lay = self.model.layout
         self.opt = make_optimizer(self.ocfg, self.model.named_parameters(),
-                                  self.model.logical_axes())
+                                  self.model.logical_axes(),
+                                  None if lay is None else lay.shardings)
         self.step_fn = make_train_step(self.model, self.opt, self.ocfg,
                                        mesh=self.mesh)
         self.precond = (base.AsyncPrecondService(self.opt)
@@ -154,6 +174,34 @@ class Trainer:
         if isinstance(self.opt, base.SkipNonfinite):
             opt["bad_steps"] = self.opt.bad_steps
         return {"params": named, "opt": opt}
+
+    def state_shardings(self) -> Optional[Dict]:
+        """The layout of ``state_tree()`` on a sharded model ({"params":
+        ..., "opt": ...}: a buffer of its parameter's block shape is
+        split like the parameter, everything else whole), None
+        otherwise."""
+        lay = self.model.layout
+        if lay is None:
+            return None
+        named = dict(self.model.named_parameters())
+        opt = {k: {sk: lay.shardings[k] if tuple(v.shape) == tuple(p.shape)
+                   else None for sk, v in self.opt.state[p].items()}
+               for k, p in named.items()}
+        return {"params": dict(lay.shardings), "opt": opt}
+
+    def gathered_state_tree(self) -> Dict:
+        """``state_tree()`` with every sharded leaf gathered whole
+        (collective on a sharded model: every rank calls it)."""
+        tree = self.state_tree()
+        shards = self.state_shardings()
+        if shards is None:
+            return tree
+        flat = ckpt_lib._flatten(tree)
+        layout = ckpt_lib._flatten(shards)
+        return ckpt_lib._unflatten({
+            k: sharding.gather_full(v, layout.get(k), kind="checkpoint")
+            if sharding.sharded_axes(layout.get(k)) else v
+            for k, v in flat.items()})
 
     @torch.no_grad()
     def load_state_tree(self, tree: Dict) -> None:
@@ -184,10 +232,12 @@ class Trainer:
         if cdir is None or ckpt.latest_step(cdir) is None:
             return self.init_state(seed)
         self.init_state(seed)
-        # on the data axis every rank holds the whole state, so every
-        # leaf restores whole, whatever world wrote it
+        # the file holds every leaf whole, whatever world, mesh and
+        # strategy wrote it: each rank takes its block of the current
+        # layout (every leaf whole on replicated parameters)
         step, tree = ckpt.restore(cdir, self.state_tree(),
-                                  allow_missing=base.PENDING_STATE_KEYS)
+                                  allow_missing=base.PENDING_STATE_KEYS,
+                                  shardings=self.state_shardings())
         self.load_state_tree(tree)
         # a resumed run never swaps in a buffer it did not dispatch
         fault.discard_inflight(self.opt)
@@ -198,8 +248,11 @@ class Trainer:
         """The mesh's activation-sharding context (none without one)."""
         if self.mesh is None:
             return contextlib.nullcontext()
+        lay = self.model.layout
         return sharding_ctx.activation_sharding(
-            self.mesh, sharding.activation_rules(self.model.cfg, self.mesh))
+            self.mesh, sharding.activation_rules(
+                self.model.cfg, self.mesh,
+                "tp" if lay is None else lay.strategy))
 
     def _log(self, msg: str) -> None:
         if self.rank == 0:
@@ -209,18 +262,19 @@ class Trainer:
         if self._ckpt_thread is not None:
             self._ckpt_thread.join()  # one in-flight write at a time
             self._ckpt_thread = None
+        tree = self.gathered_state_tree()
         if self.rank == 0:
             self._ckpt_thread = ckpt.save(
-                self.tcfg.checkpoint_dir, step, self.state_tree(),
+                self.tcfg.checkpoint_dir, step, tree,
                 keep=self.tcfg.keep_checkpoints,
                 async_write=self.tcfg.async_checkpoint,
                 drop=base.PENDING_STATE_KEYS)
-        if self.group is not None:
+        if self.mesh is not None and self.mesh.device_mesh is not None:
             # every rank goes on once rank 0's write is complete
             if self._ckpt_thread is not None:
                 self._ckpt_thread.join()
                 self._ckpt_thread = None
-            collectives.barrier(self.group)
+            collectives.barrier()
 
     # ------------------------------------------------------------- loop
 

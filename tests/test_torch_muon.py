@@ -293,9 +293,9 @@ def test_clip_by_global_norm_matches_reference(case):
 
 
 def test_unported_options_raise():
-    """precond_every > 1, adamw, the lowrank tier and the async refresh
-    plane now build; ``muon_local_reshard`` still raises, naming its
-    ROADMAP.md item."""
+    """precond_every > 1, adamw, the lowrank tier, the async refresh plane
+    and ``muon_local_reshard`` build; the async plane on sharded
+    parameters still raises, naming its ROADMAP.md item."""
     named = [("w", torch.nn.Parameter(torch.zeros(32, 16)))]
     axes = {"w": ("embed", "mlp")}
     _, tcfg = _ocfgs(precond_every=2)
@@ -308,8 +308,14 @@ def test_unported_options_raise():
     opt = make_optimizer(tcfg, named, axes)
     assert isinstance(opt, muon.Muon) and opt.pending_at == base.NO_PENDING
     _, tcfg = _ocfgs(muon_local_reshard=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_optimizer(tcfg, named, axes)
+    assert isinstance(make_optimizer(tcfg, named, axes), muon.Muon)
+    from repro_torch.launch import mesh, sharding
+
+    rows = {"w": sharding.named(mesh.make_debug_mesh(data=2, model=1),
+                                ("data", None))}
+    _, tcfg = _ocfgs(precond_async=True, precond_every=2)
+    with pytest.raises(NotImplementedError, match="item 11d"):
+        make_optimizer(tcfg, named, axes, rows)
 
 
 # ------------------------------------------------- staleness cache (§8)

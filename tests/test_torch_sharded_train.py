@@ -25,8 +25,9 @@ test holds that it does).  A checkpoint written by the world of 2
 restores bitwise in one process (and a leaf restored as sharded over the
 data axis gives each rank its own rows); a run stopped and resumed on
 the mesh, Muon with precond_every 5 and Shampoo, is bitwise an
-uninterrupted one.  A moe model or a model axis on the mesh raises,
-citing item 11b.
+uninterrupted one.  A moe model on the mesh raises, citing item 11d; a
+dense model on a model axis trains (tests/test_torch_model_axis.py), so
+outside a world its Trainer asks for the process group.
 """
 import jax
 import jax.numpy as jnp
@@ -327,30 +328,37 @@ def test_world_resumes_on_the_mesh_bitwise(world, kind):
 
 
 def test_moe_and_model_axis_raise_item_11b():
+    """Item 11b is done: moe on a data mesh raises item 11d; a dense model
+    on a data and model mesh is taken, and outside a world its Trainer
+    needs the process group; pipeline stages raise item 11c."""
     dcfg = DataConfig(vocab_size=256, seq_len=SEQ, global_batch=BATCH)
     moe = Model(get_smoke_config("granite-moe-1b-a400m"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(NotImplementedError, match="item 11d"):
         Trainer(moe, _ocfg(), TrainConfig(), dcfg,
                 mesh=tmesh.make_debug_mesh(data=2, model=1))
     dense = Model(get_smoke_config("qwen3-14b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(RuntimeError, match="no process group"):
         Trainer(dense, _ocfg(), TrainConfig(), dcfg,
                 mesh=tmesh.make_debug_mesh(data=2, model=2))
     with pytest.raises(NotImplementedError, match="item 11c"):
         Trainer(dense, _ocfg(), TrainConfig(pipeline_stages=2), dcfg)
 
 
-def test_launcher_compression_and_unported_meshes():
-    """``launch/train.py --compression int8`` trains; the production
-    meshes (model = 16) raise item 11b, pipeline stages item 11c."""
+def test_launcher_compression_and_unported_meshes(monkeypatch):
+    """``launch/train.py --compression int8`` trains; ``--mesh
+    production`` joins the world the environment names (none here) and
+    ``--multi_pod`` needs it; pipeline stages raise item 11c."""
     from repro_torch.launch import train
 
+    for k in tmesh.ENV_VARS:
+        monkeypatch.delenv(k, raising=False)
     argv = ["--arch", "qwen3-14b", "--smoke", "--steps", "1", "--seq", "16",
             "--batch", "2", "--device", "cpu"]
     losses = train.main(argv + ["--compression", "int8"])
     assert len(losses) == 1 and np.isfinite(losses[0])
-    for extra, item in ((["--mesh", "production"], "11b"),
-                        (["--multi_pod"], "11b"),
-                        (["--pipeline_stages", "2"], "11c")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    for extra, err, match in (
+            (["--mesh", "production"], ValueError, "no world"),
+            (["--multi_pod"], ValueError, "needs --mesh production"),
+            (["--pipeline_stages", "2"], NotImplementedError, "item 11c")):
+        with pytest.raises(err, match=match):
             train.main(argv + extra)
