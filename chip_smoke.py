@@ -41,8 +41,11 @@ Phases (any failure exits non-zero and prints no result):
      (``RECURRENT_SHAPES``, phase 13) and phase 15's (``P15_SHAPES``:
      (a)'s shares [20, 1024, 1024] and [10, 4096, 1024] of gpt2-paper's
      buckets, and (b)'s row blocks [20, 512, 1024] and [10, 2048, 1024],
-     on which K2 forms the partial Gram -X^T X with alpha = 0) in fp32,
-     the same way;
+     on which K2 forms the partial Gram -X^T X with alpha = 0; and
+     (c)/(d)'s share of Shampoo's factor bucket, ``P15_SHAMPOO_SHAPES``,
+     [50, 1024, 1024]) in fp32, the same way; K3 (polar ``[15, 64, 16]``,
+     sqrt), K5 (``[50, 1024, 1024]`` x 10), K6 and K7 (sqrt, coupled) also
+     at phase 15's shares ``[15, 16, 16]`` and ``[15, 64, 64]``;
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
      width (seq 512, batch 4, random weights from seed 0), STEPS steps
      through the launcher's configuration (``build_path``); the launch
@@ -292,13 +295,47 @@ Phases (any failure exits non-zero and prints no result):
      the step time, tokens/s over the world and the collectives a step by
      kind (calls, bytes, host ms); (b) a new Trainer resumes the
      checkpoint under "zero" (every leaf flat-sharded over (data, model))
-     with ``muon_local_reshard``, P15_STEPS steps: every restored leaf,
-     gathered whole, has the crc32 the checkpoint's MANIFEST recorded,
+     with ``muon_local_reshard``, P15_RESUME_STEPS steps: every restored
+     leaf, gathered whole, has the crc32 the checkpoint's MANIFEST recorded,
      19 launches a step, K2 on (a)'s shapes with the rows halved (the
      [B/2, m/2, n] row blocks), one Gram all-reduce a K2 call (a
      grid-tier iteration and bucket; bytes printed), and the losses
      within P15_LOSS_TOL of one process that resumes the same
-     checkpoint (run after the world);
+     checkpoint (run after the world).  Then, on the same world, with
+     one process's Shampoo Trainers (c)'s and (d)'s references beside
+     the ranks' start: (c) Shampoo PRISM-5 (phase 6's) under "tp",
+     P15_SHAMPOO_STEPS steps: each rank phase 6's 17 launches a step on
+     its data share of every bucket (``shampoo_calls``: K1 on
+     ``[50, 1024, 1024]``, K3 on ``[15, 16, 16]`` and ``[15, 64, 64]``),
+     losses within P15_LOSS_TOL of one process's Trainer, the step-0
+     update gathered whole within UPDATE_REL_TOL of one process's
+     optimizer stepped on the world's gathered step-0 gradients on whole
+     buckets, with each slice's Frobenius norm taken on the data ranks'
+     shares as they take it (``ShareNorms``: on the card a [B, n, n]
+     batch's norms sum in an order that depends on B; the slices whose
+     norm differs, the gap with the process's own norms and the gap to
+     one process's Trainer printed: the last bit, amplified by the
+     inverse roots of rank-deficient factors); (d) fitted Shampoo (phase
+     7's) under "zero", P15_FITTED_STEPS steps, 50 launches a step on the
+     shares, the same update gate with the world's fitted alphas
+     gathered over data and replayed (``PINNED_ALPHA``'s reason); (e)
+     async Muon PRISM-5 under "tp" with ``precond_every`` P15_ASYNC_K,
+     P15_ASYNC_STEPS steps, deterministic algorithms on, a checkpoint at
+     the last: 19 launches in ``step_begin`` at steps 0 and 5 and none in
+     any step, the same telemetry (2 refreshes: bootstrap, clock) and the
+     same drift at every step on every rank, every state leaf bitwise the
+     same world synchronized after each ``step_begin``, the host time of
+     each ``step_begin`` printed (gloo holds the host through the
+     refresh's collectives); a one-step run whose bootstrap refresh
+     carries a NaN in rank P15_NAN_RANK's pending block discards it on
+     every rank (pending cleared, the active blocks bitwise unchanged);
+     (f) a Trainer under "zero" restores (e)'s checkpoint, every leaf
+     gathered whole at its MANIFEST crc32 and each cache block bitwise
+     its block of the file's whole cache, and one process restores it at
+     the MANIFEST's crc32s.  Every sub-run prints its step time, tokens/s
+     over the world, collectives a step by kind, a rank's peak memory and
+     its cache bytes against the whole caches', which must be the blocks
+     the ``precond_cache_sharding`` layout gives;
  16. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
@@ -622,7 +659,7 @@ def kernel_checks(torch):
                                                    max_abs_err=err_g)
 
     # K3 on the bias bucket (3 warm iterations of alpha = u = 1.45)
-    for shape in [(30, 64, 16), (5, 55, 23)]:
+    for shape in [(30, 64, 16), (15, 64, 16), (5, 55, 23)]:
         x32 = normalized(torch, shape, gen)
         for dtype in DTYPES:
             x = x32.to(getattr(torch, dtype))
@@ -637,10 +674,9 @@ def kernel_checks(torch):
             got = fused_iter.warm_tail(x, alphas[:1], coeffs=coeffs)
             check(torch, "warm_tail", shape, dtype, got, want,
                   WARM_TOL[dtype])
-            if shape == (30, 64, 16) and dtype == "float32":
-                rows["warm_tail"] = dict(shape=[list(shape)],
-                                         operands=(x,), max_abs_err=err)
-                rows[("warm_tail", shape)] = rows["warm_tail"]
+            if shape[1:] == (64, 16) and dtype == "float32":
+                rows[("warm_tail", shape)] = dict(
+                    shape=[list(shape)], operands=(x,), max_abs_err=err)
     return rows
 
 
@@ -660,6 +696,7 @@ def spectrum_r(torch, B, n, gen, radius=0.95):
 CHAIN_CASES = [((40, 1024, 1024), 8, (6, 10)),
                ((20, 1024, 1024), 8, (6,)),
                ((100, 1024, 1024), 8, (6, 10)),
+               ((50, 1024, 1024), 8, (10,)),     # phase 15 (d)'s share
                ((3, 300, 300), 5, (6, 10)),
                ((2, 37, 37), 12, (6, 10)),
                ((1, 5, 5), 1, (1,)),
@@ -697,7 +734,7 @@ def chain_case(torch, r, st, powers, rows):
                 rows["sketch_chain"] = dict(
                     shape=[[B, n, n], [n, p], maxp], max_abs_err=err,
                     operands=(r, st))
-        if B in (20, 40, 100) and dtype == "float32":
+        if B in (20, 40, 50, 100) and dtype == "float32":
             rows[("sketch_chain", (B, n, n, maxp))] = dict(
                 shape=[[B, n, n], [n, p], maxp], max_abs_err=err)
 
@@ -904,9 +941,10 @@ def family_checks(torch, rows):
     for dtype in DTYPES:
         dt = getattr(torch, dtype)
         big = coupled_limit(dtype)
-        for shape in [(30, 16, 16), (30, 64, 64), (4, big, big)]:
+        for shape in [(30, 16, 16), (30, 64, 64), (15, 16, 16),
+                      (15, 64, 64), (4, big, big)]:
             B, n, _ = shape
-            main = B == 30 and dtype == "float32"
+            main = B in (30, 15) and dtype == "float32"
             x, y = (nonsym(torch, shape, gen).to(dt) for _ in range(2))
             a_spd = spd(torch, B, n, gen).to(dt)
             eye = torch.eye(n, device="cuda", dtype=dt).expand(shape)
@@ -1043,7 +1081,7 @@ def fit_kernel_timings(torch, rows):
     maxp = 6
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
-    for nb, powers in ((100, 10), (40, 6), (20, 6)):
+    for nb, powers in ((100, 10), (40, 6), (20, 6), (50, 10)):
         rb = r if nb == B else spectrum_r(torch, nb, n, gen)
         t = out[("sketch_chain", (nb, n, n, powers))] = dict(
             ms=time_ms(torch, lambda: sketch_traces.sketch_chain(
@@ -1140,7 +1178,7 @@ def family_timings(torch):
     coeffs = ops._gd_coeffs(d)
     warm = (1.45,) * 3
     out = {}
-    for shape in [(30, 16, 16), (30, 64, 64)]:
+    for shape in [(30, 16, 16), (30, 64, 64), (15, 16, 16), (15, 64, 64)]:
         B, n, _ = shape
         a = spd(torch, B, n, gen)
         eye = torch.eye(n, device="cuda").expand(shape).contiguous()
@@ -1218,7 +1256,8 @@ def kernel_timings(torch, rows):
                    ("matmul_add", (100, 1024, 1024), "float32"),
                    ("gram_upper", (40, 1024, 1024), "float32"),
                    ("gram_upper", (20, 4096, 1024), "float32"),
-                   ("warm_tail", (30, 64, 16), "float32")]
+                   ("warm_tail", (30, 64, 16), "float32"),
+                   ("warm_tail", (15, 64, 16), "float32")]
     main_shapes += [(name, shape, "bfloat16")
                     for name, shape, _ in main_shapes[:5]]
     out = {}
@@ -1227,7 +1266,7 @@ def kernel_timings(torch, rows):
         dt = getattr(torch, dtype)
         item = 2 if dtype == "bfloat16" else 4
         if name == "warm_tail":
-            x = rows["warm_tail"]["operands"][0]
+            x = rows[(name, shape)]["operands"][0]
             alphas, d = (1.45,) * 3, 2
             flops = len(alphas) * B * (m * n * (n + 1) + d * 2.0 * m * n * n
                                        + (3 * d + 1) * m * n)
@@ -5238,13 +5277,13 @@ def _p14_async(torch, rank, mesh, dev, preset, launches):
 
 P15_WORLD = 4            # ranks sharing the one card
 P15_MESH = (2, 2)        # (data, model)
-P15_STEPS = 3            # (a): tp, a checkpoint at the last; (b): 3 more
+P15_STEPS = 3            # (a): tp, a checkpoint at the last
+P15_RESUME_STEPS = 2     # (b): zero, resumed from (a)'s checkpoint
 P15_LOSS_TOL = 1e-4      # the world's losses against one process's
 P15_TIMEOUT_S = 300      # a collective that waits longer fails the rank
 P15_DEADLINE_S = 600     # the whole world
-P15_KINDS = ("tp", "fsdp", "grad", "opt", "engine", "norm", "gram",
-             "checkpoint")
-P15_WRAPPED = ("matmul_add", "gram", "warm_tail")
+P15_WRAPPED = ("matmul_add", "gram", "warm_tail", "sketch_traces",
+               "residual_chain", "apply_g")
 # K1/K2 at phase 15's shapes, checked and timed in phase 3: gpt2-paper's
 # buckets ([40, 1024, 1024] wq/wk/wv/wo, [20, 4096, 1024] the mlp) as (a)'s
 # engine shares them over the data axis, and as (b)'s local reshard splits
@@ -5259,6 +5298,12 @@ P15_SHAPES = bucket_shapes(
     for entry in [("gram_upper", blk, None, False, f"(b) {w}: {PARTIAL}"),
                   ("matmul_add", blk, (blk[0], n, n), True,
                    f"(b) {w}: Horner")]]
+
+# K1 at (c)'s and (d)'s share of Shampoo's [100, 1024, 1024] factor bucket
+# (each data rank's half, ``shampoo_shares``), checked and timed in phase 3
+P15_SHAMPOO_SHAPES = [("matmul_add", (100 // P15_MESH[0], 1024, 1024),
+                       (100 // P15_MESH[0], 1024, 1024), True,
+                       "(c)/(d) Shampoo's factor share: Horner")]
 
 
 def phase15(torch, preset="full", device="cuda", launches=True):
@@ -5278,13 +5323,18 @@ def phase15(torch, preset="full", device="cuda", launches=True):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _p15_cfgs(preset, **kw):
-    """gpt2-paper's Muon PRISM-5 experiment at fp32 compute (the gates
+def _p15_cfgs(preset, optimizer="muon", prism="prism5", **kw):
+    """gpt2-paper's ``optimizer`` experiment with the PRISM configuration
+    ``prism`` (a key of ``train_lm.PRISM``) at fp32 compute (the gates
     against one process: bf16 activations round differently at each row
     count)."""
     import dataclasses
 
-    cfg, ocfg, dcfg = _p14_cfgs(preset, fp32=True)
+    from repro_torch.launch import train_lm
+
+    cfg, ocfg, dcfg = train_lm.configs(preset, "prism", "float32", 0, prism,
+                                       optimizer)
+    cfg = cfg.replace(dtype="float32", emb_dtype="float32")
     return cfg, dataclasses.replace(ocfg, **kw), dcfg
 
 
@@ -5337,9 +5387,12 @@ def _p15_shapes():
 
 
 def _p15_by_kind(calls, steps):
-    """{kind: [calls, bytes, ms]} a step of a census."""
+    """{kind: [calls, bytes, ms]} a step of a census, without the gates'
+    own gathers (kind "gate")."""
     out = {}
     for c in calls:
+        if c.kind == "gate":
+            continue
         k = out.setdefault(c.kind or "other", [0, 0, 0.0])
         k[0] += 1
         k[1] += c.nbytes
@@ -5380,16 +5433,19 @@ def _phase15(torch, work, preset, device, launches):
         (work / "ref.json.tmp").write_text(json.dumps(ref_losses))
         (work / "ref.json.tmp").rename(work / "ref.json")
         del tr, upd
+        ref_c, ref_d = _p15_shampoo_refs(torch, work, preset, device)
     except BaseException:
         for p in ctx.processes:
             p.kill()
         raise
     if cuda:
         free_card(torch, "(a)'s reference done")
-    log(f"  one process ((a)'s reference, {P15_STEPS} steps at fp32 "
+    log(f"  one process ((a)'s, (c)'s and (d)'s references at fp32 "
         f"compute, beside the ranks' start) in "
-        f"{time.perf_counter() - t1:.1f} s; losses "
-        f"{', '.join(f'{v:.5f}' for v in ref_losses)}")
+        f"{time.perf_counter() - t1:.1f} s; losses (a) "
+        f"{', '.join(f'{v:.5f}' for v in ref_losses)}, (c) Shampoo PRISM-5 "
+        f"{', '.join(f'{v:.5f}' for v in ref_c)}, (d) fitted Shampoo "
+        f"{', '.join(f'{v:.5f}' for v in ref_d)}")
     try:
         while not ctx.join(timeout=5):
             if time.monotonic() > deadline:
@@ -5421,9 +5477,34 @@ def _phase15(torch, work, preset, device, launches):
                 rr["replicated"] != other["replicated"]:
             fail(f"phase 15 (a): ranks {r} and {r ^ P15_MESH[1]} disagree "
                  f"on the leaves replicated over data")
-    if any(rr["a_losses"] != res[0]["a_losses"] or
-           rr["b_losses"] != res[0]["b_losses"] for rr in res):
+    if any(rr[k] != res[0][k] for rr in res
+           for k in ("a_losses", "b_losses", "c_losses", "d_losses")):
         fail("phase 15: the ranks' losses differ")
+    # (e): every host decision of the refresh plane alike on every rank
+    want_tele = {"refreshes": 2, "bootstrap": 1, "clock_triggered": 1,
+                 "drift_triggered": 0, "discarded": 0, "retries": 0,
+                 "degraded": 0}
+    for r, rr in enumerate(res):
+        if rr["e_telemetry"] != want_tele or \
+                rr["e_drift"] != res[0]["e_drift"] or \
+                rr["e_nan"] != res[0]["e_nan"] or \
+                rr["e_nan"]["discarded"] != 1:
+            fail(f"phase 15 (e): rank {r} telemetry {rr['e_telemetry']} "
+                 f"(want {want_tele}), drift {rr['e_drift']} (rank 0 "
+                 f"{res[0]['e_drift']}), after the NaN {rr['e_nan']}")
+    log(f"  (e) every rank: telemetry {want_tele}, the drift it read at "
+        f"each step {res[0]['e_drift']} (identical on the {P15_WORLD} "
+        f"ranks), the planted NaN discarded on every rank "
+        f"({res[0]['e_nan']})")
+    for r, rr in enumerate(res):
+        log(f"  rank {r}: (c) {rr['c_step_ms']:.1f} ms, (d) "
+            f"{rr['d_step_ms']:.1f} ms, (e) {rr['e_step_ms']:.1f} ms a step; "
+            f"peaks (c) {rr['c_peak_gib']:.2f}, (d) {rr['d_peak_gib']:.2f}, "
+            f"(e) {rr['e_peak_gib']:.2f} GiB, (e)'s optimizer step "
+            f"{rr['e_transient_mib']:.1f} MiB above its start; cache bytes "
+            f"(c) {rr['c_cache'][0]} of {rr['c_cache'][2]}, (d) "
+            f"{rr['d_cache'][0]} of {rr['d_cache'][2]}, (e) "
+            f"{rr['e_cache'][0]} of {rr['e_cache'][2]} ({card})")
     log(f"  (a) leaves replicated over data "
         f"({', '.join(sorted(res[0]['replicated'][0]))}): crc32-equal on "
         f"both data ranks after each of {len(res[0]['replicated'])} steps")
@@ -5433,7 +5514,7 @@ def _phase15(torch, work, preset, device, launches):
         fail(f"phase 15: the world's checkpoint is at step "
              f"{latest_step(str(ck))}, not {P15_STEPS}")
     cfgs_b = _p15_cfgs(preset, muon_local_reshard=True)
-    tr = _p15_trainer(cfgs_b, device, steps=2 * P15_STEPS,
+    tr = _p15_trainer(cfgs_b, device, steps=P15_STEPS + P15_RESUME_STEPS,
                       checkpoint_dir=str(ck), checkpoint_every=0)
     _, _, one_b = tr.run()
     del tr
@@ -5446,7 +5527,49 @@ def _phase15(torch, work, preset, device, launches):
     log(f"  (b) one process resuming the world's step-{P15_STEPS} "
         f"checkpoint: losses {', '.join(f'{v:.5f}' for v in one_b)}; the "
         f"world's within {max(gaps):.2e} (bound {P15_LOSS_TOL}) ({card})")
-    return {"tp": res[0]["a_counts"], "zero": res[0]["b_counts"]}
+    _p15_one_restore(torch, work, preset, device)
+    out = {"tp": res[0]["a_counts"], "zero": res[0]["b_counts"]}
+    out.update({path: res[0][f"{k}_counts"]
+                for k, path in P15_NEW_PATHS.items()})
+    return out
+
+
+def _p15_unlike_manifest(crcs, manifest):
+    """The leaves of a restored state whose crc32 is not the MANIFEST's:
+    every leaf but the pending twins (never written) and ``pending_at``,
+    which a restore clears (the refresh in flight at the checkpoint is
+    never swapped in)."""
+    from repro_torch.optim import base
+
+    kept = {k: v for k, v in crcs.items() if k != "opt|pending_at"
+            and not set(k.split("|")) & set(base.PENDING_STATE_KEYS)}
+    want = {k: v for k, v in manifest.items() if k != "opt|pending_at"}
+    return sorted(k for k in set(kept) | set(want)
+                  if kept.get(k) != want.get(k))
+
+
+def _p15_one_restore(torch, work, preset, device):
+    """(f)'s second half: one process restores (e)'s checkpoint, every
+    leaf crc32-equal to the MANIFEST."""
+    from repro_torch.optim import base
+
+    ck = work / "ckpt_e"
+    manifest = json.loads((ck / f"step_{P15_ASYNC_STEPS:08d}" /
+                           "MANIFEST").read_text())["crc32"]
+    cfgs = _p15_cfgs(preset, precond_every=P15_ASYNC_K, precond_async=True)
+    tr = _p15_trainer(cfgs, device, steps=P15_ASYNC_STEPS,
+                      checkpoint_dir=str(ck), checkpoint_every=0)
+    start = tr.restore_or_init()
+    bad = _p15_unlike_manifest(_crcs(torch, tr.state_tree()), manifest)
+    pending = tr.opt.pending_host
+    del tr
+    if start != P15_ASYNC_STEPS or bad or pending != base.NO_PENDING:
+        fail(f"phase 15 (f): one process restored (e)'s checkpoint at "
+             f"{start}, pending_at {pending}; leaves differ from the "
+             f"MANIFEST: {bad[:5]}")
+    log(f"  (f) one process restores (e)'s checkpoint: every leaf "
+        f"crc32-equal to the MANIFEST ({len(manifest)} leaves), the refresh "
+        f"in flight at step {P15_ASYNC_STEPS - 1} cleared")
 
 
 def _phase15_rank(rank, world, work, preset, device, launches):
@@ -5482,8 +5605,14 @@ def _p15_rank_body(rank, world, work, preset, device, launches):
         res.update(_p15_tp(torch, rank, mesh, dev, work, preset, launches))
         res.update(_p15_zero(torch, rank, mesh, dev, work, preset,
                              launches, res["a_shapes"]))
-        res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
-                           if dev.type == "cuda" else 0.0)
+        res["peak_gib"] = _p15_peak(torch, dev)
+        res.update(_p15_shampoo(torch, rank, mesh, dev, work, preset,
+                                launches))
+        res.update(_p15_fitted(torch, rank, mesh, dev, work, preset,
+                               launches))
+        res.update(_p15_async(torch, rank, mesh, dev, work, preset,
+                              launches))
+        res.update(_p15_restore(torch, rank, mesh, dev, work, preset))
         collectives.barrier()
         return res
     finally:
@@ -5589,26 +5718,29 @@ def _p15_tp(torch, rank, mesh, dev, work, preset, launches):
 
 
 def _row_blocks(shapes):
-    """The K2 calls of ``shapes`` with their rows (the long side) halved:
-    (b)'s blocks of (a)'s slices, whose batch the model axis halves as
-    (a)'s engine halved it over the data axis."""
+    """The K2 calls of (a)'s ``shapes`` (over P15_STEPS steps) with their
+    rows (the long side) halved, over P15_RESUME_STEPS steps: (b)'s
+    blocks of (a)'s slices, whose batch the model axis halves as (a)'s
+    engine halved it over the data axis."""
     out = {}
     for k, v in shapes.items():
         if k.startswith("gram "):
             b, m, n = json.loads(k[len("gram "):])
-            out[f"gram {[b, m // P15_MESH[0], n]}"] = v
+            out[f"gram {[b, m // P15_MESH[0], n]}"] = \
+                v // P15_STEPS * P15_RESUME_STEPS
     return out
 
 
 def _p15_zero(torch, rank, mesh, dev, work, preset, launches, a_shapes):
     """(b): resume (a)'s checkpoint under "zero" with the local reshard,
-    P15_STEPS steps."""
+    P15_RESUME_STEPS steps."""
     from repro_torch.checkpoint import checkpoint as ck
     from repro_torch.optim import base
 
     cfgs = _p15_cfgs(preset, muon_local_reshard=True)
     ckpt_dir = work / "ckpt"
-    tr = _p15_trainer(cfgs, dev, mesh, "zero", steps=2 * P15_STEPS,
+    tr = _p15_trainer(cfgs, dev, mesh, "zero",
+                      steps=P15_STEPS + P15_RESUME_STEPS,
                       checkpoint_dir=str(ckpt_dir), checkpoint_every=0)
     manifest = json.loads((ckpt_dir / f"step_{P15_STEPS:08d}" /
                            "MANIFEST").read_text())["crc32"]
@@ -5665,6 +5797,646 @@ def _p15_zero(torch, rank, mesh, dev, work, preset, launches, a_shapes):
     del tr
     return {"b_losses": losses, "b_counts": total, "b_step_ms": step_ms,
             "b_by_kind": by, "b_shapes": shapes}
+
+
+# (c)-(f): Shampoo and the §12 async plane on the same world
+# steps of the sub-runs, cut for the script's clock (CHANGES.md): (c) 3 -> 2,
+# (e) 7 -> 6 (its checkpoint then holds the refresh dispatched at step 5)
+P15_SHAMPOO_STEPS = 2    # (c): Shampoo PRISM-5 under "tp"
+P15_FITTED_STEPS = 2     # (d): fitted Shampoo under "zero"
+P15_ASYNC_STEPS = 6      # (e): async Muon, bootstrap at 0, the clock at 5
+P15_ASYNC_K = 5
+P15_NAN_RANK = 1         # (e): the rank whose pending block gets the NaN
+P15_CACHE_KEYS = ("ortho", "Linv", "Rinv", "ortho_p", "Linv_p", "Rinv_p")
+# the kernels line's paths of the new sub-runs (rank 0's launches)
+P15_NEW_PATHS = {"c": "model_axis_shampoo_rank0",
+                 "d": "model_axis_fitted_rank0",
+                 "e": "model_axis_async_rank0"}
+
+
+def _p15_wait(work, name):
+    """The file ``name`` the main process writes for the ranks, once it
+    is there."""
+    path = work / name
+    deadline = time.monotonic() + P15_TIMEOUT_S
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no {name} in {P15_TIMEOUT_S} s")
+        time.sleep(0.2)
+    return path
+
+
+def _p15_publish(torch, work, tag, losses, upd, names):
+    """Hand one process's losses and step-0 update of ``names`` to the
+    ranks: ``ref_<tag>*`` files, the json last."""
+    torch.save({k: v.cpu() for k, v in upd.items() if k in names},
+               work / f"ref_{tag}_update.pt")
+    (work / f"ref_{tag}.json.tmp").write_text(json.dumps(losses))
+    (work / f"ref_{tag}.json.tmp").rename(work / f"ref_{tag}.json")
+
+
+def _shampoo_leaves(tr):
+    """The parameters Shampoo preconditions (a factor or a diagonal)."""
+    named = dict(tr.model.named_parameters())
+    return sorted(k for k, p in named.items()
+                  if "L" in tr.opt.state[p] or "diagL" in tr.opt.state[p])
+
+
+def _p15_shampoo_refs(torch, work, preset, device):
+    """(c)'s and (d)'s references: one process's Shampoo Trainer runs."""
+    tr = _p15_trainer(_p15_cfgs(preset, "shampoo", "prism5"), device,
+                      steps=P15_SHAMPOO_STEPS)
+    losses, upd = _p14_step0_update(torch, tr)
+    _p15_publish(torch, work, "c", losses, upd, _shampoo_leaves(tr))
+    del tr, upd
+    tr = _p15_trainer(_p15_cfgs(preset, "shampoo", "fig5"), device,
+                      steps=P15_FITTED_STEPS)
+    fl, upd = _p14_step0_update(torch, tr)
+    _p15_publish(torch, work, "d", fl, upd, _shampoo_leaves(tr))
+    del tr, upd
+    return losses, fl
+
+
+def shampoo_shares(cfg, ocfg, parts=P15_MESH[0]):
+    """{(n, n): slices} of each data rank's share of Shampoo's inverse-root
+    buckets of ``cfg`` (every factor side no longer than
+    ``max_precond_dim``, bucketed by shape, the batch split over
+    ``parts`` ranks), and the sides the fused tier takes."""
+    import torch
+
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.optim import base, bucketing
+
+    sides = []
+    for shape, axes, _ in param_specs(cfg).values():
+        if not base.is_matrix_param(axes, tuple(shape)):
+            continue
+        v = base.to_matrix_view(torch.empty(shape, device="meta"),
+                                axes)[0].shape
+        sides += [tuple(v[:-2]) + (k, k) for k in v[-2:]
+                  if k <= ocfg.max_precond_dim]
+    shares, fused = {}, set()
+    for b in bucketing.plan_buckets(sides):
+        shares[b.shape] = b.size // parts
+        if bucketing.resolve_fused_tier(ocfg.resolved_prism, b).fuse == "on":
+            fused.add(b.shape)
+    return shares, fused
+
+
+def shampoo_calls(cfg, ocfg, path, steps):
+    """The wrapper calls by shape (``_p15_shapes``' keys) a rank makes in
+    ``steps`` Shampoo steps of ``path``: each launch of ``PER_STEP[path]``
+    on its data share of the bucket that takes it (K1 and K5 the grid
+    tier's factor bucket; K3, K6 and K7 once a fused bucket each)."""
+    shares, fused = shampoo_shares(cfg, ocfg)
+    grid = [s for s in shares if s not in fused]
+    per = PER_STEP[path]
+    wrapper = {"matmul_add": "matmul_add", "warm_tail": "warm_tail",
+               "sketch_chain": "sketch_traces",
+               "residual_chain": "residual_chain", "apply_g": "apply_g"}
+    out = {}
+    for kernel, count in per.items():
+        on = grid if kernel in ("matmul_add", "sketch_chain") else \
+            sorted(fused)
+        for n, _ in on:
+            key = f"{wrapper[kernel]} {[shares[n, n], n, n]}"
+            out[key] = count // len(on) * steps
+    return out
+
+
+def _p15_cache_bytes(torch, tr):
+    """(this rank's bytes of the cached preconditioners and their twins,
+    the bytes of their ``precond_cache_sharding`` blocks computed from
+    the whole caches' shapes, the whole caches' bytes)."""
+    from repro_torch.launch import sharding
+    from repro_torch.optim import base
+
+    lay = tr.model.layout
+    axes = tr.model.logical_axes()
+    mine = want = whole = 0
+    for k, p in tr.model.named_parameters():
+        full = sharding.full_shape(tuple(p.shape), lay.shardings[k])
+        view = tuple(base.to_matrix_view(torch.empty(full, device="meta"),
+                                         axes[k])[0].shape)
+        for sk, v in tr.opt.state[p].items():
+            if sk not in P15_CACHE_KEYS:
+                continue
+            shape = view if sk.startswith("ortho") else view[:-2] + (
+                (view[-2],) * 2 if sk.startswith("L") else (view[-1],) * 2)
+            sh = sharding.precond_cache_sharding(lay.mesh, shape)
+            item = v.element_size()
+            mine += v.numel() * item
+            want += math.prod(sharding.local_shape(shape, sh)) * item
+            whole += math.prod(shape) * item
+    return mine, want, whole
+
+
+def _p15_note(rank, what, tr, by, peak, cache):
+    """Log a sub-run's step time, tokens/s over the world, collectives a
+    step by kind, peak memory and cache bytes (rank 0)."""
+    step_ms = statistics.median(tr.step_times) * 1e3 if tr.step_times \
+        else math.nan
+    seq, batch = tr.dcfg.seq_len, tr.dcfg.global_batch
+    mine, _, whole = cache
+    _rank_log(rank, f"  {what} step {step_ms:.1f} ms on rank 0 (median of "
+              f"steps 1..{len(tr.step_times)}), "
+              f"{seq * batch / (step_ms / 1e3):.0f} tokens/s over the world; "
+              f"max_memory_allocated {peak:.2f} GiB; cached preconditioners "
+              f"{mine} B on the rank of {whole} B whole; collectives a step "
+              f"by kind: {_p15_kind_note(by)}")
+    return step_ms
+
+
+def _p15_peak(torch, dev):
+    """max_memory_allocated since the last call, GiB (0 off the card)."""
+    if dev.type != "cuda":
+        return 0.0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def _p15_grads0(torch, tr):
+    """An ``on_step`` hook that keeps the world's step-0 gradients (the
+    reduced, clipped ones the optimizer read), gathered whole (collective:
+    every rank gathers; rank 0 keeps them)."""
+    from repro_torch import collectives
+    from repro_torch.launch import sharding
+
+    lay = tr.model.layout
+    kept = {}
+
+    def on_step(t):
+        if t != 0:
+            return
+        for k, p in tr.model.named_parameters():
+            g = sharding.gather_full(p.grad, lay.shardings[k], kind="gate")
+            if collectives.rank(None) == 0:
+                kept[k] = g
+    return kept, on_step
+
+
+class ShareNorms:
+    """Inside a ``with`` block, every per-slice Frobenius norm of the
+    matrix functions (``newton_schulz._fro``, in each module that took
+    it) over a batch of B > 1 slices is computed as the §8 engine's
+    ``parts`` data ranks compute it: on each rank's contiguous share of
+    ceil(B / parts) slices.  On the card torch sums a [B, n, n] batch's
+    slices in an order that depends on B, so a whole bucket's norms and
+    its shares' differ in the last bit; nothing else of the program is
+    changed.  Records how many slices' norms differ (``differ`` of
+    ``slices``) and by how much at most (``max_rel``)."""
+
+    MODULES = ("newton_schulz", "inverse_newton", "polar_express",
+               "lowrank", "newton")
+
+    def __init__(self, parts):
+        self.parts = parts
+        self.differ = self.slices = 0
+        self.max_rel = 0.0
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        from repro_torch.core import newton_schulz
+
+        real = self.real = newton_schulz._fro
+        self.mods = [m for m in (importlib.import_module(
+            f"repro_torch.core.{name}") for name in self.MODULES)
+            if getattr(m, "_fro", None) is real]
+
+        def fro(M):
+            whole = real(M)
+            B = M.shape[0] if M.dim() >= 3 else 1
+            if B < 2:
+                return whole
+            per = -(-B // self.parts)
+            pad = per * self.parts - B
+            X = torch.cat([M, M.new_zeros((pad,) + tuple(M.shape[1:]))]) \
+                if pad else M
+            shares = torch.cat([real(c) for c in X.split(per)])[:B]
+            self.slices += B
+            self.differ += int((shares != whole).sum())
+            self.max_rel = max(self.max_rel, float(
+                ((shares - whole).abs() / whole.abs().clamp(min=1e-30))
+                .max()))
+            return shares
+        for m in self.mods:
+            m._fro = fro
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m._fro = self.real
+
+
+def _p15_gate_update(torch, rank, tr, cfgs, dev, upd, grads0, work, tag,
+                     what, alphas=None):
+    """The step-0 update of the preconditioned leaves, gathered whole
+    (collective), against one process's optimizer (rank 0): a fresh one
+    over seed 0's whole parameters stepped once on the world's step-0
+    gradients (``grads0``), on whole buckets.  The gate: within
+    UPDATE_REL_TOL of its largest entry when that process takes each
+    slice's Frobenius norm as the data ranks do, on their shares of the
+    bucket (``ShareNorms``).  Printed: the gap with the process's own
+    norms, with ``alphas`` (the world's fitted alphas, gathered over
+    data) replayed, and to one process's Trainer (its own gradients).
+    Returns (gate gap, own-norms gap, Trainer gap, the ShareNorms)."""
+    from repro_torch.core.rng import Key
+    from repro_torch.launch import sharding
+    from repro_torch.models import Model
+    from repro_torch.optim import make_optimizer
+
+    lay = tr.model.layout
+    names = _shampoo_leaves(tr)
+    whole = {k: sharding.gather_full(v, lay.shardings[k], kind="gate")
+             for k, v in upd.items() if k in names}
+    if rank != 0:
+        return math.nan, math.nan, math.nan, None
+    cfg, ocfg, _ = cfgs
+    model = Model(cfg, device=dev, seed=0)
+    named = list(model.named_parameters())
+    before = {k: p.detach().clone() for k, p in named}
+
+    def one_step(ctx):
+        with torch.no_grad():
+            for k, p in named:
+                p.copy_(before[k])
+        opt = make_optimizer(ocfg, named, model.logical_axes())
+        for k, p in named:
+            p.grad = grads0[k]
+        with ctx:
+            opt.step(key=Key(0).fold_in(0))
+        return {k: p.detach() - before[k] for k, p in named if k in names}
+
+    norms = ShareNorms(P15_MESH[0])
+    gate = _worst_gap(torch, whole, one_step(norms), "", gate=False)
+    bucket = _worst_gap(torch, whole, one_step(
+        AlphaTape(replay=alphas) if alphas is not None
+        else contextlib.nullcontext()), "", gate=False)
+    del model, before, named
+    grads0.clear()
+    _p15_wait(work, f"ref_{tag}.json")
+    ref = torch.load(work / f"ref_{tag}_update.pt", map_location=dev)
+    trainer = _worst_gap(torch, whole, ref, "", gate=False)
+    if not gate <= UPDATE_REL_TOL:
+        raise AssertionError(f"{what} the step-0 Shampoo update differs "
+                             f"from one process's on the same gradients "
+                             f"with the shares' norms by {gate:.3e} of its "
+                             f"largest entry (bound {UPDATE_REL_TOL})")
+    return gate, bucket, trainer, norms
+
+
+def _p15_norms_note(norms):
+    """What ``ShareNorms`` saw (rank 0), for (c)'s and (d)'s lines."""
+    if norms is None:
+        return ""
+    return (f"; per-slice norms of whole buckets against their shares': "
+            f"{norms.differ} of {norms.slices} slices differ, by at most "
+            f"{norms.max_rel:.3e} relative")
+
+
+def _p15_cache_gate(torch, tr, what):
+    """The cache bytes (``_p15_cache_bytes``): the rank's must be its
+    layout's blocks."""
+    cache = _p15_cache_bytes(torch, tr)
+    if cache[0] != cache[1] or not cache[0]:
+        raise AssertionError(f"{what} the rank holds {cache[0]} B of cached "
+                             f"preconditioners, its layout's blocks are "
+                             f"{cache[1]} B")
+    return cache
+
+
+def _p15_shampoo(torch, rank, mesh, dev, work, preset, launches):
+    """(c): Shampoo PRISM-5 (phase 6's) under "tp", precondition_every 1,
+    P15_SHAMPOO_STEPS steps."""
+    cfgs = _p15_cfgs(preset, "shampoo", "prism5")
+    _p15_peak(torch, dev)
+    tr = _p15_trainer(cfgs, dev, mesh, "tp", steps=P15_SHAMPOO_STEPS)
+    grads0, on_step = _p15_grads0(torch, tr)
+    losses, per_step, calls, shapes, upd = _p15_steps(torch, tr, dev,
+                                                      on_step)
+    peak = _p15_peak(torch, dev)
+    for t, c in enumerate(per_step):
+        _p14_expect(rank, c, "shampoo_prism5", f"phase 15 (c) step {t}",
+                    launches)
+    want = shampoo_calls(cfgs[0], cfgs[1], "shampoo_prism5", len(losses))
+    if launches and shapes != want:
+        raise AssertionError(f"(c) wrapper calls {shapes}, want {want}")
+    ref = json.loads(_p15_wait(work, "ref_c.json").read_text())
+    gaps = [abs(a - b) for a, b in zip(losses, ref)]
+    if not all(math.isfinite(v) for v in losses) or \
+            not max(gaps) <= P15_LOSS_TOL:
+        raise AssertionError(f"(c) losses {losses} vs one process's {ref} "
+                             f"(bound {P15_LOSS_TOL})")
+    worst, bucket, trainer, norms = _p15_gate_update(
+        torch, rank, tr, cfgs, dev, upd, grads0, work, "c", "(c)")
+    cache = _p15_cache_gate(torch, tr, "(c)")
+    by = _p15_by_kind(calls, len(losses))
+    _rank_log(rank, f"  (c) Shampoo PRISM-5 under tp: losses "
+              f"{', '.join(f'{v:.5f}' for v in losses)} (one process: "
+              f"largest gap {max(gaps):.2e}, bound {P15_LOSS_TOL}); the "
+              f"step-0 update within {worst:.3e} of one process's on the "
+              f"same gradients with the shares' norms (bound "
+              f"{UPDATE_REL_TOL}); printed: {bucket:.3e} of it with its own "
+              f"norms, {trainer:.3e} of one process's Trainer"
+              f"{_p15_norms_note(norms)}; launches a step on rank 0: "
+              f"{sum(per_step[0].values())}; wrapper calls by shape over "
+              f"{len(losses)} steps: {shapes}")
+    step_ms = _p15_note(rank, "(c)", tr, by, peak, cache)
+    total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    del tr, upd
+    return {"c_losses": losses, "c_counts": total, "c_step_ms": step_ms,
+            "c_by_kind": by, "c_peak_gib": peak, "c_cache": cache}
+
+
+def _p15_fitted(torch, rank, mesh, dev, work, preset, launches):
+    """(d): fitted Shampoo (phase 7's Fig. 5 preset) under "zero",
+    P15_FITTED_STEPS steps; its step-0 update is gated against one
+    process's on the same gradients with the world's fitted alphas
+    pinned (each rank's share of every bucket's, gathered over data)."""
+    from repro_torch import collectives
+
+    cfgs = _p15_cfgs(preset, "shampoo", "fig5")
+    _p15_peak(torch, dev)
+    tr = _p15_trainer(cfgs, dev, mesh, "zero", steps=P15_FITTED_STEPS)
+    grads0, on_step = _p15_grads0(torch, tr)
+    with AlphaTape() as tape:
+        losses, per_step, calls, shapes, upd = _p15_steps(torch, tr, dev,
+                                                          on_step)
+    peak = _p15_peak(torch, dev)
+    fits = len(tape.alphas) // len(losses)
+    group = mesh.group(("data",))
+    alphas = [collectives.all_gather(a, group) for a in tape.alphas[:fits]]
+    for t, c in enumerate(per_step):
+        _p14_expect(rank, c, "shampoo_fig5", f"phase 15 (d) step {t}",
+                    launches)
+    want = shampoo_calls(cfgs[0], cfgs[1], "shampoo_fig5", len(losses))
+    if launches and shapes != want:
+        raise AssertionError(f"(d) wrapper calls {shapes}, want {want}")
+    ref = json.loads(_p15_wait(work, "ref_d.json").read_text())
+    gaps = [abs(a - b) for a, b in zip(losses, ref)]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"(d) losses {losses}")
+    worst, bucket, trainer, norms = _p15_gate_update(
+        torch, rank, tr, cfgs, dev, upd, grads0, work, "d", "(d)", alphas)
+    cache = _p15_cache_gate(torch, tr, "(d)")
+    by = _p15_by_kind(calls, len(losses))
+    _rank_log(rank, f"  (d) fitted Shampoo under zero ({fits} alpha fits a "
+              f"step, each rank on its share): losses "
+              f"{', '.join(f'{v:.5f}' for v in losses)} (one process's "
+              f"Trainer {', '.join(f'{v:.5f}' for v in ref)}, largest gap "
+              f"{max(gaps):.2e}, printed); the step-0 update within "
+              f"{worst:.3e} of one process's on the same gradients with "
+              f"the shares' norms (bound {UPDATE_REL_TOL}); printed: "
+              f"{bucket:.3e} of it with its own norms and the world's "
+              f"alphas pinned, {trainer:.3e} of one process's Trainer (its "
+              f"own alphas){_p15_norms_note(norms)}; "
+              f"launches a step on rank 0: {sum(per_step[0].values())}; "
+              f"wrapper calls by shape over {len(losses)} steps: {shapes}")
+    step_ms = _p15_note(rank, "(d)", tr, by, peak, cache)
+    total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    del tr, upd
+    return {"d_losses": losses, "d_counts": total, "d_step_ms": step_ms,
+            "d_by_kind": by, "d_peak_gib": peak, "d_cache": cache}
+
+
+def _p15_async_run(torch, rank, dev, mesh, preset, steps, ckpt=None,
+                   sync=False, plant=False):
+    """One async Muon run of (e) on the mesh under "tp": launches counted
+    apart in ``step_begin`` and in each step, the drift each step read,
+    the host time of each ``step_begin``, and on the card each optimizer
+    step's transient (its peak allocation above what was allocated when
+    it began: the whole caches it gathers; ``peak`` keeps the run's peak
+    across the resets); ``sync`` synchronizes the card after each
+    ``step_begin``; ``plant`` writes a NaN into rank P15_NAN_RANK's first
+    pending block of the bootstrap's refresh."""
+    from repro_torch import collectives
+    from repro_torch.kernels import ops
+    from repro_torch.optim import base
+
+    cfgs = _p15_cfgs(preset, precond_every=P15_ASYNC_K, precond_async=True)
+    tkw = {} if ckpt is None else dict(checkpoint_dir=str(ckpt),
+                                       checkpoint_every=steps)
+    tr = _p15_trainer(cfgs, dev, mesh, "tp", steps=steps, **tkw)
+    out = {"begin": {}, "steps": {}, "drift": [], "dispatched": [],
+           "begin_ms": {}, "kernels": dict.fromkeys(KERNEL_NAMES, 0),
+           "transient": [], "peak": 0}
+    real = [None]
+    cuda = dev.type == "cuda"
+
+    def measured(step):
+        def run(*a, **k):
+            out["peak"] = max(out["peak"], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            at = torch.cuda.memory_allocated()
+            r = step(*a, **k)
+            out["transient"].append(torch.cuda.max_memory_allocated() - at)
+            return r
+        return run
+
+    def counted_begin(t, key, drift=0.0):
+        before = ops.launch_counts()
+        if plant:
+            out["active"] = {k: v.clone() for k, v in _p15_orthos(tr)}
+        t0 = time.perf_counter()
+        real[0](t, key, drift=drift)
+        out["begin_ms"][t] = (time.perf_counter() - t0) * 1e3
+        if sync:
+            _p14_sync(torch, dev)
+        now = ops.launch_counts()
+        for k in out["kernels"]:
+            out["kernels"][k] += now[k] - before[k]
+        out["begin"][t] = sum(now.values()) - sum(before.values())
+        out["mark"] = sum(now.values())
+        if tr.precond.last_dispatch == t:
+            out["dispatched"].append(t)
+        if plant:
+            out["pending_after"] = tr.opt.pending_host
+            out["unchanged"] = all(torch.equal(v, out["active"][k])
+                                   for k, v in _p15_orthos(tr))
+            del out["active"]
+
+    def poisoned(key):
+        parts = real_refresh(key)
+        if collectives.rank(None) == P15_NAN_RANK:
+            part = next(p for p in parts if p and "ortho_p" in p)
+            part["ortho_p"].view(-1)[0] = math.nan
+        return parts
+
+    def on_metrics(t, m):
+        out["steps"][t] = sum(ops.launch_counts().values()) - out["mark"]
+        out["drift"].append(float(m["precond_drift"]))
+
+    real_init = tr.init_state
+
+    def init_state(seed=None):
+        nonlocal real_refresh
+        start = real_init(seed)
+        real[0] = tr.precond.step_begin
+        tr.precond.step_begin = counted_begin
+        if cuda:
+            tr.opt.step = measured(tr.opt.step)
+        if plant:
+            real_refresh = tr.precond._refresh
+            tr.precond._refresh = poisoned
+        return start
+    real_refresh = None
+    tr.init_state = init_state
+    with collectives.count_collectives() as calls:
+        tr.run(on_metrics=on_metrics)
+    _p14_sync(torch, dev)
+    base.wait_pending(tr.opt)
+    out["telemetry"] = dict(tr.precond.counters)
+    out["by"] = _p15_by_kind(calls, steps)
+    out["crc"] = _crcs(torch, tr.state_tree())
+    out["cache"] = _p15_cache_gate(torch, tr, "(e)")
+    out["step_ms"] = statistics.median(tr.step_times) * 1e3 \
+        if tr.step_times else math.nan
+    if cuda:
+        out["peak"] = max(out["peak"], torch.cuda.max_memory_allocated())
+    out["tr"] = tr
+    return out
+
+
+def _p15_orthos(tr):
+    return [(k, tr.opt.state[p]["ortho"])
+            for k, p in tr.model.named_parameters()
+            if "ortho" in tr.opt.state[p]]
+
+
+def _p15_async(torch, rank, mesh, dev, work, preset, launches):
+    """(e): async Muon PRISM-5 on the mesh under "tp", P15_ASYNC_STEPS
+    steps with deterministic algorithms, a checkpoint at the last; the
+    same world synchronized after each ``step_begin`` (bitwise equal);
+    one step whose bootstrap refresh carries a NaN in one rank's pending
+    block (discarded on every rank)."""
+    from repro_torch.optim import base
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        _p15_peak(torch, dev)
+        a = _p15_async_run(torch, rank, dev, mesh, preset, P15_ASYNC_STEPS,
+                           ckpt=work / "ckpt_e")
+        peak = max(_p15_peak(torch, dev), a["peak"] / 2**30)
+        tr = a.pop("tr")
+        _p15_note(rank, "(e)", tr, a["by"], peak, a["cache"])
+        del tr
+        s = _p15_async_run(torch, rank, dev, mesh, preset, P15_ASYNC_STEPS,
+                           sync=True)
+        del s["tr"]
+        n = _p15_async_run(torch, rank, dev, mesh, preset, 1, plant=True)
+        del n["tr"]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want_at = [0, P15_ASYNC_K]
+    per = sum(PER_STEP["prism5"].values())
+    if a["dispatched"] != want_at:
+        raise AssertionError(f"(e) dispatched at {a['dispatched']}, want "
+                             f"{want_at}")
+    if launches and ([a["begin"][t] for t in want_at] != [per, per]
+                     or any(a["steps"].values())
+                     or any(v for t, v in a["begin"].items()
+                            if t not in want_at)):
+        raise AssertionError(f"(e) launches in step_begin {a['begin']}, in "
+                             f"the steps {a['steps']}")
+    if a["crc"] != s["crc"]:
+        bad = sorted(k for k in a["crc"] if a["crc"][k] != s["crc"].get(k))
+        raise AssertionError(f"(e) the run differs from the one synchronized "
+                             f"after each step_begin: {bad[:5]}")
+    if a["drift"] != s["drift"]:
+        raise AssertionError(f"(e) drift {a['drift']} vs the synchronized "
+                             f"run's {s['drift']}")
+    if not (n["pending_after"] == base.NO_PENDING and n["unchanged"]
+            and n["telemetry"]["discarded"] == 1):
+        raise AssertionError(f"(e) the planted NaN: pending_at "
+                             f"{n['pending_after']}, active blocks "
+                             f"unchanged {n['unchanged']}, telemetry "
+                             f"{n['telemetry']}")
+    disp = [a["begin_ms"][t] for t in want_at]
+    rest = [v for t, v in a["begin_ms"].items() if t not in want_at]
+    _rank_log(rank, f"  (e) async Muon under tp: dispatched at "
+              f"{a['dispatched']}, step_begin launched "
+              f"{[a['begin'][t] for t in sorted(a['begin'])]}, the steps "
+              f"{[a['steps'][t] for t in sorted(a['steps'])]}; telemetry "
+              f"{a['telemetry']}; drift read {a['drift']}; the run bitwise "
+              f"the one synchronized after each step_begin "
+              f"({len(a['crc'])} state leaves); step_begin host ms at the "
+              f"dispatches {', '.join(f'{v:.1f}' for v in disp)}, elsewhere "
+              f"up to {max(rest):.1f} (gloo holds the host through the "
+              f"refresh's collectives); step {a['step_ms']:.1f} ms; "
+              f"the optimizer step's transient (the whole caches it "
+              f"gathers) at most {max(a['transient'] or [0]) / 2**20:.1f} "
+              f"MiB (MiB a step: "
+              f"{', '.join(f'{v / 2**20:.1f}' for v in a['transient'])})")
+    _rank_log(rank, f"  (e) a NaN in rank {P15_NAN_RANK}'s pending block of "
+              f"the bootstrap refresh: telemetry {n['telemetry']}, pending "
+              f"cleared, the active blocks bitwise unchanged")
+    return {"e_dispatched": a["dispatched"], "e_telemetry": a["telemetry"],
+            "e_drift": a["drift"], "e_begin": a["begin"],
+            "e_steps": a["steps"], "e_begin_ms": a["begin_ms"],
+            "e_step_ms": a["step_ms"], "e_by_kind": a["by"],
+            "e_peak_gib": peak, "e_cache": a["cache"],
+            "e_transient_mib": max(a["transient"] or [0]) / 2**20,
+            "e_counts": a["kernels"], "e_nan": n["telemetry"]}
+
+
+def _p15_restore(torch, rank, mesh, dev, work, preset):
+    """(f): (e)'s checkpoint holds every cache whole; a Trainer on the
+    mesh under "zero" restores it, every leaf gathered whole crc32-equal
+    to the MANIFEST and each cache block equal to its block of the
+    file's whole cache."""
+    import numpy as np
+
+    from repro_torch.launch import sharding
+    from repro_torch.optim import base
+
+    ck = work / "ckpt_e" / f"step_{P15_ASYNC_STEPS:08d}"
+    manifest = json.loads((ck / "MANIFEST").read_text())["crc32"]
+    cfgs = _p15_cfgs(preset, precond_every=P15_ASYNC_K, precond_async=True)
+    tr = _p15_trainer(cfgs, dev, mesh, "zero", steps=P15_ASYNC_STEPS,
+                      checkpoint_dir=str(work / "ckpt_e"),
+                      checkpoint_every=0)
+    t0 = time.perf_counter()
+    start = tr.restore_or_init()
+    restore_s = time.perf_counter() - t0
+    tree = tr.gathered_state_tree()
+    crcs = _crcs(torch, tree) if rank == 0 else {}
+    del tree
+    if rank == 0:
+        bad = _p15_unlike_manifest(crcs, manifest)
+        if start != P15_ASYNC_STEPS or bad or \
+                tr.opt.pending_host != base.NO_PENDING:
+            raise AssertionError(f"(f) restored at {start}, pending_at "
+                                 f"{tr.opt.pending_host}; leaves differ "
+                                 f"from the MANIFEST: {bad[:5]}")
+    data = np.load(ck / "tree.npz")
+    layouts = tr.state_shardings()["opt"]
+    coords = mesh.coords()
+    blocks = whole = 0
+    for k, p in tr.model.named_parameters():
+        for sk, v in tr.opt.state[p].items():
+            if sk not in P15_CACHE_KEYS or sk in base.PENDING_STATE_KEYS:
+                continue
+            full = data[f"opt|{k}|{sk}"]
+            want = torch.from_numpy(np.ascontiguousarray(sharding.local_block(
+                full, layouts[k][sk], coords))).to(v.device)
+            if tuple(full.shape) == tuple(v.shape) or \
+                    not torch.equal(v, want):
+                raise AssertionError(f"(f) {k}|{sk}: block {tuple(v.shape)} "
+                                     f"of the file's {full.shape} differs")
+            blocks += 1
+            whole += full.nbytes
+    _rank_log(rank, f"  (f) (e)'s checkpoint restored under zero in "
+              f"{restore_s:.1f} s: every leaf gathered whole crc32-equal to "
+              f"the MANIFEST ({len(manifest)} leaves; the refresh in flight "
+              f"cleared); {blocks} caches, "
+              f"{whole} B whole in the file, each rank's block bitwise its "
+              f"block of the file's")
+    del tr
+    return {"f_blocks": blocks}
 
 
 def main() -> None:
@@ -5731,6 +6503,12 @@ def main() -> None:
         "blocks (K2's partial Gram, alpha 0)")
     rows = gemm_shape_checks(torch, rows, P15_SHAPES, ("float32",), 17)
     timings.update(gemm_shape_timings(torch, P15_SHAPES, ("float32",), 18))
+    log("  K1 at Shampoo's factor share of phase 15 (c)/(d) (K3, K5, K6 and "
+        "K7 at their shares run above)")
+    rows = gemm_shape_checks(torch, rows, P15_SHAMPOO_SHAPES, ("float32",),
+                             19)
+    timings.update(gemm_shape_timings(torch, P15_SHAMPOO_SHAPES,
+                                      ("float32",), 20))
 
     runs = {}
     log("phase 4: PRISM-5 path, gpt2-paper Muon step at full width")
@@ -5805,7 +6583,8 @@ def main() -> None:
 
     log(f"phase 15: the model axis, {P15_WORLD} ranks on the card (gloo) on "
         f"a {P15_MESH} (data, model) mesh: tensor parallelism, then ZeRO-3 "
-        f"with Muon's local reshard from its checkpoint")
+        f"with Muon's local reshard from its checkpoint; Shampoo PRISM-5 "
+        f"and fitted, the async plane, its checkpoint restored as blocks")
     t0 = time.perf_counter()
     mp = phase15(torch)
     log(f"  phase 15 in {time.perf_counter() - t0:.1f} s; the script so far "
@@ -5820,6 +6599,7 @@ def main() -> None:
     by_path["data_parallel_rank0"] = dp
     by_path["model_axis_tp_rank0"] = mp["tp"]
     by_path["model_axis_zero_rank0"] = mp["zero"]
+    by_path.update({path: mp[path] for path in P15_NEW_PATHS.values()})
     print(json.dumps({"kernels": kernel_rows(rows, timings, by_path)}),
           flush=True)
     print(f"card: {card}", flush=True)
@@ -5920,6 +6700,11 @@ VARIANTS = {
         for n, a, b, _, _ in GRANITE_SHAPES if n == "matmul_add"] + [
         ("-", _lowrank_key(n, a, b, "float32"), _p15_path(w))
         for n, a, b, _, w in P15_SHAPES if n == "matmul_add"] + [
+        ("-", _lowrank_key(n, a, b, "float32"), P15_NEW_PATHS["e"])
+        for n, a, b, _, w in P15_SHAPES
+        if n == "matmul_add" and w.startswith("(a)")] + [
+        ("-", _lowrank_key(n, a, b, "float32"), P15_NEW_PATHS[k])
+        for n, a, b, _, _ in P15_SHAMPOO_SHAPES for k in "cd"] + [
         ("-", ("matmul_add", (20, 4096, 1024)), "trainer"),
         ("-", ("matmul_add", (40, 1024, 1024)), "trainer"),
         ("-", ("matmul_add", (100, 1024, 1024)), "shampoo_prism5"),
@@ -5938,6 +6723,9 @@ VARIANTS = {
         for n, a, b, _, _ in GRANITE_SHAPES if n == "gram_upper"] + [
         ("polar", _lowrank_key(n, a, b, "float32"), _p15_path(w))
         for n, a, b, _, w in P15_SHAPES if n == "gram_upper"] + [
+        ("polar", _lowrank_key(n, a, b, "float32"), P15_NEW_PATHS["e"])
+        for n, a, b, _, w in P15_SHAPES
+        if n == "gram_upper" and w.startswith("(a)")] + [
         ("polar", ("gram_upper", (20, 4096, 1024)), "trainer"),
         ("polar", ("gram_upper", (40, 1024, 1024)), "trainer"),
         ("polar", ("gram_upper", (20, 4096, 1024), "bfloat16"), None),
@@ -5950,6 +6738,10 @@ VARIANTS = {
         ("polar", ("warm_tail", (30, 64, 16)), "trainer"),
         ("sqrt", ("warm_tail/sqrt", (30, 64, 64)), "shampoo_prism5"),
         ("sqrt", ("warm_tail/sqrt", (30, 16, 16)), "shampoo_prism5"),
+        ("sqrt", ("warm_tail/sqrt", (15, 64, 64)), P15_NEW_PATHS["c"]),
+        ("sqrt", ("warm_tail/sqrt", (15, 16, 16)), P15_NEW_PATHS["c"]),
+        ("polar", ("warm_tail", (15, 64, 16)), "model_axis_tp_rank0"),
+        ("polar", ("warm_tail", (15, 64, 16)), P15_NEW_PATHS["e"]),
         ("sign", ("warm_tail/sign", (30, 64, 64)), None)],
     "sketch_step": [
         ("-", ("sketch_step", (40, 1024, 1024)), "fallback"),
@@ -5958,15 +6750,20 @@ VARIANTS = {
     "sketch_chain": [
         ("-", ("sketch_chain", (100, 1024, 1024, 10)), "shampoo_fig5"),
         ("-", ("sketch_chain", (40, 1024, 1024, 6)), "prism3"),
-        ("-", ("sketch_chain", (20, 1024, 1024, 6)), "prism3")],
+        ("-", ("sketch_chain", (20, 1024, 1024, 6)), "prism3"),
+        ("-", ("sketch_chain", (50, 1024, 1024, 10)), P15_NEW_PATHS["d"])],
     "residual_chain": [
         ("sqrt", ("residual_chain/sqrt", (30, 64, 64)), "shampoo_fig5"),
         ("sqrt", ("residual_chain/sqrt", (30, 16, 16)), "shampoo_fig5"),
+        ("sqrt", ("residual_chain/sqrt", (15, 64, 64)), P15_NEW_PATHS["d"]),
+        ("sqrt", ("residual_chain/sqrt", (15, 16, 16)), P15_NEW_PATHS["d"]),
         ("sign", ("residual_chain/sign", (30, 64, 64)), None),
         ("polar", ("residual_chain", (30, 64, 16, 6)), "prism3")],
     "apply_g": [
         ("coupled", ("apply_g/coupled", (30, 64, 64)), "shampoo_fig5"),
         ("coupled", ("apply_g/coupled", (30, 16, 16)), "shampoo_fig5"),
+        ("coupled", ("apply_g/coupled", (15, 64, 64)), P15_NEW_PATHS["d"]),
+        ("coupled", ("apply_g/coupled", (15, 16, 16)), P15_NEW_PATHS["d"]),
         ("polar", ("apply_g", (30, 64, 16)), "prism3")],
 }
 REPLACES = {"matmul_add": "src/repro/kernels/matmul_add.py:55",

@@ -6,9 +6,11 @@ Every collective the port issues goes through this module: ``all_gather``
 SUM or MAX (the gradient and metric reductions,
 ``optim/compression.py::int8_psum``, the local reshard's Gram).  Each
 call appends its op, dtype, element count, host time and ``kind`` (what
-issued it: "tp", "fsdp", "engine", "grad", "gram", ...) to the census
-that ``count_collectives`` opens, as ``kernels/ops.py::count_launches``
-counts kernel launches.
+issued it: "tp", "fsdp", "engine", "grad", "gram", "opt", "cache" (a
+cached preconditioner's blocks gathered whole), "drift" (the §12 drift
+proxy's world sums), "verdict" (a world AND of a refresh's or the
+guard's finiteness), ...) to the census that ``count_collectives``
+opens, as ``kernels/ops.py::count_launches`` counts kernel launches.
 
 Tensor parallelism (Megatron's pattern) differentiates through three
 autograd Functions over a group, each issuing one counted collective a

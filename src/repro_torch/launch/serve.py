@@ -26,7 +26,7 @@ generator seeded with ``--seed``.  The first prefill call is timed apart
 from the second, so the prefill tokens/s is a steady-state number.
 ``--mesh production`` (model = 16, the "serve" rules with
 ``kv_seq``-sharded decode caches) comes with ROADMAP.md Queue 1 item
-11d.
+11f.
 Without ``--device`` it runs on CUDA.
 """
 from __future__ import annotations
@@ -174,7 +174,7 @@ def main(argv=None):
     if args.mesh == "production":
         raise NotImplementedError(
             "--mesh production (model = 16) comes with model-axis "
-            "sharding, ROADMAP.md Queue 1 item 11d")
+            "sharding, ROADMAP.md Queue 1 item 11f")
     device = resolve_device(args.device)
     model, params = load_model(args, device)
     if args.continuous:

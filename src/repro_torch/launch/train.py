@@ -31,10 +31,12 @@ on ``make_production_mesh`` ((data 16, model 16), a pod axis of 2 in
 front with ``--multi_pod``) under the reference's default rules,
 ``param_rules(cfg, mesh)`` ("tp": FSDP over data, tensor parallelism
 over model), through the Trainer (``production_layout`` builds the mesh
-and the shardings, also without a world).  A world of another size
+and the shardings, also without a world), with any of the optimizers
+and ``--precond_async``: Muon and Shampoo keep their moments and cached
+preconditioners as blocks of the layout.  A world of another size
 fails with the ``Mesh``'s ValueError; ``--multi_pod`` without ``--mesh
 production`` is a ValueError; the other families on the production mesh
-raise (ROADMAP.md Queue 1 item 11d), as ``--pipeline_stages > 1`` (the
+raise (ROADMAP.md Queue 1 item 11e), as ``--pipeline_stages > 1`` (the
 1F1B pipeline) does (item 11c).
 """
 from __future__ import annotations
@@ -145,7 +147,7 @@ def build(args) -> Trainer:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"--mesh production for the {cfg.family} family comes with "
-                f"ROADMAP.md Queue 1 item 11d")
+                f"ROADMAP.md Queue 1 item 11e")
         if not dist.is_initialized():
             init_world_from_env(device=args.device)
         mesh, shardings = production_layout(cfg, args.multi_pod)

@@ -78,8 +78,8 @@ rank's global offset, and the CE reduces the log-softmax's max (one MAX
 all-reduce) and its sum of exponentials with the target logit (one SUM)
 over the model axis.  Shapes
 come from the tensors, not from ``cfg``.  Only the dense family trains
-sharded; the others, and serving, on sharded parameters raise
-(ROADMAP.md Queue 1 item 11d).
+sharded; the others on sharded parameters raise (ROADMAP.md Queue 1
+item 11e), and so does serving on them (item 11f).
 """
 from __future__ import annotations
 
@@ -439,7 +439,7 @@ class Model(nn.Module):
                 for sh in layout.shardings.values())):
             raise NotImplementedError(
                 f"the {self.cfg.family} family on sharded parameters or a "
-                f"model axis comes with ROADMAP.md Queue 1 item 11d")
+                f"model axis comes with ROADMAP.md Queue 1 item 11e")
         if layout.tp is not None:
             for k in ("embed", "head", "layers.attn.wq", "layers.mlp.w_up"):
                 sh = layout.shardings.get(k)
@@ -473,7 +473,7 @@ class Model(nn.Module):
         if self.layout is not None:
             raise NotImplementedError(
                 f"{what} on sharded parameters comes with ROADMAP.md Queue 1 "
-                f"item 11d")
+                f"item 11f")
 
     def _vocab_offset(self, rows: int) -> int:
         """The first global vocab row of this rank's ``rows`` rows."""

@@ -6,7 +6,6 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 import torch
 
 from repro_torch.config import OptimizerConfig
-from repro_torch.launch import sharding
 from repro_torch.optim import base, bucketing
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.muon import Muon
@@ -21,21 +20,17 @@ def make_optimizer(cfg: OptimizerConfig,
     logical axes (counterpart of ``repro.optim.make_optimizer``), wrapped
     in the §15 skip-step guard when ``cfg.skip_nonfinite``.
     ``shardings`` (name -> ``launch.sharding.Sharding``) is a sharded
-    model's layout: Muon gathers its matrix views whole; AdamW is
-    elementwise on the blocks; Shampoo on sharded parameters raises
-    (ROADMAP.md Queue 1 item 11d)."""
-    if shardings and any(sharding.sharded_axes(sh)
-                         for sh in shardings.values()) and \
-            cfg.name == "shampoo":
-        raise NotImplementedError(
-            "Shampoo on sharded parameters comes with ROADMAP.md Queue 1 "
-            "item 11d")
+    model's layout: Muon and Shampoo gather their matrix views whole,
+    keep their moments as blocks like the parameters and their cached
+    preconditioners (and §12 twins) as ``precond_cache_sharding``
+    blocks; AdamW is elementwise on the blocks.  Every optimizer names
+    its state's layout in ``blocks`` (``base.Blocks``)."""
     if cfg.name == "muon":
         opt = Muon(named_params, cfg, axes, shardings)
     elif cfg.name == "shampoo":
-        opt = Shampoo(named_params, cfg, axes)
+        opt = Shampoo(named_params, cfg, axes, shardings=shardings)
     elif cfg.name == "adamw":
-        opt = AdamW(named_params, cfg)
+        opt = AdamW(named_params, cfg, shardings)
     else:
         raise ValueError(f"unknown optimizer {cfg.name!r}")
     return base.skip_nonfinite(opt) if cfg.skip_nonfinite else opt

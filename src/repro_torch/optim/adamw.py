@@ -1,9 +1,11 @@
 """AdamW, the paper's Sec. 6.2 baseline (counterpart of
 ``repro/optim/adamw.py``): every parameter takes the same Adam update with
-decoupled weight decay, no matrix function at all."""
+decoupled weight decay, no matrix function at all.  On a sharded model
+(``shardings``) it is elementwise on the parameters' blocks, and its
+moments are blocks like them (``base.Blocks``)."""
 from __future__ import annotations
 
-from typing import Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -14,17 +16,21 @@ from repro_torch.optim import base
 class AdamW(torch.optim.Optimizer):
     """AdamW over named parameters; hyperparameters live in ``cfg``,
     gradients are read from ``.grad`` as fp32, and the state of each
-    parameter ("mom", "nu", fp32) is created here."""
+    parameter ("mom", "nu", fp32) is created here.  ``shardings`` (name
+    -> ``launch.sharding.Sharding``) is a sharded model's layout."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
-                 cfg: OptimizerConfig):
+                 cfg: OptimizerConfig,
+                 shardings: Optional[Dict[str, Any]] = None):
         named = list(named_params)
         super().__init__([p for _, p in named], defaults={})
         self.cfg = cfg
         self.count = 0
-        for _, p in named:
+        self.blocks = base.Blocks(named, shardings)
+        for i, (_, p) in enumerate(named):
             mom = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             self.state[p] = {"mom": mom, "nu": torch.zeros_like(mom)}
+            self.blocks.like_param(i, "mom", "nu")
 
     @torch.no_grad()
     def step(self, closure=None, key=None, refresh=None):

@@ -85,6 +85,113 @@ def resolve_refresh_period(cfg, name: Optional[str] = None) -> int:
     return k
 
 
+class Blocks:
+    """The layout of an optimizer's state on a sharded model (every
+    optimizer's ``blocks``; DESIGN.md §4, §8) over named parameters and
+    their ``shardings`` (name -> ``launch.sharding.Sharding``; a missing
+    or unsplit one is whole).
+
+    ``param[i]`` is parameter i's Sharding (None: whole), ``full_shapes[i]``
+    its whole shape, ``mesh`` and ``coords`` the mesh and this rank's
+    place on it (None without a split parameter), and ``layouts[i]`` the
+    Sharding of every state entry of parameter i that is held as a block:
+    the moments like their parameter (``like_param``), the cached
+    preconditioners and their §12 twins as their ``precond_cache_sharding``
+    blocks of the whole cache (``cache``).  Without a mesh every method is
+    the identity and no collective runs."""
+
+    def __init__(self, named, shardings=None):
+        from repro_torch.launch import sharding
+
+        shardings = shardings or {}
+        self.param = [shardings.get(n) if sharding.sharded_axes(
+            shardings.get(n)) else None for n, _ in named]
+        self.full_shapes = [sharding.full_shape(tuple(p.shape), sh)
+                            for (_, p), sh in zip(named, self.param)]
+        split = [sh for sh in self.param if sh is not None]
+        self.mesh = split[0].mesh if split else None
+        self.coords = self.mesh.coords() if split else None
+        self.layouts: List[dict] = [{} for _ in named]
+
+    def like_param(self, i: int, *keys: str) -> None:
+        """State entries ``keys`` of parameter i are blocks like it."""
+        if self.param[i] is not None:
+            for k in keys:
+                self.layouts[i][k] = self.param[i]
+
+    def cache(self, i: int, keys, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """Hold the state entries ``keys`` of parameter i (a cache of the
+        whole shape ``shape`` and its twin) as their
+        ``precond_cache_sharding`` blocks; returns the block's shape."""
+        if self.mesh is None:
+            return tuple(shape)
+        from repro_torch.launch import sharding
+
+        sh = sharding.precond_cache_sharding(self.mesh, tuple(shape))
+        for k in keys:
+            self.layouts[i][k] = sh
+        return sharding.local_shape(tuple(shape), sh)
+
+    def block(self, x: torch.Tensor, i: int, key: str) -> torch.Tensor:
+        """This rank's block of the whole ``x`` under entry ``key``'s
+        layout, in memory of its own (``x`` itself when it is whole)."""
+        sh = self.layouts[i].get(key)
+        if sh is None:
+            return x
+        from repro_torch.launch import sharding
+
+        return sharding.local_block(x, sh, self.coords).clone(
+            memory_format=torch.contiguous_format)
+
+    def whole(self, x: torch.Tensor, i: int, key: str,
+              kind: str = "cache") -> torch.Tensor:
+        """The whole entry from every rank's block ``x`` of entry ``key``
+        (collective on a mesh; ``x`` itself when it is whole)."""
+        sh = self.layouts[i].get(key)
+        if sh is None:
+            return x
+        from repro_torch.launch import sharding
+
+        return sharding.gather_full(x, sh, kind=kind)
+
+    def world_sums(self, sums: List[torch.Tensor], idx: List[int]
+                   ) -> List[torch.Tensor]:
+        """The whole leaves' sums from each rank's block sums (0-d fp32;
+        ``sums[j]`` of parameter ``idx[j]``'s block): each counted on the
+        ranks at coordinate 0 of the axes its parameter is replicated
+        over, one SUM all-reduce over the world (kind "drift")."""
+        if self.mesh is None or not sums:
+            return sums
+        from repro_torch import collectives
+        from repro_torch.launch import sharding
+
+        mesh = self.mesh
+        vec = []
+        for s, i in zip(sums, idx):
+            split = sharding.sharded_axes(self.param[i])
+            owner = all(self.coords[a] == 0 for a in mesh.axis_names
+                        if a not in split)
+            vec.append(s if owner else torch.zeros_like(s))
+        vec = torch.stack(vec)
+        collectives.all_reduce(vec, "sum", mesh.group(mesh.axis_names),
+                               kind="drift")
+        return list(vec.unbind())
+
+    def world_all(self, ok: torch.Tensor) -> torch.Tensor:
+        """A 0-d bool true on every rank iff it is true on every rank of
+        the world (one MAX all-reduce, kind "verdict"; ``ok`` itself
+        without a mesh).  Stays on the device."""
+        if self.mesh is None:
+            return ok
+        from repro_torch import collectives
+
+        bad = (~ok).to(torch.int32).reshape(1)
+        collectives.all_reduce(bad, "max",
+                               self.mesh.group(self.mesh.axis_names),
+                               kind="verdict")
+        return bad[0] == 0
+
+
 def adam_bias_corrections(b1: float, b2: float, count):
     """(1 - b1**t, 1 - b2**t) for t = count + 1, Adam's bias corrections.
 
@@ -173,6 +280,8 @@ class SkipNonfinite:
         opt.step(key=key, refresh=refresh)
         checks = [p.grad for p in params if p.grad is not None] + params
         ok = torch.stack([torch.isfinite(t).all() for t in checks]).all()
+        # blocks of a sharded model: every rank commits or rolls back
+        ok = opt.blocks.world_all(ok)
         for p, old in zip(params, old_p):
             p.copy_(torch.where(ok, p, old))
         for p, old in zip(params, old_s):
@@ -439,6 +548,13 @@ class AsyncPrecondService:
             self._retry_at = step + min(2 ** (self.failures - 1),
                                         self.period)
 
+    def _verdict_of(self, twins) -> torch.Tensor:
+        """The refresh's finiteness verdict, a 0-d device bool: over this
+        rank's twins, and on a sharded model (the optimizer's ``blocks``)
+        the AND over the world, so that every rank swaps or discards
+        alike."""
+        return _inner(self.opt).blocks.world_all(_partials_finite(twins))
+
     def _dispatch(self, key):
         """(pending twins, (verdict, ready event)): the refresh and its
         finiteness check, on the side stream on the card."""
@@ -447,7 +563,7 @@ class AsyncPrecondService:
         if dev.type != "cuda":
             with torch.no_grad():
                 twins = self._refresh(key)
-                return twins, (_partials_finite(twins), None)
+                return twins, (self._verdict_of(twins), None)
         main = torch.cuda.current_stream(dev)
         if self._side is None:
             self._side = torch.cuda.Stream(dev)
@@ -459,7 +575,7 @@ class AsyncPrecondService:
             t.record_stream(side)
         with torch.cuda.stream(side), torch.no_grad():
             twins = self._refresh(key)
-            self._verdict.copy_(_partials_finite(twins), non_blocking=True)
+            self._verdict.copy_(self._verdict_of(twins), non_blocking=True)
             ready = torch.cuda.Event()
             ready.record(side)
         for part in twins:

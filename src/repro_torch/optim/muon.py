@@ -55,12 +55,22 @@ its slices over the model axis and its rows over the data axis instead
 (``bucketing.polar_local_rows``, DESIGN.md §4).
 
 Sharded parameters (``shardings``: name -> ``launch.sharding.Sharding``,
-a sharded model's layout): the moments are blocks like their parameter;
-each matrix leaf's nesterov view is gathered whole
-(``sharding.gather_full``) before it enters its bucket, and the update
-applies its rank's block.  The AdamW branch is elementwise on the
-blocks.  The "ortho" caches are held whole on every rank.  The §12
-async plane on sharded parameters raises (ROADMAP.md Queue 1 item 11d).
+a sharded model's layout; ``base.Blocks``): the moments are blocks like
+their parameter; each matrix leaf's nesterov view is gathered whole
+(``sharding.gather_full``, kind "opt") before it enters its bucket, and
+the update applies its rank's block.  The AdamW branch is elementwise on
+the blocks.  "ortho" and "ortho_p" are held as their
+``precond_cache_sharding`` blocks (the leading layer dim over model, the
+rows over data, as the reference lays them out): a refresh keeps its
+block of the whole polar it applies, and a stale or async step gathers
+each leaf's whole cache (kind "cache") just before applying it, one
+leaf at a time.  Under the §12 plane
+the refresh gathers the stored momentum blocks into whole views, the
+drift proxy's norms are the whole moment's (block sums of squares
+reduced over the world, kind "drift"), so every rank reads the same
+drift, and the service takes its verdict over the world
+(``base.AsyncPrecondService``); the swap stays a local select between
+blocks of one layout.
 """
 from __future__ import annotations
 
@@ -118,32 +128,25 @@ class Muon(torch.optim.Optimizer):
         self.cfg = cfg
         self.axes = [tuple(axes[n]) for n, _ in named]
         self.leaf_idx = leaf_order([n for n, _ in named])
-        shardings = shardings or {}
-        self.shardings = [shardings.get(n) if sharding.sharded_axes(
-            shardings.get(n)) else None for n, _ in named]
-        self.full_shapes = [sharding.full_shape(tuple(p.shape), sh)
-                            for (_, p), sh in zip(named, self.shardings)]
-        sharded = [sh for sh in self.shardings if sh is not None]
-        if sharded and cfg.precond_async:
-            raise NotImplementedError(
-                "the §12 async plane on sharded parameters comes with "
-                "ROADMAP.md Queue 1 item 11d")
-        self._coords = sharded[0].mesh.coords() if sharded else None
+        self.blocks = base.Blocks(named, shardings)
         self.count = 0
         if cfg.precond_async:
             base.init_pending(self)
-        for (_, p), a, full in zip(named, self.axes, self.full_shapes):
-            self.state[p] = self._init_state(p, a, full)
+        for i, ((_, p), a) in enumerate(zip(named, self.axes)):
+            self.state[p] = self._init_state(i, p, a)
 
     def _matrix(self, a: tuple, shape: tuple) -> bool:
         return base.is_matrix_param(a, tuple(shape),
                                     allow_embed=self.cfg.lowrank_rank > 0)
 
-    def _init_state(self, p: torch.Tensor, a: tuple, full: tuple) -> Dict:
+    def _init_state(self, i: int, p: torch.Tensor, a: tuple) -> Dict:
         cfg = self.cfg
+        full = self.blocks.full_shapes[i]
         mom = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         if not self._matrix(a, full):
+            self.blocks.like_param(i, "mom", "nu")
             return {"mom": mom, "nu": torch.zeros_like(mom)}
+        self.blocks.like_param(i, "mom")
         st = {"mom": mom}
         vshape = tuple(base.to_matrix_view(
             torch.empty(full, device="meta"), a)[0].shape)
@@ -157,7 +160,8 @@ class Muon(torch.optim.Optimizer):
                 bucketing.resolve_tier(cfg, vshape[-2:])],
                 dtype=torch.int32, device=p.device)
         if cfg.precond_every > 1:
-            st["ortho"] = torch.zeros(vshape,
+            keys = ("ortho", "ortho_p") if cfg.precond_async else ("ortho",)
+            st["ortho"] = torch.zeros(self.blocks.cache(i, keys, vshape),
                                       dtype=torch_dtype(cfg.cache_dtype),
                                       device=p.device)
         if cfg.precond_async:
@@ -201,7 +205,8 @@ class Muon(torch.optim.Optimizer):
         cfg = self.cfg
         lr = cfg.learning_rate
         params = self.param_groups[0]["params"]
-        views, metas, idx = [], [], []
+        blocks = self.blocks
+        views, metas, idx, moved = [], [], [], []
         # pass 1: momentum everywhere; AdamW leaves finish immediately,
         # matrix leaves only queue their nesterov momentum view
         for i, (p, a) in enumerate(zip(params, self.axes)):
@@ -209,22 +214,19 @@ class Muon(torch.optim.Optimizer):
                  else torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device))
             st = self.state[p]
-            if self._matrix(a, self.full_shapes[i]):
+            if self._matrix(a, blocks.full_shapes[i]):
                 mom = cfg.momentum * st["mom"] + g
                 if cfg.precond_async:
                     # drift proxy (§12): the momentum's movement since
                     # the last dispatch; the view is not needed, only
                     # its layout
-                    st["dnorm"] = st["dnorm"] + torch.sqrt(
-                        torch.sum(torch.square(mom - st["mom"])))
+                    moved.append(torch.sum(torch.square(mom - st["mom"])))
                     M, meta = base.to_matrix_view(
-                        torch.empty(p.shape, device="meta"), a)
+                        torch.empty(blocks.full_shapes[i], device="meta"), a)
                 else:
                     gm = g + cfg.momentum * mom  # nesterov
-                    if self.shardings[i] is not None:
-                        gm = sharding.gather_full(gm, self.shardings[i],
-                                                  kind="opt")
-                    M, meta = base.to_matrix_view(gm, a)
+                    M, meta = base.to_matrix_view(
+                        blocks.whole(gm, i, "mom", kind="opt"), a)
                 views.append(M)
                 metas.append(meta)
                 idx.append(i)
@@ -243,13 +245,15 @@ class Muon(torch.optim.Optimizer):
         # staleness schedule when precond_every > 1
         states = [self.state[params[i]] for i in idx]
         if cfg.precond_async:
+            # the moment's norms over the world: every rank reads the same
+            for st, sq in zip(states, blocks.world_sums(moved, idx)):
+                st["dnorm"] = st["dnorm"] + torch.sqrt(sq)
             # §12 steady state: never a polar here; the active cache is
             # served, or the pending twins once their swap is due
             keys = ("ortho", "iters", "status") if cfg.matfn_telemetry \
                 else ("ortho",)
             base.swap_pending(self, [(st, k) for st in states for k in keys])
-            polars = [st["ortho"] for st in states]
-            its = sts = None
+            polars = its = sts = None
         elif cfg.precond_every > 1:
             if refresh is None:
                 refresh = self.count % cfg.precond_every == 0
@@ -257,24 +261,27 @@ class Muon(torch.optim.Optimizer):
                 polars, its, sts = self._orthogonalize(views, idx, key)
                 cache = torch_dtype(cfg.cache_dtype)
                 polars = [O.to(cache) for O in polars]
-                for st, O in zip(states, polars):
-                    st["ortho"] = O
+                for st, O, i in zip(states, polars, idx):
+                    st["ortho"] = blocks.block(O, i, "ortho")
             else:
-                polars = [st["ortho"] for st in states]
-                its = sts = None
+                polars = its = sts = None
         else:
             polars, its, sts = self._orthogonalize(views, idx, key)
         if its is not None:
             for st, it, s in zip(states, its, sts):
                 st["iters"], st["status"] = it, s
-        # pass 2: aspect-scale, un-view, apply
-        for O, meta, i in zip(polars, metas, idx):
+        # pass 2: aspect-scale, un-view, apply.  Without a fresh polar
+        # (a stale or async step) one leaf's cache is gathered whole at a
+        # time and dropped after its update
+        for j, (meta, i) in enumerate(zip(metas, idx)):
             p = params[i]
+            O = (blocks.whole(states[j]["ortho"], i, "ortho")
+                 if polars is None else polars[j])
             scale = math.sqrt(max(1.0, O.shape[-2] / O.shape[-1]))
-            upd = base.from_matrix_view(O * scale, meta)
-            if self.shardings[i] is not None:
-                upd = sharding.local_block(upd, self.shardings[i],
-                                           self._coords)
+            # scaled after the cut: no second whole-view temporary
+            upd = blocks.block(base.from_matrix_view(O, meta), i,
+                               "mom") * scale
+            del O
             p32 = p.float() * (1.0 - lr * cfg.weight_decay) - lr * upd
             p.copy_(p32.to(p.dtype))
         self.count += 1
@@ -296,14 +303,18 @@ class Muon(torch.optim.Optimizer):
         in the reference's slot order (``leaf_order``), so that bucket
         entries and per-view keys (``polar_refresh``) are the
         reference's.  A zero momentum (the bootstrap, before any update)
-        serves a zero polar, not the 0/0 of the alpha fit."""
+        serves a zero polar, not the 0/0 of the alpha fit.  On sharded
+        parameters the momentum blocks are gathered whole (kind "opt")
+        and each twin is this rank's cache block of the whole polar."""
         cfg = self.cfg
         params = self.param_groups[0]["params"]
+        blocks = self.blocks
         order = sorted((i for i, p in enumerate(params)
                         if "ortho_p" in self.state[p]),
                        key=self.leaf_idx.__getitem__)
-        views = [base.to_matrix_view(self.state[params[i]]["mom"],
-                                     self.axes[i])[0] for i in order]
+        views = [base.to_matrix_view(blocks.whole(
+            self.state[params[i]]["mom"], i, "mom", kind="opt"),
+            self.axes[i])[0] for i in order]
         parts = [{} for _ in params]
         if not views:
             return parts
@@ -313,7 +324,7 @@ class Muon(torch.optim.Optimizer):
             nrm = torch.sqrt(torch.sum(torch.square(views[j]), dim=(-2, -1),
                                        keepdim=True))
             O = torch.where(nrm > 0, outs[j], torch.zeros_like(outs[j]))
-            parts[i] = {"ortho_p": O.to(cache)}
+            parts[i] = {"ortho_p": blocks.block(O.to(cache), i, "ortho_p")}
             if its is not None:
                 parts[i]["iters_p"], parts[i]["status_p"] = its[j], sts[j]
         return parts
@@ -321,13 +332,18 @@ class Muon(torch.optim.Optimizer):
     def drift_baseline(self):
         """The drift proxy a refresh resets, one partial dict per
         parameter: "rnorm", the norm of the momentum the twins are
-        computed from, and a zero "dnorm"."""
-        parts = []
-        for p in self.param_groups[0]["params"]:
-            st = self.state[p]
-            parts.append({} if "ortho_p" not in st else {
-                "rnorm": torch.sqrt(torch.sum(torch.square(st["mom"]))),
-                "dnorm": torch.zeros_like(st["dnorm"])})
+        computed from (the whole moment's, on sharded parameters), and a
+        zero "dnorm"."""
+        params = self.param_groups[0]["params"]
+        idx = [i for i, p in enumerate(params) if "ortho_p" in self.state[p]]
+        sums = self.blocks.world_sums(
+            [torch.sum(torch.square(self.state[params[i]]["mom"]))
+             for i in idx], idx)
+        parts = [{} for _ in params]
+        for i, sq in zip(idx, sums):
+            parts[i] = {"rnorm": torch.sqrt(sq),
+                        "dnorm": torch.zeros_like(self.state[params[i]]
+                                                  ["dnorm"])}
         return parts
 
     def refresh(self, key):

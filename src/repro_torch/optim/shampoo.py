@@ -49,15 +49,31 @@ with one the joint drift proxy of its factors ("dnorm" over "rnorm");
 ``refresh(key)`` recomputes the twins from the STORED factors
 (``_fresh_invs``, jobs in the reference's slot order) and
 ``base.swap_pending`` swaps them in, as in ``muon``.
+
+Sharded parameters (``shardings``: name -> ``launch.sharding.Sharding``,
+a sharded model's layout; ``base.Blocks``), as the reference under
+GSPMD: each matrix leaf's gradient is gathered whole (kind "opt") before
+its EMA factors, so "L"/"R"/"diagL"/"diagR" stay whole and equal on
+every rank (the reference replicates them); the inverse roots run
+through the §8 batch engine over data as above; the step preconditions
+and grafts the whole view and keeps its rank's block of the result, to
+which the momentum ("mom", a block like its parameter) and the update
+apply.  "Linv"/"Rinv" and their twins are held as their
+``precond_cache_sharding`` blocks: a refresh keeps its block of the
+whole root it applies, and a stale or async step gathers each whole
+root (kind "cache") just before applying it, one at a time.  The factors' drift proxy is whole already, so every
+rank reads the same drift; the service takes its verdict over the world
+(``base.AsyncPrecondService``).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
 from repro_torch.config import OptimizerConfig, torch_dtype
 from repro_torch.core import matfn
+from repro_torch.launch import sharding
 from repro_torch.optim import base, bucketing
 from repro_torch.optim.muon import leaf_order
 
@@ -128,25 +144,30 @@ class Shampoo(torch.optim.Optimizer):
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  cfg: OptimizerConfig, axes: Dict[str, tuple],
-                 p_root: int = 2):
+                 p_root: int = 2,
+                 shardings: Optional[Dict[str, "sharding.Sharding"]] = None):
         named = list(named_params)
         super().__init__([p for _, p in named], defaults={})
         self.cfg = cfg
         self.p_root = p_root
         self.axes = [tuple(axes[n]) for n, _ in named]
         self.leaf_idx = leaf_order([n for n, _ in named])
+        self.blocks = base.Blocks(named, shardings)
         self.count = 0
         if cfg.precond_async:
             base.init_pending(self)
-        for (_, p), a in zip(named, self.axes):
-            self.state[p] = self._init_state(p, a)
+        for i, ((_, p), a) in enumerate(zip(named, self.axes)):
+            self.state[p] = self._init_state(i, p, a)
 
-    def _init_state(self, p: torch.Tensor, a: tuple) -> Dict:
+    def _init_state(self, i: int, p: torch.Tensor, a: tuple) -> Dict:
         cfg = self.cfg
+        full = self.blocks.full_shapes[i]
         mom = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        if not base.is_matrix_param(a, tuple(p.shape)):
+        if not base.is_matrix_param(a, full):
+            self.blocks.like_param(i, "mom", "nu")
             return {"mom": mom, "nu": torch.zeros_like(mom)}
-        M, _ = base.to_matrix_view(mom, a)
+        self.blocks.like_param(i, "mom")
+        M, _ = base.to_matrix_view(torch.empty(full, device="meta"), a)
         lead, (m, n) = tuple(M.shape[:-2]), tuple(M.shape[-2:])
         cache = torch_dtype(cfg.cache_dtype)
         st = {"mom": mom}
@@ -154,8 +175,11 @@ class Shampoo(torch.optim.Optimizer):
             if k <= cfg.max_precond_dim:
                 st[side] = torch.zeros(lead + (k, k), dtype=torch.float32,
                                        device=p.device)
-                st[side + "inv"] = torch.zeros(lead + (k, k), dtype=cache,
-                                               device=p.device)
+                name = side + "inv"
+                keys = (name, name + "_p") if cfg.precond_async else (name,)
+                st[name] = torch.zeros(
+                    self.blocks.cache(i, keys, lead + (k, k)), dtype=cache,
+                    device=p.device)
                 if cfg.matfn_telemetry:
                     st[side + "inv_iters"] = torch.zeros(
                         lead, dtype=torch.int32, device=p.device)
@@ -220,6 +244,7 @@ class Shampoo(torch.optim.Optimizer):
         cfg = self.cfg
         lr = cfg.learning_rate
         params = self.param_groups[0]["params"]
+        blocks = self.blocks
         if refresh is None:
             every = base.resolve_refresh_period(cfg, "shampoo")
             refresh = every == 1 or self.count % every == 0
@@ -241,7 +266,8 @@ class Shampoo(torch.optim.Optimizer):
                 st["mom"], st["nu"] = mom, nu
                 p.copy_(p32.to(p.dtype))
                 continue
-            G, meta = base.to_matrix_view(g, a)
+            G, meta = base.to_matrix_view(
+                blocks.whole(g, i, "mom", kind="opt"), a)
             Gt = G.transpose(-1, -2)
             moved = 0  # the factors' joint squared movement (§12 drift)
             for side, x, y in (("L", G, Gt), ("R", Gt, G)):
@@ -259,6 +285,7 @@ class Shampoo(torch.optim.Optimizer):
             if "dnorm" in st:
                 st["dnorm"] = st["dnorm"] + torch.sqrt(moved)
             matrix.append((i, G, meta))
+        roots = {}  # (leaf, "Linv"/"Rinv") -> a refresh's whole root
         if cfg.precond_async:
             # §12 steady state: no inverse root here; the active caches
             # are served, or the pending twins once their swap is due
@@ -270,27 +297,37 @@ class Shampoo(torch.optim.Optimizer):
             invs, its, sts = self._fresh_invs(jobs, key)
             for j, (i, name, _) in enumerate(jobs):
                 st = self.state[params[i]]
-                st[name] = invs[j]
+                roots[i, name] = invs[j]
+                st[name] = blocks.block(invs[j], i, name)
                 if its is not None:
                     st[name + "_iters"], st[name + "_status"] = its[j], sts[j]
+
+        def root_of(i, name):
+            # a stale or async step gathers one leaf's cache whole at a
+            # time, dropped after the leaf's update
+            r = roots.pop((i, name), None)
+            return blocks.whole(self.state[params[i]][name], i, name) \
+                if r is None else r
+
         # pass 2: precondition, graft, momentum, apply
         root = 1.0 / (2 * self.p_root)
         for i, G, meta in matrix:
             p = params[i]
             st = self.state[p]
             if "Linv" in st:
-                PG = st["Linv"].float() @ G
+                PG = root_of(i, "Linv").float() @ G
             else:
                 PG = G / (st["diagL"][..., None] ** root + cfg.shampoo_eps)
             if "Rinv" in st:
-                PG = PG @ st["Rinv"].float()
+                PG = PG @ root_of(i, "Rinv").float()
             else:
                 PG = PG / (st["diagR"][..., None, :] ** root
                            + cfg.shampoo_eps)
             gn = torch.sqrt(torch.sum(G * G, dim=(-2, -1), keepdim=True))
             pn = torch.sqrt(torch.sum(PG * PG, dim=(-2, -1), keepdim=True))
             PG = PG * gn / torch.clamp(pn, min=1e-12)
-            mom = cfg.momentum * st["mom"] + base.from_matrix_view(PG, meta)
+            mom = cfg.momentum * st["mom"] + blocks.block(
+                base.from_matrix_view(PG, meta), i, "mom")
             st["mom"] = mom
             p32 = p.float() * (1.0 - lr * cfg.weight_decay) - lr * mom
             p.copy_(p32.to(p.dtype))
@@ -310,7 +347,8 @@ class Shampoo(torch.optim.Optimizer):
         parameter: the inverse roots of the STORED factors of every
         cached side, with their telemetry twins.  The jobs are queued in
         the reference's slot order (L before R), so that bucket indices,
-        hence sketch keys, are the reference's."""
+        hence sketch keys, are the reference's.  On sharded parameters
+        each twin is this rank's cache block of the whole root."""
         params = self.param_groups[0]["params"]
         parts = [{} for _ in params]
         jobs = []
@@ -323,7 +361,7 @@ class Shampoo(torch.optim.Optimizer):
             return parts
         invs, its, sts = self._fresh_invs(jobs, key)
         for j, (i, name, _) in enumerate(jobs):
-            parts[i][name + "_p"] = invs[j]
+            parts[i][name + "_p"] = self.blocks.block(invs[j], i, name + "_p")
             if its is not None:
                 parts[i][name + "_iters_p"] = its[j]
                 parts[i][name + "_status_p"] = sts[j]

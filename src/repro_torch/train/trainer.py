@@ -55,9 +55,13 @@ rank takes the rows of the strategy's batch axes ((pod, data) under
 checkpoint gathers every sharded leaf whole before rank 0 writes it (a
 collective step), and a restore takes each rank's block under the
 current layout, so a checkpoint written on one mesh and strategy resumes
-on another.  The moe family on a mesh of more than one rank and the
-other non-dense families on a model axis raise (ROADMAP.md Queue 1 item
-11d), as do pipeline stages (item 11c).
+on another.  Muon and Shampoo keep their cached preconditioners (and
+the §12 twins) as ``precond_cache_sharding`` blocks, gathered whole into
+a checkpoint like every other split leaf; under ``precond_async`` every
+host decision of the refresh plane (the drift, the verdict) is taken
+from values equal on every rank.  The moe family on a mesh of more than
+one rank and the other non-dense families on a model axis raise
+(ROADMAP.md Queue 1 item 11e), as do pipeline stages (item 11c).
 """
 from __future__ import annotations
 
@@ -107,14 +111,14 @@ class Trainer:
             if model.cfg.family == "moe" and mesh.size > 1:
                 raise NotImplementedError(
                     "the moe family on a data or model mesh comes with "
-                    "ROADMAP.md Queue 1 item 11d: global dispatch draws its "
+                    "ROADMAP.md Queue 1 item 11e: global dispatch draws its "
                     "capacity from every row of the batch, so a rank that "
                     "drops its own tokens would change the result")
             if model.cfg.family != "dense" and \
                     mesh.shape.get("model", 1) > 1:
                 raise NotImplementedError(
                     f"the {model.cfg.family} family on a model axis comes "
-                    f"with ROADMAP.md Queue 1 item 11d")
+                    f"with ROADMAP.md Queue 1 item 11e")
             params = (shardings or {}).get("params", {})
             if model.layout is None and any(
                     sharding.sharded_axes(sh) for sh in params.values()):
@@ -177,16 +181,16 @@ class Trainer:
 
     def state_shardings(self) -> Optional[Dict]:
         """The layout of ``state_tree()`` on a sharded model ({"params":
-        ..., "opt": ...}: a buffer of its parameter's block shape is
-        split like the parameter, everything else whole), None
-        otherwise."""
+        ..., "opt": ...}, None otherwise): the optimizer's own
+        (``base.Blocks.layouts``: the moments split like their parameter,
+        the cached preconditioners and their twins as their
+        ``precond_cache_sharding`` blocks, everything else whole)."""
         lay = self.model.layout
         if lay is None:
             return None
-        named = dict(self.model.named_parameters())
-        opt = {k: {sk: lay.shardings[k] if tuple(v.shape) == tuple(p.shape)
-                   else None for sk, v in self.opt.state[p].items()}
-               for k, p in named.items()}
+        layouts = self.opt.blocks.layouts
+        opt = {k: {sk: layouts[i].get(sk) for sk in self.opt.state[p]}
+               for i, (k, p) in enumerate(self.model.named_parameters())}
         return {"params": dict(lay.shardings), "opt": opt}
 
     def gathered_state_tree(self) -> Dict:

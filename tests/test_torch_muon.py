@@ -295,7 +295,8 @@ def test_clip_by_global_norm_matches_reference(case):
 def test_unported_options_raise():
     """precond_every > 1, adamw, the lowrank tier, the async refresh plane
     and ``muon_local_reshard`` build; the async plane on sharded
-    parameters still raises, naming its ROADMAP.md item."""
+    parameters builds too, its cache and twin held as their
+    ``precond_cache_sharding`` block (the rows over data)."""
     named = [("w", torch.nn.Parameter(torch.zeros(32, 16)))]
     axes = {"w": ("embed", "mlp")}
     _, tcfg = _ocfgs(precond_every=2)
@@ -314,8 +315,10 @@ def test_unported_options_raise():
     rows = {"w": sharding.named(mesh.make_debug_mesh(data=2, model=1),
                                 ("data", None))}
     _, tcfg = _ocfgs(precond_async=True, precond_every=2)
-    with pytest.raises(NotImplementedError, match="item 11d"):
-        make_optimizer(tcfg, named, axes, rows)
+    opt = make_optimizer(tcfg, named, axes, rows)
+    st = opt.state[named[0][1]]
+    assert tuple(st["ortho"].shape) == (32, 16)  # of the whole [64, 16]
+    assert opt.blocks.layouts[0]["ortho_p"].spec == ("data", None)
 
 
 # ------------------------------------------------- staleness cache (§8)

@@ -25,7 +25,7 @@ test holds that it does).  A checkpoint written by the world of 2
 restores bitwise in one process (and a leaf restored as sharded over the
 data axis gives each rank its own rows); a run stopped and resumed on
 the mesh, Muon with precond_every 5 and Shampoo, is bitwise an
-uninterrupted one.  A moe model on the mesh raises, citing item 11d; a
+uninterrupted one.  A moe model on the mesh raises, citing item 11e; a
 dense model on a model axis trains (tests/test_torch_model_axis.py), so
 outside a world its Trainer asks for the process group.
 """
@@ -328,12 +328,12 @@ def test_world_resumes_on_the_mesh_bitwise(world, kind):
 
 
 def test_moe_and_model_axis_raise_item_11b():
-    """Item 11b is done: moe on a data mesh raises item 11d; a dense model
+    """Item 11b is done: moe on a data mesh raises item 11e; a dense model
     on a data and model mesh is taken, and outside a world its Trainer
     needs the process group; pipeline stages raise item 11c."""
     dcfg = DataConfig(vocab_size=256, seq_len=SEQ, global_batch=BATCH)
     moe = Model(get_smoke_config("granite-moe-1b-a400m"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11d"):
+    with pytest.raises(NotImplementedError, match="item 11e"):
         Trainer(moe, _ocfg(), TrainConfig(), dcfg,
                 mesh=tmesh.make_debug_mesh(data=2, model=1))
     dense = Model(get_smoke_config("qwen3-14b"), device="cpu")
