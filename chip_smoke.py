@@ -43,7 +43,9 @@ Phases (any failure exits non-zero and prints no result):
      buckets, and (b)'s row blocks [20, 512, 1024] and [10, 2048, 1024],
      on which K2 forms the partial Gram -X^T X with alpha = 0; and
      (c)/(d)'s share of Shampoo's factor bucket, ``P15_SHAMPOO_SHAPES``,
-     [50, 1024, 1024]) in fp32, the same way; K3 (polar ``[15, 64, 16]``,
+     [50, 1024, 1024]) and phase 16's (``P16_SHAPES``: each data rank's
+     half of granite's buckets at 2 layers, [98, 1024, 512], [2, 1024,
+     1024], [1, 1024, 32]) in fp32, the same way; K3 (polar ``[15, 64, 16]``,
      sqrt), K5 (``[50, 1024, 1024]`` x 10), K6 and K7 (sqrt, coupled) also
      at phase 15's shares ``[15, 16, 16]`` and ``[15, 64, 64]``;
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
@@ -336,7 +338,36 @@ Phases (any failure exits non-zero and prints no result):
      over the world, collectives a step by kind, a rank's peak memory and
      its cache bytes against the whole caches', which must be the blocks
      the ``precond_cache_sharding`` layout gives;
- 16. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+ 16. the moe family on the mesh (``phase16``, ``python3 tools/moe_probe.py
+     --mesh`` alone): phase 15's world of four ranks on gloo and (2, 2)
+     mesh, granite-moe-1b-a400m at its published widths with the depth
+     cut to P16_LAYERS = 2 of 24 (207,721,472 parameters), launch/
+     train.py's Muon PRISM-5, seq 512, global batch 8, fp32 compute.
+     Beside the ranks' start, one process's Trainer, P16_STEPS steps
+     (its losses and its launches a step, 27: K1 18, K2 9, the same
+     every step, handed to the ranks through a file).  (a) "tp" with
+     expert parallelism (``layers.moe.w_up`` split over model on its
+     experts dim, 16 experts a rank), P16_STEPS steps with a checkpoint
+     at the last; (b) "zero" resumed from it, P16_RESUME_STEPS steps,
+     every restored leaf gathered whole at the MANIFEST's crc32, the
+     losses within P15_LOSS_TOL of one process resuming the same
+     checkpoint (after the world); (c) "tp" with ``moe.sharding=
+     "tensor"`` (mixtral's rule at granite's widths: each rank every
+     expert's 256 of 512 ``expert_mlp`` columns), P16_TENSOR_STEPS steps.
+     (a) and (c): losses within P15_LOSS_TOL of one process's Trainer,
+     the step-0 Muon update gathered whole within UPDATE_REL_TOL of one
+     process's optimizer stepped on the world's gathered step-0
+     gradients with the shares' norms (``ShareNorms``); every sub-run:
+     each rank one process's launches at every step on its shares of
+     the buckets (K1/K2 at ``P16_SHAPES``, held in phase 3), the aux in
+     phase 12's band, its step ms, tokens/s over the world, collectives
+     a step by kind and its peak memory.  (d) the drop control at
+     ``capacity_factor`` P16_DROP_CAPACITY under "tp": the world's
+     step-0 loss within P15_LOSS_TOL of one process's, the dropped
+     assignments equal on every rank and to one process's (printed),
+     and a rank-local dispatch (each data rank's rows routed alone) must
+     lie beyond the bound;
+ 17. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -5622,16 +5653,18 @@ def _p15_rank_body(rank, world, work, preset, device, launches):
 def _p15_steps(torch, tr, dev, on_step=None):
     """Run ``tr`` with the launches of each step counted (from their
     difference) and every collective and K1/K2/K3 wrapper call recorded;
-    returns (losses, per-step launches, census, shapes, step-0 update)."""
+    returns (losses, per-step launches, census, shapes, step-0 update,
+    each step's aux loss)."""
     from repro_torch import collectives
     from repro_torch.kernels import ops
 
-    per_step, last = [], [None]
+    per_step, last, aux = [], [None], []
 
     def on_metrics(t, m):
         now = ops.launch_counts()
         per_step.append({k: now[k] - last[0][k] for k in now})
         last[0] = now
+        aux.append(m["aux"])
         if on_step is not None:
             on_step(t)
 
@@ -5640,7 +5673,8 @@ def _p15_steps(torch, tr, dev, on_step=None):
     with collectives.count_collectives() as calls, _p15_shapes() as shapes:
         losses, upd = _p14_step0_update(torch, tr, on_metrics)
     _p14_sync(torch, dev)
-    return losses, per_step, list(calls), shapes, upd
+    return losses, per_step, list(calls), shapes, upd, \
+        [float(torch.as_tensor(a)) for a in aux]
 
 
 def _p15_reference(work):
@@ -5671,8 +5705,8 @@ def _p15_tp(torch, rank, mesh, dev, work, preset, launches):
         named = dict(tr.model.named_parameters())
         replicated.append(_crcs(torch, {k: named[k] for k in rep}))
 
-    losses, per_step, calls, shapes, upd = _p15_steps(torch, tr, dev,
-                                                      on_step)
+    losses, per_step, calls, shapes, upd, _ = _p15_steps(torch, tr, dev,
+                                                         on_step)
     for t, c in enumerate(per_step):
         _p14_expect(rank, c, "prism5", f"phase 15 (a) step {t}", launches)
     ref_losses = _p15_reference(work)
@@ -5755,7 +5789,7 @@ def _p15_zero(torch, rank, mesh, dev, work, preset, launches, a_shapes):
         del tree
         return start
     tr.restore_or_init = restore_or_init
-    losses, per_step, calls, shapes, _ = _p15_steps(torch, tr, dev)
+    losses, per_step, calls, shapes, _, _ = _p15_steps(torch, tr, dev)
     if rank == 0:
         kept = {k: v for k, v in restored.items()
                 if not set(k.split("|")) & set(base.PENDING_STATE_KEYS)}
@@ -6116,8 +6150,8 @@ def _p15_shampoo(torch, rank, mesh, dev, work, preset, launches):
     _p15_peak(torch, dev)
     tr = _p15_trainer(cfgs, dev, mesh, "tp", steps=P15_SHAMPOO_STEPS)
     grads0, on_step = _p15_grads0(torch, tr)
-    losses, per_step, calls, shapes, upd = _p15_steps(torch, tr, dev,
-                                                      on_step)
+    losses, per_step, calls, shapes, upd, _ = _p15_steps(torch, tr, dev,
+                                                         on_step)
     peak = _p15_peak(torch, dev)
     for t, c in enumerate(per_step):
         _p14_expect(rank, c, "shampoo_prism5", f"phase 15 (c) step {t}",
@@ -6164,8 +6198,8 @@ def _p15_fitted(torch, rank, mesh, dev, work, preset, launches):
     tr = _p15_trainer(cfgs, dev, mesh, "zero", steps=P15_FITTED_STEPS)
     grads0, on_step = _p15_grads0(torch, tr)
     with AlphaTape() as tape:
-        losses, per_step, calls, shapes, upd = _p15_steps(torch, tr, dev,
-                                                          on_step)
+        losses, per_step, calls, shapes, upd, _ = _p15_steps(
+            torch, tr, dev, on_step)
     peak = _p15_peak(torch, dev)
     fits = len(tape.alphas) // len(losses)
     group = mesh.group(("data",))
@@ -6439,6 +6473,430 @@ def _p15_restore(torch, rank, mesh, dev, work, preset):
     return {"f_blocks": blocks}
 
 
+# ---------------------------------------------- phase 16: moe on the mesh
+
+# granite-moe-1b-a400m at its published widths on the (data 2, model 2)
+# world, depth cut from 24 layers to P16_LAYERS for the script's clock (the
+# FSDP gathers, Muon's whole views and the checkpoint all go through gloo,
+# 0.13 GB/s over four ranks)
+P16_LAYERS = 2
+P16_PARAMS = 207_721_472   # at P16_LAYERS, with the padded vocab (49,168)
+P16_STEPS = 3              # (a): tp, expert parallelism, a checkpoint
+P16_RESUME_STEPS = 2       # (b): zero, resumed from (a)'s checkpoint
+P16_TENSOR_STEPS = 2       # (c): tp, each expert's columns (mixtral's rule)
+P16_DROP_CAPACITY = 0.5    # (d): the drop control
+P16_DEADLINE_S = 600       # the whole world
+P16_PATHS = {"a": "model_axis_moe_tp_rank0",
+             "b": "model_axis_moe_zero_rank0",
+             "c": "model_axis_moe_tensor_rank0"}
+# Muon's views at P16_LAYERS (phase 12's, GRANITE_VIEWS, a layer) and K1/K2
+# at the §8 engine's shares of their buckets over the data axis (each data
+# rank's half of the slices, under both strategies), checked and timed in
+# phase 3
+P16_VIEWS = {(1024, 512): 98 * P16_LAYERS, (1024, 1024): 2 * P16_LAYERS,
+             (1024, 32): P16_LAYERS}
+P16_SHAPES = bucket_shapes(
+    {v: -(-B // P15_MESH[0]) for v, B in P16_VIEWS.items()},
+    {(1024, 512): "(a)-(c) experts, wk/wv: share",
+     (1024, 1024): "(a)-(c) wq/wo: share",
+     (1024, 32): "(a)-(c) routers: share"})
+
+
+def phase16(torch, preset="full", device="cuda", launches=True):
+    """Phase 16 (see the module docstring) in a temporary build/phase16_*
+    directory, removed at the end; returns rank 0's launch counts of (a),
+    (b) and (c) by path.  ``preset`` ("full", or "smoke": granite's SMOKE
+    config at seq 32), ``device`` and ``launches`` let it rehearse on the
+    CPU."""
+    import shutil
+    import tempfile
+
+    base_dir = ROOT / "build"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase16_", dir=base_dir))
+    try:
+        return _phase16(torch, work, preset, device, launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _p16_cfgs(preset, **moe_kw):
+    """launch/train.py's granite configuration (Muon PRISM-5, seq 512,
+    global batch 8) cut to P16_LAYERS, at fp32 compute (the gates against
+    one process), with ``moe_kw`` replaced in its MoE config."""
+    import dataclasses
+
+    from repro_torch.launch import train as train_launch
+
+    argv = GRANITE_ARGV + (["--smoke", "--seq", "32"] if preset == "smoke"
+                           else [])
+    cfg, ocfg, _, dcfg = train_launch.configs(
+        train_launch.parser().parse_args(argv))
+    cfg = cfg.replace(dtype="float32", emb_dtype="float32",
+                      moe=dataclasses.replace(cfg.moe, **moe_kw))
+    if preset == "full":
+        cfg = cfg.replace(num_layers=P16_LAYERS)
+    return cfg, ocfg, dcfg
+
+
+def _phase16(torch, work, preset, device, launches):
+    import torch.multiprocessing as mp
+
+    from repro_torch.checkpoint import latest_step
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        free_card(torch, "phase 16")
+    card = _card_line()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _phase16_rank, args=(P15_WORLD, str(work), preset, device,
+                             launches),
+        nprocs=P15_WORLD, start_method="spawn", join=False)
+    deadline = time.monotonic() + P16_DEADLINE_S
+    # (a)'s reference while the ranks start: one process's losses and
+    # launches a step, handed to the ranks through a file; then (d)'s
+    t1 = time.perf_counter()
+    try:
+        cfgs = _p16_cfgs(preset)
+        tr = _p15_trainer(cfgs, device, steps=P16_STEPS)
+        n_params = sum(p.numel() for p in tr.model.parameters())
+        if preset == "full" and n_params != P16_PARAMS:
+            raise AssertionError(f"{n_params} parameters, not {P16_PARAMS}")
+        views = _granite_views(tr.opt)
+        if preset == "full" and views != P16_VIEWS:
+            raise AssertionError(f"Muon's views {views}, want {P16_VIEWS}")
+        ref_losses, ref_steps, _, _, _, ref_aux = _p15_steps(torch, tr,
+                                                             device)
+        del tr
+        if any(c != ref_steps[0] for c in ref_steps):
+            raise AssertionError(f"one process's launches differ from step "
+                                 f"to step: {ref_steps}")
+        (work / "ref.json.tmp").write_text(json.dumps(
+            {"losses": ref_losses, "launches": ref_steps[0]}))
+        (work / "ref.json.tmp").rename(work / "ref.json")
+        drop = _p16_drop_reference(torch, preset, device)
+    except BaseException:
+        for p in ctx.processes:
+            p.kill()
+        raise
+    cfg = cfgs[0]
+    log(f"  one process ((a)'s reference and (d)'s, beside the ranks' "
+        f"start) in {time.perf_counter() - t1:.1f} s: {cfg.name} "
+        f"{n_params} params ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.num_experts_per_tok}, "
+        f"d_ff {cfg.d_ff}, capacity {cfg.moe.capacity_factor}, "
+        f"{cfg.moe.dispatch} dispatch, fp32 compute), Muon views "
+        + ", ".join(f"{n} x {list(s)}" for s, n in sorted(views.items()))
+        + f"; losses {', '.join(f'{v:.5f}' for v in ref_losses)}, aux "
+        f"{', '.join(f'{v:.5f}' for v in ref_aux)}; launches a step "
+        f"{sum(ref_steps[0].values())} "
+        f"({ {k: v for k, v in ref_steps[0].items() if v} })")
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"phase 16: the world of {P15_WORLD} ranks did not "
+                     f"finish in {P16_DEADLINE_S} s")
+    except Exception as e:  # a rank raised or died: the phase fails
+        for r in range(P15_WORLD):
+            err = work / f"rank{r}.err"
+            if err.exists():
+                log(f"  rank {r} raised:\n{err.read_text()}")
+        fail(f"phase 16: a rank failed: {type(e).__name__}: "
+             f"{str(e).splitlines()[0] if str(e) else ''}")
+    world_s = time.perf_counter() - t0
+    res = [json.loads((work / f"rank{r}.json").read_text())
+           for r in range(P15_WORLD)]
+    log(f"  the world of {P15_WORLD} ranks (spawned, gloo, mesh (data, "
+        f"model) = {P15_MESH}) ran in {world_s:.1f} s ({card})")
+    if any(rr[k] != res[0][k] for rr in res
+           for k in ("a_losses", "b_losses", "c_losses", "d_loss")):
+        fail("phase 16: the ranks' losses differ")
+    for r, rr in enumerate(res):
+        log(f"  rank {r} {rr['coords']}: step (a) {rr['a_step_ms']:.1f} ms, "
+            f"(b) {rr['b_step_ms']:.1f} ms, (c) {rr['c_step_ms']:.1f} ms; "
+            f"max_memory_allocated (a) {rr['a_peak_gib']:.2f}, (b) "
+            f"{rr['b_peak_gib']:.2f}, (c) {rr['c_peak_gib']:.2f}, (d) "
+            f"{rr['d_peak_gib']:.2f} GiB ({card})")
+    # (b)'s reference: one process resumes the world's checkpoint
+    ck = work / "ckpt"
+    if latest_step(str(ck)) != P16_STEPS:
+        fail(f"phase 16: the world's checkpoint is at step "
+             f"{latest_step(str(ck))}, not {P16_STEPS}")
+    tr = _p15_trainer(cfgs, device, steps=P16_STEPS + P16_RESUME_STEPS,
+                      checkpoint_dir=str(ck), checkpoint_every=0)
+    one_b, one_steps, _, _, _, _ = _p15_steps(torch, tr, device)
+    del tr
+    b = res[0]["b_losses"]
+    gaps = [abs(x - y) for x, y in zip(b, one_b)]
+    if len(b) != P16_RESUME_STEPS or not all(math.isfinite(v) for v in b) \
+            or not max(gaps) <= P15_LOSS_TOL:
+        fail(f"phase 16 (b): losses {b} against one process resuming the "
+             f"same checkpoint {one_b} (bound {P15_LOSS_TOL})")
+    if launches and any(c != one_steps[0] for c in one_steps):
+        fail(f"phase 16 (b): one process's launches a step {one_steps}")
+    log(f"  (b) one process resuming the world's step-{P16_STEPS} "
+        f"checkpoint: losses {', '.join(f'{v:.5f}' for v in one_b)}; the "
+        f"world's within {max(gaps):.2e} (bound {P15_LOSS_TOL}) ({card})")
+    _p16_drop_gate(res, drop)
+    return {path: res[0][f"{k}_counts"] for k, path in P16_PATHS.items()}
+
+
+def _p16_drop_reference(torch, preset, device):
+    """(d)'s one process at capacity P16_DROP_CAPACITY on step 0's global
+    batch: the loss, its dropped assignments, and the control: the mean
+    of the losses of each data rank's rows routed alone (a rank-local
+    dispatch, its capacity and aux from its own rows)."""
+    from repro_torch.data import make_batch_fn
+    from repro_torch.models import Model
+    from repro_torch.models import moe
+
+    cfg, _, dcfg = _p16_cfgs(preset, capacity_factor=P16_DROP_CAPACITY)
+    model = Model(cfg, device=device, seed=0)
+    batch = make_batch_fn(cfg, dcfg, torch.device(device))(0)
+    per = dcfg.global_batch // P15_MESH[0]
+    with torch.no_grad(), moe.count_drops() as drops:
+        loss = float(model.loss(batch)[0])
+        local = [float(model.loss({k: v[i:i + per] for k, v in
+                                   batch.items()})[0])
+                 for i in range(0, dcfg.global_batch, per)]
+    dropped = sum(int(d) for _, d in drops[:cfg.num_layers])
+    routed = sum(n for n, _ in drops[:cfg.num_layers])
+    del model
+    return {"loss": loss, "dropped": dropped, "routed": routed,
+            "layers": cfg.num_layers, "local": sum(local) / len(local)}
+
+
+def _p16_drop_gate(res, drop):
+    """(d): the world's step-0 loss at capacity P16_DROP_CAPACITY within
+    P15_LOSS_TOL of one process's, as many drops on every rank; the
+    rank-local control must lie beyond the bound (the gate can fail)."""
+    gap = abs(res[0]["d_loss"] - drop["loss"])
+    control = abs(drop["local"] - drop["loss"])
+    for r, rr in enumerate(res):
+        if rr["d_dropped"] != drop["dropped"]:
+            fail(f"phase 16 (d): rank {r} dropped {rr['d_dropped']} "
+                 f"assignments, one process {drop['dropped']}")
+    if not drop["dropped"] or not gap <= P15_LOSS_TOL or \
+            not control > P15_LOSS_TOL:
+        fail(f"phase 16 (d): the world's loss {res[0]['d_loss']} against "
+             f"one process's {drop['loss']} ({gap:.2e}, bound "
+             f"{P15_LOSS_TOL}); {drop['dropped']} assignments dropped; the "
+             f"rank-local control {drop['local']} ({control:.2e}) must lie "
+             f"beyond the bound")
+    log(f"  (d) capacity {P16_DROP_CAPACITY}: {drop['dropped']} of "
+        f"{drop['routed']} assignments dropped (the global batch's slot "
+        f"table over {drop['layers']} layers, on every rank); "
+        f"step-0 loss {res[0]['d_loss']:.6f}, one process's "
+        f"{drop['loss']:.6f} (gap {gap:.2e}, bound {P15_LOSS_TOL}); a "
+        f"rank-local dispatch (each data rank's rows routed alone) would "
+        f"give {drop['local']:.6f} ({control:.2e} away: beyond the bound, "
+        f"as it must be)")
+
+
+def _phase16_rank(rank, world, work, preset, device, launches):
+    """One rank of phase 16: (a)-(d); writes rank<r>.json, or rank<r>.err
+    with the traceback when it raises."""
+    import traceback
+
+    work = Path(work)
+    try:
+        res = _p16_rank_body(rank, world, work, preset, device, launches)
+        (work / f"rank{rank}.json").write_text(json.dumps(res))
+    except BaseException:
+        (work / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _p16_rank_body(rank, world, work, preset, device, launches):
+    import torch
+
+    from repro_torch import collectives
+    from repro_torch.launch import mesh as lmesh
+
+    dev = lmesh.init_world(rank, world, f"file://{work}/store",
+                           device=device, timeout_s=P15_TIMEOUT_S)
+    try:
+        mesh = lmesh.make_debug_mesh(*P15_MESH)
+        res = {"coords": mesh.coords()}
+        _rank_log(rank, f"  rank 0: backend {lmesh.world_backend()}, "
+                  f"device {dev}, mesh {mesh!r}")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for tag in "abc":
+            res.update(_p16_train(torch, rank, mesh, dev, work, preset,
+                                  launches, tag))
+        res.update(_p16_drop(torch, rank, mesh, dev, preset))
+        collectives.barrier()
+        return res
+    finally:
+        lmesh.close_world()
+
+
+def _p16_train(torch, rank, mesh, dev, work, preset, launches, tag):
+    """(a) "tp" with expert parallelism, P16_STEPS steps and a checkpoint;
+    (b) "zero" resumed from it, P16_RESUME_STEPS steps; (c) "tp" with
+    ``moe.sharding="tensor"``, P16_TENSOR_STEPS steps."""
+    ck = work / "ckpt"
+    if tag == "a":
+        cfgs, strategy = _p16_cfgs(preset), "tp"
+        tkw = dict(steps=P16_STEPS, checkpoint_dir=str(ck),
+                   checkpoint_every=P16_STEPS)
+    elif tag == "b":
+        cfgs, strategy = _p16_cfgs(preset), "zero"
+        tkw = dict(steps=P16_STEPS + P16_RESUME_STEPS,
+                   checkpoint_dir=str(ck), checkpoint_every=0)
+    else:
+        cfgs, strategy = _p16_cfgs(preset, sharding="tensor"), "tp"
+        tkw = dict(steps=P16_TENSOR_STEPS)
+    tr = _p15_trainer(cfgs, dev, mesh, strategy, **tkw)
+    lay = tr.model.layout
+    what = f"phase 16 ({tag})"
+    w_up = lay.shardings["layers.moe.w_up"].spec
+    restored = {}
+    if tag == "b":
+        manifest = json.loads((ck / f"step_{P16_STEPS:08d}" /
+                               "MANIFEST").read_text())["crc32"]
+        real_restore = tr.restore_or_init
+
+        def restore_or_init(seed=None):
+            start = real_restore(seed)
+            tree = tr.gathered_state_tree()
+            if rank == 0:
+                restored.update(_crcs(torch, tree))
+            del tree
+            return start
+        tr.restore_or_init = restore_or_init
+        grads0, on_step = {}, None
+    else:
+        grads0, on_step = _p15_grads0(torch, tr)
+    losses, per_step, calls, shapes, upd, aux = _p15_steps(torch, tr, dev,
+                                                           on_step)
+    ref = json.loads(_p15_wait(work, "ref.json").read_text())
+    for t, c in enumerate(per_step):
+        if launches and c != ref["launches"]:
+            raise AssertionError(f"rank {rank}, {what} step {t}: launches "
+                                 f"{c}, one process's {ref['launches']}")
+    # each K1/K2 call on the rank's share of a bucket, phase 3's shapes
+    shares = {f"{'gram' if n == 'gram_upper' else n} {list(a)}"
+              for n, a, _, _, _ in P16_SHAPES}
+    if launches and set(shapes) != shares:
+        raise AssertionError(f"rank {rank}, {what}: K1/K2 calls by shape "
+                             f"{shapes}, want the shares {sorted(shares)}")
+    m = tr.model.cfg.moe
+    want_aux = tr.model.cfg.num_layers * m.router_aux_loss_coef \
+        * m.num_experts_per_tok
+    lo, hi = (f * want_aux for f in AUX_BAND)
+    if not all(lo <= a <= hi for a in aux):
+        raise AssertionError(f"{what}: aux {aux} outside [{lo:.3f}, "
+                             f"{hi:.3f}] around a balanced router's "
+                             f"{want_aux:.3f}")
+    note = ""
+    if tag == "b":
+        if rank == 0 and restored != manifest:
+            bad = sorted(k for k in set(restored) | set(manifest)
+                         if restored.get(k) != manifest.get(k))
+            raise AssertionError(f"{what}: restored leaves differ from the "
+                                 f"checkpoint's crc32: {bad[:5]}")
+        note = (f"restored leaves gathered whole crc32-equal to the "
+                f"checkpoint's MANIFEST ({len(manifest)} leaves); ")
+    else:
+        ref_losses = ref["losses"][:len(losses)]
+        gaps = [abs(a - b) for a, b in zip(losses, ref_losses)]
+        if not all(math.isfinite(v) for v in losses) or \
+                not max(gaps) <= P15_LOSS_TOL:
+            raise AssertionError(f"{what}: losses {losses} vs one "
+                                 f"process's {ref_losses} (bound "
+                                 f"{P15_LOSS_TOL})")
+        gap = _p16_update_gate(torch, rank, tr, cfgs, dev, upd, grads0,
+                               what)
+        note = (f"one process's losses within {max(gaps):.2e} (bound "
+                f"{P15_LOSS_TOL}); the step-0 Muon update gathered whole "
+                f"within {gap:.3e} of one process's optimizer on the same "
+                f"gradients, relative to its largest entry (bound "
+                f"{UPDATE_REL_TOL}); ")
+    peak = _p15_peak(torch, dev)  # rank 0's includes its update gate
+    steps = len(losses)
+    by = _p15_by_kind(calls, steps)
+    step_ms = statistics.median(tr.step_times) * 1e3
+    seq, batch = tr.dcfg.seq_len, tr.dcfg.global_batch
+    _rank_log(rank, f"  ({tag}) {strategy}, layers.moe.w_up {w_up}, "
+              f"{batch // lay.batch_size} rows a rank of the batch group, "
+              f"seq {seq}: losses {', '.join(f'{v:.5f}' for v in losses)}, "
+              f"aux {', '.join(f'{v:.5f}' for v in aux)} (a balanced "
+              f"router's {want_aux:.3f}); {note}launches a step on rank 0 "
+              f"{sum(per_step[0].values())}, one process's; K1/K2 calls by "
+              f"shape over {len(losses)} steps (the shares): {shapes}")
+    _rank_log(rank, f"  ({tag}) step {step_ms:.1f} ms on rank 0 (median), "
+              f"{seq * batch / (step_ms / 1e3):.0f} tokens/s over the "
+              f"world; collectives a step on rank 0 by kind: "
+              f"{_p15_kind_note(by)}")
+    total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    del tr, upd
+    return {f"{tag}_losses": losses, f"{tag}_counts": total,
+            f"{tag}_step_ms": step_ms, f"{tag}_peak_gib": peak}
+
+
+def _p16_update_gate(torch, rank, tr, cfgs, dev, upd, grads0, what):
+    """The step-0 Muon update, gathered whole (collective), against one
+    process's optimizer (rank 0): a fresh one over seed 0's whole
+    parameters stepped once on the world's step-0 gradients (``grads0``),
+    each slice's Frobenius norm taken on the data ranks' shares
+    (``ShareNorms``).  Returns the gap (rank 0; NaN elsewhere)."""
+    from repro_torch.core.rng import Key
+    from repro_torch.launch import sharding
+    from repro_torch.models import Model
+    from repro_torch.optim import make_optimizer
+
+    lay = tr.model.layout
+    names = _muon_leaves(tr)
+    whole = {k: sharding.gather_full(v, lay.shardings[k], kind="gate")
+             for k, v in upd.items() if k in names}
+    if rank != 0:
+        return math.nan
+    cfg, ocfg, _ = cfgs
+    model = Model(cfg, device=dev, seed=0)
+    named = list(model.named_parameters())
+    before = {k: p.detach().clone() for k, p in named}
+    opt = make_optimizer(ocfg, named, model.logical_axes())
+    for k, p in named:
+        p.grad = grads0[k]
+    with ShareNorms(P15_MESH[0]):
+        opt.step(key=Key(0).fold_in(0))
+    want = {k: p.detach() - before[k] for k, p in named if k in names}
+    gap = _worst_gap(torch, whole, want, "", gate=False)
+    del model, before, named, opt, want
+    grads0.clear()
+    if not gap <= UPDATE_REL_TOL:
+        raise AssertionError(f"{what}: the step-0 Muon update differs from "
+                             f"one process's on the same gradients by "
+                             f"{gap:.3e} of its largest entry (bound "
+                             f"{UPDATE_REL_TOL})")
+    return gap
+
+
+def _p16_drop(torch, rank, mesh, dev, preset):
+    """(d): the world's step-0 loss under "tp" at capacity
+    P16_DROP_CAPACITY (a forward of each rank's rows, averaged over the
+    batch group) and the dropped assignments of its slot tables."""
+    from repro_torch import collectives
+    from repro_torch.models import moe
+
+    cfgs = _p16_cfgs(preset, capacity_factor=P16_DROP_CAPACITY)
+    tr = _p15_trainer(cfgs, dev, mesh, "tp", steps=1)
+    batch = tr.batch_fn(0)
+    with torch.no_grad(), moe.count_drops() as drops:
+        loss = tr.model.loss(batch)[0]
+    mean = collectives.all_reduce(loss.clone(), "sum", tr.group)
+    dropped = sum(int(d) for _, d in drops)
+    n = tr.n_data
+    del tr
+    return {"d_loss": float(mean) / n, "d_dropped": dropped,
+            "d_peak_gib": _p15_peak(torch, dev)}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -6509,6 +6967,10 @@ def main() -> None:
                              19)
     timings.update(gemm_shape_timings(torch, P15_SHAMPOO_SHAPES,
                                       ("float32",), 20))
+    log("  K1/K2 at phase 16's shares of granite-moe's Muon buckets (each "
+        "data rank's half)")
+    rows = gemm_shape_checks(torch, rows, P16_SHAPES, ("float32",), 21)
+    timings.update(gemm_shape_timings(torch, P16_SHAPES, ("float32",), 22))
 
     runs = {}
     log("phase 4: PRISM-5 path, gpt2-paper Muon step at full width")
@@ -6590,6 +7052,16 @@ def main() -> None:
     log(f"  phase 15 in {time.perf_counter() - t0:.1f} s; the script so far "
         f"{time.perf_counter() - _T0:.1f} s")
 
+    log(f"phase 16: the moe family on the mesh, {P15_WORLD} ranks on the "
+        f"card (gloo) on a {P15_MESH} (data, model) mesh: granite-moe-1b-"
+        f"a400m ({P16_LAYERS} layers) under tp with expert parallelism, "
+        f"resumed under zero, tp with each expert's columns, and a drop "
+        f"control at capacity {P16_DROP_CAPACITY}")
+    t0 = time.perf_counter()
+    moe_mesh = phase16(torch)
+    log(f"  phase 16 in {time.perf_counter() - t0:.1f} s; the script so far "
+        f"{time.perf_counter() - _T0:.1f} s")
+
     by_path = {k: r["counts"] for k, r in runs.items()}
     by_path["fallback"] = fallback
     by_path["trainer"] = phase8["counts"]
@@ -6600,6 +7072,7 @@ def main() -> None:
     by_path["model_axis_tp_rank0"] = mp["tp"]
     by_path["model_axis_zero_rank0"] = mp["zero"]
     by_path.update({path: mp[path] for path in P15_NEW_PATHS.values()})
+    by_path.update(moe_mesh)
     print(json.dumps({"kernels": kernel_rows(rows, timings, by_path)}),
           flush=True)
     print(f"card: {card}", flush=True)
@@ -6688,11 +7161,14 @@ def _p15_path(what):
 # The kernels line: for each kernel, the measurements of each family and
 # main-path shape it was timed at, as (family, row/timing key, path); the
 # first entry, the one this slice's path runs where it runs one (K1's and
-# K2's: recurrentgemma-2b's RG-LRU bucket), gives the kernel's top-level
-# numbers.  Sign runs on no training path (signm only),
+# K2's: phase 16 (a)'s share of granite-moe's expert bucket), gives the
+# kernel's top-level numbers.  Sign runs on no training path (signm only),
 # nor do K1's and K2's bf16 rows (the paths' matfn dtype is fp32).
 VARIANTS = {
     "matmul_add": [
+        ("-", _lowrank_key(n, a, b, "float32"), path)
+        for n, a, b, _, _ in P16_SHAPES if n == "matmul_add"
+        for path in P16_PATHS.values()] + [
         ("-", _lowrank_key(n, a, b, "float32"),
          "rgemma" if "recurrentgemma" in w else "falcon")
         for n, a, b, _, w in RECURRENT_SHAPES if n == "matmul_add"] + [
@@ -6705,6 +7181,7 @@ VARIANTS = {
         if n == "matmul_add" and w.startswith("(a)")] + [
         ("-", _lowrank_key(n, a, b, "float32"), P15_NEW_PATHS[k])
         for n, a, b, _, _ in P15_SHAMPOO_SHAPES for k in "cd"] + [
+
         ("-", ("matmul_add", (20, 4096, 1024)), "trainer"),
         ("-", ("matmul_add", (40, 1024, 1024)), "trainer"),
         ("-", ("matmul_add", (100, 1024, 1024)), "shampoo_prism5"),
@@ -6716,6 +7193,9 @@ VARIANTS = {
        for n, a, b, _, _ in LOWRANK_SHAPES if n == "matmul_add"
        for dt in DTYPES],
     "gram_upper": [
+        ("polar", _lowrank_key(n, a, b, "float32"), path)
+        for n, a, b, _, _ in P16_SHAPES if n == "gram_upper"
+        for path in P16_PATHS.values()] + [
         ("polar", _lowrank_key(n, a, b, "float32"),
          "rgemma" if "recurrentgemma" in w else "falcon")
         for n, a, b, _, w in RECURRENT_SHAPES if n == "gram_upper"] + [
@@ -6726,6 +7206,7 @@ VARIANTS = {
         ("polar", _lowrank_key(n, a, b, "float32"), P15_NEW_PATHS["e"])
         for n, a, b, _, w in P15_SHAPES
         if n == "gram_upper" and w.startswith("(a)")] + [
+
         ("polar", ("gram_upper", (20, 4096, 1024)), "trainer"),
         ("polar", ("gram_upper", (40, 1024, 1024)), "trainer"),
         ("polar", ("gram_upper", (20, 4096, 1024), "bfloat16"), None),

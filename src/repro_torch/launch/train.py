@@ -33,11 +33,13 @@ front with ``--multi_pod``) under the reference's default rules,
 over model), through the Trainer (``production_layout`` builds the mesh
 and the shardings, also without a world), with any of the optimizers
 and ``--precond_async``: Muon and Shampoo keep their moments and cached
-preconditioners as blocks of the layout.  A world of another size
-fails with the ``Mesh``'s ValueError; ``--multi_pod`` without ``--mesh
-production`` is a ValueError; the other families on the production mesh
-raise (ROADMAP.md Queue 1 item 11e), as ``--pipeline_stages > 1`` (the
-1F1B pipeline) does (item 11c).
+preconditioners as blocks of the layout.  The dense and moe families
+train there (granite-moe-1b-a400m by expert parallelism, its 32 experts
+over the model axis; mixtral-8x7b by each expert's columns); a world of
+another size fails with the ``Mesh``'s ValueError; ``--multi_pod``
+without ``--mesh production`` is a ValueError; the vlm, audio, ssm and
+hybrid families on the production mesh raise (ROADMAP.md Queue 1 item
+11h), as ``--pipeline_stages > 1`` (the 1F1B pipeline) does (item 11c).
 """
 from __future__ import annotations
 
@@ -144,10 +146,10 @@ def build(args) -> Trainer:
     cfg, ocfg, tcfg, dcfg = configs(args)
     mesh = shardings = None
     if args.mesh == "production":
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"--mesh production for the {cfg.family} family comes with "
-                f"ROADMAP.md Queue 1 item 11e")
+                f"ROADMAP.md Queue 1 item 11h")
         if not dist.is_initialized():
             init_world_from_env(device=args.device)
         mesh, shardings = production_layout(cfg, args.multi_pod)

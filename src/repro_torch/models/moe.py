@@ -26,14 +26,85 @@ both passes are the same bits run to run on the card; they sum in
 another order than the reference, so they match it to fp32 rounding.
 The expert products run in the compute dtype with fp32 accumulation,
 silu(gate) * up in fp32, and the combine in fp32.
+
+On a mesh (``place``, a ``Place``; the model passes its own) the layer
+computes what one process computes on the global batch:
+
+  * routing: each rank routes its own rows; under ``"global"`` it
+    all-gathers the chosen experts ([T, K] int64; the gates stay with
+    their rows) over the batch group in row order, so every rank builds
+    the same slot table with C = ``capacity(m, T_global)``, and keeps
+    the slots of its own rows' tokens (``_own_slots``): within an
+    expert the slots follow the token order, so a rank's are one run of
+    each expert's slots, packed to the longest run.  ``"per_sample"``
+    routes each sequence alone and gathers nothing;
+  * experts: under "tp" (``place.tp``) the rank runs its own experts on
+    its rows' slots (``split == "experts"``, expert parallelism) or
+    every expert on its columns of ``w_gate``/``w_up`` and rows of
+    ``w_down`` (``split == "expert_mlp"``); the tokens and the gates
+    enter through ``collectives.copy_to`` and the partial outputs are
+    summed over the model axis (``collectives.reduce_from``), as
+    ``layers.mlp`` does; the router runs on the replicated activations,
+    so its gradient needs no model sum;
+  * the aux loss: f_e and P_e are means over the global batch, one SUM
+    all-reduce of the counts and probability sums over the batch group;
+    the gradient through P_e is scaled by the group's size, so the
+    Trainer's mean of the ranks' gradients is one process's.
 """
 from __future__ import annotations
+
+import contextlib
+from typing import Any, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import collectives
 from repro_torch.config import ModelConfig, MoEConfig
 from repro_torch.models import layers as L
+
+
+class Rows(NamedTuple):
+    """A rank's rows of the global batch: the group of the ranks holding
+    distinct rows, its size and the rank's index in it (its rows are
+    block ``index`` of the batch)."""
+
+    group: Any
+    size: int
+    index: int
+
+
+class Place(NamedTuple):
+    """A rank's place for the moe layer (module docstring): its ``rows``
+    (None: the whole batch), its model-axis place under "tp" (``tp``,
+    None otherwise) and which expert dim ``tp`` splits ("experts" or
+    "expert_mlp")."""
+
+    rows: Optional[Rows]
+    tp: Optional[L.TP]
+    split: str
+
+
+_DROPS: List[list] = []
+
+
+@contextlib.contextmanager
+def count_drops():
+    """Record (assignments, dropped) of every dispatch in the block, the
+    dropped count a device scalar (no synchronization), over the slot
+    table the rank builds: the global batch's under "global", its own
+    sequences' under "per_sample"; yields the list."""
+    seen: list = []
+    _DROPS.append(seen)
+    try:
+        yield seen
+    finally:
+        _DROPS.remove(seen)
+
+
+def _record_drops(slot_of: torch.Tensor, E: int, C: int) -> None:
+    for seen in _DROPS:
+        seen.append((slot_of.numel(), (slot_of == E * C).sum()))
 
 
 def moe_shapes(cfg: ModelConfig):
@@ -85,17 +156,16 @@ def _dispatch_indices(topi: torch.Tensor, gates: torch.Tensor, E: int,
     assignment lands in the scratch slot E*C, which is dropped.  Leading
     dims are independent dispatches (``per_sample``).  ``slot_of`` is
     each assignment's slot (E*C when dropped), the inverse map the
-    combine gathers through."""
+    combine gathers through.  With ``gates`` None, ``gate_for_slot`` is
+    None."""
     *lead, T, K = topi.shape
     dev = topi.device
     flat_e = topi.reshape(*lead, T * K)
     ar = torch.arange(T * K, device=dev)
     flat_t = (ar // K).expand_as(flat_e)
-    flat_g = gates.reshape(*lead, T * K)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     se = torch.gather(flat_e, -1, order)
     st = torch.gather(flat_t, -1, order)
-    sg = torch.gather(flat_g, -1, order)
     # position within expert = index - first index of this expert id
     first = torch.searchsorted(se.contiguous(), se.contiguous(),
                                side="left")
@@ -104,10 +174,13 @@ def _dispatch_indices(topi: torch.Tensor, gates: torch.Tensor, E: int,
     slot = torch.where(keep, se * C + pos, torch.full_like(se, E * C))
     tok_for_slot = torch.zeros(*lead, E * C + 1, dtype=torch.int64,
                                device=dev).scatter_(-1, slot, st)
+    slot_of = torch.empty_like(slot).scatter_(-1, order, slot)
+    if gates is None:
+        return tok_for_slot[..., :-1], None, slot_of.reshape(*lead, T, K)
+    sg = torch.gather(gates.reshape(*lead, T * K), -1, order)
     gate_for_slot = torch.zeros(*lead, E * C + 1, dtype=torch.float32,
                                 device=dev).scatter_(
         -1, slot, torch.where(keep, sg.float(), torch.zeros_like(sg)))
-    slot_of = torch.empty_like(slot).scatter_(-1, order, slot)
     return (tok_for_slot[..., :-1], gate_for_slot[..., :-1],
             slot_of.reshape(*lead, T, K))
 
@@ -163,38 +236,135 @@ def _combine(y_e: torch.Tensor, gate_for_slot: torch.Tensor,
     return _sum_slots(y_e.float() * gate_for_slot[..., None], slot_of)
 
 
-def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig):
-    """x [B, S, D] -> (y [B, S, D], aux_loss fp32 scalar)."""
-    m: MoEConfig = cfg.moe
-    B, S, D = x.shape
-    E, K = m.num_experts, m.num_experts_per_tok
-    logits = torch.einsum("bsd,de->bse", x.float(), params["router"].float())
-    probs_full = torch.softmax(logits, dim=-1)
-    topv, topi = top_k(logits, K)  # [B, S, K]
-    gates = torch.softmax(topv, dim=-1)  # renormalize over selected
-
-    # ---- aux load-balance loss (Switch): E * sum_e f_e * P_e
+def _aux(probs_full: torch.Tensor, topi: torch.Tensor, m: MoEConfig,
+         rows: Optional[Rows]) -> torch.Tensor:
+    """The Switch loss E * sum_e f_e * P_e * coef over the global batch:
+    with ``rows``, the counts and probability sums SUM all-reduced over
+    the batch group (one call), the gradient through P_e scaled by its
+    size (module docstring)."""
+    E = m.num_experts
     # one-hot by comparison: F.one_hot reads the index range back to the
     # host on the card, a synchronization per layer
-    onehot = (topi[..., None] == torch.arange(E, device=x.device)).float()
-    f_e = torch.mean(torch.sum(onehot, dim=2), dim=(0, 1))
-    P_e = torch.mean(probs_full, dim=(0, 1))
-    aux = E * torch.sum(f_e * P_e) * m.router_aux_loss_coef
+    onehot = (topi[..., None] == torch.arange(E, device=topi.device)).float()
+    if rows is None:
+        f_e = torch.mean(torch.sum(onehot, dim=2), dim=(0, 1))
+        P_e = torch.mean(probs_full, dim=(0, 1))
+    else:
+        counts = torch.sum(onehot, dim=(0, 1, 2))
+        psum = torch.sum(probs_full, dim=(0, 1))
+        tot = collectives.all_reduce(torch.stack([counts, psum.detach()]),
+                                     "sum", rows.group, kind="moe")
+        T = topi.shape[0] * topi.shape[1] * rows.size
+        f_e = tot[0] / T
+        P_e = (tot[1] + rows.size * (psum - psum.detach())) / T
+    return E * torch.sum(f_e * P_e) * m.router_aux_loss_coef
 
+
+def _own_slots(topi: torch.Tensor, gates: torch.Tensor, t0: int, e0: int,
+               e1: int, E: int, C: int):
+    """The global dispatch of ``topi`` [T, K] (every row of the batch, in
+    row order) cut to the slots of this rank's tokens, rows [t0, t0 +
+    T_own) with ``gates`` [T_own, K], at experts [e0, e1) -> (tok
+    [Ew*Cw] (own token index), gate [Ew*Cw], slot_of [T_own, K], an
+    assignment that is dropped or at another expert at Ew*Cw).
+
+    Within an expert the slots follow the token order, so the own
+    tokens' slots of expert e are one run [a_e, b_e): they are packed to
+    Cw, the longest run of [e0, e1) (read to the host), and the other
+    rows' slots are not computed."""
+    T_own, K = gates.shape
+    dev = topi.device
+    _, _, slot_of = _dispatch_indices(topi, None, E, C)
+    _record_drops(slot_of, E, C)
+    ids = torch.arange(E, device=dev)
+    before = (topi[:t0, :, None] == ids).sum(dim=(0, 1))
+    mine = (topi[t0:t0 + T_own, :, None] == ids).sum(dim=(0, 1))
+    a = torch.clamp(before, max=C)
+    n = torch.clamp(before + mine, max=C) - a
+    Ew = e1 - e0
+    Cw = max(int(n[e0:e1].max()), 1)
+    own = slot_of[t0:t0 + T_own]
+    e = own // C
+    ok = (own < E * C) & (e >= e0) & (e < e1)
+    at = (e - e0).clamp(0, Ew - 1) * Cw + own - e * C \
+        - a[e.clamp(max=E - 1)]
+    slot = torch.where(ok, at, Ew * Cw)
+    flat = slot.reshape(-1)
+    tok = torch.zeros(Ew * Cw + 1, dtype=torch.int64, device=dev).scatter_(
+        0, flat, torch.arange(T_own * K, device=dev) // K)
+    gate = torch.zeros(Ew * Cw + 1, dtype=torch.float32, device=dev) \
+        .scatter_(0, flat, torch.where(ok, gates.float(),
+                                       torch.zeros((), device=dev))
+                  .reshape(-1))
+    return tok[:-1], gate[:-1], slot, Cw
+
+
+def _ffn(params, x: torch.Tensor, topi: torch.Tensor, gates: torch.Tensor,
+         m: MoEConfig, place: Optional[Place]) -> torch.Tensor:
+    """The dispatch, experts and combine -> fp32 y [B, S, D]; on a mesh,
+    of the rank's rows (module docstring)."""
+    B, S, D = x.shape
+    E = m.num_experts
+    tp = None if place is None else place.tp
+    E_own = params["w_gate"].shape[0]
+    e0 = 0
+    if E_own != E:
+        if tp is None or place.split != "experts":
+            raise ValueError(f"{E_own} of {E} experts on a rank without "
+                             f"expert parallelism")
+        e0 = tp.index * E_own
+    if tp is not None:
+        x = collectives.copy_to(x, tp.group)
+        gates = collectives.copy_to(gates, tp.group)
     if m.dispatch == "per_sample":
         C = capacity(m, S)
         tok, gate, slot_of = _dispatch_indices(topi, gates, E, C)
+        _record_drops(slot_of, E, C)
+        if E_own != E:
+            lo, hi = e0 * C, (e0 + E_own) * C
+            tok, gate = tok[:, lo:hi], gate[:, lo:hi]
+            slot_of = torch.where((slot_of >= lo) & (slot_of < hi),
+                                  slot_of - lo, E_own * C)
         xg = _Dispatch.apply(x, tok, slot_of)
-        y_e = _experts(params, xg.reshape(B, E, C, D), x.dtype)
-        y = _combine(y_e.reshape(B, E * C, D), gate, slot_of)
-        return y.to(x.dtype), aux
+        y_e = _experts(params, xg.reshape(B, E_own, C, D), x.dtype)
+        y = _combine(y_e.reshape(B, E_own * C, D), gate, slot_of)
+    elif place is None:
+        # ---- global dispatch over all B*S tokens (baseline)
+        T = B * S
+        C = capacity(m, T)
+        tok, gate, slot_of = _dispatch_indices(
+            topi.reshape(T, -1), gates.reshape(T, -1), E, C)
+        _record_drops(slot_of, E, C)
+        xg = _Dispatch.apply(x.reshape(T, D), tok, slot_of).reshape(E, C, D)
+        y_e = _experts(params, xg, x.dtype).reshape(E * C, D)
+        y = _combine(y_e, gate, slot_of).reshape(B, S, D)
+    else:
+        T = B * S
+        rows = place.rows
+        flat, t0 = topi.reshape(T, -1), 0
+        if rows is not None:
+            flat = collectives.all_gather(flat, rows.group, kind="moe")
+            t0 = rows.index * T
+        tok, gate, slot_of, Cw = _own_slots(
+            flat, gates.reshape(T, -1), t0, e0, e0 + E_own, E,
+            capacity(m, flat.shape[0]))
+        xg = _Dispatch.apply(x.reshape(T, D), tok, slot_of)
+        y_e = _experts(params, xg.reshape(E_own, Cw, D), x.dtype)
+        y = _combine(y_e.reshape(E_own * Cw, D), gate, slot_of)
+        y = y.reshape(B, S, D)
+    return y if tp is None else collectives.reduce_from(y, tp.group)
 
-    # ---- global dispatch over all B*S tokens (baseline)
-    T = B * S
-    C = capacity(m, T)
-    tok, gate, slot_of = _dispatch_indices(topi.reshape(T, K),
-                                           gates.reshape(T, K), E, C)
-    xg = _Dispatch.apply(x.reshape(T, D), tok, slot_of).reshape(E, C, D)
-    y_e = _experts(params, xg, x.dtype).reshape(E * C, D)
-    y = _combine(y_e, gate, slot_of)
-    return y.reshape(B, S, D).to(x.dtype), aux
+
+def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
+            place: Optional[Place] = None):
+    """x [B, S, D] -> (y [B, S, D], aux_loss fp32 scalar); on a mesh,
+    the rank's rows and share of the experts as ``place`` says (module
+    docstring)."""
+    m: MoEConfig = cfg.moe
+    logits = torch.einsum("bsd,de->bse", x.float(), params["router"].float())
+    probs_full = torch.softmax(logits, dim=-1)
+    topv, topi = top_k(logits, m.num_experts_per_tok)  # [B, S, K]
+    gates = torch.softmax(topv, dim=-1)  # renormalize over selected
+    # ---- aux load-balance loss (Switch): E * sum_e f_e * P_e
+    aux = _aux(probs_full, topi, m, None if place is None else place.rows)
+    return _ffn(params, x, topi, gates, m, place).to(x.dtype), aux

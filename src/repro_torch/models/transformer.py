@@ -77,9 +77,15 @@ rank's vocab columns (``forward`` returns those), pad rows masked at the
 rank's global offset, and the CE reduces the log-softmax's max (one MAX
 all-reduce) and its sum of exponentials with the target logit (one SUM)
 over the model axis.  Shapes
-come from the tensors, not from ``cfg``.  Only the dense family trains
-sharded; the others on sharded parameters raise (ROADMAP.md Queue 1
-item 11e), and so does serving on them (item 11f).
+come from the tensors, not from ``cfg``.  The moe family trains sharded
+too: its layers route the global batch across the ranks holding its
+rows (``Model.rows``, set by ``shard`` and, on a data mesh with
+replicated parameters, by ``train/state.make_train_step``) and, under
+"tp", run the rank's experts (``layers.moe.w_up`` split over model on
+its experts dim) or every expert's columns (its expert_mlp dim)
+(``models/moe.py``).  The vlm, audio, ssm and hybrid families on
+sharded parameters or a model axis raise (ROADMAP.md Queue 1 item 11h),
+and so does serving on sharded parameters (item 11f).
 """
 from __future__ import annotations
 
@@ -312,6 +318,17 @@ def cache_leaves(cache):
     return [t for c in items for t in cache_leaves(c)]
 
 
+def _expert_split(layout) -> Optional[str]:
+    """The expert dim of ``layers.moe.w_up`` [L, E, d, f] that the model
+    axis splits: "experts" (expert parallelism), "expert_mlp" (each
+    expert's columns), or None."""
+    sh = layout.shardings.get("layers.moe.w_up")
+    for d, name in ((1, "experts"), (3, "expert_mlp")):
+        if "model" in sharding.split_axes(sh, d):
+            return name
+    return None
+
+
 class Layout:
     """A rank's layout of a sharded ``Model``: the mesh, the strategy
     ("tp" or "zero"), each parameter's ``Sharding``, the batch axes the
@@ -363,6 +380,10 @@ class Model(nn.Module):
         if cfg.family == "hybrid":
             self.n_periods, self.n_tail = hybrid_layout(cfg)
         self.layout: Optional[Layout] = None
+        # the rank's rows of the global batch on a mesh (``Model.shard``;
+        # ``train/state.make_train_step`` on a data mesh): the moe layers
+        # route over them
+        self.rows: Optional[moe_lib.Rows] = None
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -434,12 +455,13 @@ class Model(nn.Module):
             raise ValueError("the model is sharded already")
         names = [k for k, _ in self.named_parameters()]
         layout = Layout(mesh, shardings, strategy, names)
-        if self.cfg.family != "dense" and (layout.tp is not None or any(
-                sharding.sharded_axes(sh)
-                for sh in layout.shardings.values())):
+        if self.cfg.family not in ("dense", "moe") and (
+                layout.tp is not None or any(
+                    sharding.sharded_axes(sh)
+                    for sh in layout.shardings.values())):
             raise NotImplementedError(
                 f"the {self.cfg.family} family on sharded parameters or a "
-                f"model axis comes with ROADMAP.md Queue 1 item 11e")
+                f"model axis comes with ROADMAP.md Queue 1 item 11h")
         if layout.tp is not None:
             for k in ("embed", "head", "layers.attn.wq", "layers.mlp.w_up"):
                 sh = layout.shardings.get(k)
@@ -447,15 +469,32 @@ class Model(nn.Module):
                         sharding.sharded_axes(sh):
                     raise ValueError(f"tensor parallelism needs {k} split "
                                      f"over the model axis, not {sh}")
+            if self.cfg.family == "moe" and _expert_split(layout) is None:
+                raise ValueError(
+                    f"tensor parallelism needs layers.moe.w_up split over "
+                    f"the model axis on its experts or expert_mlp dim, not "
+                    f"{layout.shardings.get('layers.moe.w_up')}")
         for k, p in self.named_parameters():
             p.data = sharding.local_block(p.data, layout.shardings[k],
                                           layout.coords).clone()
         self.layout = layout
+        if layout.batch_size > 1:
+            group = mesh.group(layout.batch_axes)
+            self.rows = moe_lib.Rows(group, layout.batch_size,
+                                     collectives.rank(group))
         return self
 
     @property
     def tp(self) -> Optional[L.TP]:
         return None if self.layout is None else self.layout.tp
+
+    def _moe_place(self) -> Optional[moe_lib.Place]:
+        """The moe layers' place on the mesh (``models/moe.py``): the
+        rank's rows and model-axis place, None on one process."""
+        if self.rows is None and self.tp is None:
+            return None
+        split = "experts" if self.tp is None else _expert_split(self.layout)
+        return moe_lib.Place(self.rows, self.tp, split)
 
     def _use(self, params):
         """``params`` with every leaf the layout splits over a
@@ -540,7 +579,7 @@ class Model(nn.Module):
     def _ffn(self, m, x):
         """The layer's feed-forward -> (out, aux loss)."""
         if self.cfg.family == "moe":
-            return moe_lib.moe_ffn(m, x, self.cfg)
+            return moe_lib.moe_ffn(m, x, self.cfg, self._moe_place())
         return L.mlp(m, x, self.cfg, self.tp), 0.0
 
     def _block(self, layer, x, positions):

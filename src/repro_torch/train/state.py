@@ -20,7 +20,11 @@ data group before clipping, so clipping sees the global norm, one flat
 buffer a gradient dtype a step (``collectives.all_reduce``); the loss
 and metrics are averaged the same way.  The dense family's CE is the
 mean over B·(S−1) tokens and every row has as many, so the mean of the
-ranks' means is the global mean.  The optimizer steps under the mesh's
+ranks' means is the global mean.  The moe family's aux loss is the
+global batch's on every rank (``models/moe.py``: its statistics are
+summed over the data group, the gradient through them scaled by its
+size), so the mean of the ranks' gradients is one process's too.  The
+optimizer steps under the mesh's
 activation-sharding context, which shards its matrix functions over the
 batch of each bucket (DESIGN.md §8); every rank then holds the same
 parameters and state.
@@ -36,9 +40,12 @@ was gathered from (``collectives.gather_from``'s backward), so it is
 summed over the remaining batch axes only; a replicated one over every
 batch axis; and under "tp" the leaves replicated over the model axis but
 used on a rank's heads (``attention.TP_PARTIAL``) are also summed over
-the model axis.  A leaf used on replicated activations (the norm scales)
-gets no model sum.  The clipping norm counts every element once, each
-block on the ranks at coordinate 0 of the axes it is replicated over.
+the model axis.  A leaf used on replicated activations (the norm scales,
+the moe router, whose gates enter the experts through
+``collectives.copy_to``) gets no model sum, and neither do the expert
+blocks a model rank owns (its experts, or every expert's columns).  The
+clipping norm counts every element once, each block on the ranks at
+coordinate 0 of the axes it is replicated over.
 bf16 gradients reduce in bf16 as on the data axis; int8 compression
 round-trips the reference's 256-blocks of the flattened whole leaf (a
 sharded leaf is gathered, round-tripped, and cut back to its block).
@@ -55,6 +62,7 @@ from repro_torch.config import OptimizerConfig
 from repro_torch.core.rng import Key
 from repro_torch.launch import sharding
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.transformer import Model
 from repro_torch.optim import base, compression
 
@@ -202,6 +210,9 @@ def make_train_step(model: Model, opt: torch.optim.Optimizer,
             raise ValueError("a sharded model steps on its own mesh")
         mesh = layout.mesh
     group, n_data = batch_group(model, mesh)
+    if layout is None and group is not None:
+        # the moe layers route the global batch over the data ranks
+        model.rows = moe.Rows(group, n_data, collectives.rank(group))
     rules = None if mesh is None else sharding.activation_rules(
         model.cfg, mesh, "tp" if layout is None else layout.strategy)
     names = [k for k, _ in model.named_parameters()]

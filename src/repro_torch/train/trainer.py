@@ -59,9 +59,12 @@ on another.  Muon and Shampoo keep their cached preconditioners (and
 the §12 twins) as ``precond_cache_sharding`` blocks, gathered whole into
 a checkpoint like every other split leaf; under ``precond_async`` every
 host decision of the refresh plane (the drift, the verdict) is taken
-from values equal on every rank.  The moe family on a mesh of more than
-one rank and the other non-dense families on a model axis raise
-(ROADMAP.md Queue 1 item 11e), as do pipeline stages (item 11c).
+from values equal on every rank.  The moe family routes the global
+batch across the ranks (``models/moe.py``: every rank builds one
+process's slot table) and, under "tp", runs its experts by expert or
+per-expert tensor parallelism.  The vlm, audio, ssm and hybrid families
+on a model axis raise (ROADMAP.md Queue 1 item 11h), as do pipeline
+stages (item 11c).
 """
 from __future__ import annotations
 
@@ -108,17 +111,11 @@ class Trainer:
         self.mesh = mesh
         self.group, self.n_data, self.row_index = None, 1, 0
         if mesh is not None:
-            if model.cfg.family == "moe" and mesh.size > 1:
-                raise NotImplementedError(
-                    "the moe family on a data or model mesh comes with "
-                    "ROADMAP.md Queue 1 item 11e: global dispatch draws its "
-                    "capacity from every row of the batch, so a rank that "
-                    "drops its own tokens would change the result")
-            if model.cfg.family != "dense" and \
+            if model.cfg.family not in ("dense", "moe") and \
                     mesh.shape.get("model", 1) > 1:
                 raise NotImplementedError(
                     f"the {model.cfg.family} family on a model axis comes "
-                    f"with ROADMAP.md Queue 1 item 11e")
+                    f"with ROADMAP.md Queue 1 item 11h")
             params = (shardings or {}).get("params", {})
             if model.layout is None and any(
                     sharding.sharded_axes(sh) for sh in params.values()):

@@ -260,22 +260,30 @@ def test_family_batches(arch):
 # ---------------------------------------------------------------- launcher
 
 
-def test_train_launcher_on_the_cpu(capsys):
+def test_train_launcher_on_the_cpu(capsys, monkeypatch):
     """``python -m repro_torch.launch.train --arch granite-moe-1b-a400m
-    --smoke --device cpu``: two Trainer steps with finite losses; the
-    production mesh raises item 11; an ssm model trains too."""
+    --smoke --device cpu``: two Trainer steps with finite losses; on the
+    production mesh the moe model joins the world the environment names
+    (none here: ValueError); an ssm model trains too, and on the
+    production mesh raises item 11h."""
+    from repro_torch.launch import mesh as tmesh
     from repro_torch.launch import train
 
+    for k in tmesh.ENV_VARS:
+        monkeypatch.delenv(k, raising=False)
     argv = ["--arch", "granite-moe-1b-a400m", "--smoke", "--steps", "2",
             "--seq", "32", "--batch", "2", "--device", "cpu"]
     losses = train.main(argv)
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert "losses:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="no world in the environment"):
         train.main(argv + ["--mesh", "production"])
-    ssm = train.main(["--arch", "falcon-mamba-7b", "--smoke", "--steps",
-                      "1", "--seq", "32", "--batch", "2", "--device", "cpu"])
+    ssm_argv = ["--arch", "falcon-mamba-7b", "--smoke", "--steps", "1",
+                "--seq", "32", "--batch", "2", "--device", "cpu"]
+    ssm = train.main(ssm_argv)
     assert len(ssm) == 1 and np.isfinite(ssm[0])
+    with pytest.raises(NotImplementedError, match="item 11h"):
+        train.main(ssm_argv + ["--mesh", "production"])
 
 
 @pytest.mark.parametrize("arch", ["musicgen-medium", "llava-next-34b"])

@@ -30,7 +30,8 @@ Shape-only cases need no world: every leaf of the ten configs splits into
 blocks that cover it exactly on the (2, 2), (1, 4), (16, 16) and (2, 16,
 16) meshes, and ``launch/train.py --mesh production`` builds gpt2-paper's
 and qwen3-14b's layouts without a world and refuses a world of the wrong
-size.
+size, and builds granite-moe-1b-a400m's (expert parallelism) and
+mixtral-8x7b's (each expert's columns) layouts.
 """
 import socket
 
@@ -356,6 +357,24 @@ def test_production_layout_without_a_world():
         assert p["layers.attn.wk"].spec == (None, "data", None, None)
         assert p["layers.mlp.w_down"].spec == (None, "model", "data")
         for k, (shape, _, _) in param_specs(cfg).items():
+            local = sharding.local_shape(shape, p[k])
+            assert sharding.full_shape(local, p[k]) == tuple(shape)
+    # the moe family: granite by expert parallelism (32 experts, 2 a
+    # model rank), mixtral by each expert's expert_mlp columns; granite's
+    # padded vocab (49,155 -> 49,168) splits over the model axis
+    for arch, w_up, embed in (
+            ("granite-moe-1b-a400m", (None, "model", "data", None),
+             (3073, 64)),
+            ("mixtral-8x7b", (None, None, "data", "model"), (2000, 256))):
+        cfg = get_config(arch)
+        mesh, shards = train.production_layout(cfg)
+        p = shards["params"]
+        specs = param_specs(cfg)
+        assert p["layers.moe.w_up"].spec == w_up
+        assert p["layers.moe.router"].spec == (None, "data", None)
+        assert p["embed"].spec == ("model", "data")
+        assert sharding.local_shape(specs["embed"][0], p["embed"]) == embed
+        for k, (shape, _, _) in specs.items():
             local = sharding.local_shape(shape, p[k])
             assert sharding.full_shape(local, p[k]) == tuple(shape)
     mesh, shards = train.production_layout(get_config("gpt2-paper"),

@@ -149,9 +149,9 @@ def test_init_state_draws_the_seeds_parameters(tmp_path):
 
 
 def test_unported_trainer_options_raise(tmp_path):
-    """A model mesh takes the dense family (its replicated Trainer needs
-    no process group on one data rank) and refuses moe (item 11e);
-    pipeline stages raise item 11c."""
+    """A model mesh takes the dense and moe families (their replicated
+    Trainers need no process group on one data rank) and refuses the
+    hybrid family (item 11h); pipeline stages raise item 11c."""
     model = Model(gpt2_paper.SMOKE, device="cpu")
     dcfg = DataConfig(vocab_size=gpt2_paper.SMOKE.vocab_size)
     ocfg = OptimizerConfig(name="muon")
@@ -161,7 +161,9 @@ def test_unported_trainer_options_raise(tmp_path):
     mesh = make_debug_mesh(data=1, model=2)
     assert Trainer(model, ocfg, TrainConfig(), dcfg, mesh=mesh).mesh is mesh
     moe = Model(get_smoke_config("granite-moe-1b-a400m"), device="cpu")
-    for m, kw, tkw, item in ((moe, dict(mesh=mesh), {}, "11e"),
+    assert Trainer(moe, ocfg, TrainConfig(), dcfg, mesh=mesh).mesh is mesh
+    hybrid = Model(get_smoke_config("recurrentgemma-2b"), device="cpu")
+    for m, kw, tkw, item in ((hybrid, dict(mesh=mesh), {}, "11h"),
                              (model, {}, dict(pipeline_stages=2), "11c")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             Trainer(m, ocfg, TrainConfig(**tkw), dcfg, **kw)

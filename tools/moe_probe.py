@@ -4,10 +4,13 @@ K1/K2 at granite-moe's Muon bucket shapes (``chip_smoke.GRANITE_SHAPES``,
 fp32), then ``chip_smoke.py``'s phase 12 and nothing else —
 granite-moe-1b-a400m trained through ``launch/train.py`` and served from
 its checkpoint, and mixtral, musicgen and llava at 2 layers
-(``chip_smoke.phase12``'s docstring).  Run from the root of a checkout,
-on a machine with a CUDA card and nvcc:
+(``chip_smoke.phase12``'s docstring).  With ``--mesh``: K1/K2 at phase
+16's shares of granite's buckets (``chip_smoke.P16_SHAPES``), then phase
+16 and nothing else, granite on four ranks that share the card on a
+(data 2, model 2) mesh (``chip_smoke.phase16``).  Run from the root of a
+checkout, on a machine with a CUDA card and nvcc:
 
-    python3 tools/moe_probe.py
+    python3 tools/moe_probe.py [--mesh]
 """
 from __future__ import annotations
 
@@ -24,9 +27,11 @@ def main() -> None:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     # as chip_smoke.main names it: cuBLAS's workspace on Hopper
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    import torch
-
     import chip_smoke
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", chip_smoke.ALLOC_CONF)
+    mesh = "--mesh" in sys.argv[1:]
+    import torch
 
     if not torch.cuda.is_available():
         chip_smoke.fail("moe_probe needs a CUDA device")
@@ -41,17 +46,18 @@ def main() -> None:
     _build.build()
     chip_smoke.log(f"built in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    chip_smoke.gemm_shape_checks(torch, {}, chip_smoke.GRANITE_SHAPES,
-                                 ("float32",), 13)
-    chip_smoke.gemm_shape_timings(torch, chip_smoke.GRANITE_SHAPES,
-                                  ("float32",), 14)
+    shapes, seed = (chip_smoke.P16_SHAPES, 21) if mesh else \
+        (chip_smoke.GRANITE_SHAPES, 13)
+    chip_smoke.gemm_shape_checks(torch, {}, shapes, ("float32",), seed)
+    chip_smoke.gemm_shape_timings(torch, shapes, ("float32",), seed + 1)
     torch.cuda.empty_cache()
     chip_smoke.log(f"K1/K2 at granite's shapes in "
                    f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts = chip_smoke.phase12(torch)
-    chip_smoke.log(f"phase 12 done in {time.perf_counter() - t0:.1f} s; "
-                   f"launches of the training run {counts}")
+    counts = chip_smoke.phase16(torch) if mesh else chip_smoke.phase12(torch)
+    chip_smoke.log(f"phase {16 if mesh else 12} done in "
+                   f"{time.perf_counter() - t0:.1f} s; launches of the "
+                   f"training runs {counts}")
 
 
 if __name__ == "__main__":
