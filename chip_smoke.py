@@ -45,7 +45,14 @@ Phases (any failure exits non-zero and prints no result):
      (c)/(d)'s share of Shampoo's factor bucket, ``P15_SHAMPOO_SHAPES``,
      [50, 1024, 1024]) and phase 16's (``P16_SHAPES``: each data rank's
      half of granite's buckets at 2 layers, [98, 1024, 512], [2, 1024,
-     1024], [1, 1024, 32]) in fp32, the same way; K3 (polar ``[15, 64, 16]``,
+     1024], [1, 1024, 32]) and phase 17's (``P17_SHAPES``: each data
+     rank's half of falcon-mamba-7b's buckets at 2 layers, [1, 16384,
+     4096], [1, 8192, 4096], [1, 8192, 288], [1, 8192, 256], [1, 8192,
+     16], of recurrentgemma-2b's at one period, [5, 2560, 2560], [3,
+     7680, 2560], [1, 4096, 2560], [1, 2560, 256], and of
+     musicgen-medium's at 2 layers, [4, 2048, 1536], [2, 6144, 1536]; a
+     median of RECURRENT_REPS launches) in fp32, the same way; K3 (polar
+     ``[15, 64, 16]``,
      sqrt), K5 (``[50, 1024, 1024]`` x 10), K6 and K7 (sqrt, coupled) also
      at phase 15's shares ``[15, 16, 16]`` and ``[15, 64, 64]``;
   4. the PRISM-5 path: the gpt2-paper Muon/PRISM-5 training step at full
@@ -177,7 +184,8 @@ Phases (any failure exits non-zero and prints no result):
  12. the moe family (the registry, ``launch/train.py``, ``models/moe.py``):
      (a) granite-moe-1b-a400m at its published widths (32 experts top-8),
      depth cut to GRANITE_LAYERS (6 of 24; 421,770,240 parameters), seq
-     512, batch 8, bf16 compute and fp32 masters, STEPS Trainer steps of
+     GRANITE_SEQ, batch 8, bf16 compute and fp32 masters, STEPS Trainer
+     steps of
      Muon PRISM-5 through ``launch/train.py``'s configuration
      (``cut_trainer``) with a checkpoint at the last: Muon's views 588 x
      [1024, 512], 12 x [1024, 1024], 6 x [1024, 32]; 27 launches a step
@@ -210,10 +218,10 @@ Phases (any failure exits non-zero and prints no result):
      recurrentgemma-2b at its published widths (d 2560, vocab 256000),
      depth cut to RGEMMA_LAYERS (5 of 26: one (rec, rec, attn) period
      and the two tail layers; 1,005,432,320 parameters) through
-     ``launch/train.py``'s configuration (``cut_trainer``; seq 512, batch
-     8, Muon PRISM-5), STEPS Trainer steps: Muon's views 20 x [2560,
-     2560], 10 x [2560, 7680], 2 x [2560, 4096], 2 x [2560, 256]; the
-     launches of each step
+     ``launch/train.py``'s configuration (``cut_trainer``; seq
+     RECURRENT_SEQ, batch 8, Muon PRISM-5), STEPS Trainer steps: Muon's
+     views 20 x [2560, 2560], 10 x [2560, 7680], 2 x [2560, 4096], 2 x
+     [2560, 256]; the launches of each step
      equal to those derived from the port's bucket plan and tiers
      (``plan_launches``: 4 grid buckets, K1 24, K2 12); the step-0 CE
      within 1.5 of ln(V); the Muon update through the kernels against
@@ -228,9 +236,9 @@ Phases (any failure exits non-zero and prints no result):
      15), and the selective scan of one layer timed forward and backward
      and profiled (device busy, device kernels); (c) each checkpoint
      through ``restore_params`` into a fresh model (bitwise), served in
-     bf16 by ``launch/serve.batch_loop`` at batch 4, prompt 256, gen 32
+     bf16 by ``launch/serve.batch_loop`` at batch 4, prompt 128, gen 32
      (tokens in the vocab, logits finite, the decode state's bytes those
-     of ``init_cache``'s shapes, exactly 1,593,856 and 4,587,520), a
+     of ``init_cache``'s shapes, exactly 1,067,520 and 4,587,520), a
      profiled decode step, ``prefill_cache`` of ragged lengths 96, 61, 17
      bitwise a streamed active-masked decode loop in the logits and every
      cache leaf, a step with one lane inactive leaving its leaves bitwise,
@@ -246,7 +254,7 @@ Phases (any failure exits non-zero and prints no result):
      with a P14_TIMEOUT_S timeout on every collective and P14_DEADLINE_S
      on the world (a rank that raises fails the phase); the kernels are
      built before the ranks start.  First the single-process Trainer
-     (gpt2-paper, Muon PRISM-5, seq 512, global batch 4, STEPS steps,
+     (gpt2-paper, Muon PRISM-5, seq 512, global batch 4, P14_STEPS steps,
      seed 0) for (b)'s losses and step-0 update, and one step of it at
      fp32 compute for its update.  On each rank, under
      ``make_debug_mesh(data=2, model=1)``: (a) gpt2-paper Muon's buckets
@@ -256,7 +264,7 @@ Phases (any failure exits non-zero and prints no result):
      K3 1, K5 4, K6 2, K7 2), the gathered polars within P14_POLAR_TOL
      (2e-5) of the single process's (bitwise or not printed), the
      engine's and the all-gathers' time and bytes; (b) the Trainer on the
-     mesh, 2 rows a rank, STEPS steps with a checkpoint at the last
+     mesh, 2 rows a rank, P14_STEPS steps with a checkpoint at the last
      (rank 0 writes, every rank waits): every parameter's crc32 equal on
      both ranks after every step, 19 launches a step, losses finite, the
      first within 1.5 of ln(V), all within RESUME_LOSS_TOL of the single
@@ -274,10 +282,11 @@ Phases (any failure exits non-zero and prints no result):
      within P14_PSUM_STEPS int8 steps of the exact sum; (e) Muon
      PRISM-5 with ``precond_async`` and ``precond_every`` P14_ASYNC_K,
      P14_ASYNC_STEPS steps beside a ``Shadow`` (one process's async Muon
-     on the same gradients): dispatches at 0 and 5 on both ranks and in
-     the shadow, 19 launches in each dispatching ``step_begin`` and none
-     in the steps, the final parameters and caches within 2e-5 + 2e-5|x|
-     of the shadow's; each rank's max_memory_allocated.  Then (d): one
+     on the same gradients): dispatches at 0 and P14_ASYNC_K on both
+     ranks and in the shadow, 19 launches in each dispatching
+     ``step_begin`` and none in the steps, the final parameters and
+     caches within 2e-5 + 2e-5|x| of the shadow's; each rank's
+     max_memory_allocated.  Then (d): one
      process restores (b)'s checkpoint, its state bitwise the ranks'
      (crc32 of every leaf) and its next step 19 launches;
  15. the model axis (``phase15``, ``python3 tools/tp_probe.py`` alone): a
@@ -323,12 +332,13 @@ Phases (any failure exits non-zero and prints no result):
      gathered over data and replayed (``PINNED_ALPHA``'s reason); (e)
      async Muon PRISM-5 under "tp" with ``precond_every`` P15_ASYNC_K,
      P15_ASYNC_STEPS steps, deterministic algorithms on, a checkpoint at
-     the last: 19 launches in ``step_begin`` at steps 0 and 5 and none in
-     any step, the same telemetry (2 refreshes: bootstrap, clock) and the
-     same drift at every step on every rank, every state leaf bitwise the
-     same world synchronized after each ``step_begin``, the host time of
-     each ``step_begin`` printed (gloo holds the host through the
-     refresh's collectives); a one-step run whose bootstrap refresh
+     the last: 19 launches in ``step_begin`` at steps 0 and P15_ASYNC_K
+     and none in any step, the same telemetry (2 refreshes: bootstrap,
+     clock) and the same drift at every step on every rank, every state
+     leaf bitwise the same world synchronized after each
+     ``step_begin``, the host time of each ``step_begin`` printed (gloo
+     holds the host through the refresh's collectives); a one-step run
+     whose bootstrap refresh
      carries a NaN in rank P15_NAN_RANK's pending block discards it on
      every rank (pending cleared, the active blocks bitwise unchanged);
      (f) a Trainer under "zero" restores (e)'s checkpoint, every leaf
@@ -367,7 +377,37 @@ Phases (any failure exits non-zero and prints no result):
      assignments equal on every rank and to one process's (printed),
      and a rank-local dispatch (each data rank's rows routed alone) must
      lie beyond the bound;
- 17. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+ 17. the ssm, hybrid and audio families on the mesh (``phase17``,
+     ``python3 tools/recurrent_probe.py --mesh`` alone): phase 15's world
+     of four ranks on gloo and (2, 2) mesh, launch/train.py's Muon
+     PRISM-5, seq 512, global batch 8, fp32 compute, every published
+     width, the depth cut (``P17_RUNS``).  First one process's Trainer of
+     each of (a)-(c), P17_STEPS steps (its losses and its launches a
+     step, the same every step and the bucket plan's, handed to the
+     ranks through a file, which they wait for before they build a
+     model).  (a) falcon-mamba-7b at 2 of 64 layers (743,305,216
+     parameters) under "tp": each model rank 4,096 of the 8,192
+     ``d_inner`` channels, ``in_proj`` gathered over the model axis
+     (kind "tp_gather"), ``x_proj``'s partial sum summed forward and
+     backward (kind "tp_sum"); (b) recurrentgemma-2b at one (rec, rec,
+     attn) period, 3 of 26 layers (861,201,920 parameters), under "tp":
+     1,280 of the 2,560 LRU channels a rank, the gates reduce-scattered
+     onto them (kind "tp_scatter"), 8 of the 16 padded heads, the mlp's
+     columns; (c) musicgen-medium at 2 of 48 layers (88,088,064
+     parameters) under "tp", each codebook's table and head split over
+     the model axis on its vocab dim, P17_STEPS steps with a checkpoint
+     at the last; (d) (c)'s checkpoint resumed under "zero",
+     P17_RESUME_STEPS step, every restored leaf gathered whole at the
+     MANIFEST's crc32 and the loss within P15_LOSS_TOL of one process
+     resuming the same checkpoint (after the world).  (a)-(c): losses
+     within P15_LOSS_TOL of one process's, the step-0 Muon update
+     gathered whole within UPDATE_REL_TOL of one process's optimizer
+     stepped on the world's gathered step-0 gradients with the shares'
+     norms (``ShareNorms``); every sub-run: each rank one process's
+     launches at every step, each K1/K2 call at its ``P17_SHAPES``
+     share, its step ms, tokens/s over the world, collectives a step by
+     kind (the families' own kinds apart) and its peak memory;
+ 18. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -3596,8 +3636,9 @@ GRANITE_LAYERS = 6
 GRANITE_PARAMS = 421_770_240
 # launch/train.py at its defaults (the published config, seq 512, batch 8,
 # Muon PRISM-5, matfn fp32) over the config cut to GRANITE_LAYERS; the
-# step count is cut too
+# step count is cut too (phase 12 (a) also cuts the sequence: GRANITE_SEQ)
 GRANITE_ARGV = ["--arch", GRANITE, "--steps", str(STEPS)]
+GRANITE_SEQ = 256   # phase 12 (a)'s sequence, cut from 512 (CHANGES.md)
 # Muon's matrix views by shape: the experts' w_gate/w_up/w_down and
 # wk/wv (98 a layer), wq/wo (2), the routers (1)
 GRANITE_VIEWS = {(1024, 512): 98 * GRANITE_LAYERS,
@@ -3696,7 +3737,8 @@ def granite_training(torch, work):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     args = train_launch.parser().parse_args(
-        GRANITE_ARGV + ["--ckpt_dir", str(work), "--ckpt_every", str(STEPS)])
+        GRANITE_ARGV + ["--seq", str(GRANITE_SEQ), "--ckpt_dir", str(work),
+                        "--ckpt_every", str(STEPS)])
     tr = cut_trainer(args, GRANITE_LAYERS)
     model, cfg, pc = tr.model, tr.model.cfg, tr.ocfg.prism
     n_params = sum(p.numel() for p in model.parameters())
@@ -3876,7 +3918,7 @@ def granite_update(torch, tr, key, what="(a)", name="granite-moe",
     syncs = count_syncs(torch, lambda: o.step(key=key))
     del o
     differ = [k for k, p in named.items()
-              if not torch.equal(p.detach().cpu(), after[k])]
+              if not torch.equal(p.detach(), after[k].to(p.device))]
     if differ:
         fail(f"{what}: a repeated Muon step through the kernels differs in "
              f"{len(differ)} parameters, e.g. {differ[:3]}")
@@ -3962,7 +4004,7 @@ def repeated_step(torch, tr, batch, t, what="(a)", host=False):
         tr.step_fn(batch, t)
         torch.cuda.synchronize()
         return [k for k, p in named.items()
-                if not torch.equal(p.detach().cpu(), first[k])]
+                if not torch.equal(p.detach(), first[k].to(p.device))]
 
     with deterministic(torch), warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
@@ -4015,7 +4057,7 @@ def granite_serving(torch, work, trained):
     served.load_params(restored)
     del restored
     for name, p in served.named_parameters():
-        if not torch.equal(p.detach().cpu(), trained[name]):
+        if not torch.equal(p.detach(), trained[name].to(p.device)):
             fail(f"(b): {name} is not bitwise the Trainer's")
     log(f"  (b) restore_params of step {STEPS} in {restore_s:.2f} s: "
         f"{len(trained)} parameters bitwise the Trainer's")
@@ -4199,17 +4241,21 @@ RECURRENT_SHAPES = bucket_shapes(RGEMMA_VIEWS, {
     (8192, 288): "falcon x_proj", (256, 8192): "falcon dt_proj",
     (8192, 16): "falcon A_log"})
 RECURRENT_REPS = 5  # launches a median at these shapes (up to ~0.1 s each)
-# (c): launch/serve.batch_loop; the prompt is cut from phase 11's 1536,
-# since the scan prefill takes one full decode step a prompt token
-RECURRENT_SERVE = dict(batch=4, prompt_len=256, gen_len=32, cache_len=0,
+# (a)/(b): the training sequence, cut from launch/train.py's 512 for the
+# script's clock (CHANGES.md; the scan's host loop runs a chunk at a time)
+RECURRENT_SEQ = 256
+# (c): launch/serve.batch_loop; the prompt is cut from phase 11's 1536
+# (and from 256, CHANGES.md), since the scan prefill takes one full decode
+# step a prompt token
+RECURRENT_SERVE = dict(batch=4, prompt_len=128, gen_len=32, cache_len=0,
                        seed=0)
-# the decode state at batch 4, cache_len 288 (prompt + gen): falcon's
+# the decode state at batch 4, cache_len 160 (prompt + gen): falcon's
 # FALCON_LAYERS x 4 lanes x (conv 3 x 8192 bf16 + ssm 8192 x 16 fp32);
 # recurrentgemma's 2 recurrent period layers (conv 3 x 2560 bf16, h 2560
-# fp32 a lane), the attention layer's k, v [4, 288, 1, 256] bf16, kpos
-# [4, 288] int32 and the 2 tail layers
+# fp32 a lane), the attention layer's k, v [4, 160, 1, 256] bf16, kpos
+# [4, 160] int32 and the 2 tail layers
 FALCON_STATE_BYTES = FALCON_LAYERS * 4 * (3 * 8192 * 2 + 8192 * 16 * 4)
-RGEMMA_STATE_BYTES = 1_593_856
+RGEMMA_STATE_BYTES = 1_067_520
 # (d): decode against forward in fp32 at full width, tests/test_models_
 # smoke.py:110-130's tolerance (2e-2 + 2e-2 |x|)
 DECODE_FWD_LAYERS = {RGEMMA: 5, FALCON: FALCON_LAYERS}  # hybrid: 1 period
@@ -4260,14 +4306,40 @@ def free_card(torch, what):
     """Collect the garbage of earlier phases (a Trainer's reference cycles
     keep its tensors until the cyclic collector runs) and return the
     allocator's free blocks; logs what stays allocated."""
-    import gc
-
     before = torch.cuda.memory_allocated()
-    gc.collect()
-    torch.cuda.empty_cache()
+    gc_collect(torch, "cuda")
     log(f"  {what}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated on the card ({before / 2**30:.2f} GiB before collecting "
-        f"garbage)")
+        f"garbage); host {host_gib()}")
+
+
+def gc_collect(torch, device):
+    """Free a dropped Trainer's tensors (its reference cycles wait for the
+    cyclic collector) and return the allocator's free blocks, the pinned
+    host blocks gloo staged CUDA tensors through among them."""
+    import gc
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        empty_host = getattr(torch._C, "_host_emptyCache", None)
+        if empty_host is not None:
+            empty_host()
+
+
+def host_gib():
+    """This process's resident host memory (VmRSS) and its peak
+    (``getrusage``'s maxrss)."""
+    import resource
+
+    try:
+        rss = next(int(ln.split()[1]) for ln in Path(
+            "/proc/self/status").read_text().splitlines()
+            if ln.startswith("VmRSS"))
+    except (OSError, StopIteration):
+        return "not measured"
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return (f"{rss / 2**20:.2f} GiB resident, peak {peak / 2**20:.2f}")
 
 
 def plan_launches(model, ocfg):
@@ -4319,7 +4391,8 @@ def recurrent_training(torch, arch, layers, want_params, want_views, ckpt,
     free_card(torch, what)
     torch.cuda.reset_peak_memory_stats()
     args = train_launch.parser().parse_args(["--arch", arch, "--steps",
-                                             str(STEPS)])
+                                             str(STEPS), "--seq",
+                                             str(RECURRENT_SEQ)])
     tr = cut_trainer(args, layers)
     model, cfg, pc = tr.model, tr.model.cfg, tr.ocfg.prism
     n_params = sum(p.numel() for p in model.parameters())
@@ -4547,7 +4620,7 @@ def recurrent_serving(torch, arch, layers, ckpt, trained, what):
     if step != STEPS:
         fail(f"{what}: restore_params took step {step}, not {STEPS}")
     for name, v in params.items():
-        if not torch.equal(v.cpu(), trained[name]):
+        if not torch.equal(v, trained[name].to(v.device)):
             fail(f"{what}: {name} is not bitwise the trained parameter")
     log(f"  {what} restore_params of step {STEPS} in {restore_s:.2f} s: "
         f"{len(params)} compute-dtype parameters bitwise the trained ones")
@@ -4671,8 +4744,11 @@ def decode_vs_forward(torch):
 # ------------------------------------------------------------ phase 14
 
 P14_WORLD = 2            # ranks sharing the one card
-P14_ASYNC_STEPS = 7      # (e): bootstrap at 0, the clock at 5
-P14_ASYNC_K = 5
+# steps cut for the script's clock (CHANGES.md): (b) 4 -> 2; (e) 7 at K 5
+# -> 4 at K 2 (the bootstrap at 0, the clock at 2, a swap at 3)
+P14_STEPS = 2            # (b): the Trainer on the mesh, a checkpoint
+P14_ASYNC_STEPS = 4      # (e): bootstrap at 0, the clock at P14_ASYNC_K
+P14_ASYNC_K = 2
 P14_EXTRA_STEPS = 2      # (c): bf16 gradients, int8 compression
 # (c)'s losses against (b)'s: the sound runs read at most 1.35e-4 on the
 # H100, the same steps with no update at all 1.50e-3 (the control, which
@@ -4754,10 +4830,10 @@ def _p14_step0_update(torch, tr, on_metrics=None):
 
 
 def _p14_references(torch, work, preset, device):
-    """The single-process Trainer runs (b) is held against: STEPS steps
+    """The single-process Trainer runs (b) is held against: P14_STEPS steps
     (its losses, returned, and its step-0 update) and one step at fp32
     compute (its update); the updates go to files."""
-    tr = _p14_trainer(_p14_cfgs(preset), device, steps=STEPS)
+    tr = _p14_trainer(_p14_cfgs(preset), device, steps=P14_STEPS)
     losses, upd = _p14_step0_update(torch, tr)
     torch.save({k: v.cpu() for k, v in upd.items()}, work / "ref_update.pt")
     del tr, upd
@@ -4835,8 +4911,8 @@ def _phase14(torch, work, preset, device, launches):
     card = _card_line()
     t0 = time.perf_counter()
     ref_losses = _p14_references(torch, work, preset, device)
-    log(f"  the single-process Trainer ((b)'s reference, {STEPS} steps) in "
-        f"{time.perf_counter() - t0:.1f} s; losses "
+    log(f"  the single-process Trainer ((b)'s reference, {P14_STEPS} steps) "
+        f"in {time.perf_counter() - t0:.1f} s; losses "
         f"{', '.join(f'{v:.4f}' for v in ref_losses)}")
     if cuda:
         free_card(torch, "before the ranks")
@@ -4886,10 +4962,10 @@ def _phase14(torch, work, preset, device, launches):
     # (d): a single process restores the world's checkpoint
     cfgs = _p14_cfgs(preset)
     ck = work / "ckpt_b"
-    if latest_step(str(ck)) != STEPS:
+    if latest_step(str(ck)) != P14_STEPS:
         fail(f"phase 14 (d): the world's checkpoint is at step "
-             f"{latest_step(str(ck))}, not {STEPS}")
-    tr = _p14_trainer(cfgs, device, steps=STEPS + 1,
+             f"{latest_step(str(ck))}, not {P14_STEPS}")
+    tr = _p14_trainer(cfgs, device, steps=P14_STEPS + 1,
                       checkpoint_dir=str(ck), checkpoint_every=0)
     t0 = time.perf_counter()
     start = tr.restore_or_init()
@@ -4897,19 +4973,19 @@ def _phase14(torch, work, preset, device, launches):
     count = int(tr.opt.count)
     crcs = _crcs(torch, tr.state_tree())
     want = r0["final_crcs"]
-    if start != STEPS or crcs != want:
+    if start != P14_STEPS or crcs != want:
         bad = sorted(k for k in set(crcs) | set(want)
                      if crcs.get(k) != want.get(k))
         fail(f"phase 14 (d): the restored state is not what the ranks "
              f"held (start {start}; leaves differing: {bad[:5]})")
     ops.reset_launches()
-    tr.step_fn(tr.batch_fn(STEPS), STEPS)
+    tr.step_fn(tr.batch_fn(P14_STEPS), P14_STEPS)
     _p14_sync(torch, device)
     counts = ops.launch_counts()
     if launches:
         _expect_launches(counts, PER_STEP["prism5"],
                          "phase 14 (d), the restored run's next step")
-    log(f"  (d) a single process restored the world's step-{STEPS} "
+    log(f"  (d) a single process restored the world's step-{P14_STEPS} "
         f"checkpoint in {restore_s:.1f} s: {len(crcs)} leaves bitwise the "
         f"ranks' (crc32), count {count}; its next step "
         f"launched {sum(counts.values())} ({card})")
@@ -5058,15 +5134,15 @@ def _p14_engine(torch, rank, mesh, dev, preset, path, launches):
 
 def _p14_trainer_b(torch, rank, mesh, dev, work, preset, ref_losses,
                    launches):
-    """(b): the Trainer on the mesh, STEPS steps, a checkpoint at the
+    """(b): the Trainer on the mesh, P14_STEPS steps, a checkpoint at the
     last."""
     from repro_torch import collectives
     from repro_torch.kernels import ops
 
     cfgs = _p14_cfgs(preset)
-    tr = _p14_trainer(cfgs, dev, mesh, steps=STEPS,
+    tr = _p14_trainer(cfgs, dev, mesh, steps=P14_STEPS,
                       checkpoint_dir=str(work / "ckpt_b"),
-                      checkpoint_every=STEPS)
+                      checkpoint_every=P14_STEPS)
     digests, per_step = [], []
     last = [None]
 
@@ -5107,8 +5183,8 @@ def _p14_trainer_b(torch, rank, mesh, dev, work, preset, ref_losses,
     step_ms = statistics.median(tr.step_times) * 1e3
     final = _crcs(torch, tr.state_tree())
     # the synchronizing calls of one more step (not checkpointed)
-    syncs = count_syncs(torch, lambda: tr.step_fn(tr.batch_fn(STEPS),
-                                                  STEPS)) \
+    syncs = count_syncs(torch, lambda: tr.step_fn(tr.batch_fn(P14_STEPS),
+                                                  P14_STEPS)) \
         if dev.type == "cuda" else []
     total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
     out = {"losses": losses, "digests": digests, "counts_b": total,
@@ -5126,7 +5202,7 @@ def _p14_trainer_b(torch, rank, mesh, dev, work, preset, ref_losses,
               f"from the single-process Trainer's at bf16 compute "
               f"(printed; the gate runs at fp32 compute)")
     _rank_log(rank, f"  (b) step {step_ms:.1f} ms (median of steps "
-              f"1..{STEPS - 1}), {seq * batch / (step_ms / 1e3):.0f} "
+              f"1..{P14_STEPS - 1}), {seq * batch / (step_ms / 1e3):.0f} "
               f"tokens/s over both ranks; gradient all-reduce "
               f"{out['grad_calls']:g} call(s) a step, "
               f"{out['grad_bytes']:.0f} bytes a rank a step, "
@@ -5308,8 +5384,10 @@ def _p14_async(torch, rank, mesh, dev, preset, launches):
 
 P15_WORLD = 4            # ranks sharing the one card
 P15_MESH = (2, 2)        # (data, model)
-P15_STEPS = 3            # (a): tp, a checkpoint at the last
-P15_RESUME_STEPS = 2     # (b): zero, resumed from (a)'s checkpoint
+# steps of (a) and (b), cut for the script's clock (CHANGES.md): 3 -> 1
+# and 2 -> 1
+P15_STEPS = 1            # (a): tp, a checkpoint at the last
+P15_RESUME_STEPS = 1     # (b): zero, resumed from (a)'s checkpoint
 P15_LOSS_TOL = 1e-4      # the world's losses against one process's
 P15_TIMEOUT_S = 300      # a collective that waits longer fails the rank
 P15_DEADLINE_S = 600     # the whole world
@@ -5659,8 +5737,18 @@ def _p15_steps(torch, tr, dev, on_step=None):
     from repro_torch.kernels import ops
 
     per_step, last, aux = [], [None], []
+    # each step from its batch to its loss on the host (``run_step_ms``: a
+    # run of one step has nothing on the Trainer's clock, which leaves out
+    # the run's first)
+    batch_fn, starts = tr.batch_fn, []
+    tr.step_walls = []
+
+    def batch_at(t):
+        starts.append(time.perf_counter())
+        return batch_fn(t)
 
     def on_metrics(t, m):
+        tr.step_walls.append(time.perf_counter() - starts[-1])
         now = ops.launch_counts()
         per_step.append({k: now[k] - last[0][k] for k in now})
         last[0] = now
@@ -5670,11 +5758,28 @@ def _p15_steps(torch, tr, dev, on_step=None):
 
     ops.reset_launches()
     last[0] = ops.launch_counts()
-    with collectives.count_collectives() as calls, _p15_shapes() as shapes:
-        losses, upd = _p14_step0_update(torch, tr, on_metrics)
+    tr.batch_fn = batch_at
+    try:
+        with collectives.count_collectives() as calls, \
+                _p15_shapes() as shapes:
+            losses, upd = _p14_step0_update(torch, tr, on_metrics)
+    finally:
+        tr.batch_fn = batch_fn
     _p14_sync(torch, dev)
     return losses, per_step, list(calls), shapes, upd, \
         [float(torch.as_tensor(a)) for a in aux]
+
+
+def run_step_ms(tr):
+    """A sub-run's step ms on this rank: the median of the Trainer's clock
+    (the steps after the run's first), or in a run of one step that step
+    from its batch to its loss (``_p15_steps``; its warm-up included)."""
+    return statistics.median(tr.step_times or tr.step_walls) * 1e3
+
+
+def _step_note(tr):
+    return (f"median of steps 1..{len(tr.step_times)}" if tr.step_times
+            else "its one step, warm-up included")
 
 
 def _p15_reference(work):
@@ -5732,7 +5837,7 @@ def _p15_tp(torch, rank, mesh, dev, work, preset, launches):
     steps = len(losses)
     by = _p15_by_kind(calls, steps)
     seq, batch = tr.dcfg.seq_len, tr.dcfg.global_batch
-    step_ms = statistics.median(tr.step_times) * 1e3
+    a_ms = run_step_ms(tr)
     _rank_log(rank, f"  (a) tp, {batch // lay.batch_size} rows a data rank, "
               f"seq {seq}: losses {', '.join(f'{v:.5f}' for v in losses)} "
               f"(one process: largest gap {max(gaps):.2e}, bound "
@@ -5741,13 +5846,13 @@ def _p15_tp(torch, rank, mesh, dev, work, preset, launches):
     _rank_log(rank, f"  (a) launches a step on rank 0: "
               f"{sum(per_step[0].values())} ({per_step[0]}); K1/K2/K3 calls "
               f"by shape over {steps} steps: {shapes}")
-    _rank_log(rank, f"  (a) step {step_ms:.1f} ms on rank 0 (median of steps "
-              f"1..{steps - 1}), {seq * batch / (step_ms / 1e3):.0f} "
+    _rank_log(rank, f"  (a) step {a_ms:.1f} ms on rank 0 ({_step_note(tr)}), "
+              f"{seq * batch / (a_ms / 1e3):.0f} "
               f"tokens/s over the world; collectives a step on rank 0 by "
               f"kind: {_p15_kind_note(by)}")
     total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
     del tr
-    return {"a_losses": losses, "a_counts": total, "a_step_ms": step_ms,
+    return {"a_losses": losses, "a_counts": total, "a_step_ms": a_ms,
             "a_by_kind": by, "replicated": replicated, "a_shapes": shapes}
 
 
@@ -5812,7 +5917,7 @@ def _p15_zero(torch, rank, mesh, dev, work, preset, launches, a_shapes):
         raise AssertionError(f"(b) K2 calls {k2_shapes}, want the row "
                              f"blocks {_row_blocks(a_shapes)}")
     by = _p15_by_kind(calls, steps)
-    step_ms = statistics.median(tr.step_times) * 1e3
+    b_ms = run_step_ms(tr)
     seq, batch = tr.dcfg.seq_len, tr.dcfg.global_batch
     _rank_log(rank, f"  (b) zero + muon_local_reshard, resumed at step "
               f"{tr.opt.count - steps}: restored leaves gathered whole "
@@ -5824,22 +5929,23 @@ def _p15_zero(torch, rank, mesh, dev, work, preset, launches, a_shapes):
               f"{steps} steps (K2 on row blocks): {shapes}; Gram "
               f"all-reduces {len(grams) / steps:g} a step, "
               f"{sorted({c.nbytes for c in grams})} bytes each")
-    _rank_log(rank, f"  (b) step {step_ms:.1f} ms on rank 0, "
-              f"{seq * batch / (step_ms / 1e3):.0f} tokens/s over the world; "
+    _rank_log(rank, f"  (b) step {b_ms:.1f} ms on rank 0 ({_step_note(tr)}), "
+              f"{seq * batch / (b_ms / 1e3):.0f} tokens/s over the world; "
               f"collectives a step on rank 0 by kind: {_p15_kind_note(by)}")
     total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
     del tr
-    return {"b_losses": losses, "b_counts": total, "b_step_ms": step_ms,
+    return {"b_losses": losses, "b_counts": total, "b_step_ms": b_ms,
             "b_by_kind": by, "b_shapes": shapes}
 
 
 # (c)-(f): Shampoo and the §12 async plane on the same world
-# steps of the sub-runs, cut for the script's clock (CHANGES.md): (c) 3 -> 2,
-# (e) 7 -> 6 (its checkpoint then holds the refresh dispatched at step 5)
-P15_SHAMPOO_STEPS = 2    # (c): Shampoo PRISM-5 under "tp"
-P15_FITTED_STEPS = 2     # (d): fitted Shampoo under "zero"
-P15_ASYNC_STEPS = 6      # (e): async Muon, bootstrap at 0, the clock at 5
-P15_ASYNC_K = 5
+# steps of the sub-runs, cut for the script's clock (CHANGES.md): (c) 3 -> 2
+# -> 1, (d) 2 -> 1, (e) 7 -> 6 -> 3 with the clock at 2 (its checkpoint
+# then holds the refresh dispatched at step 2)
+P15_SHAMPOO_STEPS = 1    # (c): Shampoo PRISM-5 under "tp"
+P15_FITTED_STEPS = 1     # (d): fitted Shampoo under "zero"
+P15_ASYNC_STEPS = 3      # (e): async Muon, bootstrap at 0, the clock at 2
+P15_ASYNC_K = 2
 P15_NAN_RANK = 1         # (e): the rank whose pending block gets the NaN
 P15_CACHE_KEYS = ("ortho", "Linv", "Rinv", "ortho_p", "Linv_p", "Rinv_p")
 # the kernels line's paths of the new sub-runs (rank 0's launches)
@@ -5968,17 +6074,15 @@ def _p15_cache_bytes(torch, tr):
 def _p15_note(rank, what, tr, by, peak, cache):
     """Log a sub-run's step time, tokens/s over the world, collectives a
     step by kind, peak memory and cache bytes (rank 0)."""
-    step_ms = statistics.median(tr.step_times) * 1e3 if tr.step_times \
-        else math.nan
+    ms = run_step_ms(tr)
     seq, batch = tr.dcfg.seq_len, tr.dcfg.global_batch
     mine, _, whole = cache
-    _rank_log(rank, f"  {what} step {step_ms:.1f} ms on rank 0 (median of "
-              f"steps 1..{len(tr.step_times)}), "
-              f"{seq * batch / (step_ms / 1e3):.0f} tokens/s over the world; "
+    _rank_log(rank, f"  {what} step {ms:.1f} ms on rank 0 ({_step_note(tr)}), "
+              f"{seq * batch / (ms / 1e3):.0f} tokens/s over the world; "
               f"max_memory_allocated {peak:.2f} GiB; cached preconditioners "
               f"{mine} B on the rank of {whole} B whole; collectives a step "
               f"by kind: {_p15_kind_note(by)}")
-    return step_ms
+    return ms
 
 
 def _p15_peak(torch, dev):
@@ -5990,10 +6094,11 @@ def _p15_peak(torch, dev):
     return peak
 
 
-def _p15_grads0(torch, tr):
+def _p15_grads0(torch, tr, names=None):
     """An ``on_step`` hook that keeps the world's step-0 gradients (the
-    reduced, clipped ones the optimizer read), gathered whole (collective:
-    every rank gathers; rank 0 keeps them)."""
+    reduced, clipped ones the optimizer read) of ``names`` (default:
+    every parameter), gathered whole (collective: every rank gathers;
+    rank 0 keeps them)."""
     from repro_torch import collectives
     from repro_torch.launch import sharding
 
@@ -6004,6 +6109,8 @@ def _p15_grads0(torch, tr):
         if t != 0:
             return
         for k, p in tr.model.named_parameters():
+            if names is not None and k not in names:
+                continue
             g = sharding.gather_full(p.grad, lay.shardings[k], kind="gate")
             if collectives.rank(None) == 0:
                 kept[k] = g
@@ -6481,9 +6588,11 @@ def _p15_restore(torch, rank, mesh, dev, work, preset):
 # 0.13 GB/s over four ranks)
 P16_LAYERS = 2
 P16_PARAMS = 207_721_472   # at P16_LAYERS, with the padded vocab (49,168)
-P16_STEPS = 3              # (a): tp, expert parallelism, a checkpoint
-P16_RESUME_STEPS = 2       # (b): zero, resumed from (a)'s checkpoint
-P16_TENSOR_STEPS = 2       # (c): tp, each expert's columns (mixtral's rule)
+# steps cut for the script's clock (CHANGES.md): (a) 3 -> 1, (b) 2 -> 1,
+# (c) 2 -> 1
+P16_STEPS = 1              # (a): tp, expert parallelism, a checkpoint
+P16_RESUME_STEPS = 1       # (b): zero, resumed from (a)'s checkpoint
+P16_TENSOR_STEPS = 1       # (c): tp, each expert's columns (mixtral's rule)
 P16_DROP_CAPACITY = 0.5    # (d): the drop control
 P16_DEADLINE_S = 600       # the whole world
 P16_PATHS = {"a": "model_axis_moe_tp_rank0",
@@ -6771,7 +6880,7 @@ def _p16_train(torch, rank, mesh, dev, work, preset, launches, tag):
         tr.restore_or_init = restore_or_init
         grads0, on_step = {}, None
     else:
-        grads0, on_step = _p15_grads0(torch, tr)
+        grads0, on_step = _p15_grads0(torch, tr, _muon_leaves(tr))
     losses, per_step, calls, shapes, upd, aux = _p15_steps(torch, tr, dev,
                                                            on_step)
     ref = json.loads(_p15_wait(work, "ref.json").read_text())
@@ -6820,7 +6929,7 @@ def _p16_train(torch, rank, mesh, dev, work, preset, launches, tag):
     peak = _p15_peak(torch, dev)  # rank 0's includes its update gate
     steps = len(losses)
     by = _p15_by_kind(calls, steps)
-    step_ms = statistics.median(tr.step_times) * 1e3
+    ms = run_step_ms(tr)
     seq, batch = tr.dcfg.seq_len, tr.dcfg.global_batch
     _rank_log(rank, f"  ({tag}) {strategy}, layers.moe.w_up {w_up}, "
               f"{batch // lay.batch_size} rows a rank of the batch group, "
@@ -6829,22 +6938,25 @@ def _p16_train(torch, rank, mesh, dev, work, preset, launches, tag):
               f"router's {want_aux:.3f}); {note}launches a step on rank 0 "
               f"{sum(per_step[0].values())}, one process's; K1/K2 calls by "
               f"shape over {len(losses)} steps (the shares): {shapes}")
-    _rank_log(rank, f"  ({tag}) step {step_ms:.1f} ms on rank 0 (median), "
-              f"{seq * batch / (step_ms / 1e3):.0f} tokens/s over the "
+    _rank_log(rank, f"  ({tag}) step {ms:.1f} ms on rank 0 "
+              f"({_step_note(tr)}), "
+              f"{seq * batch / (ms / 1e3):.0f} tokens/s over the "
               f"world; collectives a step on rank 0 by kind: "
               f"{_p15_kind_note(by)}")
     total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
     del tr, upd
     return {f"{tag}_losses": losses, f"{tag}_counts": total,
-            f"{tag}_step_ms": step_ms, f"{tag}_peak_gib": peak}
+            f"{tag}_step_ms": ms, f"{tag}_peak_gib": peak}
 
 
 def _p16_update_gate(torch, rank, tr, cfgs, dev, upd, grads0, what):
     """The step-0 Muon update, gathered whole (collective), against one
     process's optimizer (rank 0): a fresh one over seed 0's whole
-    parameters stepped once on the world's step-0 gradients (``grads0``),
-    each slice's Frobenius norm taken on the data ranks' shares
-    (``ShareNorms``).  Returns the gap (rank 0; NaN elsewhere)."""
+    parameters stepped once on the world's step-0 gradients (``grads0``:
+    Muon's leaves' at least, whose updates read no other gradient; the
+    others step on zeros and are not compared), each slice's Frobenius
+    norm taken on the data ranks' shares (``ShareNorms``).  Returns the
+    gap (rank 0; NaN elsewhere)."""
     from repro_torch.core.rng import Key
     from repro_torch.launch import sharding
     from repro_torch.models import Model
@@ -6862,7 +6974,7 @@ def _p16_update_gate(torch, rank, tr, cfgs, dev, upd, grads0, what):
     before = {k: p.detach().clone() for k, p in named}
     opt = make_optimizer(ocfg, named, model.logical_axes())
     for k, p in named:
-        p.grad = grads0[k]
+        p.grad = grads0[k] if k in grads0 else torch.zeros_like(p)
     with ShareNorms(P15_MESH[0]):
         opt.step(key=Key(0).fold_in(0))
     want = {k: p.detach() - before[k] for k, p in named if k in names}
@@ -6897,6 +7009,355 @@ def _p16_drop(torch, rank, mesh, dev, preset):
             "d_peak_gib": _p15_peak(torch, dev)}
 
 
+P17_STEPS = 2              # (a)-(c): tp
+P17_RESUME_STEPS = 1       # (d): zero, resumed from (c)'s checkpoint
+P17_DEADLINE_S = 600       # the whole world
+MUSICGEN = "musicgen-medium"
+# (tag) -> (arch, layers, parameters at full width): falcon at phase 13's
+# depth, recurrentgemma at one (rec, rec, attn) period so that every kind
+# of layer runs under "tp", musicgen at phase 12's; every width kept
+P17_RUNS = {"a": (FALCON, FALCON_LAYERS, FALCON_PARAMS),
+            "b": (RGEMMA, 3, 861_201_920),
+            "c": (MUSICGEN, FAMILY_LAYERS, 88_088_064)}
+P17_PATHS = {"a": "model_axis_ssm_tp_rank0",
+             "b": "model_axis_hybrid_tp_rank0",
+             "c": "model_axis_audio_tp_rank0",
+             "d": "model_axis_audio_zero_rank0"}
+# the families' own collective kinds (models/ssm.py, models/rglru.py)
+P17_KINDS = ("tp_gather", "tp_sum", "tp_scatter")
+# Muon's views at the cut depths (the port's bucket plan: one grid-tier
+# bucket a view shape) and K1/K2 at the §8 engine's shares of their
+# buckets over the data axis (each data rank's ceil(B / 2) slices),
+# checked and timed in phase 3
+P17_VIEWS = {
+    FALCON: FALCON_VIEWS,
+    RGEMMA: {(2560, 2560): 10, (2560, 7680): 6, (2560, 4096): 2,
+             (2560, 256): 2},
+    MUSICGEN: {(1536, 2048): 8, (1536, 6144): 4}}
+P17_LABELS = {
+    (4096, 16384): "(a) falcon in_proj", (4096, 8192): "(a) falcon out_proj",
+    (8192, 288): "(a) falcon x_proj", (256, 8192): "(a) falcon dt_proj",
+    (8192, 16): "(a) falcon A_log",
+    (2560, 2560): "(b) recurrentgemma RG-LRU",
+    (2560, 7680): "(b) recurrentgemma MLPs",
+    (2560, 4096): "(b) recurrentgemma wq/wo",
+    (2560, 256): "(b) recurrentgemma wk/wv",
+    (1536, 2048): "(c)/(d) musicgen wq/wk/wv/wo",
+    (1536, 6144): "(c)/(d) musicgen MLPs"}
+
+
+def p17_shares(arch):
+    """K1/K2 at each data rank's share of ``arch``'s Muon buckets."""
+    return bucket_shapes(
+        {v: -(-B // P15_MESH[0]) for v, B in P17_VIEWS[arch].items()},
+        {v: f"{P17_LABELS[v]}: share" for v in P17_VIEWS[arch]})
+
+
+P17_SHAPES = [e for arch in (FALCON, RGEMMA, MUSICGEN)
+              for e in p17_shares(arch)]
+
+
+def phase17(torch, preset="full", device="cuda", launches=True):
+    """Phase 17 (see the module docstring) in a temporary build/phase17_*
+    directory, removed at the end; returns rank 0's launch counts of
+    (a)-(d) by path.  ``preset`` ("full", or "smoke": the SMOKE configs
+    at seq 32), ``device`` and ``launches`` let it rehearse on the
+    CPU."""
+    import shutil
+    import tempfile
+
+    base_dir = ROOT / "build"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase17_", dir=base_dir))
+    try:
+        return _phase17(torch, work, preset, device, launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _p17_cfgs(preset, tag):
+    """launch/train.py's configuration of (tag)'s arch (Muon PRISM-5,
+    seq 512, global batch 8) cut to its depth, at fp32 compute (the gates
+    against one process)."""
+    from repro_torch.launch import train as train_launch
+
+    arch, layers, _ = P17_RUNS["c" if tag == "d" else tag]
+    argv = ["--arch", arch, "--steps", str(P17_STEPS)] + (
+        ["--smoke", "--seq", "32"] if preset == "smoke" else [])
+    cfg, ocfg, _, dcfg = train_launch.configs(
+        train_launch.parser().parse_args(argv))
+    return (cfg.replace(dtype="float32", emb_dtype="float32",
+                        num_layers=layers), ocfg, dcfg)
+
+
+def _p17_reference(torch, preset, device, tag, launches):
+    """One process's Trainer of (tag), P17_STEPS steps: its losses and its
+    launches a step (the same every step, and the bucket plan's)."""
+    cfgs = _p17_cfgs(preset, tag)
+    arch, _, want_params = P17_RUNS[tag]
+    tr = _p15_trainer(cfgs, device, steps=P17_STEPS)
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    views = _granite_views(tr.opt)
+    if preset == "full" and (n_params != want_params
+                             or views != P17_VIEWS[arch]):
+        raise AssertionError(f"{arch}: {n_params} parameters, Muon's views "
+                             f"{views}; want {want_params}, "
+                             f"{P17_VIEWS[arch]}")
+    plan, _ = plan_launches(tr.model, cfgs[1])
+    losses, per_step, _, _, _, _ = _p15_steps(torch, tr, device)
+    del tr
+    gc_collect(torch, device)
+    if any(c != per_step[0] for c in per_step) or (
+            launches and per_step[0] != plan):
+        raise AssertionError(f"{arch}: one process's launches {per_step}, "
+                             f"the plan's {plan} a step")
+    return {"losses": losses, "launches": per_step[0], "params": n_params,
+            "views": sorted([list(v), n] for v, n in views.items())}
+
+
+def _phase17(torch, work, preset, device, launches):
+    import torch.multiprocessing as mp
+
+    from repro_torch.checkpoint import latest_step
+
+    if torch.device(device).type == "cuda":
+        free_card(torch, "phase 17")
+    card = _card_line()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _phase17_rank, args=(P15_WORLD, str(work), preset, device,
+                             launches),
+        nprocs=P15_WORLD, start_method="spawn", join=False)
+    deadline = time.monotonic() + P17_DEADLINE_S
+    # one process's Trainers while the ranks start (they wait for this
+    # file before they build a model, so the references' memory is freed
+    # before the world's is taken)
+    refs = {}
+    try:
+        for tag in P17_RUNS:
+            t1 = time.perf_counter()
+            refs[tag] = _p17_reference(torch, preset, device, tag,
+                                       launches)
+            cfg = _p17_cfgs(preset, tag)[0]
+            r = refs[tag]
+            log(f"  ({tag}) one process in {time.perf_counter() - t1:.1f} "
+                f"s: {cfg.name} [{cfg.family}] {r['params']} params "
+                f"({cfg.num_layers} layers, d {cfg.d_model}, vocab "
+                f"{cfg.vocab_size}, fp32 compute), Muon views "
+                + ", ".join(f"{n} x {v}" for v, n in r["views"])
+                + f"; losses {', '.join(f'{v:.5f}' for v in r['losses'])}; "
+                f"launches a step {sum(r['launches'].values())} "
+                f"({ {k: v for k, v in r['launches'].items() if v} })")
+        (work / "ref.json.tmp").write_text(json.dumps(refs))
+        (work / "ref.json.tmp").rename(work / "ref.json")
+    except BaseException:
+        for p in ctx.processes:
+            p.kill()
+        raise
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"phase 17: the world of {P15_WORLD} ranks did not "
+                     f"finish in {P17_DEADLINE_S} s")
+    except Exception as e:  # a rank raised or died: the phase fails
+        for r in range(P15_WORLD):
+            err = work / f"rank{r}.err"
+            if err.exists():
+                log(f"  rank {r} raised:\n{err.read_text()}")
+        fail(f"phase 17: a rank failed: {type(e).__name__}: "
+             f"{str(e).splitlines()[0] if str(e) else ''}")
+    world_s = time.perf_counter() - t0
+    res = [json.loads((work / f"rank{r}.json").read_text())
+           for r in range(P15_WORLD)]
+    log(f"  the world of {P15_WORLD} ranks (spawned, gloo, mesh (data, "
+        f"model) = {P15_MESH}) ran in {world_s:.1f} s, the references "
+        f"first ({card})")
+    if any(rr[f"{k}_losses"] != res[0][f"{k}_losses"] for rr in res
+           for k in P17_PATHS):
+        fail("phase 17: the ranks' losses differ")
+    for r, rr in enumerate(res):
+        log(f"  rank {r} {rr['coords']}: step "
+            + ", ".join(f"({k}) {rr[f'{k}_step_ms']:.1f}" for k in P17_PATHS)
+            + " ms; max_memory_allocated "
+            + ", ".join(f"({k}) {rr[f'{k}_peak_gib']:.2f}" for k in P17_PATHS)
+            + f" GiB; host after (d): {rr['d_host']} ({card})")
+    # (d)'s reference: one process resumes the world's checkpoint
+    ck = work / "ckpt"
+    if latest_step(str(ck)) != P17_STEPS:
+        fail(f"phase 17: the world's checkpoint is at step "
+             f"{latest_step(str(ck))}, not {P17_STEPS}")
+    tr = _p15_trainer(_p17_cfgs(preset, "d"), device,
+                      steps=P17_STEPS + P17_RESUME_STEPS,
+                      checkpoint_dir=str(ck), checkpoint_every=0)
+    one_d, one_steps, _, _, _, _ = _p15_steps(torch, tr, device)
+    del tr
+    gc_collect(torch, device)
+    d = res[0]["d_losses"]
+    gaps = [abs(x - y) for x, y in zip(d, one_d)]
+    if len(d) != P17_RESUME_STEPS or not all(math.isfinite(v) for v in d) \
+            or not max(gaps) <= P15_LOSS_TOL:
+        fail(f"phase 17 (d): losses {d} against one process resuming the "
+             f"same checkpoint {one_d} (bound {P15_LOSS_TOL})")
+    if launches and any(c != refs["c"]["launches"] for c in one_steps):
+        fail(f"phase 17 (d): one process's launches a step {one_steps}")
+    log(f"  (d) one process resuming the world's step-{P17_STEPS} "
+        f"checkpoint: losses {', '.join(f'{v:.5f}' for v in one_d)}; the "
+        f"world's within {max(gaps):.2e} (bound {P15_LOSS_TOL}) ({card})")
+    return {path: res[0][f"{k}_counts"] for k, path in P17_PATHS.items()}
+
+
+def _phase17_rank(rank, world, work, preset, device, launches):
+    """One rank of phase 17: (a)-(d); writes rank<r>.json, or rank<r>.err
+    with the traceback when it raises."""
+    import traceback
+
+    work = Path(work)
+    try:
+        res = _p17_rank_body(rank, world, work, preset, device, launches)
+        (work / f"rank{rank}.json").write_text(json.dumps(res))
+    except BaseException:
+        (work / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _p17_rank_body(rank, world, work, preset, device, launches):
+    import torch
+
+    from repro_torch import collectives
+    from repro_torch.launch import mesh as lmesh
+
+    dev = lmesh.init_world(rank, world, f"file://{work}/store",
+                           device=device, timeout_s=P15_TIMEOUT_S)
+    try:
+        mesh = lmesh.make_debug_mesh(*P15_MESH)
+        res = {"coords": mesh.coords()}
+        _rank_log(rank, f"  rank 0: backend {lmesh.world_backend()}, "
+                  f"device {dev}, mesh {mesh!r}")
+        ref = json.loads(_p15_wait(work, "ref.json").read_text())
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for tag in P17_PATHS:
+            res.update(_p17_train(torch, rank, mesh, dev, work, preset,
+                                  launches, tag, ref))
+        collectives.barrier()
+        return res
+    finally:
+        lmesh.close_world()
+
+
+def _p17_train(torch, rank, mesh, dev, work, preset, launches, tag, ref):
+    """(a) falcon-mamba-7b, (b) recurrentgemma-2b and (c) musicgen-medium
+    under "tp", P17_STEPS steps ((c) with a checkpoint at the last); (d)
+    (c)'s checkpoint resumed under "zero", P17_RESUME_STEPS steps."""
+    ck = work / "ckpt"
+    cfgs = _p17_cfgs(preset, tag)
+    if tag == "d":
+        strategy = "zero"
+        tkw = dict(steps=P17_STEPS + P17_RESUME_STEPS,
+                   checkpoint_dir=str(ck), checkpoint_every=0)
+    else:
+        strategy = "tp"
+        tkw = dict(steps=P17_STEPS)
+        if tag == "c":
+            tkw.update(checkpoint_dir=str(ck), checkpoint_every=P17_STEPS)
+    tr = _p15_trainer(cfgs, dev, mesh, strategy, **tkw)
+    lay = tr.model.layout
+    what = f"phase 17 ({tag})"
+    restored = {}
+    if tag == "d":
+        manifest = json.loads((ck / f"step_{P17_STEPS:08d}" /
+                               "MANIFEST").read_text())["crc32"]
+        real_restore = tr.restore_or_init
+
+        def restore_or_init(seed=None):
+            start = real_restore(seed)
+            tree = tr.gathered_state_tree()
+            if rank == 0:
+                restored.update(_crcs(torch, tree))
+            del tree
+            return start
+        tr.restore_or_init = restore_or_init
+        grads0, on_step = {}, None
+    else:
+        grads0, on_step = _p15_grads0(torch, tr, _muon_leaves(tr))
+    losses, per_step, calls, shapes, upd, _ = _p15_steps(torch, tr, dev,
+                                                         on_step)
+    run = ref["c" if tag == "d" else tag]
+    for t, c in enumerate(per_step):
+        if launches and c != run["launches"]:
+            raise AssertionError(f"rank {rank}, {what} step {t}: launches "
+                                 f"{c}, one process's {run['launches']}")
+    # each K1/K2 call on the rank's share of a bucket, phase 3's shapes
+    arch = P17_RUNS["c" if tag == "d" else tag][0]
+    shares = {f"{'gram' if n == 'gram_upper' else n} {list(a)}"
+              for n, a, _, _, _ in p17_shares(arch)}
+    if launches and set(shapes) != shares:
+        raise AssertionError(f"rank {rank}, {what}: K1/K2 calls by shape "
+                             f"{shapes}, want the shares {sorted(shares)}")
+    if tag == "d":
+        if rank == 0 and restored != manifest:
+            bad = sorted(k for k in set(restored) | set(manifest)
+                         if restored.get(k) != manifest.get(k))
+            raise AssertionError(f"{what}: restored leaves differ from the "
+                                 f"checkpoint's crc32: {bad[:5]}")
+        note = (f"restored leaves gathered whole crc32-equal to the "
+                f"checkpoint's MANIFEST ({len(manifest)} leaves); ")
+    else:
+        gaps = [abs(a - b) for a, b in zip(losses, run["losses"])]
+        if len(losses) != P17_STEPS or \
+                not all(math.isfinite(v) for v in losses) or \
+                not max(gaps) <= P15_LOSS_TOL:
+            raise AssertionError(f"{what}: losses {losses} vs one "
+                                 f"process's {run['losses']} (bound "
+                                 f"{P15_LOSS_TOL})")
+        gap = _p16_update_gate(torch, rank, tr, cfgs, dev, upd, grads0,
+                               what)
+        note = (f"one process's losses within {max(gaps):.2e} (bound "
+                f"{P15_LOSS_TOL}); the step-0 Muon update gathered whole "
+                f"within {gap:.3e} of one process's optimizer on the same "
+                f"gradients, relative to its largest entry (bound "
+                f"{UPDATE_REL_TOL}); ")
+    peak = _p15_peak(torch, dev)  # rank 0's includes its update gate
+    by = _p15_by_kind(calls, len(losses))
+    own = {k: v for k, v in by.items() if k in P17_KINDS}
+    rest = {k: v for k, v in by.items() if k not in P17_KINDS}
+    ms = run_step_ms(tr)
+    seq, batch = tr.dcfg.seq_len, tr.dcfg.global_batch
+    cfg = tr.model.cfg
+    _rank_log(rank, f"  ({tag}) {cfg.name} [{cfg.family}], {strategy}, "
+              f"{batch // lay.batch_size} rows a rank of the batch group, "
+              f"seq {seq}: losses {', '.join(f'{v:.5f}' for v in losses)}; "
+              f"{note}launches a step on rank 0 "
+              f"{sum(per_step[0].values())}, one process's; K1/K2 calls by "
+              f"shape over {len(losses)} steps (the shares): {shapes}")
+    _rank_log(rank, f"  ({tag}) step {ms:.1f} ms on rank 0 "
+              f"({_step_note(tr)}), "
+              f"{seq * batch / (ms / 1e3):.0f} tokens/s over the "
+              f"world; collectives a step on rank 0 by kind: the family's "
+              f"own: {_p15_kind_note(own) or 'none'}; the rest: "
+              f"{_p15_kind_note(rest)}; host {host_gib()}")
+    total = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    del tr, upd
+    gc_collect(torch, dev)
+    return {f"{tag}_losses": losses, f"{tag}_counts": total,
+            f"{tag}_step_ms": ms, f"{tag}_peak_gib": peak,
+            f"{tag}_host": host_gib()}
+
+
+def bytecode_cache() -> None:
+    """Write this process's bytecode under build/pycache and have the
+    processes it spawns read it there.  Where the interpreter runs with
+    PYTHONDONTWRITEBYTECODE and its packages hold no bytecode, every rank
+    of phases 14-17 compiled torch's sources again on its start
+    (``tools/smoke_profile.py``); the ranks, spawned with this process's
+    flags, still write nothing, but read what this process wrote."""
+    sys.pycache_prefix = str(ROOT / "build" / "pycache")
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -6909,6 +7370,7 @@ def main() -> None:
     # come within a few GiB of the card, and a pool of fixed segments
     # fragments there (out of memory with 10.5 GiB reserved but free)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", ALLOC_CONF)
+    bytecode_cache()
     import torch
 
     if not torch.cuda.is_available():
@@ -6971,6 +7433,12 @@ def main() -> None:
         "data rank's half)")
     rows = gemm_shape_checks(torch, rows, P16_SHAPES, ("float32",), 21)
     timings.update(gemm_shape_timings(torch, P16_SHAPES, ("float32",), 22))
+    log("  K1/K2 at phase 17's shares of falcon-mamba-7b's, "
+        "recurrentgemma-2b's and musicgen-medium's Muon buckets (each data "
+        "rank's half)")
+    rows = gemm_shape_checks(torch, rows, P17_SHAPES, ("float32",), 23)
+    timings.update(gemm_shape_timings(torch, P17_SHAPES, ("float32",), 24,
+                                      RECURRENT_REPS))
 
     runs = {}
     log("phase 4: PRISM-5 path, gpt2-paper Muon step at full width")
@@ -7062,6 +7530,16 @@ def main() -> None:
     log(f"  phase 16 in {time.perf_counter() - t0:.1f} s; the script so far "
         f"{time.perf_counter() - _T0:.1f} s")
 
+    log(f"phase 17: the ssm, hybrid and audio families on the mesh, "
+        f"{P15_WORLD} ranks on the card (gloo) on a {P15_MESH} (data, model) "
+        f"mesh: falcon-mamba-7b ({P17_RUNS['a'][1]} layers), "
+        f"recurrentgemma-2b ({P17_RUNS['b'][1]}) and musicgen-medium "
+        f"({P17_RUNS['c'][1]}) under tp, musicgen resumed under zero")
+    t0 = time.perf_counter()
+    family_mesh = phase17(torch)
+    log(f"  phase 17 in {time.perf_counter() - t0:.1f} s; the script so far "
+        f"{time.perf_counter() - _T0:.1f} s")
+
     by_path = {k: r["counts"] for k, r in runs.items()}
     by_path["fallback"] = fallback
     by_path["trainer"] = phase8["counts"]
@@ -7073,6 +7551,7 @@ def main() -> None:
     by_path["model_axis_zero_rank0"] = mp["zero"]
     by_path.update({path: mp[path] for path in P15_NEW_PATHS.values()})
     by_path.update(moe_mesh)
+    by_path.update(family_mesh)
     print(json.dumps({"kernels": kernel_rows(rows, timings, by_path)}),
           flush=True)
     print(f"card: {card}", flush=True)
@@ -7158,14 +7637,24 @@ def _p15_path(what):
             else "model_axis_zero_rank0")
 
 
+def _p17_paths(what):
+    """The kernels line's paths of a ``P17_SHAPES`` entry: "(a) ..." is
+    (a)'s, "(c)/(d) ..." (c)'s and (d)'s."""
+    tags = what.split(" ", 1)[0].strip("()").split(")/(")
+    return [P17_PATHS[t] for t in tags]
+
+
 # The kernels line: for each kernel, the measurements of each family and
 # main-path shape it was timed at, as (family, row/timing key, path); the
 # first entry, the one this slice's path runs where it runs one (K1's and
-# K2's: phase 16 (a)'s share of granite-moe's expert bucket), gives the
-# kernel's top-level numbers.  Sign runs on no training path (signm only),
+# K2's: phase 17 (a)'s share of falcon-mamba-7b's in_proj bucket), gives
+# the kernel's top-level numbers.  Sign runs on no training path (signm only),
 # nor do K1's and K2's bf16 rows (the paths' matfn dtype is fp32).
 VARIANTS = {
     "matmul_add": [
+        ("-", _lowrank_key(n, a, b, "float32"), path)
+        for n, a, b, _, w in P17_SHAPES if n == "matmul_add"
+        for path in _p17_paths(w)] + [
         ("-", _lowrank_key(n, a, b, "float32"), path)
         for n, a, b, _, _ in P16_SHAPES if n == "matmul_add"
         for path in P16_PATHS.values()] + [
@@ -7193,6 +7682,9 @@ VARIANTS = {
        for n, a, b, _, _ in LOWRANK_SHAPES if n == "matmul_add"
        for dt in DTYPES],
     "gram_upper": [
+        ("polar", _lowrank_key(n, a, b, "float32"), path)
+        for n, a, b, _, w in P17_SHAPES if n == "gram_upper"
+        for path in _p17_paths(w)] + [
         ("polar", _lowrank_key(n, a, b, "float32"), path)
         for n, a, b, _, _ in P16_SHAPES if n == "gram_upper"
         for path in P16_PATHS.values()] + [

@@ -44,8 +44,53 @@ import torch
 _SEP = "|"
 
 
+#: bytes a thread takes of a large leaf's crc32 (``_crc``)
+_CRC_CHUNK = 1 << 25
+_CRC_POLY = 0xEDB88320  # crc32's polynomial, bit-reflected
+
+
+def _multmodp(a: int, b: int) -> int:
+    """a * b modulo the crc32 polynomial over GF(2), bit-reflected
+    (zlib's ``multmodp``)."""
+    m, p = 1 << 31, 0
+    while True:
+        if a & m:
+            p ^= b
+            if not a & (m - 1):
+                return p
+        m >>= 1
+        b = (b >> 1) ^ _CRC_POLY if b & 1 else b >> 1
+
+
+def _shift_op(nbytes: int) -> int:
+    """x^(8 nbytes) modulo the polynomial: ``crc32(a + b)`` is
+    ``_multmodp(_shift_op(len(b)), crc32(a)) ^ crc32(b)`` (zlib's
+    ``crc32_combine_gen``)."""
+    op, sq, n = 1 << 31, 1 << 30, 8 * nbytes  # x^0; x^1
+    while n:
+        if n & 1:
+            op = _multmodp(sq, op)
+        sq, n = _multmodp(sq, sq), n >> 1
+    return op
+
+
 def _crc(arr: np.ndarray) -> int:
-    return zlib.crc32(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+    """``zlib.crc32`` of ``arr``'s bytes; a leaf of more than one
+    ``_CRC_CHUNK`` is taken a chunk a thread (``zlib.crc32`` releases the
+    GIL) and the chunks' crcs combined."""
+    buf = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    if buf.size <= _CRC_CHUNK:
+        return zlib.crc32(buf)
+    from concurrent.futures import ThreadPoolExecutor
+
+    chunks = [buf[i:i + _CRC_CHUNK] for i in range(0, buf.size, _CRC_CHUNK)]
+    with ThreadPoolExecutor(min(len(chunks), os.cpu_count() or 1)) as ex:
+        crcs = list(ex.map(zlib.crc32, chunks))
+    op = _shift_op(_CRC_CHUNK)
+    crc = crcs[0]
+    for c in crcs[1:-1]:
+        crc = _multmodp(op, crc) ^ c
+    return _multmodp(_shift_op(chunks[-1].size), crc) ^ crcs[-1]
 
 
 def _host(leaf) -> np.ndarray:

@@ -9,10 +9,13 @@ call appends its op, dtype, element count, host time and ``kind`` (what
 issued it: "tp", "fsdp", "engine", "grad", "gram", "opt", "cache" (a
 cached preconditioner's blocks gathered whole), "drift" (the §12 drift
 proxy's world sums), "verdict" (a world AND of a refresh's or the
-guard's finiteness), ...) to the census that ``count_collectives``
-opens, as ``kernels/ops.py::count_launches`` counts kernel launches.
+guard's finiteness), "tp_gather" (Mamba's ``in_proj`` gathered over the
+model axis), "tp_sum" (Mamba's ``x_proj`` sum over the model axis),
+"tp_scatter" (the RG-LRU gates' reduce-scatter), ...) to the census that
+``count_collectives`` opens, as ``kernels/ops.py::count_launches`` counts
+kernel launches.
 
-Tensor parallelism (Megatron's pattern) differentiates through three
+Tensor parallelism (Megatron's pattern) differentiates through four
 autograd Functions over a group, each issuing one counted collective a
 pass:
 
@@ -24,6 +27,13 @@ pass:
                        this rank's slice of the gradient summed over the
                        group (one reduce-scatter, which gloo runs on
                        CUDA tensors: ``tools/tp_probe.py`` checks it)
+  reduce_scatter_from(x, dim)
+                       its transpose: this rank's block along ``dim`` of
+                       the SUM over the group forward, the gradient
+                       all-gathered along ``dim`` backward (a row-parallel
+                       projection whose every output column is partial
+                       and whose rank keeps its own columns: the RG-LRU
+                       gates)
 
 On CUDA tensors the collective runs through the backend ``init_world``
 chose and printed.  Under gloo (ranks that share a device) the backend
@@ -148,6 +158,18 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _ReduceScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, kind):
+        ctx.group, ctx.dim, ctx.kind = group, dim, kind
+        return reduce_scatter(x, group, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim, ctx.kind), None, None, \
+            None
+
+
 class _GatherFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim, kind):
@@ -176,6 +198,13 @@ def gather_from(x: torch.Tensor, group, dim: int,
     """Every rank's ``x`` concatenated along ``dim``; the gradient of this
     rank's slice summed over the group."""
     return _GatherFrom.apply(x, group, dim, kind)
+
+
+def reduce_scatter_from(x: torch.Tensor, group, dim: int,
+                        kind: str = "tp_scatter") -> torch.Tensor:
+    """This rank's block along ``dim`` of the SUM over the group of every
+    rank's ``x``; the gradient all-gathered along ``dim``."""
+    return _ReduceScatterFrom.apply(x, group, dim, kind)
 
 
 def barrier(group=None) -> None:

@@ -33,13 +33,15 @@ front with ``--multi_pod``) under the reference's default rules,
 over model), through the Trainer (``production_layout`` builds the mesh
 and the shardings, also without a world), with any of the optimizers
 and ``--precond_async``: Muon and Shampoo keep their moments and cached
-preconditioners as blocks of the layout.  The dense and moe families
-train there (granite-moe-1b-a400m by expert parallelism, its 32 experts
-over the model axis; mixtral-8x7b by each expert's columns); a world of
-another size fails with the ``Mesh``'s ValueError; ``--multi_pod``
-without ``--mesh production`` is a ValueError; the vlm, audio, ssm and
-hybrid families on the production mesh raise (ROADMAP.md Queue 1 item
-11h), as ``--pipeline_stages > 1`` (the 1F1B pipeline) does (item 11c).
+preconditioners as blocks of the layout.  Every family trains there:
+dense; moe (granite-moe-1b-a400m by expert parallelism, its 32 experts
+over the model axis; mixtral-8x7b by each expert's columns); vlm; audio
+(each codebook's vocab rows over the model axis); ssm (falcon-mamba-7b,
+d_inner over the model axis); hybrid (recurrentgemma-2b, the LRU width,
+the heads and the mlp columns over it).  A world of another size fails
+with the ``Mesh``'s ValueError; ``--multi_pod`` without ``--mesh
+production`` is a ValueError; ``--pipeline_stages > 1`` (the 1F1B
+pipeline) raises (ROADMAP.md Queue 1 item 11c).
 """
 from __future__ import annotations
 
@@ -146,10 +148,6 @@ def build(args) -> Trainer:
     cfg, ocfg, tcfg, dcfg = configs(args)
     mesh = shardings = None
     if args.mesh == "production":
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"--mesh production for the {cfg.family} family comes with "
-                f"ROADMAP.md Queue 1 item 11h")
         if not dist.is_initialized():
             init_world_from_env(device=args.device)
         mesh, shardings = production_layout(cfg, args.multi_pod)

@@ -13,12 +13,24 @@ the same recurrence in ceil(log2 S) shifted passes (Hillis-Steele), with a
 backward of its own: dL/dh_t = g_t + a_{t+1} dL/dh_{t+1} is the same scan
 run from the end, so backward keeps only a and h, not every pass.  Plain
 PyTorch: the reference's scan is no Pallas kernel.
+
+Tensor parallelism (``rglru_block(..., tp=)``, ``layers.TP``): the rules
+split the LRU width over the model axis and each rank runs its own block
+of channels.  The input enters through ``collectives.copy_to`` and
+``in_x``/``in_gate`` are the rank's columns; the conv, ``lam`` and the
+scan are per channel; ``out_proj``'s rows give a partial output that
+``collectives.reduce_from`` sums.  The gates' ``w_a``/``w_i`` [w, w] are
+split on their rows, so xc @ w_a is a partial sum over every output
+channel of which the rank needs its own: a reduce-scatter onto them
+(``collectives.reduce_scatter_from``, kind "tp_scatter", whose backward
+all-gathers the gradient), before the rank's ``b_a``/``b_i`` are added.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import collectives
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 
@@ -68,10 +80,16 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, lead: tuple, dtype,
     return out
 
 
-def _gates(params, xc):
-    """(a, b) [B, S, w] fp32 of the recurrence h = a h + b."""
-    r = torch.sigmoid((xc @ params["w_a"]).float() + params["b_a"])
-    i = torch.sigmoid((xc @ params["w_i"]).float() + params["b_i"])
+def _gates(params, xc, tp=None):
+    """(a, b) [B, S, w] fp32 of the recurrence h = a h + b; with ``tp``
+    of the rank's channels (module docstring)."""
+    def pre(w):
+        p = (xc @ params[w]).float()
+        return p if tp is None else collectives.reduce_scatter_from(
+            p, tp.group, -1)
+
+    r = torch.sigmoid(pre("w_a") + params["b_a"])
+    i = torch.sigmoid(pre("w_i") + params["b_i"])
     log_a = -_C * F.softplus(params["lam"]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -126,19 +144,23 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _LinearScan.apply(a, b)
 
 
-def rglru_block(params, x, cfg: ModelConfig):
-    """x [B, S, D] -> y [B, S, D] (training / prefill)."""
+def rglru_block(params, x, cfg: ModelConfig, tp=None):
+    """x [B, S, D] -> y [B, S, D] (training / prefill); with ``tp`` on the
+    rank's channels (module docstring)."""
     dc = cfg.rglru.conv_dim
+    if tp is not None:
+        x = collectives.copy_to(x, tp.group)
     xin = x @ params["in_x"]
     gate = x @ params["in_gate"]
     S = xin.shape[1]
     xpad = F.pad(xin, (0, 0, dc - 1, 0))
     xc = sum(xpad[:, i:i + S, :] * params["conv_w"][i] for i in range(dc))
     xc = (xc + params["conv_b"]).to(x.dtype)
-    a, b = _gates(params, xc)
+    a, b = _gates(params, xc, tp)
     h = linear_scan(a, b)
     y = h * F.gelu(gate.float(), approximate="tanh")
-    return y.to(x.dtype) @ params["out_proj"]
+    out = y.to(x.dtype) @ params["out_proj"]
+    return out if tp is None else collectives.reduce_from(out, tp.group)
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,

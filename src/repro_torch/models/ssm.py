@@ -14,6 +14,27 @@ values the reference computes for the whole sequence), so the
 and backward alike.  Decode path: one recurrence step against a carried
 (conv, ssm) state.
 
+Tensor parallelism (``mamba_block(..., tp=)``, ``layers.TP``): the rules
+split every ``mlp`` dim, ``d_inner``, over the model axis, and each rank
+runs its own block of channels.  The input enters through
+``collectives.copy_to``; ``conv_w``/``conv_b``, ``dt_proj``'s columns,
+``dt_bias``, ``A_log``, ``D``, the scan and the ``z`` gate are the
+rank's channels and need no collective; ``out_proj``'s rows give a
+partial output that ``collectives.reduce_from`` sums.  Two leaves need
+more:
+
+  x_proj   [d_inner, dt_rank + 2 d_state] split on its rows: xc @ x_proj
+           is a partial sum over the rank's channels, and every rank needs
+           the whole sum (its ``dt_proj`` columns take dt_in, all of its
+           channels take B and C), so it is summed forward AND backward
+           (``reduce_from``, then ``copy_to``, kind "tp_sum"), in
+           ``_ssm_params``, outside the scan's checkpointed chunks;
+  in_proj  [d, 2 d_inner] holds [xin | z] side by side, and the rules
+           split its columns into contiguous blocks (on a model axis of 2
+           rank 0's block is all of xin): it is gathered whole on use
+           (``gather_from``, kind "tp_gather", whose backward is a
+           reduce-scatter) and the rank takes its channels of each half.
+
 The scan is plain PyTorch: the reference's is ``lax.scan``, no Pallas
 kernel.
 """
@@ -23,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import collectives
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 
@@ -88,12 +110,18 @@ def _conv(xin, w, b, dc: int):
     return sum(xpad[:, i:i + S, :] * w[i] for i in range(dc)) + b
 
 
-def _ssm_params(params, xc, cfg: ModelConfig):
+def _ssm_params(params, xc, cfg: ModelConfig, tp=None):
     """xc [B, S, di] (post-conv) -> fp32 (dt [B,S,di], B [B,S,ds],
-    C [B,S,ds])."""
+    C [B,S,ds]); with ``tp`` the rank's channels of xc and dt."""
     ds, dtr = cfg.ssm.state_dim, _dt_rank(cfg)
-    proj = xc @ params["x_proj"]  # [B, S, dtr + 2 ds]
-    dt_in, Bmat, Cmat = torch.split(proj.float(), [dtr, ds, ds], dim=-1)
+    proj = (xc @ params["x_proj"]).float()  # [B, S, dtr + 2 ds]
+    if tp is not None:
+        # a partial sum over the rank's channels whose whole every rank's
+        # consumers take: summed forward and backward (module docstring)
+        proj = collectives.copy_to(
+            collectives.reduce_from(proj, tp.group, "tp_sum"), tp.group,
+            "tp_sum")
+    dt_in, Bmat, Cmat = torch.split(proj, [dtr, ds, ds], dim=-1)
     dt = F.softplus(dt_in @ params["dt_proj"].float() + params["dt_bias"])
     return dt, Bmat, Cmat
 
@@ -159,19 +187,36 @@ def selective_scan(dt, xf, Bmat, Cmat, A, chunk: int = SCAN_CHUNK):
     return torch.cat(ys, dim=1)[:, :S]
 
 
-def mamba_block(params, x, cfg: ModelConfig, chunk: int = SCAN_CHUNK):
-    """x [B, S, D] -> y [B, S, D] (training / prefill)."""
-    xz = x @ params["in_proj"]
+def _in_proj(params, tp):
+    """``in_proj`` [d, 2 di], or with ``tp`` its columns of the rank's
+    channels of xin, then of z [d, 2 di / model] (module docstring)."""
+    w = params["in_proj"]
+    if tp is None:
+        return w
+    w = collectives.gather_from(w, tp.group, -1, "tp_gather")
+    di, n = w.shape[-1] // 2, params["conv_w"].shape[-1]
+    lo = tp.index * n
+    return torch.cat([w[..., lo:lo + n], w[..., di + lo:di + lo + n]], -1)
+
+
+def mamba_block(params, x, cfg: ModelConfig, chunk: int = SCAN_CHUNK,
+                tp=None):
+    """x [B, S, D] -> y [B, S, D] (training / prefill); with ``tp`` on the
+    rank's channels (module docstring)."""
+    if tp is not None:
+        x = collectives.copy_to(x, tp.group)
+    xz = x @ _in_proj(params, tp)
     xin, z = torch.chunk(xz, 2, dim=-1)  # [B, S, di]
     xc = _conv(xin, params["conv_w"], params["conv_b"], cfg.ssm.conv_dim)
     xc = F.silu(xc.float()).to(x.dtype)
-    dt, Bmat, Cmat = _ssm_params(params, xc, cfg)
+    dt, Bmat, Cmat = _ssm_params(params, xc, cfg, tp)
     xf = xc.float()
     y = selective_scan(dt, xf, Bmat, Cmat, -torch.exp(params["A_log"]),
                        chunk)
     y = y + params["D"] * xf
     y = y * F.silu(z.float())
-    return y.to(x.dtype) @ params["out_proj"]
+    out = y.to(x.dtype) @ params["out_proj"]
+    return out if tp is None else collectives.reduce_from(out, tp.group)
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,

@@ -63,8 +63,8 @@ does.  The serving methods run under ``torch.inference_mode()``;
 Sharded parameters (``Model.shard(mesh, shardings, strategy)``, the
 layout ``launch/sharding.py::tree_shardings(param_rules(cfg, mesh,
 strategy))`` gives): each rank keeps only its block of every master
-(``sharding.local_block``), and the dense family computes on the blocks
-in the Megatron / ZeRO-3 pattern.  On use, every leaf split over an axis
+(``sharding.local_block``), and every family computes on the blocks in
+the Megatron / ZeRO-3 pattern.  On use, every leaf split over an axis
 other than the tensor-parallel one (``embed -> data`` under "tp", the
 flat ``(data, model)`` split under "zero") is all-gathered over it, one
 ``collectives.gather_from`` a stacked leaf and split dim a forward, whose
@@ -76,16 +76,32 @@ vocab rows and sums over the model axis, the head's logits are the
 rank's vocab columns (``forward`` returns those), pad rows masked at the
 rank's global offset, and the CE reduces the log-softmax's max (one MAX
 all-reduce) and its sum of exponentials with the target logit (one SUM)
-over the model axis.  Shapes
-come from the tensors, not from ``cfg``.  The moe family trains sharded
-too: its layers route the global batch across the ranks holding its
-rows (``Model.rows``, set by ``shard`` and, on a data mesh with
-replicated parameters, by ``train/state.make_train_step``) and, under
-"tp", run the rank's experts (``layers.moe.w_up`` split over model on
-its experts dim) or every expert's columns (its expert_mlp dim)
-(``models/moe.py``).  The vlm, audio, ssm and hybrid families on
-sharded parameters or a model axis raise (ROADMAP.md Queue 1 item 11h),
-and so does serving on sharded parameters (item 11f).
+over the model axis.  Shapes come from the tensors, not from ``cfg``.
+The other families on the model axis:
+
+  moe     the layers route the global batch across the ranks holding its
+          rows (``Model.rows``, set by ``shard`` and, on a data mesh with
+          replicated parameters, by ``train/state.make_train_step``) and
+          run the rank's experts (``layers.moe.w_up`` split over model on
+          its experts dim) or every expert's columns (its expert_mlp dim)
+          (``models/moe.py``);
+  vlm     the dense backbone; the patches are the rank's rows and
+          ``vision_proj`` is gathered on use;
+  audio   each codebook's table is vocab-parallel as the dense ``embed``
+          (the tokens outside the rank's rows masked, the K lookups
+          summed, then one SUM over the model axis), each head gives the
+          rank's vocab columns, and the CE averages the codebooks;
+  ssm     each Mamba layer runs the rank's block of ``d_inner`` channels
+          (``models/ssm.py``: ``in_proj`` gathered over the model axis,
+          ``x_proj``'s partial sum summed forward and backward);
+  hybrid  each RG-LRU layer runs the rank's block of the LRU width
+          (``models/rglru.py``: the gates reduce-scattered onto it), the
+          local attention the rank's heads, the MLPs their columns.
+
+The recurrent families' remat (``_remat``) recomputes each layer in the
+backward, and with it the layer's forward collectives, in the same order
+on every rank.  Serving on sharded parameters raises (ROADMAP.md Queue 1
+item 11f).
 """
 from __future__ import annotations
 
@@ -329,6 +345,17 @@ def _expert_split(layout) -> Optional[str]:
     return None
 
 
+#: the leaves tensor parallelism runs on the model axis's blocks of (as
+#: name suffixes): vocab rows and columns, heads, mlp columns, channels
+_TP_LEAVES = ("embed", "head", "heads", "attn.wq", "mlp.w_up",
+              "mamba.in_proj", "mamba.x_proj", "rglru.in_x", "rglru.w_a")
+
+
+def _tp_leaf(name: str) -> bool:
+    return name in _TP_LEAVES or name.endswith(
+        tuple("." + k for k in _TP_LEAVES))
+
+
 class Layout:
     """A rank's layout of a sharded ``Model``: the mesh, the strategy
     ("tp" or "zero"), each parameter's ``Sharding``, the batch axes the
@@ -455,18 +482,10 @@ class Model(nn.Module):
             raise ValueError("the model is sharded already")
         names = [k for k, _ in self.named_parameters()]
         layout = Layout(mesh, shardings, strategy, names)
-        if self.cfg.family not in ("dense", "moe") and (
-                layout.tp is not None or any(
-                    sharding.sharded_axes(sh)
-                    for sh in layout.shardings.values())):
-            raise NotImplementedError(
-                f"the {self.cfg.family} family on sharded parameters or a "
-                f"model axis comes with ROADMAP.md Queue 1 item 11h")
         if layout.tp is not None:
-            for k in ("embed", "head", "layers.attn.wq", "layers.mlp.w_up"):
+            for k in names:
                 sh = layout.shardings.get(k)
-                if k in self._specs and "model" not in \
-                        sharding.sharded_axes(sh):
+                if _tp_leaf(k) and "model" not in sharding.sharded_axes(sh):
                     raise ValueError(f"tensor parallelism needs {k} split "
                                      f"over the model axis, not {sh}")
             if self.cfg.family == "moe" and _expert_split(layout) is None:
@@ -522,22 +541,24 @@ class Model(nn.Module):
 
     def _embed_tokens(self, params, tokens):
         cfg = self.cfg
-        if cfg.family == "audio":
-            # tokens [B, K, S]: sum the codebook embeddings
-            K = cfg.num_codebooks
-            book = torch.arange(K, device=tokens.device)[None, :, None]
-            x = torch.sum(params["embed"][book, tokens], dim=1)
-        elif self.tp is not None:
+        emb = params["embed"]
+        # audio tokens [B, K, S]: one table a codebook, the lookups summed
+        book = (torch.arange(cfg.num_codebooks, device=tokens.device)
+                [None, :, None],) if cfg.family == "audio" else ()
+        if self.tp is None:
+            x = emb[book + (tokens,)]
+        else:
             # vocab-parallel: this rank's rows, zeros elsewhere, summed
-            emb = params["embed"]
-            local = tokens - self._vocab_offset(emb.shape[0])
-            mine = (local >= 0) & (local < emb.shape[0])
-            x = emb[torch.where(mine, local, 0)]
+            rows = emb.shape[-2]
+            local = tokens - self._vocab_offset(rows)
+            mine = (local >= 0) & (local < rows)
+            x = emb[book + (torch.where(mine, local, 0),)]
             x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
+        if cfg.family == "audio":
+            x = torch.sum(x, dim=1)
+        if self.tp is not None:
             x = collectives.reduce_from(x, self.tp.group)
-        else:
-            x = params["embed"][tokens]
         if cfg.scale_embeddings:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
         return x.to(torch_dtype(cfg.dtype))
@@ -597,24 +618,28 @@ class Model(nn.Module):
         """A hybrid recurrent layer (RG-LRU, then the MLP)."""
         cfg = self.cfg
         x = x + rglru_lib.rglru_block(
-            _sub(p, "rglru."), L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
+            _sub(p, "rglru."), L.rms_norm(x, p["ln1"], cfg.norm_eps), cfg,
+            self.tp)
         return x + L.mlp(_sub(p, "mlp."), L.rms_norm(x, p["ln2"],
-                                                     cfg.norm_eps), cfg)
+                                                     cfg.norm_eps), cfg,
+                         self.tp)
 
     def _attn_layer(self, p, x, positions):
         """A hybrid attention layer (local window, then the MLP)."""
         cfg = self.cfg
         h, _ = attn.attend(_sub(p, "attn."),
                            L.rms_norm(x, p["ln1"], cfg.norm_eps), positions,
-                           cfg, window=cfg.rglru.attention_window)
+                           cfg, window=cfg.rglru.attention_window, tp=self.tp)
         x = x + h
         return x + L.mlp(_sub(p, "mlp."), L.rms_norm(x, p["ln2"],
-                                                     cfg.norm_eps), cfg)
+                                                     cfg.norm_eps), cfg,
+                         self.tp)
 
     def _mamba_layer(self, p, x):
         cfg = self.cfg
         return x + ssm_lib.mamba_block(
-            _sub(p, "mamba."), L.rms_norm(x, p["ln"], cfg.norm_eps), cfg)
+            _sub(p, "mamba."), L.rms_norm(x, p["ln"], cfg.norm_eps), cfg,
+            tp=self.tp)
 
     def _remat(self, fn, *args):
         """``fn(*args)``, under ``torch.utils.checkpoint`` when the config
@@ -718,12 +743,11 @@ class Model(nn.Module):
         for s0 in range(0, Sm1, chunk):
             logits = self._lm_logits(params, xs[:, s0:s0 + chunk])
             if self.tp is not None:
-                total = total + torch.sum(self._tp_nll(
-                    logits, tg[..., s0:s0 + chunk]))
-                continue
-            logp = torch.log_softmax(logits, dim=-1)
-            nll = -torch.gather(logp, -1,
-                                tg[..., s0:s0 + chunk, None].long())[..., 0]
+                nll = self._tp_nll(logits, tg[..., s0:s0 + chunk])
+            else:
+                logp = torch.log_softmax(logits, dim=-1)
+                nll = -torch.gather(
+                    logp, -1, tg[..., s0:s0 + chunk, None].long())[..., 0]
             if audio:
                 nll = torch.mean(nll, dim=1)  # average codebooks
             total = total + torch.sum(nll)

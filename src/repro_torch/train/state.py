@@ -40,10 +40,18 @@ was gathered from (``collectives.gather_from``'s backward), so it is
 summed over the remaining batch axes only; a replicated one over every
 batch axis; and under "tp" the leaves replicated over the model axis but
 used on a rank's heads (``attention.TP_PARTIAL``) are also summed over
-the model axis.  A leaf used on replicated activations (the norm scales,
-the moe router, whose gates enter the experts through
-``collectives.copy_to``) gets no model sum, and neither do the expert
-blocks a model rank owns (its experts, or every expert's columns).  The
+the model axis (in every attention layer: ``layers.attn.*`` and the
+hybrid's ``layers.p{i}.attn.*``).  A leaf used on replicated activations
+(the norm scales, the moe router, whose gates enter the experts through
+``collectives.copy_to``, ``vision_proj``) gets no model sum, and neither
+do the blocks a model rank owns: its experts, or every expert's columns;
+Mamba's channel blocks (``conv_*``, ``x_proj``'s and ``A_log``'s rows,
+``dt_proj``'s columns, ``dt_bias``, ``D``, ``out_proj``'s rows) and the
+RG-LRU's (``in_x``/``in_gate``'s columns, ``w_a``/``w_i``'s rows, whose
+gradient the gates' reduce-scatter all-gathers, ``b_a``, ``b_i``,
+``lam``, ``conv_*``, ``out_proj``); each codebook's vocab rows.  Mamba's
+``in_proj``, gathered over the model axis on use, arrives summed over
+it.  The
 clipping norm counts every element once, each block on the ranks at
 coordinate 0 of the axes it is replicated over.
 bf16 gradients reduce in bf16 as on the data axis; int8 compression
@@ -130,8 +138,9 @@ def reduction_axes(layout, names: List[str]) -> List[tuple]:
     for k in names:
         red = [a for a in layout.batch_axes
                if a not in layout.gathered_axes(k)]
-        if layout.tp is not None and k.startswith("layers.attn.") and \
-                k.rsplit(".", 1)[-1] in attn.TP_PARTIAL:
+        parts = k.split(".")
+        if layout.tp is not None and parts[-2:-1] == ["attn"] and \
+                parts[-1] in attn.TP_PARTIAL:
             red.append("model")
         out.append(tuple(a for a in layout.mesh.axis_names if a in red))
     return out

@@ -62,9 +62,9 @@ host decision of the refresh plane (the drift, the verdict) is taken
 from values equal on every rank.  The moe family routes the global
 batch across the ranks (``models/moe.py``: every rank builds one
 process's slot table) and, under "tp", runs its experts by expert or
-per-expert tensor parallelism.  The vlm, audio, ssm and hybrid families
-on a model axis raise (ROADMAP.md Queue 1 item 11h), as do pipeline
-stages (item 11c).
+per-expert tensor parallelism; the vlm, audio, ssm and hybrid families
+run their own layers on the model axis (``models/transformer.py``).
+Pipeline stages raise (ROADMAP.md Queue 1 item 11c).
 """
 from __future__ import annotations
 
@@ -111,11 +111,6 @@ class Trainer:
         self.mesh = mesh
         self.group, self.n_data, self.row_index = None, 1, 0
         if mesh is not None:
-            if model.cfg.family not in ("dense", "moe") and \
-                    mesh.shape.get("model", 1) > 1:
-                raise NotImplementedError(
-                    f"the {model.cfg.family} family on a model axis comes "
-                    f"with ROADMAP.md Queue 1 item 11h")
             params = (shardings or {}).get("params", {})
             if model.layout is None and any(
                     sharding.sharded_axes(sh) for sh in params.values()):

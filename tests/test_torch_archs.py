@@ -265,7 +265,8 @@ def test_train_launcher_on_the_cpu(capsys, monkeypatch):
     --smoke --device cpu``: two Trainer steps with finite losses; on the
     production mesh the moe model joins the world the environment names
     (none here: ValueError); an ssm model trains too, and on the
-    production mesh raises item 11h."""
+    production mesh joins the world as the moe model does (it raised
+    item 11h before)."""
     from repro_torch.launch import mesh as tmesh
     from repro_torch.launch import train
 
@@ -282,7 +283,7 @@ def test_train_launcher_on_the_cpu(capsys, monkeypatch):
                 "--seq", "32", "--batch", "2", "--device", "cpu"]
     ssm = train.main(ssm_argv)
     assert len(ssm) == 1 and np.isfinite(ssm[0])
-    with pytest.raises(NotImplementedError, match="item 11h"):
+    with pytest.raises(ValueError, match="no world in the environment"):
         train.main(ssm_argv + ["--mesh", "production"])
 
 

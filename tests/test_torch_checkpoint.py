@@ -166,3 +166,36 @@ def test_same_format_as_the_reference(tmp_path):
                                                              np.float32)}})
     assert step == 5
     np.testing.assert_array_equal(np.asarray(jout["params"]["w"]), w)
+
+
+@pytest.mark.parametrize("nbytes", [0, 1, 63, 64, 65, 256, 1000])
+def test_chunked_crc_is_zlibs(monkeypatch, nbytes):
+    """A leaf of more than one chunk is taken a chunk a thread and the
+    chunks' crcs combined: the result is ``zlib.crc32`` of its bytes."""
+    import zlib
+
+    from repro_torch.checkpoint import checkpoint as ck
+
+    monkeypatch.setattr(ck, "_CRC_CHUNK", 64)
+    raw = np.random.default_rng(nbytes).integers(0, 256, nbytes,
+                                                 dtype=np.uint8)
+    assert ck._crc(raw) == zlib.crc32(raw.tobytes())
+    # a strided float view: its contiguous bytes
+    arr = np.arange(3 * nbytes, dtype=np.float32).reshape(3, -1)[:, ::2]
+    assert ck._crc(arr) == zlib.crc32(np.ascontiguousarray(arr).tobytes())
+
+
+def test_chunked_crc_manifest_reads_in_the_reference(tmp_path, monkeypatch):
+    """A checkpoint whose leaves span many chunks verifies in the JAX
+    package, and the reference's in the port."""
+    from repro_torch.checkpoint import checkpoint as ck
+
+    monkeypatch.setattr(ck, "_CRC_CHUNK", 256)
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    w = np.random.default_rng(0).standard_normal((37, 29)).astype(np.float32)
+    ckpt.save(a, 1, {"w": torch.from_numpy(w)})
+    assert jckpt.verify_step(a, 1)
+    jckpt.save(b, 2, {"w": w})
+    assert ckpt.verify_step(b, 2)
+    corrupt_checkpoint(b, 2)
+    assert not ckpt.verify_step(b, 2)

@@ -27,8 +27,9 @@ rank from the experts chosen by every row, gathered in row order) and
   2e-5.
 
 Without a world: ``launch/train.py --mesh production`` builds granite's
-and mixtral's layouts (tests/test_torch_model_axis.py), and the families
-left for item 11h refuse a model axis.
+and mixtral's layouts (tests/test_torch_model_axis.py), and the vlm,
+audio, ssm and hybrid families' Trainers on a model axis ask for a
+process group (tests/test_torch_family_mesh.py trains them in one).
 """
 import dataclasses
 
@@ -355,12 +356,15 @@ def test_trainer_runs_match_one_process(world, name):
 # ------------------------------------------------------------ no world
 
 def test_other_families_refuse_a_model_axis():
-    """vlm, audio, ssm and hybrid on a model axis raise, citing item 11h
-    (before any collective)."""
+    """vlm, audio, ssm and hybrid on a model axis are taken now (they
+    raised item 11h before): outside a world their Trainers need the
+    process group, as the dense and moe families' do
+    (tests/test_torch_family_mesh.py trains them in one)."""
     mesh = tmesh.make_debug_mesh(data=1, model=2)
     dcfg = DataConfig(vocab_size=256, seq_len=SEQ, global_batch=BATCH)
     for arch in ("llava-next-34b", "musicgen-medium", "falcon-mamba-7b",
                  "recurrentgemma-2b"):
         model = Model(get_smoke_config(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 11h"):
-            Trainer(model, _ocfg(), TrainConfig(), dcfg, mesh=mesh)
+        with pytest.raises(RuntimeError, match="no process group"):
+            Trainer(model, _ocfg(), TrainConfig(), dcfg, mesh=mesh,
+                    shardings={"params": _shardings(model.cfg, mesh, "tp")})

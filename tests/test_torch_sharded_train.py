@@ -27,9 +27,9 @@ data axis gives each rank its own rows); a run stopped and resumed on
 the mesh, Muon with precond_every 5 and Shampoo, is bitwise an
 uninterrupted one.  A moe model on the mesh
 (tests/test_torch_moe_mesh.py) and a dense model on a model axis
-(tests/test_torch_model_axis.py) train, so outside a world their
-Trainers ask for the process group; an ssm model on a model axis
-raises, citing item 11h.
+(tests/test_torch_model_axis.py) train, and so does an ssm model on a
+model axis (tests/test_torch_family_mesh.py), so outside a world their
+Trainers ask for the process group.
 """
 import jax
 import jax.numpy as jnp
@@ -332,15 +332,16 @@ def test_world_resumes_on_the_mesh_bitwise(world, kind):
 def test_moe_and_model_axis_raise_item_11b():
     """Items 11b and 11e's moe half are done: a moe model on a data mesh
     and a dense one on a data and model mesh are taken, and outside a
-    world their Trainers need the process group; an ssm model on a model
-    axis raises item 11h; pipeline stages raise item 11c."""
+    world their Trainers need the process group, and so does an ssm
+    model on a data and model mesh (item 11h is done: it raised before);
+    pipeline stages raise item 11c."""
     dcfg = DataConfig(vocab_size=256, seq_len=SEQ, global_batch=BATCH)
     moe = Model(get_smoke_config("granite-moe-1b-a400m"), device="cpu")
     with pytest.raises(RuntimeError, match="no process group"):
         Trainer(moe, _ocfg(), TrainConfig(), dcfg,
                 mesh=tmesh.make_debug_mesh(data=2, model=1))
     ssm = Model(get_smoke_config("falcon-mamba-7b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11h"):
+    with pytest.raises(RuntimeError, match="no process group"):
         Trainer(ssm, _ocfg(), TrainConfig(), dcfg,
                 mesh=tmesh.make_debug_mesh(data=2, model=2))
     dense = Model(get_smoke_config("qwen3-14b"), device="cpu")

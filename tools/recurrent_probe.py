@@ -5,10 +5,14 @@ shapes (``chip_smoke.RECURRENT_SHAPES``, fp32), then ``chip_smoke.py``'s
 phase 13 and nothing else — recurrentgemma-2b (26 layers) and
 falcon-mamba-7b (8 layers) trained through ``launch/train.py``'s
 configuration, served from their checkpoints, and decode against forward
-in fp32 (``chip_smoke.phase13``'s docstring).  Run from the root of a
-checkout, on a machine with a CUDA card and nvcc:
+in fp32 (``chip_smoke.phase13``'s docstring).  With ``--mesh``: K1/K2
+at phase 17's shares (``chip_smoke.P17_SHAPES``), then phase 17 and
+nothing else, falcon-mamba-7b, recurrentgemma-2b and musicgen-medium on
+four ranks that share the card on a (data 2, model 2) mesh
+(``chip_smoke.phase17``).  Run from the root of a checkout, on a machine
+with a CUDA card and nvcc:
 
-    python3 tools/recurrent_probe.py [--no-shapes]
+    python3 tools/recurrent_probe.py [--no-shapes] [--mesh]
 
 ``--no-shapes`` skips the K1/K2 shape checks and timings.
 """
@@ -45,20 +49,22 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build()
     chip_smoke.log(f"built in {time.perf_counter() - t0:.1f} s")
+    mesh = "--mesh" in sys.argv[1:]
     if "--no-shapes" not in sys.argv[1:]:
         t0 = time.perf_counter()
-        chip_smoke.gemm_shape_checks(torch, {}, chip_smoke.RECURRENT_SHAPES,
-                                     ("float32",), 15)
-        chip_smoke.gemm_shape_timings(torch, chip_smoke.RECURRENT_SHAPES,
-                                      ("float32",), 16,
+        shapes, seed = (chip_smoke.P17_SHAPES, 23) if mesh else \
+            (chip_smoke.RECURRENT_SHAPES, 15)
+        chip_smoke.gemm_shape_checks(torch, {}, shapes, ("float32",), seed)
+        chip_smoke.gemm_shape_timings(torch, shapes, ("float32",), seed + 1,
                                       chip_smoke.RECURRENT_REPS)
         torch.cuda.empty_cache()
         chip_smoke.log(f"K1/K2 at the recurrent families' shapes in "
                        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    counts = chip_smoke.phase13(torch)
-    chip_smoke.log(f"phase 13 done in {time.perf_counter() - t0:.1f} s; "
-                   f"launches of the training runs {counts}")
+    counts = chip_smoke.phase17(torch) if mesh else chip_smoke.phase13(torch)
+    chip_smoke.log(f"phase {17 if mesh else 13} done in "
+                   f"{time.perf_counter() - t0:.1f} s; launches of the "
+                   f"training runs {counts}")
     chip_smoke.log(f"card: {smi.stdout.strip()}")
 
 
