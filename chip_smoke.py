@@ -407,7 +407,35 @@ Phases (any failure exits non-zero and prints no result):
      launches at every step, each K1/K2 call at its ``P17_SHAPES``
      share, its step ms, tokens/s over the world, collectives a step by
      kind (the families' own kinds apart) and its peak memory;
- 18. the ``kernels`` JSON line, and last the ``ok`` JSON line.
+ 18. serving on the mesh (``phase18``, ``python3 tools/serve_probe.py
+     --mesh`` alone): phase 15's world of four ranks on gloo and (2, 2)
+     mesh, fp32 compute, every width kept, the depth cut as phases 16 and
+     17 cut it (``P18_RUNS``).  One process serves every run first
+     through the same entry points (``prefill_cache`` over the whole
+     prompt batch, greedy ``make_serve_step`` steps, one ``decode_step``
+     with the odd lanes inactive, or the one lane at batch 1) and saves
+     its logits, tokens and final cache; the ranks wait for it, then
+     serve each run on the sharded model: (a) gpt2-paper, all 10 layers,
+     "serve", batch 4, prompt 512, 16 steps (cache 528, the slots over
+     model); (b) the same under "tp" (FSDP gathers over data every
+     call), 4 steps; (c) batch 1, prompt 2048, 16 steps (cache 2064,
+     the slots over data x model, every rank the one lane); (d)
+     granite-moe-1b-a400m at 2 of 24 layers, "serve", prompt 512, 8
+     steps (global dispatch over the data ranks); (e1) falcon-mamba-7b at
+     2 of 64 layers and (e2) recurrentgemma-2b at one period (3 of 26),
+     "serve", prompt 64, 8 steps (the prefill one decode step a
+     position).  Gates on every rank: its lanes' logits within
+     P18_LOGIT_TOL of one process's, the greedy tokens equal, every
+     cache leaf within P18_CACHE_TOL of its block of one process's
+     (``sharding.cache_blocks``) and the blocks gathered whole of one
+     process's cache (``sharding.gather_cache``; kpos equal), the
+     inactive lanes' leaves bitwise frozen, no port kernel launched.
+     Printed: each run's prefill and per-token decode ms on every rank,
+     rank 0's collectives a decode token by kind (serving's own apart)
+     and the prefill's, and (a) again at bf16 compute
+     for P18_BF16 steps with its logits' gap to one process's bf16 (not
+     gated);
+ 19. the ``kernels`` JSON line, and last the ``ok`` JSON line.
 
 It imports nothing of JAX or of the reference package ``repro``.
 """
@@ -7346,6 +7374,380 @@ def _p17_train(torch, rank, mesh, dev, work, preset, launches, tag, ref):
             f"{tag}_host": host_gib()}
 
 
+P18_WORLD = P15_WORLD      # ranks sharing the one card
+P18_MESH = P15_MESH        # (data, model)
+P18_DEADLINE_S = 600       # the whole world
+P18_LOGIT_TOL = 1e-4       # the world's logits against one process's
+P18_CACHE_TOL = 1e-4       # its cache blocks against one process's blocks
+P18_MASKED = 1             # the decode step with the odd lanes inactive
+GPT2 = "gpt2-paper"
+# (tag) -> (arch, layers (None: every layer), strategy, global batch,
+# prompt, decode steps); the cache holds prompt + steps positions, which
+# the kv_seq axes divide (model at batch 4, data x model at batch 1)
+P18_RUNS = {"a": (GPT2, None, "serve", 4, 512, 16),
+            "b": (GPT2, None, "tp", 4, 512, 4),
+            "c": (GPT2, None, "serve", 1, 2048, 16),
+            "d": (GRANITE, 2, "serve", 4, 512, 8),
+            "e1": (FALCON, FALCON_LAYERS, "serve", 4, 64, 8),
+            "e2": (RGEMMA, 3, "serve", 4, 64, 8)}
+P18_SMOKE = (12, 4)        # prompt, steps of every run at preset "smoke"
+P18_BF16 = ("a", 4)        # the run repeated at bf16 compute, its steps
+P18_KINDS = ("kv_q", "kv_seq", "logits", "lanes")  # serving's own kinds
+P18_PATH = "serve_mesh_rank0"
+
+
+def phase18(torch, preset="full", device="cuda"):
+    """Phase 18 (see the module docstring) in a temporary build/phase18_*
+    directory, removed at the end; returns rank 0's kernel launches over
+    every run (all 0).  ``preset`` ("full", or "smoke": the SMOKE configs,
+    P18_SMOKE's sizes) and ``device`` let it rehearse on the CPU."""
+    import shutil
+    import tempfile
+
+    base_dir = ROOT / "build"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="phase18_", dir=base_dir))
+    try:
+        return _phase18(torch, work, preset, device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _p18_sizes(preset, tag):
+    """(batch, prompt, steps, cache length) of run (tag)."""
+    _, _, _, batch, prompt, steps = P18_RUNS[tag]
+    if preset == "smoke":
+        prompt, steps = P18_SMOKE
+    return batch, prompt, steps, prompt + steps
+
+
+def _p18_cfg(preset, tag, dtype="float32"):
+    """(tag)'s config at its depth, fp32 compute (``dtype`` None: the
+    config's own dtypes)."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    arch, layers = P18_RUNS[tag][:2]
+    cfg = (get_smoke_config if preset == "smoke" else get_config)(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    return cfg if dtype is None else cfg.replace(dtype=dtype,
+                                                 emb_dtype=dtype)
+
+
+def _p18_model(torch, cfg, dev, seed=0):
+    from repro_torch.models import Model
+
+    with torch.no_grad():
+        return Model(cfg, device=dev, seed=seed)
+
+
+def _p18_prompt(torch, cfg, tag, preset, dev):
+    """The whole prompt batch and lengths of (tag), drawn from a seeded
+    CPU generator (the same on every process); batch 4 ragged."""
+    B, S, _, _ = _p18_sizes(preset, tag)
+    gen = torch.Generator()
+    gen.manual_seed(18)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    lengths = None if B == 1 else torch.tensor([S, S - 5, S - 11, S])
+    return {"tokens": tokens.to(dev)}, lengths
+
+
+def _p18_lane_axes(cache):
+    """(leaf, lane axis) of every decode cache leaf."""
+    if "ssm" in cache or "rec" in cache:
+        return _lane_axes(cache)
+    return [(cache["k"], 1), (cache["v"], 1), (cache["kpos"], 0)]
+
+
+def _p18_serve(torch, model, tag, preset, dev, lanes=slice(None),
+               dtype="float32"):
+    """(tag) served through the entry points: ``prefill_cache`` over the
+    whole prompt batch, then greedy ``make_serve_step`` steps on
+    ``lanes`` (a rank's), the P18_MASKED step with the odd lanes
+    inactive, whose leaves it holds bitwise frozen.  Returns the logits
+    and tokens (CPU) of every call, the final cache, the prefill and
+    per-step ms and the decode steps' collectives."""
+    from repro_torch import collectives
+    from repro_torch.serving import make_serve_step
+
+    cfg = model.cfg
+    batch, lengths = _p18_prompt(torch, cfg, tag, preset, dev)
+    B, S, steps, clen = _p18_sizes(preset, tag)
+    if dtype != "float32":
+        steps = P18_BF16[1]
+    with torch.inference_mode():
+        params = model.cast_params()
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill_cache(batch, clen, lengths, params=params)
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    step = make_serve_step(model)
+    start = (torch.full((B,), S) if lengths is None else lengths)[lanes]
+    start = start.to(dev)
+    # the odd lanes inactive; at batch 1 the one lane
+    active = ((torch.arange(B) % 2 == 0) & (B > 1))[lanes].to(dev)
+    out = {"logits": [logits.float().cpu()], "tokens": []}
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    step_ms = []
+    with collectives.count_collectives() as calls:
+        for t in range(steps):
+            out["tokens"].append(tok.cpu())
+            pos = (start + t).to(torch.int32)[:, None]
+            masked = t == P18_MASKED
+            if masked:
+                before = [(x.clone(), ax)
+                          for x, ax in _p18_lane_axes(cache)]
+            sync()
+            t0 = time.perf_counter()
+            if masked:
+                logits, cache = model.decode_step(cache, tok, pos,
+                                                  active=active,
+                                                  params=params)
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            else:
+                logits, tok, cache = step(cache, tok, pos, params=params)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if masked:
+                keep = (~active).nonzero()[:, 0]
+                for (old, ax), (new, _) in zip(before,
+                                               _p18_lane_axes(cache)):
+                    if not torch.equal(old.index_select(ax, keep),
+                                       new.index_select(ax, keep)):
+                        raise AssertionError(f"({tag}) an inactive lane's "
+                                             f"cache changed")
+            out["logits"].append(logits.float().cpu())
+    out.update(cache=cache, prefill_ms=prefill_ms, step_ms=step_ms,
+               decode_calls=calls)
+    return out
+
+
+def _p18_reference(torch, preset, dev, work):
+    """One process's serving of every run (and of P18_BF16's run at the
+    config's own dtypes), saved for the ranks: logits, tokens and the
+    final cache whole, on the CPU."""
+    notes = {}
+    for tag in list(P18_RUNS) + ["bf16"]:
+        run = P18_BF16[0] if tag == "bf16" else tag
+        cfg = _p18_cfg(preset, run, None if tag == "bf16" else "float32")
+        t0 = time.perf_counter()
+        model = _p18_model(torch, cfg, dev)
+        res = _p18_serve(torch, model, run, preset, dev,
+                         dtype="bfloat16" if tag == "bf16" else "float32")
+        res["cache"] = _p18_cpu(res["cache"])
+        torch.save({k: res[k] for k in ("logits", "tokens", "cache")},
+                   work / f"ref_{tag}.pt")
+        notes[tag] = (f"{cfg.name} [{cfg.family}] {cfg.num_layers} layers, "
+                      f"{sum(p.numel() for p in model.parameters())} params, "
+                      f"{cfg.dtype}: prefill {res['prefill_ms']:.1f} ms, "
+                      f"decode {statistics.median(res['step_ms']):.2f} ms a "
+                      f"step (median), {time.perf_counter() - t0:.1f} s")
+        del model, res
+        gc_collect(torch, dev)
+    (work / "ref.json.tmp").write_text(json.dumps(notes))
+    (work / "ref.json.tmp").rename(work / "ref.json")
+    return notes
+
+
+def _phase18(torch, work, preset, device):
+    import torch.multiprocessing as mp
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        free_card(torch, "phase 18")
+    card = _card_line()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _phase18_rank, args=(P18_WORLD, str(work), preset, device),
+        nprocs=P18_WORLD, start_method="spawn", join=False)
+    deadline = time.monotonic() + P18_DEADLINE_S
+    try:  # one process first, while the ranks start (they wait for it)
+        notes = _p18_reference(torch, preset, dev, work)
+    except BaseException:
+        for p in ctx.processes:
+            p.kill()
+        raise
+    for tag, note in notes.items():
+        log(f"  ({tag}) one process: {note} ({card})")
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"phase 18: the world of {P18_WORLD} ranks did not "
+                     f"finish in {P18_DEADLINE_S} s")
+    except Exception as e:  # a rank raised or died: the phase fails
+        for r in range(P18_WORLD):
+            err = work / f"rank{r}.err"
+            if err.exists():
+                log(f"  rank {r} raised:\n{err.read_text()}")
+        fail(f"phase 18: a rank failed: {type(e).__name__}: "
+             f"{str(e).splitlines()[0] if str(e) else ''}")
+    res = [json.loads((work / f"rank{r}.json").read_text())
+           for r in range(P18_WORLD)]
+    log(f"  the world of {P18_WORLD} ranks (spawned, gloo, mesh (data, "
+        f"model) = {P18_MESH}) ran in {time.perf_counter() - t0:.1f} s, the "
+        f"reference first ({card})")
+    for r, rr in enumerate(res):
+        log(f"  rank {r} {rr['coords']}: decode ms a token (median) "
+            + ", ".join(f"({k}) {rr[k]['step_ms']:.1f}" for k in P18_RUNS)
+            + "; prefill ms "
+            + ", ".join(f"({k}) {rr[k]['prefill_ms']:.0f}" for k in P18_RUNS)
+            + f" ({card})")
+    return res[0]["counts"]
+
+
+def _phase18_rank(rank, world, work, preset, device):
+    """One rank of phase 18; writes rank<r>.json, or rank<r>.err with the
+    traceback when it raises."""
+    import traceback
+
+    work = Path(work)
+    try:
+        res = _p18_rank_body(rank, world, work, preset, device)
+        (work / f"rank{rank}.json").write_text(json.dumps(res))
+    except BaseException:
+        (work / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _p18_rank_body(rank, world, work, preset, device):
+    import torch
+
+    from repro_torch import collectives
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lmesh
+
+    dev = lmesh.init_world(rank, world, f"file://{work}/store",
+                           device=device, timeout_s=P15_TIMEOUT_S)
+    try:
+        mesh = lmesh.make_debug_mesh(*P18_MESH)
+        res = {"coords": mesh.coords()}
+        _rank_log(rank, f"  rank 0: backend {lmesh.world_backend()}, "
+                  f"device {dev}, mesh {mesh!r}")
+        _p15_wait(work, "ref.json")
+        before = ops.launch_counts()
+        for tag in list(P18_RUNS) + ["bf16"]:
+            res[tag] = _p18_run(torch, rank, mesh, dev, work, preset, tag)
+        after = ops.launch_counts()
+        res["counts"] = {k: after[k] - before[k] for k in after}
+        if any(res["counts"].values()):
+            raise AssertionError(f"rank {rank}: serving launched port "
+                                 f"kernels {res['counts']}")
+        collectives.barrier()
+        return res
+    finally:
+        lmesh.close_world()
+
+
+def _p18_run(torch, rank, mesh, dev, work, preset, tag):
+    """Run (tag) on this rank against one process's: the rank's lanes'
+    logits within P18_LOGIT_TOL (the bf16 run's gap printed only), the
+    greedy tokens equal, every cache leaf within P18_CACHE_TOL of its
+    block of one process's and, gathered whole (``sharding.
+    gather_cache``), to one process's cache (kpos equal); times and
+    collectives by kind."""
+    from repro_torch import collectives
+    from repro_torch.launch import sharding
+    from repro_torch.models.transformer import cache_leaves, param_specs
+
+    run = P18_BF16[0] if tag == "bf16" else tag
+    strategy, B = P18_RUNS[run][2:4]
+    cfg = _p18_cfg(preset, run, None if tag == "bf16" else "float32")
+    model = _p18_model(torch, cfg, dev)
+    specs = param_specs(cfg)
+    model.shard(mesh, sharding.tree_shardings(
+        mesh, {k: a for k, (_, a, _) in specs.items()},
+        sharding.param_rules(cfg, mesh, strategy),
+        {k: s for k, (s, _, _) in specs.items()}), strategy)
+    clen = _p18_sizes(preset, run)[3]
+    srv = model.serve_layout(B, clen)
+    with collectives.count_collectives() as calls:
+        got = _p18_serve(torch, model, run, preset, dev, srv.lanes,
+                         "bfloat16" if tag == "bf16" else "float32")
+    ref = torch.load(work / f"ref_{tag}.pt")
+    gap = max(float((g - w[srv.lanes]).abs().max())
+              for g, w in zip(got["logits"], ref["logits"]))
+    what = f"rank {rank}, phase 18 ({tag})"
+    if tag != "bf16":
+        if not gap <= P18_LOGIT_TOL:
+            raise AssertionError(f"{what}: logits {gap:.3e} from one "
+                                 f"process's (bound {P18_LOGIT_TOL})")
+        for g, w in zip(got["tokens"], ref["tokens"]):
+            if not torch.equal(g, w[srv.lanes]):
+                raise AssertionError(f"{what}: greedy tokens differ from "
+                                     f"one process's")
+        # the blocks against one process's blocks, then gathered whole
+        # (the inverse of cache_blocks) against its whole cache
+        whole = sharding.gather_cache(got["cache"], srv.shardings,
+                                      kind="gate")
+        cache_gap = max(
+            _p18_cache_gap(torch, what, got["cache"], sharding.cache_blocks(
+                mesh, cfg, ref["cache"], B)),
+            _p18_cache_gap(torch, what, whole, ref["cache"]))
+        if not cache_gap <= P18_CACHE_TOL:
+            raise AssertionError(f"{what}: cache blocks {cache_gap:.3e} "
+                                 f"from one process's (bound "
+                                 f"{P18_CACHE_TOL})")
+    steps = len(got["step_ms"])
+    by = _p15_by_kind(got["decode_calls"], steps)
+    own = {k: v for k, v in by.items() if k in P18_KINDS}
+    rest = {k: v for k, v in by.items() if k not in P18_KINDS}
+    pre = _p15_by_kind(calls[:len(calls) - len(got["decode_calls"])], 1)
+    ms = statistics.median(got["step_ms"])
+    _rank_log(rank, f"  ({tag}) {cfg.name} [{cfg.family}] {cfg.num_layers} "
+              f"layers, {cfg.dtype}, {strategy}, batch {B} "
+              f"({srv.lanes.stop - srv.lanes.start} lanes a rank), cache "
+              f"{clen} "
+              f"(kv_seq over {srv.kv.size if srv.kv else 1} ranks): "
+              + (f"the bf16 world's logits {gap:.3e} from one process's "
+                 f"bf16 (printed, not gated)" if tag == "bf16" else
+                 f"logits within {gap:.2e} of one process's (bound "
+                 f"{P18_LOGIT_TOL}), greedy tokens equal, cache blocks and "
+                 f"the cache they gather within {cache_gap:.2e} (bound "
+                 f"{P18_CACHE_TOL}), the inactive lanes' blocks bitwise "
+                 f"frozen"))
+    _rank_log(rank, f"  ({tag}) prefill {got['prefill_ms']:.1f} ms, decode "
+              f"{ms:.2f} ms a token on rank 0 (median of {steps}); "
+              f"collectives a decode token by kind: serving's own: "
+              f"{_p15_kind_note(own) or 'none'}; the rest: "
+              f"{_p15_kind_note(rest)}; the prefill's: "
+              f"{_p15_kind_note(pre)}")
+    out = {"step_ms": ms, "prefill_ms": got["prefill_ms"], "gap": gap}
+    del model, got
+    gc_collect(torch, dev)
+    return out
+
+
+def _p18_cache_gap(torch, what, got, want):
+    """The largest gap between two decode cache trees; raises where a
+    leaf's shape differs or an integer leaf (kpos) is not equal."""
+    from repro_torch.models.transformer import cache_leaves
+
+    gap = 0.0
+    for g, w in zip(cache_leaves(got), cache_leaves(want)):
+        g = g.cpu()
+        if g.shape != w.shape or (g.dtype == torch.int32 and
+                                  not torch.equal(g, w)):
+            raise AssertionError(f"{what}: a cache leaf differs from one "
+                                 f"process's")
+        if g.numel():
+            gap = max(gap, float((g.float() - w.float()).abs().max()))
+    return gap
+
+
+def _p18_cpu(tree):
+    """A decode cache tree with every leaf copied to the CPU."""
+    if isinstance(tree, dict):
+        return {k: _p18_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_p18_cpu(v) for v in tree]
+    return tree.cpu()
+
+
 def bytecode_cache() -> None:
     """Write this process's bytecode under build/pycache and have the
     processes it spawns read it there.  Where the interpreter runs with
@@ -7540,6 +7942,16 @@ def main() -> None:
     log(f"  phase 17 in {time.perf_counter() - t0:.1f} s; the script so far "
         f"{time.perf_counter() - _T0:.1f} s")
 
+    log(f"phase 18: serving on the mesh, {P18_WORLD} ranks on the card "
+        f"(gloo) on a {P18_MESH} (data, model) mesh: gpt2-paper under "
+        f"serve and tp at batch 4 and serve at batch 1, granite-moe-1b-"
+        f"a400m, falcon-mamba-7b and recurrentgemma-2b under serve, the "
+        f"decode caches split over kv_seq")
+    t0 = time.perf_counter()
+    serve_mesh = phase18(torch)
+    log(f"  phase 18 in {time.perf_counter() - t0:.1f} s; the script so far "
+        f"{time.perf_counter() - _T0:.1f} s")
+
     by_path = {k: r["counts"] for k, r in runs.items()}
     by_path["fallback"] = fallback
     by_path["trainer"] = phase8["counts"]
@@ -7552,6 +7964,7 @@ def main() -> None:
     by_path.update({path: mp[path] for path in P15_NEW_PATHS.values()})
     by_path.update(moe_mesh)
     by_path.update(family_mesh)
+    by_path[P18_PATH] = serve_mesh
     print(json.dumps({"kernels": kernel_rows(rows, timings, by_path)}),
           flush=True)
     print(f"card: {card}", flush=True)

@@ -11,7 +11,11 @@ cached preconditioner's blocks gathered whole), "drift" (the §12 drift
 proxy's world sums), "verdict" (a world AND of a refresh's or the
 guard's finiteness), "tp_gather" (Mamba's ``in_proj`` gathered over the
 model axis), "tp_sum" (Mamba's ``x_proj`` sum over the model axis),
-"tp_scatter" (the RG-LRU gates' reduce-scatter), ...) to the census that
+"tp_scatter" (the RG-LRU gates' reduce-scatter), "kv_q" (a decode
+step's q gathered over the model axis), "kv_seq" (the decode softmax's
+MAX and SUMs over the ranks holding a lane's cache slots), "logits" (the
+serving logits' vocab blocks gathered), "lanes" (the serving lanes
+gathered), ...) to the census that
 ``count_collectives`` opens, as ``kernels/ops.py::count_launches`` counts
 kernel launches.
 

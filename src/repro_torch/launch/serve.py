@@ -11,23 +11,35 @@ or the continuous-batching Engine under a seeded Poisson trace.
     # train -> serve handoff: parameters from a Trainer checkpoint
     PYTHONPATH=src python -m repro_torch.launch.serve --continuous \\
         --ckpt_dir CKPT
-    # another architecture of the registry (dense, moe, vlm, audio)
+    # another architecture of the registry (every family in batch mode)
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch granite-moe-1b-a400m --smoke --device cpu
+    # batch mode as one rank of a torchrun world on the production mesh
+    torchrun --nproc_per_node 256 -m repro_torch.launch.serve \\
+        --mesh production --cache_len 32768
 
 ``--arch`` names a model of the registry (``configs/registry.py``,
 default gpt2-paper); ``--smoke`` takes its SMOKE width.  The Engine
-(``--continuous``) serves dense and moe models; batch mode serves vlm
-and audio too (a vlm prompt carries its patch prefix, so its positions
-and cache include it; audio decodes K codebooks a step).  Weights are
-random from ``--seed`` unless ``--ckpt_dir`` names a checkpoint.
-Batch-mode prompts come from ``models/inputs.make_train_batch`` on a
-generator seeded with ``--seed``.  The first prefill call is timed apart
-from the second, so the prefill tokens/s is a steady-state number.
-``--mesh production`` (model = 16, the "serve" rules with
-``kv_seq``-sharded decode caches) comes with ROADMAP.md Queue 1 item
-11f.
-Without ``--device`` it runs on CUDA.
+(``--continuous``) serves dense and moe models; batch mode serves every
+family (a vlm prompt carries its patch prefix, so its positions and
+cache include it; audio decodes K codebooks a step; ssm and hybrid
+prefill one decode step a prompt position).  Weights are random from
+``--seed`` unless ``--ckpt_dir`` names a checkpoint.  Batch-mode prompts
+come from ``models/inputs.make_train_batch`` on a generator seeded with
+``--seed``.  The first prefill call is timed apart from the second, so
+the prefill tokens/s is a steady-state number.
+
+``--mesh production [--multi_pod]`` serves batch mode as one rank of
+the world torchrun describes (``launch/mesh.init_world_from_env``; a
+ValueError outside one, as ``launch/train.py`` raises), as the
+reference does: ``make_production_mesh``, the reference's default rules
+``param_rules(cfg, mesh)`` ("tp": FSDP over data, tensor parallelism
+over model) through ``launch/train.production_layout``, ``Model.shard``,
+then ``batch_loop`` with the decode cache as the rank's blocks of the
+reference's ``cache_shardings`` (``models/transformer.py``); rank 0
+prints, the tokens gathered over the lanes.  ``--continuous --mesh
+production`` exits with the reference's message: the Engine runs on
+one process.  Without ``--device`` it runs on CUDA.
 """
 from __future__ import annotations
 
@@ -35,10 +47,14 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import collectives
 from repro_torch.checkpoint import restore_params
 from repro_torch.configs import arch_ids, get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import init_world_from_env
+from repro_torch.launch.train import production_layout
 from repro_torch.models import Model
 from repro_torch.models.inputs import make_train_batch
 from repro_torch.models.transformer import cache_leaves
@@ -71,9 +87,10 @@ def batch_loop(model, params, args, device) -> dict:
     ``args.prompt_len`` (timed twice: the first call apart), then
     ``args.gen_len`` greedy decode steps from its token; returns the
     times, the tokens [B, gen_len + 1] ([B, K, gen_len + 1] audio),
-    whether every logit was finite and the KV cache bytes.  A vlm
-    prompt's patch prefix adds its length to the cache and the decode
-    positions."""
+    whether every logit was finite and the KV cache bytes (on a mesh the
+    rank's blocks; the tokens gathered over the lanes, the finiteness
+    over the world, and rank 0 prints).  A vlm prompt's patch prefix adds
+    its length to the cache and the decode positions."""
     cfg = model.cfg
     B = args.batch
     cache_len = args.cache_len or (args.prompt_len + args.gen_len)
@@ -97,21 +114,27 @@ def batch_loop(model, params, args, device) -> dict:
     _sync(device)
     t0 = time.perf_counter()
     for t in range(start, start + args.gen_len):
-        pos = torch.full((B, 1), t, dtype=torch.int32, device=device)
+        pos = torch.full((tok.shape[0], 1), t, dtype=torch.int32,
+                         device=device)
         lg, tok, cache = step(cache, tok, pos, params=params)
         out.append(tok)
         seen.append(lg)
     _sync(device)
     decode_s = time.perf_counter() - t0
     steps = args.gen_len
+    bad = (~torch.isfinite(torch.cat(seen, dim=-2))).sum()
+    if model.layout is not None:
+        bad = collectives.all_reduce(bad.reshape(1), "sum", kind="lanes")
     res = {"first_prefill_s": times[0], "prefill_s": times[1],
            "decode_s": decode_s, "decode_ms_step": decode_s / steps * 1e3,
            "prefill_tok_s": B * args.prompt_len / times[1],
            "decode_tok_s": B * steps / decode_s,
-           "tokens": torch.cat(out, dim=-1).cpu().numpy(),
-           "finite": bool(torch.isfinite(torch.cat(seen, dim=-2)).all()),
+           "tokens": model.whole_lanes(torch.cat(out, dim=-1)).cpu().numpy(),
+           "finite": int(bad.sum()) == 0,
            "cache_bytes": sum(v.numel() * v.element_size()
                               for v in cache_leaves(cache))}
+    if model.layout is not None and dist.get_rank() != 0:
+        return res
     print(f"arch={cfg.name} batch={B} prompt={args.prompt_len} "
           f"gen={args.gen_len} cache_len={cache_len}")
     print(f"prefill {res['prefill_s'] * 1e3:.1f} ms (1 call, "
@@ -154,6 +177,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen_len", type=int, default=32)
     ap.add_argument("--cache_len", type=int, default=0)
     ap.add_argument("--mesh", default="none", choices=["none", "production"])
+    ap.add_argument("--multi_pod", action="store_true")
     ap.add_argument("--ckpt_dir", default="",
                     help="restore params from a training checkpoint "
                          "(train -> serve handoff, §15/§16 integrity rules)")
@@ -169,12 +193,30 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def sharded_model(args):
+    """(model, compute-dtype params, device) of ``--mesh production``: one
+    rank of the world the environment describes, its block of the
+    parameters under the reference's default rules."""
+    device = init_world_from_env(device=args.device) \
+        if not dist.is_initialized() else resolve_device(args.device)
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    mesh, shardings = production_layout(cfg, args.multi_pod)
+    model, _ = load_model(args, device)
+    model.shard(mesh, shardings["params"], "tp")
+    with torch.inference_mode():
+        return model, model.cast_params(), device
+
+
 def main(argv=None):
     args = parser().parse_args(argv)
+    if args.multi_pod and args.mesh != "production":
+        raise ValueError("--multi_pod needs --mesh production")
+    if args.continuous and args.mesh == "production":
+        raise SystemExit("--continuous runs single-host for now; "
+                         "drop --mesh production")
     if args.mesh == "production":
-        raise NotImplementedError(
-            "--mesh production (model = 16) comes with model-axis "
-            "sharding, ROADMAP.md Queue 1 item 11f")
+        model, params, device = sharded_model(args)
+        return batch_loop(model, params, args, device)
     device = resolve_device(args.device)
     model, params = load_model(args, device)
     if args.continuous:

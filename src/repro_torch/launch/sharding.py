@@ -25,8 +25,10 @@ give a rank's block of a leaf (numpy or torch; mesh axes of size 1 split
 nothing, a dim split over several axes takes them in mesh order, row
 major), ``full_shape`` inverts ``local_shape``, and ``gather_full``
 all-gathers a block back to the whole leaf over the axes it is split on,
-dim by dim.  The model, the optimizer and the checkpoints take their
-blocks through these functions only.
+dim by dim.  ``cache_blocks``/``gather_cache`` do the same for every
+leaf of a decode cache tree under ``cache_shardings``.  The model, the
+optimizer and the checkpoints take their blocks through these functions
+only.
 """
 from __future__ import annotations
 
@@ -367,6 +369,16 @@ def sharded_axes(sh: Optional[Sharding]) -> Tuple[str, ...]:
     return tuple(a for d in range(len(sh.spec)) for a in split_axes(sh, d))
 
 
+def block_index(sh: Optional[Sharding], dim: int, coords
+                ) -> Tuple[int, int]:
+    """(parts, index): how many blocks ``sh`` splits dim ``dim`` into and
+    which of them the rank at ``coords`` holds ((1, 0) when unsplit)."""
+    for d, parts, idx in _splits(sh, dim + 1, coords):
+        if d == dim:
+            return parts, idx
+    return 1, 0
+
+
 def _splits(sh: Optional[Sharding], ndim: int, coords=None):
     """[(dim, parts, index)] of every split dim; ``index`` is the block
     ``coords`` (axis -> coordinate) holds, None without ``coords``."""
@@ -433,3 +445,30 @@ def gather_full(x, sh: Optional[Sharding], *, kind: str = "gather"):
                                        kind=kind)
     return x
 
+
+def _map2(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two trees of one nesting (dicts and
+    lists, as a decode cache)."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map2(fn, v, o) for v, o in zip(tree, other)]
+    return fn(tree, other)
+
+
+def cache_blocks(mesh, cfg: ModelConfig, cache, batch_size: int,
+                 coords=None):
+    """The rank at ``coords`` (this process's by default) its block of
+    every leaf of a whole decode cache tree under ``cache_shardings(mesh,
+    cfg, cache, batch_size)``: views, the tree's nesting kept."""
+    coords = mesh.coords() if coords is None else coords
+    return _map2(lambda x, sh: local_block(x, sh, coords), cache,
+                 cache_shardings(mesh, cfg, cache, batch_size))
+
+
+def gather_cache(blocks, shardings, *, kind: str = "gather"):
+    """The whole decode cache from every rank's ``blocks`` under
+    ``shardings`` (``cache_shardings`` of the whole cache): the inverse
+    of ``cache_blocks``, one ``gather_full`` a leaf (collective)."""
+    return _map2(lambda x, sh: gather_full(x, sh, kind=kind), blocks,
+                 shardings)

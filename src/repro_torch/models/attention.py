@@ -20,11 +20,27 @@ the model axis; the input enters through ``collectives.copy_to``.  The
 gradients of the replicated leaves a rank uses on its heads only
 (``TP_PARTIAL``) are partial sums, which the train step sums over the
 model axis.
+
+Decode on a mesh (``decode_attend(..., tp=, kv=)``): the cache rows are
+split over the ``kv_seq`` axes (``KVSeq``: the group, its size and the
+rank's index; ``launch/sharding.py::cache_shardings``), so a rank holds
+a block of every lane's slots with every kv head.  The new k/v row is
+written only on the rank that owns its slot (``write_rows(..., kv=)``),
+every other rank leaving its rows bitwise as they were.  Each rank
+scores every query head over its slots (under tensor parallelism q is
+all-gathered over the model axis first, kind "kv_q"), and the softmax
+is combined flash-decode style over the group: a MAX all-reduce of the
+row max, a SUM of exp(s - max), the normalized probabilities rounded
+to q's dtype before P V, and a SUM of the fp32 partial P V (kind
+"kv_seq").  Under tensor parallelism the rank then takes its own heads
+into the row-parallel ``wo``, which ends in ``reduce_from`` as
+``attend`` does.  The serving prefill (``attend(..., whole_kv=True)``)
+projects every kv head, since the cache holds them all.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,6 +56,16 @@ INT32_MAX = torch.iinfo(torch.int32).max  # the k positions of pad keys
 #: replicated over the model axis, used on a rank's heads only: under
 #: tensor parallelism their gradients are partial sums over the ranks
 TP_PARTIAL = ("wk", "wv", "bk", "bv", "q_norm", "k_norm")
+
+
+class KVSeq(NamedTuple):
+    """A rank's place on the ``kv_seq`` axes of a decode cache: the group
+    the cache's slots are split over, its size, and the rank's index (it
+    holds block ``index`` of every lane's slots)."""
+
+    group: Any
+    size: int
+    index: int
 
 
 def padded_heads(cfg: ModelConfig):
@@ -193,17 +219,23 @@ def _rank_kv(params, tp: L.TP, cfg: ModelConfig):
 
 
 def attend(params, x, positions, cfg: ModelConfig, window=None,
-           kv_block: int = KV_BLOCK, tp: Optional[L.TP] = None):
+           kv_block: int = KV_BLOCK, tp: Optional[L.TP] = None,
+           whole_kv: bool = False):
     """Self-attention over x [B, S, D] (train / prefill) -> (out, (k, v));
     with ``tp`` on the rank's heads (module docstring), (k, v) the kv
-    heads they read."""
+    heads they read, or every kv head with ``whole_kv``."""
     w = cfg.sliding_window if window is None else window
     if tp is None:
         q, k, v = _project_qkv(params, x, positions, cfg)
         out = _flash_attend(q, k, v, positions, positions, w, kv_block)
         return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
     x = collectives.copy_to(x, tp.group)
-    p, groups, offset, Hl = _rank_kv(params, tp, cfg)
+    if whole_kv:
+        Hp, KVp = padded_heads(cfg)
+        groups, Hl = Hp // KVp, params["wq"].shape[-2]
+        offset, p = tp.index * Hl, params
+    else:
+        p, groups, offset, Hl = _rank_kv(params, tp, cfg)
     q, k, v = _project_qkv(p, x, positions, cfg)
     sharding_ctx.shard_activation(
         q, (None, None, "heads", None),
@@ -215,9 +247,18 @@ def attend(params, x, positions, cfg: ModelConfig, window=None,
     return collectives.reduce_from(h, tp.group), (k, v)
 
 
-def write_rows(cache, slot, new, active):
+def write_rows(cache, slot, new, active, kv: Optional[KVSeq] = None):
     """cache [B, Sc, ...] <- new [B, 1, ...] at (b, slot[b]), in place;
-    lanes with active False write their old row back (bitwise frozen)."""
+    lanes with active False write their old row back (bitwise frozen).
+    With ``kv`` the cache is the rank's block ``kv.index`` of Sc-slot
+    blocks and ``slot`` the global slot: only the lanes whose slot lies
+    in the block write, the others write an old row back."""
+    if kv is not None:
+        n = cache.shape[1]
+        local = slot - kv.index * n
+        mine = (local >= 0) & (local < n)
+        slot = torch.clamp(local, 0, n - 1)
+        active = mine if active is None else active & mine
     lanes = torch.arange(cache.shape[0], device=cache.device)
     row = new[:, 0].to(cache.dtype)
     if active is not None:
@@ -227,7 +268,8 @@ def write_rows(cache, slot, new, active):
 
 
 def decode_attend(params, x, position, cache_k, cache_v, cache_pos, slot,
-                  cfg: ModelConfig, window=None, active=None):
+                  cfg: ModelConfig, window=None, active=None,
+                  tp: Optional[L.TP] = None, kv: Optional[KVSeq] = None):
     """One-token decode: x [B, 1, D], cache_k/v [B, Sc, KV, Hd].
 
     ``cache_pos`` [B, Sc] holds the absolute position of each cache slot,
@@ -239,25 +281,47 @@ def decode_attend(params, x, position, cache_k, cache_v, cache_pos, slot,
     old rows; their output is garbage the caller masks); None means every
     lane is live.  The reference's casts: q * scale in q's dtype, fp32
     scores and softmax, the probabilities rounded before P V, fp32
-    accumulation.
+    accumulation.  On a mesh (``tp``, ``kv``; module docstring) the
+    caches, ``cache_pos`` and the global ``slot`` are the rank's block of
+    the slots.
 
     Returns (out [B, 1, D], cache_k, cache_v), the caches updated.
     """
+    if tp is not None:
+        x = collectives.copy_to(x, tp.group)
     q, k, v = _project_qkv(params, x, position, cfg)
     w = cfg.sliding_window if window is None else window
+    write_rows(cache_k, slot, k, active, kv)
+    write_rows(cache_v, slot, v, active, kv)
+    if tp is not None:  # every query head scores the rank's slots
+        q = collectives.all_gather(q, tp.group, dim=2, kind="kv_q")
     B, _, H, Hd = q.shape
     KV = k.shape[2]
     groups = H // KV
-    write_rows(cache_k, slot, k, active)
-    write_rows(cache_v, slot, v, active)
     scale = torch.tensor(1.0 / np.sqrt(Hd), dtype=q.dtype)
     qg = (q * scale).reshape(B, 1, KV, groups, Hd)
     s = torch.einsum("bsghk,btgk->bsght", qg.float(), cache_k.float())
     bias = L.causal_mask_bias(position, cache_pos, w)  # [B, 1, Sc]
     s = s + bias[:, :, None, None, :]
-    p = torch.softmax(s, dim=-1)
+    if kv is None:
+        p = torch.softmax(s, dim=-1)
+    else:  # the softmax over every rank's slots
+        m = collectives.all_reduce(torch.amax(s, dim=-1), "max", kv.group,
+                                   kind="kv_seq")
+        e = torch.exp(s - m[..., None])
+        den = collectives.all_reduce(torch.sum(e, dim=-1), "sum", kv.group,
+                                     kind="kv_seq")
+        p = e / den[..., None]
     out = torch.einsum("bsght,btgk->bsghk", p.to(q.dtype).float(),
                        cache_v.float())
+    if kv is not None:
+        out = collectives.all_reduce(out.contiguous(), "sum", kv.group,
+                                     kind="kv_seq")
     out = out.reshape(B, 1, H, Hd).to(x.dtype)
-    return (torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache_k,
-            cache_v)
+    if tp is None:
+        return (torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache_k,
+                cache_v)
+    Hl = params["wo"].shape[0]
+    h = torch.einsum("bshk,hkd->bsd", out[:, :, tp.index * Hl:
+                                          (tp.index + 1) * Hl], params["wo"])
+    return collectives.reduce_from(h, tp.group), cache_k, cache_v

@@ -176,16 +176,23 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
     }
 
 
-def rglru_decode_step(params, x, cache, cfg: ModelConfig):
-    """x [B, 1, D] + cache -> (y [B, 1, D], the new cache's values)."""
+def rglru_decode_step(params, x, cache, cfg: ModelConfig, tp=None):
+    """x [B, 1, D] + cache -> (y [B, 1, D], the new cache's values); with
+    ``tp`` on the rank's channels, the conv window and h of the cache
+    the rank's channels too (the serving rules split both on the
+    width), the gates reduce-scattered onto them as in ``rglru_block``."""
+    if tp is not None:
+        x = collectives.copy_to(x, tp.group)
     xin = x @ params["in_x"]  # [B, 1, w]
     gate = x @ params["in_gate"]
     win = torch.cat([cache["conv"], xin.to(cache["conv"].dtype)], dim=1)
     xc = torch.einsum("bcd,cd->bd", win, params["conv_w"]) \
         + params["conv_b"]
     xc = xc.to(x.dtype)[:, None, :]
-    a, b = _gates(params, xc)
+    a, b = _gates(params, xc, tp)
     h = a[:, 0] * cache["h"] + b[:, 0]
     y = h[:, None, :] * F.gelu(gate.float(), approximate="tanh")
     out = y.to(x.dtype) @ params["out_proj"]
+    if tp is not None:
+        out = collectives.reduce_from(out, tp.group)
     return out, {"conv": win[:, 1:], "h": h}

@@ -134,14 +134,6 @@ def _discretize(dt, xf, Bmat, A):
     return dA, dBx
 
 
-def _ssm_inputs(params, xc, cfg: ModelConfig):
-    """xc [B, S, di] -> (dA [B,S,di,ds], dBx, C [B,S,ds]), fp32."""
-    dt, Bmat, Cmat = _ssm_params(params, xc, cfg)
-    A = -torch.exp(params["A_log"])
-    dA, dBx = _discretize(dt, xc.float(), Bmat, A)
-    return dA, dBx, Cmat
-
-
 def _scan_chunk(h, dA, dBx, Cmat):
     """Sequential scan within one chunk from h [B, di, ds] -> (h, y
     [B, c, di]).  The steps are ``unbind`` views: backward stacks their
@@ -232,19 +224,37 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
     }
 
 
-def mamba_decode_step(params, x, cache, cfg: ModelConfig):
-    """x [B, 1, D] + cache -> (y [B, 1, D], the new cache's values)."""
+def mamba_decode_step(params, x, cache, cfg: ModelConfig, tp=None):
+    """x [B, 1, D] + cache -> (y [B, 1, D], the new cache's values).
+
+    With ``tp`` on the rank's channels, the cache as the serving rules
+    lay it out (``launch/sharding.py::cache_shardings``): the ssm state
+    [B, di / model, ds] the rank's channels, the conv window [B, dc - 1,
+    di] whole (its "model" entry falls on the dc - 1 axis, which it does
+    not divide).  ``params["in_proj"]`` is then the whole leaf, which
+    the caller gathers once a serving call (``Model``): every rank forms
+    the whole xin and steps the whole window, then takes its channels."""
+    if tp is not None:
+        x = collectives.copy_to(x, tp.group)
     xz = x @ params["in_proj"]
     xin, z = torch.chunk(xz, 2, dim=-1)  # [B, 1, di]
     win = torch.cat([cache["conv"], xin.to(cache["conv"].dtype)], dim=1)
-    xc = torch.einsum("bcd,cd->bd", win, params["conv_w"]) \
+    own = win
+    if tp is not None:
+        n = params["conv_w"].shape[-1]
+        own = win[..., tp.index * n:(tp.index + 1) * n]
+        z = z[..., tp.index * n:(tp.index + 1) * n]
+    xc = torch.einsum("bcd,cd->bd", own, params["conv_w"]) \
         + params["conv_b"]
     xc = F.silu(xc.float()).to(x.dtype)[:, None, :]
-    dA, dBx, Cmat = _ssm_inputs(params, xc, cfg)
+    dt, Bmat, Cmat = _ssm_params(params, xc, cfg, tp)
+    dA, dBx = _discretize(dt, xc.float(), Bmat, -torch.exp(params["A_log"]))
     h = dA[:, 0] * cache["ssm"] + dBx[:, 0]
     y = torch.einsum("bds,bs->bd", h, Cmat[:, 0])[:, None, :]
     y = y + params["D"] * xc.float()
     y = y * F.silu(z.float())
     out = y.to(x.dtype) @ params["out_proj"]
+    if tp is not None:
+        out = collectives.reduce_from(out, tp.group)
     return out, {"conv": win[:, 1:], "ssm": h}
 

@@ -100,13 +100,40 @@ The other families on the model axis:
 
 The recurrent families' remat (``_remat``) recomputes each layer in the
 backward, and with it the layer's forward collectives, in the same order
-on every rank.  Serving on sharded parameters raises (ROADMAP.md Queue 1
-item 11f).
+on every rank.
+
+Serving on sharded parameters (a layout under "tp" or "serve": the
+latter replicates the parameters over data and gathers nothing; "zero"
+is not served, as the reference serves under the first two only) keeps
+the decode cache as the rank's blocks of the reference's layout,
+``sharding.cache_shardings(mesh, cfg, cache, batch)``: the lanes over
+the batch axes, the k/v rows and kpos over the ``kv_seq`` axes (model,
+or data and model at batch 1, where every rank holds the one lane), the
+kv heads whole, Mamba's ssm state and the RG-LRU's conv and h on their
+channels, Mamba's conv window whole (its "model" entry falls on the
+dc - 1 axis, which it does not divide).  ``serve_layout(batch,
+seq_len)`` gives a ``Serving``: the block of every leaf, the rank's
+lanes, the moe rows and the ``kv_seq`` place.  ``init_cache`` and
+``prefill_cache`` take the global batch (``prefill_cache`` the whole
+prompt batch, the same on every rank) and make their layout the model's
+``serving``; ``decode_step`` takes the rank's lanes of the tokens and
+positions (``sharding.decode_input_shardings``) and a cache of that
+layout's blocks.  The attention layers write each new k/v row on the
+rank that owns its slot and combine the softmax flash-decode style
+across the ``kv_seq`` group (``attention.decode_attend``); the prefill
+projects every kv head (``attend(..., whole_kv=True)``) and keeps the
+rank's block of slots; the moe layers route the rank's lanes globally
+over the batch group (none at batch 1); Mamba and the RG-LRU step on the
+rank's channels (``ssm.mamba_decode_step``, ``rglru.rglru_decode_step``).
+The serving methods return the rank's lanes' logits over the whole
+padded vocab (the vocab blocks all-gathered over the model axis, kind
+"logits"), so greedy argmax and sampling see every row.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -324,6 +351,15 @@ def _store_tree(dst: Dict[str, torch.Tensor], new, active) -> None:
         _store(dst[k], v, active)
 
 
+def _tree_map(fn, tree):
+    """``fn`` over every tensor of a decode cache tree, its nesting kept."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
 def cache_leaves(cache):
     """Every tensor of a decode cache (nested dicts and lists), in
     ``jax.tree``'s leaf order: dict keys sorted, list items by index."""
@@ -358,20 +394,21 @@ def _tp_leaf(name: str) -> bool:
 
 class Layout:
     """A rank's layout of a sharded ``Model``: the mesh, the strategy
-    ("tp" or "zero"), each parameter's ``Sharding``, the batch axes the
-    strategy splits the rows over, the tensor-parallel place (``tp``,
-    None unless "tp" with model > 1) and, for each parameter, the split
-    dims gathered on use with their axes."""
+    ("tp", "serve" or "zero"), each parameter's ``Sharding``, the batch
+    axes the strategy splits the rows over, the tensor-parallel place
+    (``tp``, None unless "tp" or "serve" with model > 1) and, for each
+    parameter, the split dims gathered on use with their axes."""
 
     def __init__(self, mesh, shardings, strategy: str, names):
-        if strategy not in ("tp", "zero"):
-            raise ValueError(f"strategy {strategy!r}: 'tp' or 'zero'")
+        if strategy not in ("tp", "serve", "zero"):
+            raise ValueError(f"strategy {strategy!r}: 'tp', 'serve' or "
+                             f"'zero'")
         self.mesh, self.strategy = mesh, strategy
         self.shardings = {k: shardings.get(k) for k in names}
         self.coords = mesh.coords()
         self.batch_axes = tuple(a for a in sharding.strategy_batch_axes(
             mesh, strategy) if mesh.shape[a] > 1)
-        tp_axis = "model" if strategy == "tp" and \
+        tp_axis = "model" if strategy in ("tp", "serve") and \
             mesh.shape.get("model", 1) > 1 else None
         self.tp = None if tp_axis is None else L.TP(
             mesh.group((tp_axis,)), mesh.shape[tp_axis],
@@ -390,6 +427,23 @@ class Layout:
 
     def gathered_axes(self, name: str):
         return tuple(a for _, ax in self.gathered[name] for a in ax)
+
+
+class Serving(NamedTuple):
+    """A sharded model's serving layout for one global batch and cache
+    length (``Model.serve_layout``): the cache length, the
+    ``cache_shardings`` of the whole cache, the rank's ``blocks`` (a
+    cache tree on the meta device with each leaf's block shape), its
+    ``lanes`` of the batch, the moe ``rows`` (None when no rank holds
+    distinct lanes, as at batch 1) and the ``kv`` place of the slots
+    (None when the cache length does not split)."""
+
+    clen: int
+    shardings: Any
+    blocks: Any
+    lanes: slice
+    rows: Optional[moe_lib.Rows]
+    kv: Optional[attn.KVSeq]
 
 
 class Model(nn.Module):
@@ -411,6 +465,9 @@ class Model(nn.Module):
         # ``train/state.make_train_step`` on a data mesh): the moe layers
         # route over them
         self.rows: Optional[moe_lib.Rows] = None
+        # the serving layout of the last init_cache / prefill_cache on a
+        # mesh, which decode_step serves
+        self.serving: Optional[Serving] = None
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -527,11 +584,83 @@ class Model(nn.Module):
                 out[k] = collectives.gather_from(out[k], mesh.group(axes), d)
         return out
 
-    def _unsharded(self, what: str) -> None:
-        if self.layout is not None:
-            raise NotImplementedError(
-                f"{what} on sharded parameters comes with ROADMAP.md Queue 1 "
-                f"item 11f")
+    def _lanes(self, batch: int):
+        """(the rank's lanes of a global ``batch``, the moe rows) under
+        ``decode_input_shardings``, made legal for the batch as the cache
+        leaves' lanes are."""
+        mesh, coords = self.layout.mesh, self.layout.coords
+        spec = sharding.decode_input_shardings(mesh, self.cfg,
+                                               batch)["pos"].spec
+        sh = sharding.named(mesh, sharding.constrain_spec(mesh, spec,
+                                                          (batch, 1)))
+        parts, index = sharding.block_index(sh, 0, coords)
+        n = batch // parts
+        axes = sharding.split_axes(sh, 0)
+        rows = moe_lib.Rows(mesh.group(axes), parts, index) if axes else None
+        return slice(index * n, (index + 1) * n), rows
+
+    def serve_layout(self, batch: int, seq_len: int) -> Optional[Serving]:
+        """The ``Serving`` of a global ``batch`` and a cache for
+        ``seq_len`` positions on this rank (module docstring); None on one
+        process.  Raises on a "zero" layout."""
+        lay = self.layout
+        if lay is None:
+            return None
+        if lay.strategy == "zero":
+            raise ValueError("serving on a 'zero' layout: the reference "
+                             "serves under the 'tp' and 'serve' rules only")
+        mesh, cfg = lay.mesh, self.cfg
+        whole = self._empty_cache(batch, seq_len, torch.device("meta"))
+        shs = sharding.cache_shardings(mesh, cfg, whole, batch)
+        if cfg.family == "ssm" and "model" in sharding.sharded_axes(
+                shs["ssm"]["conv"]):
+            raise ValueError(f"Mamba's conv window split over the model "
+                             f"axis ({shs['ssm']['conv'].spec}): a model "
+                             f"axis that divides conv_dim - 1 is not served")
+        kv = None
+        if "kpos" in shs:
+            axes = sharding.split_axes(shs["kpos"], 1)
+            if axes:
+                kv = attn.KVSeq(mesh.group(axes), *sharding.block_index(
+                    shs["kpos"], 1, lay.coords))
+        lanes, rows = self._lanes(batch)
+        return Serving(self.cache_len(seq_len), shs,
+                       sharding.cache_blocks(mesh, cfg, whole, batch,
+                                             lay.coords), lanes, rows, kv)
+
+    @contextlib.contextmanager
+    def _routing(self, rows: Optional[moe_lib.Rows]):
+        """On a mesh the moe layers route over the serving lanes' ``rows``
+        inside (None: every rank holds the same lanes)."""
+        if self.layout is None:
+            yield
+            return
+        saved, self.rows = self.rows, rows
+        try:
+            yield
+        finally:
+            self.rows = saved
+
+    def _serving_of(self, cache) -> Optional[Serving]:
+        """The layout ``decode_step`` serves ``cache`` under: the model's
+        ``serving``, whose blocks the cache's leaves must match."""
+        if self.layout is None:
+            return None
+        srv = self.serving
+        if srv is None or [tuple(t.shape) for t in cache_leaves(cache)] != \
+                [tuple(t.shape) for t in cache_leaves(srv.blocks)]:
+            raise ValueError("decode_step on a mesh serves a cache of the "
+                             "blocks of the last init_cache / prefill_cache")
+        return srv
+
+    def whole_lanes(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's lanes of ``x`` (its lanes on dim 0) in lane order,
+        all-gathered over the serving batch group (collective); ``x`` on
+        one process or when no rank holds distinct lanes."""
+        srv = self.serving
+        if self.layout is None or srv is None or srv.rows is None:
+            return x
+        return collectives.all_gather(x, srv.rows.group, kind="lanes")
 
     def _vocab_offset(self, rows: int) -> int:
         """The first global vocab row of this rank's ``rows`` rows."""
@@ -603,13 +732,14 @@ class Model(nn.Module):
             return moe_lib.moe_ffn(m, x, self.cfg, self._moe_place())
         return L.mlp(m, x, self.cfg, self.tp), 0.0
 
-    def _block(self, layer, x, positions):
+    def _block(self, layer, x, positions, whole_kv: bool = False):
         """One decoder layer -> (x, aux, (k, v)): the (k, v) ``attend``
-        projects, which the serving prefill stacks into its cache."""
+        projects (every kv head with ``whole_kv``), which the serving
+        prefill stacks into its cache."""
         cfg = self.cfg
         a, m, ln1, ln2 = layer
         h, kv = attn.attend(a, L.rms_norm(x, ln1, cfg.norm_eps), positions,
-                            cfg, tp=self.tp)
+                            cfg, tp=self.tp, whole_kv=whole_kv)
         x = x + h
         h, aux = self._ffn(m, L.rms_norm(x, ln2, cfg.norm_eps))
         return x + h, aux, kv
@@ -683,10 +813,11 @@ class Model(nn.Module):
 
     def _backbone_kv(self, params, x, positions):
         """The backbone that also returns each layer's projected k and v,
-        stacked [L, B, S, KV, Hd], for the serving prefill."""
+        stacked [L, B, S, KV, Hd] (every kv head), for the serving
+        prefill."""
         ks, vs = [], []
         for layer in self._layers(params):
-            x, _, (k, v) = self._block(layer, x, positions)
+            x, _, (k, v) = self._block(layer, x, positions, whole_kv=True)
             ks.append(k)
             vs.append(v)
         return x, torch.stack(ks), torch.stack(vs)
@@ -786,26 +917,47 @@ class Model(nn.Module):
             return min(seq_len, cfg.rglru.attention_window)
         return seq_len
 
+    def _serve_params(self, params):
+        """The parameters in use for a serving call: ``_use``'s, and under
+        tensor parallelism Mamba's ``in_proj`` gathered whole over the
+        model axis once for the call (``ssm.mamba_decode_step``; the scan
+        prefill's every step takes it)."""
+        params = self._use(params)
+        if self.cfg.family == "ssm" and self.tp is not None:
+            params = dict(params)
+            params["layers.mamba.in_proj"] = collectives.gather_from(
+                params["layers.mamba.in_proj"], self.tp.group, -1,
+                "tp_gather")
+        return params
+
+    def _serve_logits(self, params, x):
+        """``_lm_logits`` over the whole padded vocab: under tensor
+        parallelism the ranks' vocab blocks all-gathered over the model
+        axis."""
+        logits = self._lm_logits(params, x)
+        if self.tp is None:
+            return logits
+        return collectives.all_gather(logits, self.tp.group, dim=-1,
+                                      kind="logits")
+
     @torch.inference_mode()
     def prefill(self, batch, params: Optional[Dict] = None):
         """Serving prefill: the backbone over the whole prompt, fp32
-        logits [B, 1, V_padded] of the last position only."""
-        self._unsharded("serving")
-        params = self.cast_params() if params is None else params
-        x, _ = self._inputs(params, batch)
-        x, _ = self._backbone(params, x, self._positions(x))
-        return self._lm_logits(params, x[:, -1:])
+        logits [B, 1, V_padded] of the last position only (on a mesh the
+        rank's lanes of the whole prompt batch)."""
+        params = self._use(self.cast_params() if params is None else params)
+        rows = None
+        if self.layout is not None:
+            lanes, rows = self._lanes(batch["tokens"].shape[0])
+            batch = {k: v[lanes] for k, v in batch.items()}
+        with self._routing(rows):
+            x, _ = self._inputs(params, batch)
+            x, _ = self._backbone(params, x, self._positions(x))
+        return self._serve_logits(params, x[:, -1:])
 
-    @torch.inference_mode()
-    def init_cache(self, batch: int, seq_len: int):
-        """An empty decode cache for ``batch`` lanes: k/v zeros [L, B,
-        clen, KV, Hd] in the compute dtype, kpos [B, clen] int32 at
-        ``INT_SENTINEL`` (clen = ``cache_len(seq_len)``); the recurrent
-        families' layouts are in the module docstring (conv states in the
-        compute dtype, the ssm and RG-LRU states fp32, zeros)."""
-        self._unsharded("serving")
+    def _empty_cache(self, batch: int, seq_len: int, dev):
+        """The whole empty decode cache on ``dev`` (``init_cache``)."""
         cfg = self.cfg
-        dev = self.embed.device
         dt = torch_dtype(cfg.dtype)
         if cfg.family == "ssm":
             return {"ssm": ssm_lib.init_mamba_cache(
@@ -836,6 +988,31 @@ class Model(nn.Module):
                 "kpos": kpos}
 
     @torch.inference_mode()
+    def init_cache(self, batch: int, seq_len: int):
+        """An empty decode cache for ``batch`` lanes: k/v zeros [L, B,
+        clen, KV, Hd] in the compute dtype, kpos [B, clen] int32 at
+        ``INT_SENTINEL`` (clen = ``cache_len(seq_len)``); the recurrent
+        families' layouts are in the module docstring (conv states in the
+        compute dtype, the ssm and RG-LRU states fp32, zeros).  On a mesh
+        ``batch`` is the global batch and the cache this rank's blocks of
+        ``serve_layout(batch, seq_len)``, which becomes the model's
+        ``serving``."""
+        srv = self.serve_layout(batch, seq_len)
+        if srv is None:
+            return self._empty_cache(batch, seq_len, self.embed.device)
+        return self._empty_blocks(srv)
+
+    def _empty_blocks(self, srv: Serving):
+        """The rank's blocks of an empty cache under ``srv``, which
+        becomes the model's ``serving``."""
+        self.serving = srv
+        dev = self.embed.device
+        # kpos is the cache's one integer leaf
+        return _tree_map(lambda t: torch.full(
+            t.shape, INT_SENTINEL if t.dtype == torch.int32 else 0,
+            dtype=t.dtype, device=dev), srv.blocks)
+
+    @torch.inference_mode()
     def prefill_cache(self, batch, cache_len: int, lengths=None,
                       params: Optional[Dict] = None):
         """One-pass serving prefill of a right-padded prompt batch ->
@@ -852,12 +1029,30 @@ class Model(nn.Module):
         the attention window (``cache_len`` >= the prompt for full
         attention).  A vlm prompt's positions and cache include its patch
         prefix, and it takes no ``lengths``.  The recurrent families run
-        ``_prefill_scan``."""
-        self._unsharded("serving")
+        ``_prefill_scan``.  On a mesh every rank passes the whole prompt
+        batch and ``lengths``, and gets its lanes' logits and its blocks
+        of the cache (module docstring)."""
         cfg = self.cfg
-        params = self.cast_params() if params is None else params
-        if cfg.family in ("ssm", "hybrid"):
-            return self._prefill_scan(batch, cache_len, lengths, params)
+        params = self._serve_params(self.cast_params() if params is None
+                                    else params)
+        B = batch["tokens"].shape[0]
+        srv = self.serve_layout(B, cache_len)
+        if srv is not None:
+            self.serving = srv
+            batch = {k: v[srv.lanes] for k, v in batch.items()}
+            if lengths is not None:
+                lengths = torch.as_tensor(lengths)[srv.lanes]
+        with self._routing(None if srv is None else srv.rows):
+            if cfg.family in ("ssm", "hybrid"):
+                cache = self._empty_cache(B, cache_len, self.embed.device) \
+                    if srv is None else self._empty_blocks(srv)
+                return self._prefill_scan(batch, cache, lengths, params, srv)
+            return self._prefill_kv(batch, cache_len, lengths, params, srv)
+
+    def _prefill_kv(self, batch, cache_len: int, lengths, params, srv):
+        """``prefill_cache`` of the attention families on the rank's
+        lanes: the k/v rows and kpos of its block of the slots."""
+        cfg = self.cfg
         if cfg.family == "vlm":
             assert lengths is None, \
                 "ragged prompts are not supported for vlm prefill"
@@ -866,20 +1061,23 @@ class Model(nn.Module):
         x, ks, vs = self._backbone_kv(params, x, self._positions(x))
 
         clen = self.cache_len(cache_len)
+        kv = None if srv is None else srv.kv
+        n = clen if kv is None else clen // kv.size
+        s0 = 0 if kv is None else kv.index * n
         dev = x.device
         L_real = torch.full((B,), S, dtype=torch.int32, device=dev) \
             if lengths is None else torch.as_tensor(
                 lengths, device=dev).to(torch.int32)
-        s_idx = torch.arange(clen, dtype=torch.int32, device=dev)
+        s_idx = torch.arange(s0, s0 + n, dtype=torch.int32, device=dev)
         q = torch.div(L_real[:, None] - 1 - s_idx[None, :], clen,
-                      rounding_mode="floor")  # [B, clen]
+                      rounding_mode="floor")  # [B, n]
         win = s_idx[None, :] + clen * q
         has = win >= 0
         # clipped before the gather, as the reference does: a negative
         # index must not wrap
         src = torch.clamp(win, 0, S - 1).long()
         idx = src[None, :, :, None, None].expand(
-            (ks.shape[0], B, clen) + ks.shape[3:])
+            (ks.shape[0], B, n) + ks.shape[3:])
         mask5 = has[None, :, :, None, None]
         dt = torch_dtype(cfg.dtype)
         new_k = torch.where(mask5, torch.gather(ks, 2, idx), 0).to(dt)
@@ -892,18 +1090,18 @@ class Model(nn.Module):
             at = (L_real - 1).long().reshape(B, 1, 1).expand(
                 B, 1, x.shape[-1])
             x_last = torch.gather(x, 1, at)
-        return self._lm_logits(params, x_last), \
+        return self._serve_logits(params, x_last), \
             {"k": new_k, "v": new_v, "kpos": kpos}
 
-    def _prefill_scan(self, batch, cache_len: int, lengths, params):
-        """The recurrent families' prefill: one ``decode_step`` a prompt
-        position from an empty cache, lanes past their ``lengths`` inactive
-        (their state frozen bitwise), each lane's logits taken at its last
-        real position; bitwise the streamed decode loop it replaces."""
+    def _prefill_scan(self, batch, cache, lengths, params, srv):
+        """The recurrent families' prefill: one decode step a prompt
+        position from the empty ``cache``, lanes past their ``lengths``
+        inactive (their state frozen bitwise), each lane's logits taken
+        at its last real position; bitwise the streamed decode loop it
+        replaces."""
         tokens = batch["tokens"]
         B, S = tokens.shape[0], tokens.shape[-1]
         dev = tokens.device
-        cache = self.init_cache(B, cache_len)
         L_real = None if lengths is None else torch.as_tensor(
             lengths, device=dev).to(torch.int32)
         last = torch.zeros((B, 1, self.padded_vocab), dtype=torch.float32,
@@ -911,8 +1109,8 @@ class Model(nn.Module):
         for t in range(S):
             pos = torch.full((B, 1), t, dtype=torch.int32, device=dev)
             act = None if L_real is None else t < L_real
-            logits, cache = self.decode_step(cache, tokens[..., t:t + 1],
-                                             pos, active=act, params=params)
+            logits, cache = self._decode(cache, tokens[..., t:t + 1], pos,
+                                         act, params, srv)
             if L_real is None:
                 last = logits if t == S - 1 else last
             else:
@@ -927,7 +1125,7 @@ class Model(nn.Module):
             ci = {k: v[i] for k, v in c.items()}
             y, new = ssm_lib.mamba_decode_step(
                 _sub(p, "mamba."), L.rms_norm(x, p["ln"], cfg.norm_eps), ci,
-                cfg)
+                cfg, tp=self.tp)
             _store_tree(ci, new, active)
             x = x + y
         return x
@@ -937,18 +1135,21 @@ class Model(nn.Module):
         ({conv, h} [B, ...]) updated in place."""
         cfg = self.cfg
         y, new = rglru_lib.rglru_decode_step(
-            _sub(p, "rglru."), L.rms_norm(x, p["ln1"], cfg.norm_eps), c, cfg)
+            _sub(p, "rglru."), L.rms_norm(x, p["ln1"], cfg.norm_eps), c, cfg,
+            self.tp)
         _store_tree(c, new, active)
         x = x + y
         return x + L.mlp(_sub(p, "mlp."), L.rms_norm(x, p["ln2"],
-                                                     cfg.norm_eps), cfg)
+                                                     cfg.norm_eps), cfg,
+                         self.tp)
 
-    def _decode_hybrid(self, params, cache, x, pos, active):
+    def _decode_hybrid(self, params, cache, x, pos, active, srv):
         cfg = self.cfg
-        clen = cache["k"].shape[3]
+        clen = cache["k"].shape[3] if srv is None else srv.clen
+        kv = None if srv is None else srv.kv
         slot = (pos[:, 0] % clen).long()
         # kpos first: every attention layer attends over it
-        attn.write_rows(cache["kpos"], slot, pos.to(torch.int32), active)
+        attn.write_rows(cache["kpos"], slot, pos.to(torch.int32), active, kv)
         pattern = cfg.rglru.pattern
         periods = zip(*(_unstack(params, f"layers.p{i}.")
                         for i in range(len(pattern))))
@@ -964,11 +1165,13 @@ class Model(nn.Module):
                     _sub(p, "attn."), L.rms_norm(x, p["ln1"], cfg.norm_eps),
                     pos, cache["k"][j, ai], cache["v"][j, ai],
                     cache["kpos"], slot, cfg,
-                    window=cfg.rglru.attention_window, active=active)
+                    window=cfg.rglru.attention_window, active=active,
+                    tp=self.tp, kv=kv)
                 ai += 1
                 x = x + y
                 x = x + L.mlp(_sub(p, "mlp."),
-                              L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+                              L.rms_norm(x, p["ln2"], cfg.norm_eps), cfg,
+                              self.tp)
         for i in range(self.n_tail):
             x = self._rec_decode(_sub(params, f"tail.{i}."), x,
                                  cache["tail"][i], active)
@@ -989,25 +1192,36 @@ class Model(nn.Module):
         one global dispatch (``models/moe.py``), inactive lanes too, as
         the reference does.  The recurrent families write their conv and
         recurrent states in place the same way (the hybrid's attention
-        layers its rolling k/v rows)."""
-        self._unsharded("serving")
+        layers its rolling k/v rows).  On a mesh ``tokens``, ``pos`` and
+        ``active`` are the rank's lanes and ``cache`` its blocks of the
+        model's ``serving`` layout (module docstring)."""
+        params = self._serve_params(self.cast_params() if params is None
+                                    else params)
+        srv = self._serving_of(cache)
+        with self._routing(None if srv is None else srv.rows):
+            return self._decode(cache, tokens, pos, active, params, srv)
+
+    def _decode(self, cache, tokens, pos, active, params, srv):
+        """``decode_step`` on the parameters in use and the layout
+        ``srv`` (None on one process)."""
         cfg = self.cfg
-        params = self.cast_params() if params is None else params
         x = self._embed_tokens(params, tokens)
         if cfg.family == "ssm":
-            return self._lm_logits(params, self._decode_ssm(
+            return self._serve_logits(params, self._decode_ssm(
                 params, cache, x, active)), cache
         if cfg.family == "hybrid":
-            return self._lm_logits(params, self._decode_hybrid(
-                params, cache, x, pos, active)), cache
-        clen = cache["k"].shape[2]
+            return self._serve_logits(params, self._decode_hybrid(
+                params, cache, x, pos, active, srv)), cache
+        clen = cache["k"].shape[2] if srv is None else srv.clen
+        kv = None if srv is None else srv.kv
         slot = (pos[:, 0] % clen).long()  # [B]
         # kpos first: every layer attends over the updated positions
-        attn.write_rows(cache["kpos"], slot, pos.to(torch.int32), active)
+        attn.write_rows(cache["kpos"], slot, pos.to(torch.int32), active, kv)
         for i, (a, m, ln1, ln2) in enumerate(self._layers(params)):
             y, _, _ = attn.decode_attend(
                 a, L.rms_norm(x, ln1, cfg.norm_eps), pos, cache["k"][i],
-                cache["v"][i], cache["kpos"], slot, cfg, active=active)
+                cache["v"][i], cache["kpos"], slot, cfg, active=active,
+                tp=self.tp, kv=kv)
             x = x + y
             x = x + self._ffn(m, L.rms_norm(x, ln2, cfg.norm_eps))[0]
-        return self._lm_logits(params, x), cache
+        return self._serve_logits(params, x), cache

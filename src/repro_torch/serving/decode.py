@@ -102,7 +102,11 @@ def make_serve_step(model: Model, greedy: bool = True,
                     top_k: Optional[int] = None) -> Callable:
     """The decode step of one policy (see the module docstring).  The
     cache is updated in place; ``params`` (compute-dtype tensors, e.g.
-    ``model.cast_params()``) defaults to casting the model's masters."""
+    ``model.cast_params()``) defaults to casting the model's masters.  On
+    a sharded model the tokens, positions, ``rids`` and the returned
+    logits and tokens are the rank's lanes (``sharding.
+    decode_input_shardings``), the logits over the whole padded vocab,
+    and the cache the rank's blocks (``models/transformer.py``)."""
     if greedy:
         def serve_step(cache, tokens, pos, params=None):
             logits, cache = model.decode_step(cache, tokens, pos,

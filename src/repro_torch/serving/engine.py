@@ -144,6 +144,10 @@ class Engine:
             raise NotImplementedError(
                 f"Engine serves KV-cache families (dense, moe); "
                 f"{model.cfg.family!r} caches are not slot-installable")
+        if model.layout is not None:
+            raise ValueError("the Engine runs on one process: its slot "
+                             "table installs whole caches (serve a sharded "
+                             "model in batch mode)")
         self.model = model
         if params is None:
             with torch.inference_mode():

@@ -23,6 +23,7 @@ from repro_torch.models import Model, param_specs
 from repro_torch.models.inputs import make_decode_inputs, make_train_batch
 from repro_torch.optim import base
 from test_torch_moe import port_cfg
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 CFG32 = dict(dtype="float32", emb_dtype="float32")
 ALL = arch_ids() + ["gpt2-paper"]

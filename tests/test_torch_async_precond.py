@@ -31,6 +31,7 @@ from repro_torch.optim import base, bucketing, make_optimizer
 from repro_torch.train import Trainer, fault, make_train_step
 from test_torch_muon import count_ops
 from test_torch_prism import JaxKey
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 TOL = 1e-5
 PRISM = dict(degree=2, iterations=4, warm_alpha_iters=1, sketch_dim=8,

@@ -17,6 +17,7 @@ from repro import checkpoint as jckpt
 from repro.train.chaos import corrupt_checkpoint
 from repro_torch import checkpoint as ckpt
 from repro_torch.checkpoint.checkpoint import _complete_steps
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 
 def _tree(x=0.0):

@@ -19,6 +19,7 @@ from repro.optim import compression as jcomp
 from repro_torch import collectives
 from repro_torch.optim import compression
 import torch_world
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 WORLD = 8
 

@@ -26,6 +26,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import Model
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 CFG32 = dict(dtype="float32", emb_dtype="float32")
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}

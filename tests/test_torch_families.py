@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build, fused_iter, ops, ref
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": 2e-4, "bfloat16": 5e-2}

@@ -49,6 +49,7 @@ from repro_torch.sharding_ctx import activation_sharding
 from repro_torch.train import Trainer
 from repro_torch.train.state import reduce_sharded, reduction_axes
 import torch_world
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 WORLD = 4
 TOL = 2e-5

@@ -17,6 +17,7 @@ from repro_torch.models import Model
 from repro_torch.train import Trainer
 from repro_torch.train.fault import (Watchdog, WatchdogConfig,
                                      latest_restart_point)
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 
 def test_watchdog_states(tmp_path):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import fused_iter, gram, matmul_add
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 GEMM_CUH = (Path(matmul_add.__file__).resolve().parent / "csrc" /
             "gemm.cuh").read_text()

@@ -15,6 +15,7 @@ from repro.core import random_matrices as rm
 from repro_torch.config import PrismConfig
 from repro_torch.core import matfn, prism
 from test_torch_prism import JaxKey
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 SPECTRA = ("zero", "rank1_spike", "kappa1e8")
 DTYPES = ("float32", "bfloat16")

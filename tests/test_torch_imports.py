@@ -8,6 +8,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"

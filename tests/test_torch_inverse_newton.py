@@ -21,6 +21,7 @@ from repro_torch.core import matfn
 from repro_torch.core import polynomials as poly
 from repro_torch.core import prism
 from test_torch_prism import JaxKey
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 TOL = 1e-5
 

@@ -25,6 +25,7 @@ from repro_torch.config import PrismConfig
 from repro_torch.core import newton_schulz as tns
 from repro_torch.kernels import (_build, fused_iter, gram, matmul_add, ops,
                                  ref, sketch_traces)
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 DTYPES = ["float32", "bfloat16"]
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}

@@ -38,6 +38,7 @@ from repro_torch.sharding_ctx import activation_sharding
 from test_torch_muon import count_ops
 from test_torch_prism import JaxKey
 import torch_world
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 WORLD = 4
 TOL = 2e-5

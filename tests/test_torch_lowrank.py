@@ -35,6 +35,7 @@ from repro_torch.models.transformer import param_specs
 from repro_torch.optim import base, bucketing
 from test_torch_muon import _hold_all, _muon_both, _ocfgs, count_ops
 from test_torch_prism import JaxKey
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 # the reference tests' chain (tests/test_lowrank.py), cut to 2 warm and 2
 # fitted iterations and without its adaptive tol for parity: unconverged,

@@ -11,6 +11,7 @@ from repro.models import build
 from repro_torch import convert
 from repro_torch.configs import gpt2_paper
 from repro_torch.models import Model
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 CFG32 = dict(dtype="float32", emb_dtype="float32")
 

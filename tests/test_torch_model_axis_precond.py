@@ -75,6 +75,7 @@ from repro_torch.sharding_ctx import activation_sharding
 from repro_torch.train import Trainer
 from test_torch_shampoo import _hold, _jax_run, _ocfgs, _port_opt, _port_run
 import torch_world
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 WORLD = 4
 TOL = 2e-5

@@ -15,6 +15,7 @@ from repro.configs import get_smoke_config as jsmoke
 from repro.models import moe as jmoe
 from repro_torch import config as tconfig
 from repro_torch.models import moe
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 CFG32 = dict(dtype="float32", emb_dtype="float32")
 # tests/test_moe_dispatch.py:23

@@ -28,6 +28,7 @@ from repro_torch.core.rng import Key
 from repro_torch.models.transformer import param_specs
 from repro_torch.optim import AdamW, base, bucketing, make_optimizer, muon
 from test_torch_prism import JaxKey
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 PRISM5 = dict(degree=2, iterations=3, warm_alpha_iters=3, sketch_dim=8,
               use_kernels=True)

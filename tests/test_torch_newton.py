@@ -21,6 +21,7 @@ from repro.core import matfn as jmatfn
 from repro_torch.core import matfn
 from test_torch_inverse_newton import _hold, _rel, _spd
 from test_torch_prism import JaxKey
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 
 @pytest.mark.parametrize("method", ["newton", "newton_classical"])

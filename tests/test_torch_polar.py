@@ -21,6 +21,7 @@ from repro.core import matfn as jmatfn
 from repro_torch.config import PrismConfig
 from repro_torch.core import matfn, newton_schulz
 from test_torch_prism import JaxKey
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 SHAPES = [(3, 96, 40), (2, 24, 72), (30, 16, 64), (48, 48)]

@@ -23,6 +23,7 @@ from repro.config import PrismConfig as JPrism
 from repro.core import matfn as jmatfn
 from repro_torch.config import PrismConfig
 from repro_torch.core import matfn, polar_express
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 

@@ -29,6 +29,7 @@ from repro_torch.core import polynomials as poly
 from repro_torch.core import prism, sketch
 from repro_torch.core.rng import Key
 from repro_torch.kernels import ops
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 TRACE_TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 CHAIN_TOL = 5e-3

@@ -33,6 +33,7 @@ from repro_torch.optim import make_optimizer
 from repro_torch.optim.muon import leaf_order
 from repro_torch.train import make_train_step
 from test_torch_moe import port_cfg
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 CFG32 = dict(dtype="float32", emb_dtype="float32")
 RECURRENT = ("falcon-mamba-7b", "recurrentgemma-2b")

@@ -17,6 +17,7 @@ from repro.configs import get_smoke_config as jsmoke
 from repro.models import rglru as jrglru
 from repro_torch.models import rglru
 from test_torch_moe import port_cfg
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 CFG32 = dict(dtype="float32", emb_dtype="float32")
 RTOL, ATOL = 1e-5, 1e-5

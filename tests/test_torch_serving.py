@@ -36,6 +36,7 @@ from repro_torch.train import Trainer
 from test_torch_decode import CFG32, port_config
 from test_torch_moe import port_cfg
 from test_torch_prism import JaxKey
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 given, settings, st = hypothesis_or_stub()
 
@@ -407,11 +408,15 @@ def test_checkpoint_to_serve_handoff(tmp_path):
 # ----------------------------------------------------------------- launcher
 
 
-def test_serve_launcher_on_the_cpu(tmp_path, capsys):
+def test_serve_launcher_on_the_cpu(tmp_path, capsys, monkeypatch):
     """``python -m repro_torch.launch.serve`` at SMOKE width on the CPU:
     batch mode (one prefill call, greedy decode), continuous mode, and
-    the production mesh still raising."""
+    the production mesh, which outside a torchrun world fails as
+    launch/train.py does, and with ``--continuous`` exits with the
+    reference's message (tests/test_torch_serve_mesh.py serves on a
+    world)."""
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import ENV_VARS
 
     res = serve.main(["--smoke", "--device", "cpu", "--batch", "2",
                       "--prompt_len", "8", "--gen_len", "4"])
@@ -422,5 +427,10 @@ def test_serve_launcher_on_the_cpu(tmp_path, capsys):
                       "--requests", "6", "--qps", "1000", "--slots", "4"])
     assert len(out.completions) == 6 and out.decode_step_shapes == 1
     assert "prefill_launches" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 11"):
+    for v in ENV_VARS:
+        monkeypatch.delenv(v, raising=False)
+    with pytest.raises(ValueError, match="no world in the environment"):
         serve.main(["--smoke", "--device", "cpu", "--mesh", "production"])
+    with pytest.raises(SystemExit, match="single-host"):
+        serve.main(["--smoke", "--device", "cpu", "--continuous", "--mesh",
+                    "production"])

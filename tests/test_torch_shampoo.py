@@ -46,6 +46,7 @@ from repro_torch.models.transformer import param_specs
 from repro_torch.optim import base, bucketing, make_optimizer
 from test_torch_muon import _jax_views, _port_views
 from test_torch_prism import JaxKey
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 WARM = dict(degree=2, iterations=3, warm_alpha_iters=3, sketch_dim=8,
             use_kernels=True)

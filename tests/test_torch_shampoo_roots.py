@@ -33,6 +33,7 @@ from repro_torch.optim import muon
 from repro_torch.optim.shampoo import Shampoo
 from test_torch_prism import JaxKey
 from test_torch_shampoo import _grads, _hold, _ocfgs, _smoke
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 FULL = dict(max_precond_dim=64)
 

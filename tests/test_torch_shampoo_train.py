@@ -24,6 +24,7 @@ from repro_torch.train import make_train_step
 from test_torch_prism import JaxKey
 from test_torch_shampoo import (FULL_RANK, _grads, _hold, _jax_run, _ocfgs,
                                 _port_opt, _port_run, _smoke)
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 
 @pytest.mark.parametrize("which", ["warm", "fig5"])

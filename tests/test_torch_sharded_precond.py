@@ -35,6 +35,7 @@ from repro_torch.train.state import opt_state_shardings
 from test_torch_muon import count_ops
 from test_torch_prism import JaxKey
 import torch_world
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 WORLD = 4
 TOL = 2e-5

@@ -57,6 +57,7 @@ from repro_torch.optim.base import PENDING_STATE_KEYS
 from repro_torch.train import Trainer, make_train_step
 from test_torch_prism import JaxKey
 import torch_world
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 WORLD = 2
 TOL = 1e-4             # tests/test_torch_train.py

@@ -35,6 +35,7 @@ from repro_torch.launch import sharding as sh
 from repro_torch.models.transformer import param_specs
 from repro_torch.optim import make_optimizer
 from repro_torch.train.state import opt_state_shardings
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 MESHES = [((2, 2), False), ((2, 4), False), ((16, 16), False),
           ((2, 16, 16), True)]

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from repro_torch.kernels import ops, sketch_traces
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 CU = (Path(sketch_traces.__file__).resolve().parent / "csrc" /
       "sketch_chain.cu").read_text()

@@ -26,6 +26,7 @@ from repro_torch.core import matfn, newton_schulz, prism
 from repro_torch.core.rng import Key
 from repro_torch.kernels import ops
 from test_torch_prism import JaxKey
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 TOL = {"float32": 2e-4, "bfloat16": 5e-2}
 FIT_TOL = 5e-3

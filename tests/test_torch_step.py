@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, sketch_traces
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 CU = (Path(sketch_traces.__file__).resolve().parent / "csrc" /
       "sketch_step.cu").read_text()

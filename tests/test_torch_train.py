@@ -23,6 +23,7 @@ from repro_torch.models import Model
 from repro_torch.optim import make_optimizer
 from repro_torch.train import make_train_step
 from test_torch_prism import JaxKey
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 PRISM5 = dict(degree=2, iterations=3, warm_alpha_iters=3, sketch_dim=8,
               use_kernels=True)

@@ -28,6 +28,7 @@ from repro_torch.launch import train_lm
 from repro_torch.models import Model
 from repro_torch.train import Trainer
 from test_torch_muon import count_ops
+import torch_threads  # noqa: F401  (the worker's share of the cores)
 
 PRISM5 = dict(degree=2, iterations=3, warm_alpha_iters=3, sketch_dim=8,
               use_kernels=True)

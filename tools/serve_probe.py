@@ -5,10 +5,12 @@ train -> serve handoff, batch mode at prompt 1536 with a profiled decode
 step, prefill against streamed decode, the Engine on the virtual and
 the wall clock with a profiled tick, batching invariance and sampling
 (``chip_smoke.phase11``'s docstring).  About a third of the whole
-script's time.  Run from the root of a checkout, on a machine with a
-CUDA card and nvcc:
+script's time.  With ``--mesh``: phase 18 instead, serving on a (data 2,
+model 2) mesh of four ranks that share the card (``chip_smoke.phase18``'s
+docstring; it runs no port kernel, so nothing is built).  Run from the
+root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 tools/serve_probe.py
+    python3 tools/serve_probe.py [--mesh]
 """
 from __future__ import annotations
 
@@ -36,9 +38,14 @@ def main() -> None:
                          text=True, timeout=60)
     chip_smoke.log(f"card: {smi.stdout.strip()}; torch {torch.__version__},"
                    f" CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    if "--mesh" in sys.argv[1:]:
+        counts = chip_smoke.phase18(torch)
+        chip_smoke.log(f"phase 18 done in {time.perf_counter() - t0:.1f} s; "
+                       f"rank 0's launches {counts}")
+        return
     from repro_torch.kernels import _build
 
-    t0 = time.perf_counter()
     _build.build()
     chip_smoke.log(f"built in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
